@@ -10,3 +10,7 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers",
         "slow: multi-subprocess chaos scenarios (run in CI's chaos job)")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device (the PyTorch port's Hopper kernels); "
+        "skips without one")
