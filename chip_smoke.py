@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's trimming engine on one CUDA device.
+"""Drive the PyTorch/CUDA port on one CUDA device: the trimming engine,
+then the SCC driver, the reachability engine and the k-core peel.
 
-    python3 chip_smoke.py               # the check, about 2 minutes on an H100
-    python3 chip_smoke.py --profile     # also: where the time goes (phase 5)
+    python3 chip_smoke.py               # the check, a few minutes on an H100
+    python3 chip_smoke.py --profile     # also: where the time goes (phase 7)
 
 Phases (each prints its findings; any mismatch raises, so the script exits
 non-zero and prints no result line):
@@ -10,21 +11,36 @@ non-zero and prints no result line):
 0. the card's name and power limit, the torch/CUDA versions, the kernel
    build (nvcc, one process per source, in parallel).
 1. every Hopper kernel against its plain PyTorch version on the card, bit
-   for bit, at the main path's real shapes (n = 4,194,304, W = 16; the
+   for bit, at the main paths' real shapes (n = 4,194,304, W = 16; the
    "auto" frontier caps of the RMAT scale-22 graph: cap = 65,536,
-   ecap = 4,194,304) and at edge cases (n = 1, ragged tails, all-inactive
-   rows, capacity and ecap overflow, zero-degree rows); the kernel's time,
-   the plain version's, one library call's where one computes the same
-   function, and the bytes bound at 3.35 TB/s.
+   ecap = 4,194,304; frontier_expand with 100%, 25% and 0% of rows
+   pending; bucket_peel at k in {0, 1, 7} with negative counters) and at
+   edge cases (n = 1, ragged tails, all-inactive rows, capacity and ecap
+   overflow, zero-degree rows, W in {4, 8, 17, 32}, non-contiguous and
+   unaligned inputs, all-dead buckets); the kernel's time (CUDA events
+   over back-to-back calls, and its device time alone from the
+   profiler), the plain version's, one library call's where one computes
+   the same function, and the bytes bound at 3.35 TB/s.
 2. the deterministic counters of ``BENCH_trim.json`` (rounds, edges_total,
    max_per_worker, trimmed, max_qp) for 6 families x 4 methods x
    {dense, windowed} at the benchmark's own sizes.
-3. the real size: RMAT scale 22 (4.19M vertices, 33.5M edges, the
-   benchmark's RMAT parameters at the paper's average degree 8), 4 methods
-   x 2 backends: all eight status masks equal each other and the numpy
-   oracle, windowed counters equal dense counters, AC-6 traverses <= m.
-4. the launch counts of phases 2 and 3: every kernel ran on the real-size
-   main path (phase 3), whose counts go into the kernel table.
+3. the trimming main path at the real size: RMAT scale 22 (4.19M
+   vertices, 33.5M edges, the benchmark's RMAT parameters at the paper's
+   average degree 8), 4 methods x 2 backends: all eight status masks
+   equal each other and the numpy oracle, windowed counters equal dense
+   counters, AC-6 traverses <= m.
+4. the launch counts of phases 2 and 3: every trimming kernel ran on the
+   real-size trimming path (phase 3).
+5. the committed SCC and peel counts at their benchmarks' sizes:
+   ``BENCH_scc.json`` ``sccs`` and AC-6 ``rounds`` (labels partition like
+   Tarjan's), and the eight integer keys of ``BENCH_peel.json`` on the
+   size-≤2 SCC fringe graphs; ``peel(k=1)`` equals AC-4.
+6. the SCC / reach / peel path at the real size (the same RMAT and Gᵀ),
+   with the launch counts set to 0 just before it and read just after:
+   reach on both backends and the auto and dense frontiers against scipy's
+   BFS; ``scc_decompose`` against scipy's strong components over the
+   canonical CSR; the full coreness peel against a numpy k-core oracle;
+   frontier_expand and bucket_peel must have been launched.
 
 The last two lines are the kernel table and the result, as JSON.  Needs
 one CUDA device; imports nothing of JAX or of the JAX package.
@@ -54,6 +70,28 @@ JSON_KEYS = ("rounds", "edges_total", "max_per_worker", "trimmed", "max_qp")
 METHODS = ("ac3", "ac4", "ac4*", "ac6")
 BACKENDS = ("dense", "windowed")
 REAL = dict(n_log2=22, m=33_554_432, seed=1)
+# benchmarks/bench_scc.py SIZES (the sizes BENCH_scc.json was made at)
+SCC_SIZES = {
+    "ER": dict(n=50_000, m=400_000, seed=1),
+    "BA": dict(n=20_000, deg=8, seed=1),
+    "RMAT": dict(n_log2=14, m=131_072, seed=1),
+    "chain": dict(n=5_000),
+    "layered": dict(n=50_000, layers=37, deg=4, seed=1),
+    "sink_heavy": dict(n=50_000, m=200_000, sink_frac=0.9, seed=1),
+}
+# benchmarks/bench_peel.py SIZES and FRINGE (BENCH_peel.json)
+PEEL_SIZES = {
+    "ER": dict(n=30_000, m=240_000, seed=1),
+    "BA": dict(n=20_000, deg=8, seed=1),
+    "RMAT": dict(n_log2=14, m=131_072, seed=1),
+    "chain": dict(n=5_000),
+    "layered": dict(n=30_000, layers=37, deg=4, seed=1),
+    "sink_heavy": dict(n=30_000, m=120_000, sink_frac=0.9, seed=1),
+}
+FRINGE = dict(pairs=48, loops=16)
+PEEL_KEYS = ("generations_base", "generations_trim2", "pivots_base",
+             "pivots_trim2", "trim2_removed", "trim2_sccs", "max_core",
+             "one_core")
 KERNELS = {   # name -> (CUDA source, the Pallas kernel it replaces)
     "first_live_scan": ("src/repro_torch/kernels/csrc/first_live_scan.cu",
                         "src/repro/kernels/first_live_scan.py:46"),
@@ -63,7 +101,14 @@ KERNELS = {   # name -> (CUDA source, the Pallas kernel it replaces)
                          "src/repro/kernels/frontier_compact.py:91"),
     "sparse_expand": ("src/repro_torch/kernels/csrc/frontier_compact.cu",
                       "src/repro/kernels/frontier_compact.py:109"),
+    "frontier_expand": ("src/repro_torch/kernels/csrc/frontier_expand.cu",
+                        "src/repro/kernels/frontier_expand.py:43"),
+    "bucket_peel": ("src/repro_torch/kernels/csrc/bucket_peel.cu",
+                    "src/repro/kernels/bucket_peel.py:43"),
 }
+TRIM_PATH = ("first_live_scan", "prefix_positions", "frontier_compact",
+             "sparse_expand")
+SCC_PEEL_PATH = ("frontier_expand", "bucket_peel")
 
 
 def log(msg: str) -> None:
@@ -91,6 +136,26 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time of one call: the durations of the CUDA kernels and
+    copies it launches (torch.profiler, CUPTI), summed over ``reps`` calls,
+    per call.  Unlike :func:`time_ms` it leaves out the host's gaps
+    between launches, which bound a small kernel behind a Python
+    wrapper."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy_us = sum(e.device_time for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return busy_us / 1e3 / reps
+
+
 def max_abs_err(got, want) -> int:
     """Largest absolute difference over a tuple of int/bool outputs."""
     err = 0
@@ -112,8 +177,10 @@ def kernel_phase(dev, g_t, cap, ecap):
     import numpy as np
     import torch
 
+    from repro_torch.kernels import bucket_peel as bpl
     from repro_torch.kernels import first_live_scan as fls
     from repro_torch.kernels import frontier_compact as fc
+    from repro_torch.kernels import frontier_expand as fex
     from repro_torch.kernels import ref
 
     rng = np.random.default_rng(0)
@@ -149,9 +216,35 @@ def kernel_phase(dev, g_t, cap, ecap):
         check(max_abs_err(fc.sparse_expand(small, small_idx, ids, e),
                           ref.sparse_expand_ref(small, small_idx, ids, e))
               == 0, f"sparse_expand cap={c} ecap={e}")
+    for n, w in ((1, 16), (333, 16), (4097, 16), (4097, 4), (1000, 8),
+                 (1000, 17), (513, 32)):
+        for frac in (0.5, 0.0, 1.0):
+            flags, valid = t(rng.random((n, w)) < .1), t(rng.random((n, w)) < .8)
+            pending = t(rng.random(n) < frac)
+            check(max_abs_err((fex.frontier_expand(flags, valid, pending),),
+                              (ref.frontier_expand_ref(flags, valid,
+                                                       pending),)) == 0,
+                  f"frontier_expand n={n} W={w} pending={frac}")
+        wide = t(rng.random((2 * n, w)) < .1)[::2]       # non-contiguous
+        check(max_abs_err((fex.frontier_expand(wide, valid, pending),),
+                          (ref.frontier_expand_ref(wide, valid, pending),))
+              == 0, f"frontier_expand non-contiguous n={n} W={w}")
+    for n in (1, 3, 5, 333, 4096, 4099):
+        counters = t(rng.integers(-3, 9, n), torch.int32)
+        for alive in (t(rng.random(n) < .6), t(np.zeros(n, bool))):
+            for k in (0, 1, 7):
+                kt = t([k], torch.int32)
+                for off in (0, 1):                       # 1: unaligned views
+                    got = bpl.bucket_peel(counters[off:], alive[off:], kt)
+                    want = ref.bucket_peel_ref(counters[off:], alive[off:],
+                                               kt)
+                    check(max_abs_err((got,), (want,)) == 0,
+                          f"bucket_peel n={n} k={k} offset={off}")
     torch.cuda.synchronize()
     log("# phase 1: edge cases bit-identical (n=1, ragged tails, "
-        "all-inactive, capacity/ecap overflow, zero-degree rows)")
+        "all-inactive, capacity/ecap overflow, zero-degree rows, W in "
+        "{4, 8, 16, 17, 32}, non-contiguous and unaligned inputs, "
+        "all-dead buckets, negative counters)")
 
     # real shapes
     n = g_t.n
@@ -166,6 +259,32 @@ def kernel_phase(dev, g_t, cap, ecap):
     deg_t = (g_t.indptr[1:] - g_t.indptr[:-1])
     total_edges = int(deg_t[members].sum())
     check(total_edges <= ecap, "phase 1 frontier fits ecap")
+    # frontier_expand: a sparse frontier over every row's window
+    xflags = t(rng.random((n, window)) < 0.02)
+    pending_all = torch.ones(n, dtype=torch.bool, device=dev)
+    # bucket_peel: counters in [-2, 64), 60% alive, the level on the device
+    pcount = t(rng.integers(-2, 64, n), torch.int32)
+    palive = t(rng.random(n) < 0.6)
+    k7 = t([7], torch.int32)
+    for frac in (0.25, 0.0):
+        pend = t(rng.random(n) < frac)
+        check(max_abs_err((fex.frontier_expand(xflags, valid, pend),),
+                          (ref.frontier_expand_ref(xflags, valid, pend),))
+              == 0, f"frontier_expand real shapes pending={frac}")
+        rows = int(pend.sum())
+
+        def kern():
+            return fex.frontier_expand(xflags, valid, pend)
+        log(f"# phase 1: frontier_expand, {frac:.0%} pending: "
+            f"kernel_ms={time_ms(kern):.4f} "
+            f"device_ms={device_ms(kern):.4f} plain_ms="
+            f"{time_ms(lambda: ref.frontier_expand_ref(xflags, valid, pend)):.4f} "
+            f"bound_ms={(2 * n + 2 * window * rows) / HBM_BYTES_PER_S * 1e3:.4f}")
+    for k in (0, 1):
+        kt = t([k], torch.int32)
+        check(max_abs_err((bpl.bucket_peel(pcount, palive, kt),),
+                          (ref.bucket_peel_ref(pcount, palive, kt),)) == 0,
+              f"bucket_peel real shapes k={k}")
 
     cases = {
         "first_live_scan": (
@@ -190,6 +309,18 @@ def kernel_phase(dev, g_t, cap, ecap):
             # ids, two indptr entries per real id, one index per edge; the
             # (ecap,) src/tgt/pos int32 + valid bool outputs
             4 * cap + 8 * int(count) + 4 * total_edges + 13 * ecap),
+        "frontier_expand": (
+            lambda: (fex.frontier_expand(xflags, valid, pending_all),),
+            lambda: (ref.frontier_expand_ref(xflags, valid, pending_all),),
+            None,
+            # every row pending: pending byte, both tiles, the hit byte
+            n + 2 * window * n + n),
+        "bucket_peel": (
+            lambda: (bpl.bucket_peel(pcount, palive, k7),),
+            lambda: (ref.bucket_peel_ref(pcount, palive, k7),),
+            None,
+            # int32 counter, alive byte, frontier byte per vertex
+            4 * n + n + n),
     }
     rows = {}
     for name, (kern, plain, lib, nbytes) in cases.items():
@@ -202,7 +333,8 @@ def kernel_phase(dev, g_t, cap, ecap):
                    bound_by="bytes")
         rows[name] = row
         log(f"# phase 1: {name}: bit-identical at the real shapes; "
-            f"kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+            f"kernel_ms={row['ms']:.4f} device_ms={device_ms(kern):.4f} "
+            f"plain_ms={row['plain_ms']:.4f} "
             f"library_ms={row['library_ms'] if lib is None else round(row['library_ms'], 4)} "
             f"bound_ms={row['bound_ms']:.4f}")
     return rows
@@ -283,19 +415,211 @@ def real_phase(dev, g, gt):
         "windowed counters equal dense; AC-6 edges <= m")
 
 
-# -- phase 5 (--profile): where the time goes ----------------------------------
+# -- phase 5: the committed SCC and peel counts --------------------------------
 
-def profile_phase(dev, g, gt):
-    """Per method at the real size: wall time, device-busy time from
-    torch.profiler (CUDA kernel time summed over one stream), the idle
-    share, the host syncs (counted by torch's sync debug mode on a separate
-    run), and the kernels that take the most device time."""
+def scc_peel_reference_phase(dev):
+    import numpy as np
+
+    from repro_torch.core import plan, plan_peel
+    from repro_torch.core.scc import same_partition, scc_decompose, \
+        tarjan_oracle
+    from repro_torch.graphs import generators as G
+
+    bench = json.loads((ROOT / "BENCH_scc.json").read_text())["families"]
+    for family, kw in SCC_SIZES.items():
+        g = G.BENCHMARK_GRAPHS[family][0](**kw, device=dev)
+        t0 = time.perf_counter()
+        labels, _ = scc_decompose(g, device=dev)
+        rounds = plan(g, method="ac6", device=dev).run(counters=False).rounds
+        got = dict(sccs=len(np.unique(labels)), rounds=rounds)
+        want = {k: bench[family][k] for k in got}
+        check(got == want, f"{family}: {got} != BENCH_scc.json {want}")
+        check(same_partition(labels, tarjan_oracle(*g.to_numpy())),
+              f"{family}: SCC labels differ from Tarjan's partition")
+        log(f"# phase 5: BENCH_scc {family} n={g.n} m={g.m}: sccs="
+            f"{got['sccs']} rounds={rounds} match; labels partition like "
+            f"Tarjan ({time.perf_counter() - t0:.2f} s)")
+    bench = json.loads((ROOT / "BENCH_peel.json").read_text())["families"]
+    for family, kw in PEEL_SIZES.items():
+        g = G.with_tiny_scc_fringe(G.BENCHMARK_GRAPHS[family][0](
+            **kw, device=dev), **FRINGE)
+        t0 = time.perf_counter()
+        _, base = scc_decompose(g, trim2=False, device=dev)
+        _, t2 = scc_decompose(g, trim2=True, device=dev)
+        peel = plan_peel(g, device=dev)
+        res = peel.run()
+        got = dict(generations_base=base["generations"],
+                   generations_trim2=t2["generations"],
+                   pivots_base=base["pivots"], pivots_trim2=t2["pivots"],
+                   trim2_removed=t2["trim2_removed"],
+                   trim2_sccs=t2["trim2_sccs"], max_core=res.max_core,
+                   one_core=int((res.coreness >= 1).sum()))
+        want = {k: bench[family][k] for k in PEEL_KEYS}
+        check(got == want, f"{family}: {got} != BENCH_peel.json {want}")
+        check(bool((peel.run(k=1).status == plan(
+            g, method="ac4", device=dev).run().status).all()),
+              f"{family}: peel(k=1) differs from AC-4")
+        log(f"# phase 5: BENCH_peel {family} n={g.n} m={g.m}: 8 keys match "
+            f"{got}; peel(k=1) == AC-4 ({time.perf_counter() - t0:.2f} s)")
+
+
+# -- phase 6: SCC / reach / peel at the real size ------------------------------
+
+def kcore_oracle(src, dst, n: int, k: int):
+    """The out-degree k-core by rounds of np.bincount on a copy of the
+    edge arrays: drop every vertex with fewer than k live out-edges until
+    none is dropped."""
+    import numpy as np
+    alive = np.ones(n, bool)
+    while True:
+        keep = alive[src] & alive[dst]
+        src, dst = src[keep], dst[keep]
+        new = alive & (np.bincount(src, minlength=n) >= k)
+        if (new == alive).all():
+            return alive
+        alive = new
+
+
+def scc_peel_real_phase(dev, g, gt):
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+    from scipy.sparse.csgraph import breadth_first_order, \
+        connected_components
+
+    from repro_torch.core import plan, plan_peel, plan_reach
+    from repro_torch.core.scc import same_partition, scc_decompose
+
+    indptr, indices = g.to_numpy()
+    # scipy's strong components are wrong on a CSR that keeps duplicate
+    # edges (RMAT has them) unsorted: over the raw float64 CSR of
+    # rmat(n_log2=12, m=32768, seed=1) scipy 1.17 reports 2,232
+    # components where Tarjan and scc_decompose give 2,023.  Summing the
+    # duplicates and sorting the indices first gives Tarjan's partition,
+    # so every scipy oracle here reads the canonical CSR.
+    csr = sp.csr_matrix((np.ones(g.m), indices, indptr), shape=(g.n, g.n),
+                        copy=True)     # sum_duplicates works in place
+    csr.sum_duplicates()
+    csr.sort_indices()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    # peel: full coreness, twice (the first run also builds the row ids)
+    peel = plan_peel(g, transpose=gt, device=dev)
+    walls = []
+    for _ in range(2):
+        res, wall = timed(lambda: peel.run().materialize())
+        walls.append(wall)
+    core = res.coreness
+    src = np.repeat(np.arange(g.n, dtype=np.int32), np.diff(indptr))
+    t0 = time.perf_counter()
+    for k in (1, 2, res.max_core):
+        check(np.array_equal(core >= k, kcore_oracle(src, indices, g.n, k)),
+              f"peel: the {k}-core differs from the numpy oracle")
+    oracle_s = time.perf_counter() - t0
+    ac4 = plan(g, method="ac4", transpose=gt, device=dev).run()
+    check(torch.equal(peel.run(k=1).status, ac4.status),
+          "peel(k=1) differs from AC-4 at the real size")
+    log(f"# phase 6: peel: rounds={res.rounds} max_core={res.max_core} "
+        f"one_core={int((core >= 1).sum())} wall_ms first={walls[0]:.1f} "
+        f"second={walls[1]:.1f}; k-cores 1, 2, {res.max_core} equal the "
+        f"numpy oracle ({oracle_s:.1f} s on the host); peel(k=1) == AC-4")
+
+    # reach: both backends x {auto, dense} frontiers from vertex 0 and
+    # from the first vertex of the 1-core other than 0
+    for seed in (0, int(np.flatnonzero(core[1:] >= 1)[0]) + 1):
+        want = np.zeros(g.n, bool)
+        want[breadth_first_order(csr, seed, directed=True,
+                                 return_predecessors=False)] = True
+        for backend in ("windowed", "dense"):
+            for frontier in ("auto", "dense"):
+                eng = plan_reach(g, backend=backend, transpose=gt,
+                                 frontier=frontier, device=dev)
+                eng.run(seed)                  # builds the tile / row ids
+                r, wall = timed(lambda: eng.run(seed).materialize())
+                check(np.array_equal(r.mask, want),
+                      f"reach {backend}/{frontier} from {seed} differs "
+                      "from scipy's BFS")
+                log(f"# phase 6: reach {backend}/{frontier} from {seed}: "
+                    f"reached={int(want.sum())} rounds={r.rounds} "
+                    f"wall_ms={wall:.1f}; equals scipy BFS")
+
+    # SCC: default arguments, twice (each call plans its four engines and
+    # builds Gᵀ once, as the reference does: a counting sort on the host,
+    # timed alone here)
+    _, transpose_ms = timed(g.transpose)
+    walls = []
+    for _ in range(2):
+        (labels, stats), wall = timed(lambda: scc_decompose(g, device=dev))
+        walls.append(wall)
+    t0 = time.perf_counter()
+    ncomp, comp = connected_components(csr, directed=True,
+                                       connection="strong")
+    check(len(np.unique(labels)) == ncomp and same_partition(labels, comp),
+          "scc_decompose differs from scipy's strong components")
+    log(f"# phase 6: scc: sccs={ncomp} generations={stats['generations']} "
+        f"pivots={stats['pivots']} trim_dispatches="
+        f"{stats['trim_dispatches']} trim2_dispatches="
+        f"{stats['trim2_dispatches']} reach_dispatches="
+        f"{stats['reach_dispatches']} trimmed_total={stats['trimmed_total']}"
+        f" trim2_removed={stats['trim2_removed']} wall_ms first="
+        f"{walls[0]:.1f} second={walls[1]:.1f} (of which one Gᵀ build "
+        f"alone takes {transpose_ms:.1f}); partition equals scipy's "
+        f"on the canonical CSR ({time.perf_counter() - t0:.1f} s on the "
+        "host)")
+
+
+# -- phase 7 (--profile): where the time goes ----------------------------------
+
+def profile_run(label, fn):
+    """One call of ``fn`` under torch.profiler: wall time, device-busy
+    time (CUDA kernel and copy time summed over the one stream), the idle
+    share, the host syncs (counted by torch's sync debug mode on a
+    separate call), and the device items that take the most time."""
     import warnings
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core import plan
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        note = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            tot, cnt = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (tot + e.device_time / 1e3, cnt + 1)
+    busy = sum(tot for tot, _ in by_name.values())
+    kern = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in rec)
+    top = "; ".join(f"{name[:48]} {tot:.1f}ms x{cnt}"
+                    for name, (tot, cnt) in kern[:6])
+    log(f"# profile: {label}: wall_ms={wall:.1f} "
+        f"device_busy_ms={busy:.1f} idle_share={1 - busy / wall:.3f} "
+        f"{note} host_syncs={syncs} | {top}")
+
+def profile_phase(dev, g, gt):
+    """Per trimming method at the real size, then one ``scc_decompose``
+    and one full peel: see :func:`profile_run`.  Each engine runs once
+    before it is profiled."""
+    from repro_torch.core import plan, plan_peel
+    from repro_torch.core.scc import scc_decompose
 
     for method, backend in (("ac3", "windowed"), ("ac3", "dense"),
                             ("ac4", "dense"), ("ac4*", "dense"),
@@ -303,39 +627,23 @@ def profile_phase(dev, g, gt):
         eng = plan(g, method=method, backend=backend, workers=16,
                    transpose=gt, device=dev)
         eng.run().materialize()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            res = eng.run().materialize()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        by_name = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                tot, cnt = by_name.get(e.name, (0.0, 0))
-                by_name[e.name] = (tot + e.device_time / 1e3, cnt + 1)
-        busy = sum(tot for tot, _ in by_name.values())
-        kern = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-        with warnings.catch_warnings(record=True) as rec:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                eng.run().materialize()
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        syncs = sum("synchroniz" in str(w.message) for w in rec)
-        top = "; ".join(f"{name[:48]} {tot:.1f}ms x{cnt}"
-                        for name, (tot, cnt) in kern[:6])
-        log(f"# profile: {method}/{backend}: wall_ms={wall:.1f} "
-            f"device_busy_ms={busy:.1f} idle_share={1 - busy / wall:.3f} "
-            f"rounds={res.rounds} host_syncs={syncs} | {top}")
+        profile_run(f"{method}/{backend}",
+                    lambda: f"rounds={eng.run().materialize().rounds}")
+
+    def scc():
+        _, stats = scc_decompose(g, device=dev)
+        return (f"generations={stats['generations']} "
+                f"pivots={stats['pivots']}")
+    profile_run("scc_decompose", scc)
+    peel = plan_peel(g, transpose=gt, device=dev)
+    peel.run().materialize()
+    profile_run("peel", lambda: f"rounds={peel.run().materialize().rounds}")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile the real-size runs (phase 5)")
+                    help="also profile the real-size runs (phase 7)")
     args = ap.parse_args()
 
     import torch
@@ -376,14 +684,26 @@ def main() -> int:
         f"{dict(ops.LAUNCHES)}")
     ops.reset_launches()
     real_phase(dev, g, gt)
-    launches = dict(ops.LAUNCHES)
-    log(f"# phase 4: launches in phase 3 (the real-size main path): "
-        f"{launches}")
-    for name, count in launches.items():
-        check(count > 0, f"{name} was never launched on the main path")
+    trim_launches = dict(ops.LAUNCHES)
+    log(f"# phase 4: launches in phase 3 (the real-size trimming path): "
+        f"{trim_launches}")
+    for name in TRIM_PATH:
+        check(trim_launches[name] > 0,
+              f"{name} was never launched on the trimming path")
+    scc_peel_reference_phase(dev)
+    ops.reset_launches()
+    scc_peel_real_phase(dev, g, gt)
+    scc_launches = dict(ops.LAUNCHES)
+    log(f"# phase 6: launches in phase 6 (the real-size SCC / reach / peel "
+        f"path): {scc_launches}")
+    for name in SCC_PEEL_PATH:
+        check(scc_launches[name] > 0,
+              f"{name} was never launched on the SCC / reach / peel path")
     if args.profile:
         profile_phase(dev, g, gt)
 
+    launches = {name: (scc_launches if name in SCC_PEEL_PATH
+                       else trim_launches)[name] for name in KERNELS}
     table = [dict(name=name, route="cuda", source=KERNELS[name][0],
                   replaces=KERNELS[name][1], launches=launches[name],
                   **rows[name]) for name in KERNELS]

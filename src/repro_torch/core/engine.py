@@ -67,9 +67,7 @@ def plan(graph: CSRGraph, method: str = "ac6", backend: str = "dense", *,
 
 
 def _to(graph: CSRGraph | None, dev: torch.device):
-    if graph is None or graph.device == dev:
-        return graph
-    return CSRGraph(graph.indptr.to(dev), graph.indices.to(dev))
+    return None if graph is None else graph.to(dev)
 
 
 class TrimEngine(EngineBase):

@@ -21,6 +21,9 @@ checkpoints).
 """
 from __future__ import annotations
 
+import numpy as np
+import torch
+
 from .graph import CSRGraph
 
 
@@ -56,6 +59,16 @@ class EngineBase:
     @property
     def dispatches(self) -> int:
         return self._dispatches
+
+    def _as_mask(self, x, shape, what):
+        """``x`` (numpy or torch) as a bool tensor on the engine's device,
+        raising unless its shape is ``shape``."""
+        if not isinstance(x, torch.Tensor):
+            x = torch.as_tensor(np.asarray(x))
+        if tuple(x.shape) != tuple(shape):
+            raise ValueError(f"{what} must have shape {tuple(shape)}, got "
+                             f"{tuple(x.shape)}")
+        return x.to(self.device, torch.bool)
 
     def _dispatch(self, fn, *args):
         """Run one fixpoint call and count it as one dispatch, however

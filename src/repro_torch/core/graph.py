@@ -118,6 +118,12 @@ class CSRGraph:
     def to_numpy(self):
         return self.indptr.cpu().numpy(), self.indices.cpu().numpy()
 
+    def to(self, device) -> "CSRGraph":
+        """This graph on ``device`` (itself when it already lies there)."""
+        if self.device == torch.device(device):
+            return self
+        return CSRGraph(self.indptr.to(device), self.indices.to(device))
+
 
 def row_ids(indptr: torch.Tensor, m: int) -> torch.Tensor:
     """Edge -> source-vertex map (m,) int32, computed on indptr's device."""

@@ -150,6 +150,36 @@ def sink_heavy(n: int, m: int, sink_frac: float = 0.5, seed: int = 0,
         np.concatenate([core_dst, dst[keep]]), device=device)
 
 
+def with_tiny_scc_fringe(g: CSRGraph, pairs: int, loops: int,
+                         seed: int = 0) -> CSRGraph:
+    """``g`` plus ``pairs`` captive 2-cycles and ``loops`` self-loop
+    singletons, each fed by one entry edge from a base vertex — the
+    size-≤2 SCC fringe of the peel benchmark's workload (copy of
+    ``benchmarks/bench_peel.py:with_tiny_scc_fringe``; same edges, same
+    CSR arrays, on ``g``'s device)."""
+    n = g.n
+    indptr, indices = g.to_numpy()
+    src = [np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr)),
+           indices.astype(np.int64)]
+    rng = np.random.default_rng(seed)
+    extra_src, extra_dst = [], []
+    for i in range(pairs):
+        u = n + 2 * i
+        entry = int(rng.integers(0, n))
+        extra_src += [u, u + 1, entry]
+        extra_dst += [u + 1, u, u]
+    for j in range(loops):
+        w = n + 2 * pairs + j
+        entry = int(rng.integers(0, n))
+        extra_src += [w, entry]
+        extra_dst += [w, w]
+    n2 = n + 2 * pairs + loops
+    return CSRGraph.from_edges(
+        n2, np.concatenate([src[0], np.asarray(extra_src, np.int64)]),
+        np.concatenate([src[1], np.asarray(extra_dst, np.int64)]),
+        device=g.device)
+
+
 BENCHMARK_GRAPHS = {
     # name: (factory, kwargs) — sized for a 1-core CPU container while
     # preserving each family's structural signature from paper Table 6.

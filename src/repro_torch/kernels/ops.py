@@ -6,19 +6,22 @@ Hopper kernel, or raises: there is no fallback from a failed build or
 launch to the plain version.  Each kernel wrapper counts its launches in
 :data:`LAUNCHES` (a plain int per kernel); the plain path never counts.
 
-Mirrors ``src/repro/kernels/ops.py`` for the kernels of the trimming
-engine's path.  The reference's ``use_kernel`` switch is not carried
-over: the device is the only switch.
+Mirrors ``src/repro/kernels/ops.py`` for the kernels of the trimming,
+reachability and peel engines' paths.  The reference's ``use_kernel``
+switch is not carried over: the device is the only switch.
 """
 from __future__ import annotations
 
 from . import ref
 from ._build import LAUNCHES, reset_launches
+from . import bucket_peel as _bpl
 from . import first_live_scan as _fls
 from . import frontier_compact as _fc
+from . import frontier_expand as _fex
 
 __all__ = ["LAUNCHES", "reset_launches", "first_live_scan",
-           "prefix_positions", "frontier_compact", "sparse_expand"]
+           "prefix_positions", "frontier_compact", "sparse_expand",
+           "frontier_expand", "bucket_peel"]
 
 
 def _on_cpu(t) -> bool:
@@ -51,3 +54,17 @@ def sparse_expand(indptr, indices, ids, ecap: int):
     if _on_cpu(indptr):
         return ref.sparse_expand_ref(indptr, indices, ids, ecap)
     return _fc.sparse_expand(indptr, indices, ids, ecap)
+
+
+def frontier_expand(flags, valid, pending):
+    """(n, W) bool ×2 + (n,) bool -> hit (n,) bool."""
+    if _on_cpu(flags):
+        return ref.frontier_expand_ref(flags, valid, pending)
+    return _fex.frontier_expand(flags, valid, pending)
+
+
+def bucket_peel(counters, alive, k):
+    """(n,) int32 + (n,) bool + 1-element int32 ``k`` -> (n,) bool."""
+    if _on_cpu(counters):
+        return ref.bucket_peel_ref(counters, alive, k)
+    return _bpl.bucket_peel(counters, alive, k)

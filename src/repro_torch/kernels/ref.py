@@ -1,11 +1,12 @@
-"""Plain PyTorch versions of the four Hopper kernels (the ``ref.py``
+"""Plain PyTorch versions of the Hopper kernels (the ``ref.py``
 contract).
 
 ``kernels.ops`` takes these for tensors that lie on the CPU; on the card
 ``chip_smoke.py`` holds each CUDA kernel against them on the same inputs.
 They mirror ``src/repro/kernels/ref.py`` (``first_live_ref``,
-``frontier_compact_ref``, ``sparse_expand_ref``) plus the plain scan that
-stands beside ``prefix_positions``.  Every output is int32 or bool, so a
+``frontier_compact_ref``, ``sparse_expand_ref``, ``frontier_expand_ref``,
+``bucket_peel_ref``) plus the plain scan that stands beside
+``prefix_positions``.  Every output is int32 or bool, so a
 kernel and its plain version agree bit for bit.
 """
 from __future__ import annotations
@@ -82,3 +83,19 @@ def sparse_expand_ref(indptr, indices, ids, ecap: int):
     tgt = torch.where(valid, indices[pos], 0).to(torch.int32)
     pos = torch.where(valid, pos, 0).to(torch.int32)
     return src, tgt, pos, valid
+
+
+def frontier_expand_ref(flags, valid, pending):
+    """flags, valid: (n, W) bool; pending: (n,) bool -> hit (n,) bool =
+    ``pending & OR_j(flags & valid)``: a pending vertex with a frontier
+    in-neighbor inside its window."""
+    return pending & (flags & valid).any(dim=1)
+
+
+def bucket_peel_ref(counters, alive, k):
+    """counters: (n,) int32 (may be negative); alive: (n,) bool; k: the
+    bucket level (a 1-element or 0-d int32 tensor, or an int) ->
+    frontier (n,) bool = ``alive & (counters <= k)``."""
+    k = torch.as_tensor(k, dtype=counters.dtype,
+                        device=counters.device).reshape(())
+    return alive & (counters <= k)

@@ -1,21 +1,35 @@
-"""The PyTorch port alone against the committed ``BENCH_trim.json``: its
-five integer keys (rounds, edges_total, max_per_worker, trimmed, max_qp)
-at the benchmark's own sizes, for 4 methods x {dense, windowed}, on the
-CPU.  The counters are deterministic integers, so they must be equal."""
+"""The PyTorch port alone against the committed benchmark files, at each
+benchmark's own sizes, on the CPU:
+
+* ``BENCH_trim.json``: its five integer keys (rounds, edges_total,
+  max_per_worker, trimmed, max_qp) for 4 methods x {dense, windowed};
+* ``BENCH_scc.json``: ``sccs`` of ``scc_decompose`` with default
+  arguments and the AC-6 trim ``rounds``;
+* ``BENCH_peel.json``: its eight integer keys (generations, pivots,
+  trim-2 removals and SCCs, ``max_core``, ``one_core``) on the fringe
+  graphs.
+
+The counters are deterministic integers, so they must be equal.
+``BENCH_scc.json``'s ``frontier_path_taken`` comes from per-round stats,
+which the port does not have yet (ROADMAP A7)."""
 import json
 import os
 
 import pytest
 import torch
 
-from repro_torch.core import plan
+import numpy as np
+
+from repro_torch.core import plan, plan_peel
+from repro_torch.core.scc import scc_decompose
 from repro_torch.graphs import generators as G
 
 # the tensors here are tiny: intra-op threads only add overhead, and the
 # suite runs several test files side by side
 torch.set_num_threads(1)
 
-BENCH = os.path.join(os.path.dirname(__file__), "..", "BENCH_trim.json")
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+BENCH = os.path.join(ROOT, "BENCH_trim.json")
 KEYS = ("rounds", "edges_total", "max_per_worker", "trimmed", "max_qp")
 # benchmarks/bench_trim.py JSON_SIZES
 JSON_SIZES = {
@@ -45,3 +59,64 @@ def test_bench_trim_json_keys(family):
                        max_per_worker=int(pw.max()), trimmed=res.n_trimmed,
                        max_qp=res.max_frontier)
             assert got == want, (family, method, backend)
+
+
+# benchmarks/bench_scc.py SIZES
+SCC_SIZES = {
+    "ER": dict(n=50_000, m=400_000, seed=1),
+    "BA": dict(n=20_000, deg=8, seed=1),
+    "RMAT": dict(n_log2=14, m=131_072, seed=1),
+    "chain": dict(n=5_000),
+    "layered": dict(n=50_000, layers=37, deg=4, seed=1),
+    "sink_heavy": dict(n=50_000, m=200_000, sink_frac=0.9, seed=1),
+}
+# benchmarks/bench_peel.py SIZES and FRINGE
+PEEL_SIZES = {
+    "ER": dict(n=30_000, m=240_000, seed=1),
+    "BA": dict(n=20_000, deg=8, seed=1),
+    "RMAT": dict(n_log2=14, m=131_072, seed=1),
+    "chain": dict(n=5_000),
+    "layered": dict(n=30_000, layers=37, deg=4, seed=1),
+    "sink_heavy": dict(n=30_000, m=120_000, sink_frac=0.9, seed=1),
+}
+FRINGE = dict(pairs=48, loops=16)
+PEEL_KEYS = ("generations_base", "generations_trim2", "pivots_base",
+             "pivots_trim2", "trim2_removed", "trim2_sccs", "max_core",
+             "one_core")
+
+
+def _bench(name, family):
+    with open(os.path.join(ROOT, f"BENCH_{name}.json")) as f:
+        return json.load(f)["families"][family]
+
+
+@pytest.mark.parametrize("family", sorted(SCC_SIZES))
+def test_bench_scc_json_keys(family):
+    bench = _bench("scc", family)
+    g = G.BENCHMARK_GRAPHS[family][0](**SCC_SIZES[family], device="cpu")
+    assert (g.n, g.m) == (bench["n"], bench["m"])
+    labels, _ = scc_decompose(g, device="cpu")
+    rounds = plan(g, method="ac6", device="cpu").run(counters=False).rounds
+    assert (len(np.unique(labels)), rounds) == (bench["sccs"],
+                                                bench["rounds"])
+
+
+@pytest.mark.parametrize("family", sorted(PEEL_SIZES))
+def test_bench_peel_json_keys(family):
+    bench = _bench("peel", family)
+    g = G.with_tiny_scc_fringe(
+        G.BENCHMARK_GRAPHS[family][0](**PEEL_SIZES[family], device="cpu"),
+        **FRINGE)
+    assert (g.n, g.m) == (bench["n"], bench["m"])
+    _, base = scc_decompose(g, trim2=False, device="cpu")
+    _, t2 = scc_decompose(g, trim2=True, device="cpu")
+    res = plan_peel(g, device="cpu").run()
+    got = dict(generations_base=base["generations"],
+               generations_trim2=t2["generations"],
+               pivots_base=base["pivots"], pivots_trim2=t2["pivots"],
+               trim2_removed=t2["trim2_removed"],
+               trim2_sccs=t2["trim2_sccs"], max_core=res.max_core,
+               one_core=int((res.coreness >= 1).sum()))
+    assert got == {k: bench[k] for k in PEEL_KEYS}
+    assert (bench["fringe_pairs"], bench["fringe_loops"]) == (
+        FRINGE["pairs"], FRINGE["loops"])

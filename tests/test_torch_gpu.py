@@ -12,11 +12,14 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import plan
+from repro_torch.core import plan, plan_peel, plan_reach
+from repro_torch.core.scc import scc_decompose
 from repro_torch.graphs import generators as G
+from repro_torch.kernels import bucket_peel as bpl
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import first_live_scan as fls
 from repro_torch.kernels import frontier_compact as fc
+from repro_torch.kernels import frontier_expand as fex
 
 pytestmark = pytest.mark.gpu
 
@@ -94,6 +97,56 @@ def test_sparse_expand_kernel(cuda, n, m, cap, ecap, p):
     assert all(_eq(a, b) for a, b in zip(got, want))
 
 
+@pytest.mark.parametrize("n,W", [(1, 16), (333, 16), (4097, 16), (64, 8),
+                                 (1000, 17), (513, 32), (77, 4)])
+@pytest.mark.parametrize("fill", ["some", "none_pending", "all_pending"])
+def test_frontier_expand_kernel(cuda, n, W, fill):
+    rng = np.random.default_rng(n * 17 + W)
+    flags = torch.as_tensor(rng.random((n, W)) < 0.1, device=cuda)
+    valid = torch.as_tensor(rng.random((n, W)) < 0.8, device=cuda)
+    pending = torch.as_tensor({"some": rng.random(n) < 0.5,
+                               "none_pending": np.zeros(n, bool),
+                               "all_pending": np.ones(n, bool)}[fill],
+                              device=cuda)
+    got = fex.frontier_expand(flags, valid, pending)
+    want = ref.frontier_expand_ref(flags, valid, pending)
+    torch.cuda.synchronize()
+    assert _eq(got, want) and got.dtype == torch.bool
+    # non-contiguous input: every other row of a wider tile
+    wide = torch.as_tensor(rng.random((2 * n, W)) < 0.1, device=cuda)
+    got = fex.frontier_expand(wide[::2], valid, pending)
+    torch.cuda.synchronize()
+    assert _eq(got, ref.frontier_expand_ref(wide[::2], valid, pending))
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 333, 4096, 4099, 1_000_003])
+@pytest.mark.parametrize("k", [0, 1, 7])
+def test_bucket_peel_kernel(cuda, n, k):
+    rng = np.random.default_rng(n + k)
+    counters = torch.as_tensor(rng.integers(-3, 9, n).astype(np.int32),
+                               device=cuda)
+    alive = torch.as_tensor(rng.random(n) < 0.6, device=cuda)
+    kt = torch.tensor([k], dtype=torch.int32, device=cuda)
+    for a in (alive, torch.zeros_like(alive)):
+        got = bpl.bucket_peel(counters, a, kt)
+        torch.cuda.synchronize()
+        assert _eq(got, ref.bucket_peel_ref(counters, a, kt))
+    # unaligned (offset views) take the scalar kernel
+    got = bpl.bucket_peel(counters[1:], alive[1:], kt)
+    torch.cuda.synchronize()
+    assert _eq(got, ref.bucket_peel_ref(counters[1:], alive[1:], kt))
+
+
+def test_new_kernels_skip_empty_inputs(cuda):
+    before = dict(ops.LAUNCHES)
+    e = torch.zeros((0, 16), dtype=torch.bool, device=cuda)
+    assert fex.frontier_expand(e, e, e[:, 0]).shape == (0,)
+    z = torch.zeros((0,), dtype=torch.int32, device=cuda)
+    assert bpl.bucket_peel(z, z.bool(), torch.zeros(
+        1, dtype=torch.int32, device=cuda)).shape == (0,)
+    assert ops.LAUNCHES == before
+
+
 def test_kernels_raise_on_cpu_tensors():
     with pytest.raises(ValueError):
         fc.prefix_positions(torch.zeros(4, dtype=torch.int32))
@@ -123,4 +176,41 @@ def test_engine_on_card_matches_cpu(cuda, family):
                 assert np.array_equal(a.per_worker_edges, b.per_worker_edges)
     for name in ("first_live_scan", "frontier_compact", "sparse_expand",
                  "prefix_positions"):
+        assert ops.LAUNCHES[name] > before[name], name
+
+
+@pytest.mark.parametrize("family", ["ER", "RMAT", "chain", "sink_heavy"])
+def test_scc_reach_peel_on_card_match_cpu(cuda, family):
+    """The SCC driver, both reach backends and the peel engine on the card
+    equal the CPU runs, through frontier_expand and bucket_peel."""
+    sizes = {"ER": dict(n=2_000, m=16_000, seed=1),
+             "RMAT": dict(n_log2=10, m=8_192, seed=1),
+             "chain": dict(n=500),
+             "sink_heavy": dict(n=2_000, m=8_000, sink_frac=0.9, seed=1)}
+    fn = G.BENCHMARK_GRAPHS[family][0]
+    g_cpu = G.with_tiny_scc_fringe(fn(**sizes[family], device="cpu"),
+                                   pairs=8, loops=4)
+    g_gpu = g_cpu.to(cuda)
+    before = dict(ops.LAUNCHES)
+    for trim2 in (True, False):
+        a_l, a_s = scc_decompose(g_cpu, trim2=trim2, device="cpu")
+        b_l, b_s = scc_decompose(g_gpu, trim2=trim2, device=cuda)
+        assert np.array_equal(a_l, b_l) and a_s == b_s
+    for backend in ("dense", "windowed"):
+        for frontier in ("dense", "sparse", "auto"):
+            a = plan_reach(g_cpu, backend=backend, frontier=frontier,
+                           device="cpu").run(0).materialize()
+            b = plan_reach(g_gpu, backend=backend, frontier=frontier,
+                           device=cuda).run(0).materialize()
+            assert np.array_equal(a.mask, b.mask) and a.rounds == b.rounds
+    for frontier in ("dense", "sparse", "auto"):
+        for k in (None, 1):
+            a = plan_peel(g_cpu, frontier=frontier,
+                          device="cpu").run(k=k).materialize()
+            b = plan_peel(g_gpu, frontier=frontier,
+                          device=cuda).run(k=k).materialize()
+            assert np.array_equal(a.coreness, b.coreness)
+            assert np.array_equal(a.peel_round, b.peel_round)
+            assert a.rounds == b.rounds
+    for name in ("frontier_expand", "bucket_peel"):
         assert ops.LAUNCHES[name] > before[name], name

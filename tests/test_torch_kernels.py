@@ -12,13 +12,17 @@ import jax.numpy as jnp
 import torch
 
 from repro.kernels import ref as jref
+from repro.kernels.bucket_peel import bucket_peel_pallas
 from repro.kernels.first_live_scan import first_live_scan as pallas_first_live
 from repro.kernels.frontier_compact import (frontier_compact_pallas,
                                             prefix_positions,
                                             sparse_expand_pallas)
+from repro.kernels.frontier_expand import frontier_expand as pallas_expand
 from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels import bucket_peel as tbpl
 from repro_torch.kernels import first_live_scan as tfls
 from repro_torch.kernels import frontier_compact as tfc
+from repro_torch.kernels import frontier_expand as tfex
 
 # the tensors here are tiny: intra-op threads only add overhead, and the
 # suite runs several test files side by side
@@ -138,6 +142,66 @@ def test_sparse_expand_ref_matches_pallas(n, m, cap, ecap, p):
     assert int(valid.sum()) == min(total, ecap)
 
 
+@pytest.mark.parametrize("n,W,bv", [(0, 16, 256), (1, 16, 256),
+                                    (333, 16, 128), (64, 8, 64),
+                                    (1024, 32, 256), (7, 4, 256),
+                                    (700, 16, 256)])
+@pytest.mark.parametrize("pending_kind", ["random", "none", "one_block"])
+def test_frontier_expand_ref_matches_pallas(n, W, bv, pending_kind):
+    """n = 0, ragged tails (333, 7, 700 against the block), W in
+    {4, 8, 16, 32}, no row pending, and every block but the first with
+    nothing pending (the Pallas block skip)."""
+    rng = np.random.default_rng(n * 5 + W)
+    flags = rng.random((n, W)) < 0.2
+    valid = rng.random((n, W)) < 0.8
+    pending = {"random": rng.random(n) < 0.5, "none": np.zeros(n, bool),
+               "one_block": np.arange(n) < min(bv, n) // 2}[pending_kind]
+    got = ref.frontier_expand_ref(torch.as_tensor(flags),
+                                  torch.as_tensor(valid),
+                                  torch.as_tensor(pending))
+    want = [jref.frontier_expand_ref(jnp.asarray(flags), jnp.asarray(valid),
+                                     jnp.asarray(pending))]
+    if n:   # the Pallas kernel pads to a block; its n = 0 return is static
+        want.append(pallas_expand(jnp.asarray(flags), jnp.asarray(valid),
+                                  jnp.asarray(pending), block_v=bv,
+                                  interpret=True))
+    for w in want:
+        assert _same(got, w)
+    assert got.dtype == torch.bool and got.shape == (n,)
+    if pending_kind == "none":
+        assert not got.any()
+
+
+@pytest.mark.parametrize("n,bv", [(0, 512), (1, 512), (333, 128), (64, 64),
+                                  (1024, 256), (7, 512), (513, 512)])
+@pytest.mark.parametrize("alive_kind", ["random", "dead"])
+def test_bucket_peel_ref_matches_pallas(n, bv, alive_kind):
+    """Negative counters, k in {0, 1, 3, 7}, n = 0, ragged tails and the
+    all-dead bucket (the Pallas block skip); k as a 1-element int32
+    tensor, the form the engine passes."""
+    rng = np.random.default_rng(n + 11)
+    counters = rng.integers(-2, 8, n).astype(np.int32)
+    alive = (rng.random(n) < 0.6 if alive_kind == "random"
+             else np.zeros(n, bool))
+    for k in (0, 1, 3, 7):
+        got = ref.bucket_peel_ref(torch.as_tensor(counters),
+                                  torch.as_tensor(alive),
+                                  torch.tensor([k], dtype=torch.int32))
+        want = [jref.bucket_peel_ref(jnp.asarray(counters),
+                                     jnp.asarray(alive), k)]
+        if n:
+            want.append(bucket_peel_pallas(jnp.asarray(counters),
+                                           jnp.asarray(alive), jnp.int32(k),
+                                           block_v=bv, interpret=True))
+        for w in want:
+            assert _same(got, w)
+        assert got.dtype == torch.bool and got.shape == (n,)
+        assert _same(got, ref.bucket_peel_ref(torch.as_tensor(counters),
+                                              torch.as_tensor(alive), k))
+    if alive_kind == "dead":
+        assert not got.any()
+
+
 def test_ops_take_the_plain_path_on_cpu():
     """CPU tensors go to the plain versions and never count a launch."""
     _build.reset_launches()
@@ -155,6 +219,11 @@ def test_ops_take_the_plain_path_on_cpu():
     for g, w in zip(ops.sparse_expand(ip, ix, ids, 512),
                     ref.sparse_expand_ref(ip, ix, ids, 512)):
         assert _same(g, w)
+    assert _same(ops.frontier_expand(flags, flags, active),
+                 ref.frontier_expand_ref(flags, flags, active))
+    k = torch.tensor([2], dtype=torch.int32)
+    assert _same(ops.bucket_peel(x, active, k),
+                 ref.bucket_peel_ref(x, active, k))
     assert all(v == 0 for v in ops.LAUNCHES.values()), ops.LAUNCHES
 
 
@@ -171,4 +240,10 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     z = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         tfc.sparse_expand(z, z, z, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfex.frontier_expand(b, b, torch.zeros(4, dtype=torch.bool))
+    with pytest.raises(ValueError, match="CUDA"):
+        tbpl.bucket_peel(z, torch.zeros(4, dtype=torch.bool), z[:1])
+    with pytest.raises(TypeError, match="host value"):
+        tbpl.bucket_peel(z, torch.zeros(4, dtype=torch.bool), 3)
     assert all(v == 0 for v in ops.LAUNCHES.values())
