@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one CUDA device: the trimming engine,
-then the SCC driver, the reachability engine and the k-core peel.
+then the SCC driver, the reachability engine, the k-core peel, the stream
+engine (incremental trimming) and the command line.
 
     python3 chip_smoke.py               # the check, a few minutes on an H100
     python3 chip_smoke.py --profile     # also: where the time goes (phase 7)
@@ -14,13 +15,15 @@ non-zero and prints no result line):
    for bit, at the main paths' real shapes (n = 4,194,304, W = 16; the
    "auto" frontier caps of the RMAT scale-22 graph: cap = 65,536,
    ecap = 4,194,304; frontier_expand with 100%, 25% and 0% of rows
-   pending; bucket_peel at k in {0, 1, 7} with negative counters) and at
-   edge cases (n = 1, ragged tails, all-inactive rows, capacity and ecap
-   overflow, zero-degree rows, W in {4, 8, 17, 32}, non-contiguous and
-   unaligned inputs, all-dead buckets); the kernel's time (CUDA events
-   over back-to-back calls, and its device time alone from the
-   profiler), the plain version's, one library call's where one computes
-   the same function, and the bytes bound at 3.35 TB/s.
+   pending; bucket_peel at k in {0, 1, 7} with negative counters;
+   counter_scatter with B in {1, 65,536, 1,048,576} RMAT-skewed updates,
+   and with all B on one source) and at edge cases (n = 0, n = 1, B = 0,
+   ragged tails, all-inactive rows, capacity and ecap overflow,
+   zero-degree rows, W in {4, 8, 17, 32}, non-contiguous and unaligned
+   inputs, all-dead buckets, sentinel and negative sources); the kernel's
+   time (CUDA events over back-to-back calls, and its device time alone
+   from the profiler), the plain version's, one library call's where one
+   computes the same function, and the bytes bound at 3.35 TB/s.
 2. the deterministic counters of ``BENCH_trim.json`` (rounds, edges_total,
    max_per_worker, trimmed, max_qp) for 6 families x 4 methods x
    {dense, windowed} at the benchmark's own sizes.
@@ -41,6 +44,28 @@ non-zero and prints no result line):
    BFS; ``scc_decompose`` against scipy's strong components over the
    canonical CSR; the full coreness peel against a numpy k-core oracle;
    frontier_expand and bucket_peel must have been launched.
+7. (``--profile``, run last) one call of each real-size path under
+   torch.profiler: the eight trims, ``scc_decompose``, the full peel, and
+   the stream engine's deletion-only ``apply``, ``apply`` with
+   insertions and ``retrim(full=True)``: wall and device-busy time, idle
+   share, host syncs, the largest device items.
+8. the stream engine at ``BENCH_stream.json``'s sizes with
+   ``bench_family``'s feed: ``n``, ``m``, ``batch_edges``,
+   ``median_incr_rounds`` and ``trimmed`` must match, and after the check
+   batch ``retrim()`` equals a fresh AC-4 run on ``snapshot()``; then a
+   mixed feed on that RMAT (load factor 0.05, deletions and
+   re-insertions) that compacts at least twice, grows the insert buffer
+   and revives (``dirty``), checked against AC-4 on every tick.
+9. the stream engine at the real size (the same RMAT; the trim-stream
+   server's feed: 33,554 deletions a tick, re-inserting from the fourth
+   tick the batch deleted three ticks before; 8 ticks), with the launch
+   counts set to 0 just before it and read just after: every tick's
+   ``retrim()`` equals AC-4 on ``snapshot()``, the last one the numpy
+   oracle too; counter_scatter must have been launched.  Set-up times,
+   apply ms per tick, rounds, ``dirty``, updates/s and one
+   ``retrim(full=True)``.
+10. the command line on the card: ``--app trim``, ``scc``, ``stream`` and
+   ``peel`` on ``--graph RMAT`` (scale 17).
 
 The last two lines are the kernel table and the result, as JSON.  Needs
 one CUDA device; imports nothing of JAX or of the JAX package.
@@ -105,10 +130,24 @@ KERNELS = {   # name -> (CUDA source, the Pallas kernel it replaces)
                         "src/repro/kernels/frontier_expand.py:43"),
     "bucket_peel": ("src/repro_torch/kernels/csrc/bucket_peel.cu",
                     "src/repro/kernels/bucket_peel.py:43"),
+    "counter_scatter": ("src/repro_torch/kernels/csrc/counter_scatter.cu",
+                        "src/repro/kernels/counter_scatter.py:63"),
 }
 TRIM_PATH = ("first_live_scan", "prefix_positions", "frontier_compact",
              "sparse_expand")
 SCC_PEEL_PATH = ("frontier_expand", "bucket_peel")
+STREAM_PATH = ("counter_scatter",)
+# benchmarks/bench_stream.py SIZES (the sizes BENCH_stream.json was made at)
+STREAM_SIZES = {
+    "ER": dict(n=50_000, m=400_000, seed=1, simple=True),
+    "BA": dict(n=20_000, deg=8, seed=1),
+    "RMAT": dict(n_log2=14, m=131_072, seed=1),
+    "chain": dict(n=5_000),
+    "layered": dict(n=50_000, layers=37, deg=4, seed=1),
+    "sink_heavy": dict(n=50_000, m=200_000, sink_frac=0.9, seed=1),
+}
+STREAM_KEYS = ("n", "m", "batch_edges", "median_incr_rounds", "trimmed")
+STREAM_TICKS = 8          # real-size ticks of the trim-stream feed
 
 
 def log(msg: str) -> None:
@@ -178,6 +217,7 @@ def kernel_phase(dev, g_t, cap, ecap):
     import torch
 
     from repro_torch.kernels import bucket_peel as bpl
+    from repro_torch.kernels import counter_scatter as cs
     from repro_torch.kernels import first_live_scan as fls
     from repro_torch.kernels import frontier_compact as fc
     from repro_torch.kernels import frontier_expand as fex
@@ -240,11 +280,28 @@ def kernel_phase(dev, g_t, cap, ecap):
                                                kt)
                     check(max_abs_err((got,), (want,)) == 0,
                           f"bucket_peel n={n} k={k} offset={off}")
+    for n in (0, 1, 3, 5, 4099):
+        for b in (0, 1, 7, 4096):
+            counters = t(rng.integers(-2, 6, n), torch.int32)
+            status = t(rng.random(n) < .7)
+            src, delta = counter_updates(rng, n, b, dev)
+            before = counters.clone()
+            one = torch.full_like(src, int(rng.integers(0, max(n, 1))))
+            for args in ((counters, status, src, delta),
+                         (counters[1:], status[1:], src, delta),
+                         (counters, status, src[::2], delta[::2]),
+                         (counters, status, one, delta)):
+                check(max_abs_err(cs.counter_scatter(*args),
+                                  ref.counter_scatter_ref(*args)) == 0,
+                      f"counter_scatter n={n} B={b}")
+            check(torch.equal(counters, before),
+                  "counter_scatter modified its input")
     torch.cuda.synchronize()
-    log("# phase 1: edge cases bit-identical (n=1, ragged tails, "
+    log("# phase 1: edge cases bit-identical (n=0, n=1, B=0, ragged tails, "
         "all-inactive, capacity/ecap overflow, zero-degree rows, W in "
         "{4, 8, 16, 17, 32}, non-contiguous and unaligned inputs, "
-        "all-dead buckets, negative counters)")
+        "all-dead buckets, negative counters, sentinel and negative "
+        "sources, all updates on one source)")
 
     # real shapes
     n = g_t.n
@@ -337,7 +394,64 @@ def kernel_phase(dev, g_t, cap, ecap):
             f"plain_ms={row['plain_ms']:.4f} "
             f"library_ms={row['library_ms'] if lib is None else round(row['library_ms'], 4)} "
             f"bound_ms={row['bound_ms']:.4f}")
+
+    # counter_scatter: RMAT-skewed sources (the sources of random edges of
+    # the real graph, so hubs repeat), plus the sentinel n and negatives;
+    # then the adversarial batch with every update on one source
+    counters = t(rng.integers(-2, 64, n), torch.int32)
+    status = t(rng.random(n) < 0.7)
+    for b in (1, 65_536, 1_048_576):
+        src, delta = counter_updates(rng, n, b, dev, pool=g_t.indices)
+        for label, s_ in (("rmat", src), ("one source", torch.full_like(
+                src, int(g_t.indices[0])))):
+            args = (counters, status, s_, delta)
+            err = max_abs_err(cs.counter_scatter(*args),
+                              ref.counter_scatter_ref(*args))
+            check(err == 0, f"counter_scatter B={b} {label}: kernel differs "
+                            f"from its plain version (max |err| {err})")
+            ok = (s_ >= 0) & (s_ < n)
+            ids_ok, delta_ok = s_[ok].long(), delta[ok]
+
+            def lib():
+                new = counters.index_add(0, ids_ok, delta_ok)
+                return new, status & (new <= 0)
+            row = dict(max_abs_err=err,
+                       ms=time_ms(lambda: cs.counter_scatter(*args)),
+                       plain_ms=time_ms(
+                           lambda: ref.counter_scatter_ref(*args)),
+                       library_ms=time_ms(lib),
+                       bound_ms=(10 * n + 8 * b) / HBM_BYTES_PER_S * 1e3,
+                       bound_by="bytes")
+            log(f"# phase 1: counter_scatter B={b} ({label}): "
+                f"bit-identical; kernel_ms={row['ms']:.4f} device_ms="
+                f"{device_ms(lambda: cs.counter_scatter(*args)):.4f} "
+                f"plain_ms={row['plain_ms']:.4f} library_ms="
+                f"{row['library_ms']:.4f} (index_add_ of the in-range "
+                f"updates + the compare) bound_ms={row['bound_ms']:.4f}")
+            if b == 65_536 and label == "rmat":
+                rows["counter_scatter"] = row
     return rows
+
+
+def counter_updates(rng, n: int, b: int, dev, pool=None):
+    """A (B,) update batch for counter_scatter: sources uniform in [0, n),
+    or ``pool`` entries at uniform positions (Gᵀ's indices: the sources
+    of random edges, so RMAT hubs repeat), with 1% sentinel n and 1%
+    negatives; deltas in {-1, 0, +1} with one in 97 large (up to 2^16 in
+    magnitude)."""
+    import torch
+    if pool is None:
+        src = rng.integers(0, max(n, 1), b)
+    else:
+        src = pool[torch.as_tensor(rng.integers(0, pool.shape[0], b),
+                                   device=pool.device)].cpu().numpy()
+    kind = rng.random(b)
+    src[kind < 0.01] = n
+    src[(kind >= 0.01) & (kind < 0.02)] = -1 - rng.integers(0, 5)
+    delta = rng.integers(-1, 2, b)
+    delta[::97] = rng.integers(-(1 << 16), 1 << 16, delta[::97].size)
+    return (torch.as_tensor(src, dtype=torch.int32, device=dev),
+            torch.as_tensor(delta, dtype=torch.int32, device=dev))
 
 
 # -- phase 2: the committed reference counters ---------------------------------
@@ -574,6 +688,194 @@ def scc_peel_real_phase(dev, g, gt):
         "host)")
 
 
+# -- phases 8 and 9: the stream engine ----------------------------------------
+
+class StreamFeed:
+    """The trim-stream server's update feed (``src/repro/launch/serve.py``,
+    the tick loop): each tick deletes ``k`` random live edges of the
+    generated graph and, once ``lag`` batches wait, re-inserts the batch
+    deleted ``lag`` ticks before.  Edges are addressed by their position
+    in the generated graph, so compaction never changes the feed."""
+
+    def __init__(self, g, k: int, seed: int = 0, lag: int = 3):
+        import numpy as np
+        indptr, indices = g.to_numpy()
+        self.src = np.repeat(np.arange(g.n, dtype=np.int64), np.diff(indptr))
+        self.dst = indices.astype(np.int64)
+        self.rng = np.random.default_rng(seed)
+        self.alive = np.ones(g.m, bool)
+        self.pending = []
+        self.k, self.lag = k, lag
+
+    def next(self, insert: bool = True):
+        """The next batch as ``apply`` keyword arguments; ``insert=False``
+        holds the re-insertions back for a later tick."""
+        import numpy as np
+        k = min(self.k, int(self.alive.sum()))
+        ids = self.rng.choice(np.nonzero(self.alive)[0], k, replace=False)
+        self.alive[ids] = False
+        ins = (self.pending.pop(0)
+               if insert and len(self.pending) >= self.lag else None)
+        if ins is not None:
+            self.alive[ins] = True
+        self.pending.append(ids)
+        return dict(deletions=(self.src[ids], self.dst[ids]),
+                    insertions=None if ins is None else (self.src[ins],
+                                                         self.dst[ins]))
+
+
+def stream_reference_phase(dev):
+    """BENCH_stream.json's integer keys under ``bench_family``'s feed, then
+    a mixed feed that compacts, grows and revives."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import plan, plan_stream
+    from repro_torch.graphs import generators as G
+
+    bench = json.loads((ROOT / "BENCH_stream.json").read_text())["families"]
+    for family, kw in STREAM_SIZES.items():
+        g = G.BENCHMARK_GRAPHS[family][0](**kw, device=dev)
+        t0 = time.perf_counter()
+        engine = plan_stream(g)
+        rng = np.random.default_rng(0)
+        src, dst = engine.delta._src_np.copy(), engine.delta._dst_np.copy()
+        k = max(1, g.m // 100)
+        alive = np.ones(g.m, bool)
+
+        def next_batch():
+            ids = rng.choice(np.nonzero(alive)[0], k, replace=False)
+            alive[ids] = False
+            return src[ids], dst[ids]
+
+        engine.apply(deletions=next_batch())
+        want = plan(engine.snapshot(), method="ac4", device=dev).run().status
+        check(torch.equal(engine.retrim().status, want),
+              f"{family}: retrim() differs from AC-4 on the snapshot")
+        engine.retrim(full=True)
+        engine.apply(deletions=next_batch())
+        engine.retrim(full=True)
+        rounds, incr, full = [], [], []
+        for _ in range(bench[family]["batches"]):
+            batch = next_batch()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            rounds.append(engine.apply(deletions=batch).rounds)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            engine.retrim(full=True)
+            torch.cuda.synchronize()
+            incr.append((t2 - t1) * 1e3)
+            full.append((time.perf_counter() - t2) * 1e3)
+        got = dict(n=g.n, m=g.m, batch_edges=k,
+                   median_incr_rounds=int(np.median(rounds)),
+                   trimmed=engine.retrim().n_trimmed)
+        want = {key: bench[family][key] for key in STREAM_KEYS}
+        check(got == want, f"{family}: {got} != BENCH_stream.json {want}")
+        log(f"# phase 8: BENCH_stream {family} n={g.n} m={g.m}: keys match "
+            f"{got}; apply ms median={np.median(incr):.2f} "
+            f"retrim(full) ms median={np.median(full):.2f} "
+            f"({time.perf_counter() - t0:.2f} s)")
+
+    # mixed feed on the benchmark's RMAT: 1% deletions a tick, re-inserting
+    # from the fourth tick; capacity 256 < one batch, load factor 0.05
+    g = G.rmat(**STREAM_SIZES["RMAT"], device=dev)
+    engine = plan_stream(g, load_factor=0.05)
+    feed = StreamFeed(g, g.m // 100)
+    dirty, cap0 = 0, engine.delta.capacity
+    for tick in range(10):
+        res = engine.apply(**feed.next())
+        dirty += res.dirty
+        want = plan(engine.snapshot(), method="ac4", device=dev).run().status
+        check(torch.equal(engine.retrim().status, want),
+              f"mixed feed tick {tick}: retrim() differs from AC-4")
+    check(engine.compactions >= 2 and engine.delta.capacity > cap0
+          and dirty >= 1,
+          f"mixed feed: compactions={engine.compactions} capacity "
+          f"{cap0}->{engine.delta.capacity} dirty ticks={dirty}")
+    log(f"# phase 8: mixed feed on RMAT n={g.n}: 10 ticks equal AC-4 on the "
+        f"snapshot; compactions={engine.compactions} capacity {cap0}->"
+        f"{engine.delta.capacity} dirty ticks={dirty}")
+
+
+def stream_real_phase(dev, g):
+    """The trim-stream feed at the real size; every tick checked against
+    AC-4 on the snapshot, the last one against the numpy oracle too.
+    Returns the engine and its feed (``--profile`` continues them)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import DeltaCSR, plan, plan_stream, trim_oracle
+
+    k = g.m // 1000                      # the CLI's batch_frac of 0.001
+    t0 = time.perf_counter()
+    delta = DeltaCSR(g, capacity=max(4096, 16 * k))
+    t1 = time.perf_counter()
+    engine = plan_stream(delta)          # Gᵀ, permutation, full retrim
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    feed = StreamFeed(g, k)
+    log(f"# phase 9: set-up: DeltaCSR (host index: argsort of {g.m} keys) "
+        f"{(t1 - t0) * 1e3:.1f} ms; plan_stream (counting-sort Gᵀ + "
+        f"permutation, plan-time retrim(full=True)) {(t2 - t1) * 1e3:.1f} "
+        f"ms; capacity={delta.capacity} plan={engine.plan_signature()}; "
+        f"feed arrays {(time.perf_counter() - t2) * 1e3:.1f} ms")
+    walls = {False: [], True: []}       # apply ms, by "with insertions"
+    for tick in range(STREAM_TICKS):
+        batch = feed.next()
+        n_upd = len(batch["deletions"][0]) + (
+            0 if batch["insertions"] is None else len(batch["insertions"][0]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = engine.apply(**batch)
+        torch.cuda.synchronize()
+        apply_ms = (time.perf_counter() - t0) * 1e3
+        walls[batch["insertions"] is not None].append(apply_ms)
+        t0 = time.perf_counter()
+        snap = engine.snapshot()
+        t1 = time.perf_counter()
+        want = plan(snap, method="ac4", device=dev).run().status
+        check(torch.equal(engine.retrim().status, want),
+              f"real-size tick {tick}: retrim() differs from AC-4")
+        log(f"# phase 9: tick {tick}: {'with insertions' if batch['insertions'] is not None else 'deletion-only'} "
+            f"updates={n_upd} apply_ms={apply_ms:.1f} rounds={res.rounds} "
+            f"dirty={res.dirty} updates_per_s={n_upd / apply_ms * 1e3:.0f} "
+            f"trimmed={res.n_trimmed}; snapshot {(t1 - t0) * 1e3:.0f} ms, "
+            f"AC-4 check {(time.perf_counter() - t1) * 1e3:.0f} ms: equal")
+    log(f"# phase 9: apply_ms median: deletion-only "
+        f"{np.median(walls[False]):.1f} (ticks {len(walls[False])}), with "
+        f"insertions {np.median(walls[True]):.1f} "
+        f"(ticks {len(walls[True])})")
+    t0 = time.perf_counter()
+    want = trim_oracle(*snap.to_numpy())
+    check(np.array_equal(engine.retrim().status.cpu().numpy().astype(bool),
+                         want), "real-size stream differs from the oracle")
+    log(f"# phase 9: last tick equals the numpy oracle "
+        f"({time.perf_counter() - t0:.1f} s on the host); compactions="
+        f"{engine.compactions} n_ins={engine.delta.n_ins} "
+        f"n_tomb={engine.delta.n_tomb}")
+    before = engine.retrim().status.clone()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full = engine.retrim(full=True)
+    torch.cuda.synchronize()
+    check(torch.equal(full.status, before), "retrim(full=True) differs")
+    log(f"# phase 9: retrim(full=True): "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms, rounds={full.rounds}")
+    return engine, feed
+
+
+# -- phase 10: the command line ------------------------------------------------
+
+def cli_phase():
+    from repro_torch.launch import trim as cli
+    for app in ("trim", "scc", "stream", "peel"):
+        t0 = time.perf_counter()
+        cli.main(["--app", app, "--graph", "RMAT"])
+        log(f"# phase 10: --app {app} --graph RMAT done in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+
 # -- phase 7 (--profile): where the time goes ----------------------------------
 
 def profile_run(label, fn):
@@ -614,10 +916,36 @@ def profile_run(label, fn):
         f"device_busy_ms={busy:.1f} idle_share={1 - busy / wall:.3f} "
         f"{note} host_syncs={syncs} | {top}")
 
-def profile_phase(dev, g, gt):
-    """Per trimming method at the real size, then one ``scc_decompose``
-    and one full peel: see :func:`profile_run`.  Each engine runs once
-    before it is profiled."""
+def host_profile(label, fn, top: int = 8):
+    """One call of ``fn`` under cProfile: the host functions that take the
+    most time of their own (numpy and torch calls count as one entry
+    each)."""
+    import cProfile
+    import pstats
+
+    import torch
+    prof = cProfile.Profile()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prof.enable()
+    note = fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    wall = (time.perf_counter() - t0) * 1e3
+    stats = pstats.Stats(prof).stats
+    rows = sorted(stats.items(), key=lambda kv: -kv[1][2])[:top]
+    log(f"# profile: {label} on the host: wall_ms={wall:.1f} {note} | "
+        + "; ".join(f"{fn_[2]} ({Path(fn_[0]).name}:{fn_[1]}) "
+                    f"{tt * 1e3:.1f}ms x{nc}"
+                    for fn_, (_, nc, tt, _, _) in rows))
+
+
+def profile_phase(dev, g, gt, stream, feed):
+    """Per trimming method at the real size, then one ``scc_decompose``,
+    one full peel, and the stream engine's deletion-only ``apply``, its
+    ``apply`` with insertions and ``retrim(full=True)``: see
+    :func:`profile_run`.  Each engine runs once before it is profiled;
+    each stream call takes the feed's next batch."""
     from repro_torch.core import plan, plan_peel
     from repro_torch.core.scc import scc_decompose
 
@@ -639,11 +967,22 @@ def profile_phase(dev, g, gt):
     peel.run().materialize()
     profile_run("peel", lambda: f"rounds={peel.run().materialize().rounds}")
 
+    def apply(insert, batch=None):
+        res = stream.apply(**(batch or feed.next(insert=insert)))
+        return f"rounds={res.rounds} dirty={res.dirty}"
+    batch = feed.next(insert=False)     # drawn outside the host profile
+    host_profile("stream apply, deletion-only",
+                 lambda: apply(False, batch))
+    profile_run("stream apply, deletion-only", lambda: apply(False))
+    profile_run("stream apply, with insertions", lambda: apply(True))
+    profile_run("stream retrim(full=True)",
+                lambda: f"rounds={stream.retrim(full=True).rounds}")
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile the real-size runs (phase 7)")
+                    help="also profile the real-size runs (phase 7, last)")
     args = ap.parse_args()
 
     import torch
@@ -699,11 +1038,23 @@ def main() -> int:
     for name in SCC_PEEL_PATH:
         check(scc_launches[name] > 0,
               f"{name} was never launched on the SCC / reach / peel path")
+    stream_reference_phase(dev)
+    ops.reset_launches()
+    stream, feed = stream_real_phase(dev, g)
+    stream_launches = dict(ops.LAUNCHES)
+    log(f"# phase 9: launches in phase 9 (the real-size stream path): "
+        f"{stream_launches}")
+    for name in STREAM_PATH:
+        check(stream_launches[name] > 0,
+              f"{name} was never launched on the stream path")
+    cli_phase()
     if args.profile:
-        profile_phase(dev, g, gt)
+        profile_phase(dev, g, gt, stream, feed)
 
-    launches = {name: (scc_launches if name in SCC_PEEL_PATH
-                       else trim_launches)[name] for name in KERNELS}
+    path_launches = {**{n: trim_launches for n in TRIM_PATH},
+                     **{n: scc_launches for n in SCC_PEEL_PATH},
+                     **{n: stream_launches for n in STREAM_PATH}}
+    launches = {name: path_launches[name][name] for name in KERNELS}
     table = [dict(name=name, route="cuda", source=KERNELS[name][0],
                   replaces=KERNELS[name][1], launches=launches[name],
                   **rows[name]) for name in KERNELS]

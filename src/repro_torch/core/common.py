@@ -22,12 +22,9 @@ from typing import NamedTuple
 import torch
 
 from ..kernels import ops as kops
+from .graph import _pow2
 
 FRONTIER_MODES = ("auto", "dense", "sparse")
-
-
-def _pow2(x: int) -> int:
-    return 1 if x <= 1 else 1 << (int(x) - 1).bit_length()
 
 
 class FrontierPlan(NamedTuple):

@@ -24,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .graph import CSRGraph
+from .graph import _CKPT_A8, _NBYTES_A7, CSRGraph
 
 
 class EngineBase:
@@ -78,19 +78,19 @@ class EngineBase:
         return out
 
     def nbytes(self) -> int:
-        raise NotImplementedError(
-            "engine memory accounting arrives with the MetricsPlane port "
-            "(ROADMAP A7)")
+        raise NotImplementedError(_NBYTES_A7)
+
+    def nbytes_breakdown(self) -> dict:
+        raise NotImplementedError(_NBYTES_A7)
 
     def state_dict(self):
-        raise NotImplementedError(
-            "checkpoint/resume arrives with the FaultPlane port "
-            "(ROADMAP A8)")
+        raise NotImplementedError(_CKPT_A8)
+
+    def state_meta(self) -> dict:
+        raise NotImplementedError(_CKPT_A8)
 
     def load_state(self, tree, meta) -> None:
-        raise NotImplementedError(
-            "checkpoint/resume arrives with the FaultPlane port "
-            "(ROADMAP A8)")
+        raise NotImplementedError(_CKPT_A8)
 
 
 __all__ = ["EngineBase"]

@@ -6,6 +6,7 @@ device.  Construction and transposition are O(n + m) stable counting sorts
 on the host (numpy/scipy), the same as the reference, so a graph built
 here has byte-identical CSR arrays to the reference's.  ``from_numpy`` /
 ``to_numpy`` carry a graph across from the JAX package's arrays.
+:class:`DeltaCSR` is the stream engine's mutable overlay over a base CSR.
 
 Entry points run on the card unless the caller asks for the CPU:
 ``device`` defaults to ``"cuda"`` and raises when no card is found.
@@ -204,6 +205,11 @@ class TrimResult:
     def n_trimmed(self) -> int:
         return int((self.status == 0).sum())
 
+    @property
+    def trimmed_fraction(self) -> float:
+        n = self.status.shape[0]
+        return self.n_trimmed / n if n else 0.0
+
     def __repr__(self):
         kind = "numpy" if isinstance(self._status, np.ndarray) else "device"
         return (f"TrimResult(n={self._status.shape[0]}, {kind}, "
@@ -215,3 +221,240 @@ def worker_of(n: int, workers: int, chunk: int = 4096) -> np.ndarray:
     chunk c goes to worker c mod P."""
     v = np.arange(n, dtype=np.int64)
     return ((v // chunk) % workers).astype(np.int32)
+
+
+_NBYTES_A7 = ("memory accounting arrives with the MetricsPlane port "
+              "(ROADMAP A7)")
+_CKPT_A8 = "checkpoint/resume arrives with the FaultPlane port (ROADMAP A8)"
+
+
+def _pow2(x: int) -> int:
+    """The least power of two >= x (1 for x <= 1)."""
+    return 1 if x <= 1 else 1 << (int(x) - 1).bit_length()
+
+
+class DeltaCSR:
+    """Mutable edge-update overlay over an immutable base CSR (PyTorch port
+    of the reference's ``DeltaCSR``).
+
+    The device overlay, on the base graph's device, is a tombstone mask
+    over base edges (``tomb`` (m,) bool) plus a fixed-capacity append
+    buffer for inserted edges (``ins_src``/``ins_dst`` (capacity,) int32,
+    sentinel ``n`` in empty slots; ``ins_alive`` (capacity,) bool).  Host
+    numpy mirrors of the same state give the edge lookup for deletions
+    (multiset semantics: duplicate arcs are distinct instances) and the
+    compaction path; the stream engine writes the same updates into the
+    device copies in each ``apply``, so the two views never diverge.
+
+    ``compact()`` folds the overlay into a fresh base CSR through the
+    O(n+m) counting-sort constructor; the engine calls it once
+    ``overlay_fraction`` crosses ``load_factor``.
+    """
+
+    def __init__(self, base: CSRGraph, *, capacity: int = 256,
+                 load_factor: float = 0.5):
+        if capacity < 1:
+            raise ValueError(f"capacity must be >= 1, got {capacity}")
+        if not 0.0 < load_factor:
+            raise ValueError(f"load_factor must be > 0, got {load_factor}")
+        self.capacity = _pow2(capacity)
+        self.load_factor = float(load_factor)
+        self._rebase(base)
+
+    # -- (re)initialization ------------------------------------------------
+    def _rebase(self, base: CSRGraph):
+        self.base = base
+        n, m = base.n, base.m
+        indptr, indices = base.to_numpy()
+        self._src_np = np.repeat(np.arange(n, dtype=np.int64),
+                                 np.diff(indptr))
+        self._dst_np = indices.astype(np.int64)
+        # O(m log m) one-time index for (u, v) -> edge-id lookup; duplicate
+        # arcs occupy a contiguous key range and are resolved instance-wise
+        keys = self._src_np * max(n, 1) + self._dst_np
+        self._key_order = np.argsort(keys, kind="stable")
+        self._keys_sorted = keys[self._key_order]
+        self._tomb_np = np.zeros(m, bool)
+        cap = self.capacity
+        self._ins_src_np = np.full(cap, n, np.int64)   # n = empty sentinel
+        self._ins_dst_np = np.full(cap, n, np.int64)
+        self._ins_alive_np = np.zeros(cap, bool)
+        self.n_ins = 0          # append high-water mark (slots consumed)
+        self.n_tomb = 0         # tombstoned base edges
+        # device overlay (the engine's apply writes each batch into it)
+        dev = base.device
+        self.tomb = torch.zeros((m,), dtype=torch.bool, device=dev)
+        self.ins_src = torch.full((cap,), n, dtype=torch.int32, device=dev)
+        self.ins_dst = torch.full((cap,), n, dtype=torch.int32, device=dev)
+        self.ins_alive = torch.zeros((cap,), dtype=torch.bool, device=dev)
+
+    # -- basic properties --------------------------------------------------
+    @property
+    def n(self) -> int:
+        return self.base.n
+
+    @property
+    def m_base(self) -> int:
+        return self.base.m
+
+    @property
+    def device(self) -> torch.device:
+        return self.base.device
+
+    @property
+    def m_live(self) -> int:
+        """Edges in the materialized graph right now."""
+        return (self.m_base - self.n_tomb
+                + int(self._ins_alive_np[:self.n_ins].sum()))
+
+    @property
+    def overlay_fraction(self) -> float:
+        """Overlay load: (tombstones + consumed insert slots) / base m."""
+        return (self.n_tomb + self.n_ins) / max(self.m_base, 1)
+
+    @property
+    def needs_compact(self) -> bool:
+        return self.overlay_fraction > self.load_factor
+
+    # -- not ported yet ----------------------------------------------------
+    def nbytes_breakdown(self) -> dict:
+        raise NotImplementedError(_NBYTES_A7)
+
+    def nbytes(self) -> int:
+        raise NotImplementedError(_NBYTES_A7)
+
+    def state_dict(self) -> dict:
+        raise NotImplementedError(_CKPT_A8)
+
+    def state_meta(self) -> dict:
+        raise NotImplementedError(_CKPT_A8)
+
+    def load_state(self, tree: dict, meta: dict) -> None:
+        raise NotImplementedError(_CKPT_A8)
+
+    # -- host-side bookkeeping (the engine drives these) -------------------
+    def resolve_deletions(self, src, dst):
+        """Resolve a deletion batch to concrete edge instances and mark the
+        host mirrors.  Returns ``(eids, slots)``: per deletion either a base
+        edge id (``slots`` holds the sentinel ``capacity``) or an insert
+        slot (``eids`` holds the sentinel ``m_base``).  Duplicate arcs are
+        a multiset: each deletion claims a distinct not-yet-deleted
+        instance.  Atomic: assignments are validated before anything is
+        marked, so a phantom deletion raises ``ValueError`` with the batch
+        unapplied."""
+        src, dst = check_edge_ids(self.n, src, dst)
+        b = src.shape[0]
+        eids = np.full(b, self.m_base, np.int64)
+        slots = np.full(b, self.capacity, np.int64)
+        # key arithmetic needs the full int64 range (n * n overflows the
+        # int32 the validated batch arrives in)
+        keys = src.astype(np.int64) * max(self.n, 1) + dst
+        lo = np.searchsorted(self._keys_sorted, keys, "left")
+        hi = np.searchsorted(self._keys_sorted, keys, "right")
+        # group the batch by key; within a group, claim untombed base
+        # instances first, then live insert slots -- all without mutating,
+        # so failure needs no rollback
+        order = np.argsort(keys, kind="stable")
+        ks = keys[order]
+        starts = (np.nonzero(np.r_[True, ks[1:] != ks[:-1]])[0] if b
+                  else np.zeros(0, np.int64))
+        ins_live = self._ins_alive_np[:self.n_ins]
+        ins_keys = (self._ins_src_np[:self.n_ins] * max(self.n, 1)
+                    + self._ins_dst_np[:self.n_ins])
+        # vectorized fast path: singleton groups whose key matches exactly
+        # one untombed base instance assign without the per-group loop
+        pending = np.ones(len(starts), bool)
+        if self.m_base and b:
+            sizes = np.diff(np.r_[starts, b])
+            g0 = order[starts]                 # one member per group
+            rng1 = (hi[g0] - lo[g0]) == 1
+            cand0 = self._key_order[np.where(rng1, lo[g0], 0)]
+            easy = (sizes == 1) & rng1 & ~self._tomb_np[cand0]
+            eids[g0[easy]] = cand0[easy]
+            pending &= ~easy
+        for gi in np.nonzero(pending)[0]:
+            s0 = starts[gi]
+            s1 = starts[gi + 1] if gi + 1 < len(starts) else b
+            members = order[s0:s1]
+            i0 = members[0]
+            cand = self._key_order[lo[i0]:hi[i0]]
+            avail = cand[~self._tomb_np[cand]]
+            t = min(members.size, avail.size)
+            eids[members[:t]] = avail[:t]
+            extra = members[t:]
+            if extra.size:
+                cand2 = np.nonzero(ins_live & (ins_keys == keys[i0]))[0]
+                if cand2.size < extra.size:
+                    raise ValueError(
+                        f"cannot delete edge ({src[i0]}, {dst[i0]}): "
+                        "not present in the graph")
+                slots[extra] = cand2[:extra.size]
+        # commit
+        from_base = eids < self.m_base
+        self._tomb_np[eids[from_base]] = True
+        self.n_tomb += int(from_base.sum())
+        self._ins_alive_np[slots[slots < self.capacity]] = False
+        return eids, slots
+
+    def stage_inserts(self, src, dst):
+        """Claim contiguous insert-buffer slots for a batch and mark the
+        host mirrors.  The caller (engine) guarantees capacity."""
+        src, dst = check_edge_ids(self.n, src, dst)
+        k = src.shape[0]
+        if self.n_ins + k > self.capacity:
+            raise RuntimeError(
+                f"insert buffer overflow: {self.n_ins} + {k} > "
+                f"{self.capacity} (the engine compacts/grows first)")
+        slots = np.arange(self.n_ins, self.n_ins + k, dtype=np.int64)
+        self._ins_src_np[slots] = src
+        self._ins_dst_np[slots] = dst
+        self._ins_alive_np[slots] = True
+        self.n_ins += k
+        return slots
+
+    def grow(self, min_capacity: int):
+        """Double the insert buffer to a pow2 >= min_capacity."""
+        new_cap = _pow2(max(2 * self.capacity, min_capacity))
+        pad = new_cap - self.capacity
+        n, dev = self.n, self.device
+        self._ins_src_np = np.concatenate(
+            [self._ins_src_np, np.full(pad, n, np.int64)])
+        self._ins_dst_np = np.concatenate(
+            [self._ins_dst_np, np.full(pad, n, np.int64)])
+        self._ins_alive_np = np.concatenate(
+            [self._ins_alive_np, np.zeros(pad, bool)])
+        self.ins_src = torch.cat([self.ins_src, torch.full(
+            (pad,), n, dtype=torch.int32, device=dev)])
+        self.ins_dst = torch.cat([self.ins_dst, torch.full(
+            (pad,), n, dtype=torch.int32, device=dev)])
+        self.ins_alive = torch.cat([self.ins_alive, torch.zeros(
+            (pad,), dtype=torch.bool, device=dev)])
+        self.capacity = new_cap
+
+    # -- materialization ---------------------------------------------------
+    def _live_edges(self):
+        live_base = ~self._tomb_np
+        ins_live = self._ins_alive_np[:self.n_ins]
+        src = np.concatenate([self._src_np[live_base],
+                              self._ins_src_np[:self.n_ins][ins_live]])
+        dst = np.concatenate([self._dst_np[live_base],
+                              self._ins_dst_np[:self.n_ins][ins_live]])
+        return src, dst
+
+    def materialize(self) -> CSRGraph:
+        """Fold the overlay into a standalone CSR on the base's device (the
+        overlay is kept)."""
+        src, dst = self._live_edges()
+        return CSRGraph.from_edges(self.n, src, dst, device=self.device)
+
+    def compact(self) -> CSRGraph:
+        """Fold the overlay into a fresh base CSR (O(n+m) counting sort)
+        and reset the overlay to empty.  Returns the new base."""
+        base = self.materialize()
+        self._rebase(base)
+        return base
+
+    def __repr__(self):
+        return (f"DeltaCSR(n={self.n}, m_base={self.m_base}, "
+                f"tomb={self.n_tomb}, ins={self.n_ins}/{self.capacity}, "
+                f"load={self.overlay_fraction:.2f})")

@@ -7,21 +7,22 @@ launch to the plain version.  Each kernel wrapper counts its launches in
 :data:`LAUNCHES` (a plain int per kernel); the plain path never counts.
 
 Mirrors ``src/repro/kernels/ops.py`` for the kernels of the trimming,
-reachability and peel engines' paths.  The reference's ``use_kernel``
-switch is not carried over: the device is the only switch.
+reachability, peel and stream engines' paths.  The reference's
+``use_kernel`` switch is not carried over: the device is the only switch.
 """
 from __future__ import annotations
 
 from . import ref
 from ._build import LAUNCHES, reset_launches
 from . import bucket_peel as _bpl
+from . import counter_scatter as _cs
 from . import first_live_scan as _fls
 from . import frontier_compact as _fc
 from . import frontier_expand as _fex
 
 __all__ = ["LAUNCHES", "reset_launches", "first_live_scan",
            "prefix_positions", "frontier_compact", "sparse_expand",
-           "frontier_expand", "bucket_peel"]
+           "frontier_expand", "bucket_peel", "counter_scatter"]
 
 
 def _on_cpu(t) -> bool:
@@ -68,3 +69,11 @@ def bucket_peel(counters, alive, k):
     if _on_cpu(counters):
         return ref.bucket_peel_ref(counters, alive, k)
     return _bpl.bucket_peel(counters, alive, k)
+
+
+def counter_scatter(counters, status, upd_src, upd_delta):
+    """(n,) int32 + (n,) bool + (B,) int32 x 2 -> (new (n,) int32,
+    dead (n,) bool)."""
+    if _on_cpu(counters):
+        return ref.counter_scatter_ref(counters, status, upd_src, upd_delta)
+    return _cs.counter_scatter(counters, status, upd_src, upd_delta)

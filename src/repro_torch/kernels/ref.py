@@ -5,8 +5,8 @@ contract).
 ``chip_smoke.py`` holds each CUDA kernel against them on the same inputs.
 They mirror ``src/repro/kernels/ref.py`` (``first_live_ref``,
 ``frontier_compact_ref``, ``sparse_expand_ref``, ``frontier_expand_ref``,
-``bucket_peel_ref``) plus the plain scan that stands beside
-``prefix_positions``.  Every output is int32 or bool, so a
+``bucket_peel_ref``, ``counter_scatter_ref``) plus the plain scan that
+stands beside ``prefix_positions``.  Every output is int32 or bool, so a
 kernel and its plain version agree bit for bit.
 """
 from __future__ import annotations
@@ -99,3 +99,21 @@ def bucket_peel_ref(counters, alive, k):
     k = torch.as_tensor(k, dtype=counters.dtype,
                         device=counters.device).reshape(())
     return alive & (counters <= k)
+
+
+def counter_scatter_ref(counters, status, upd_src, upd_delta):
+    """counters: (n,) int32; status: (n,) bool; upd_src, upd_delta: (B,)
+    int32 -> (new, dead): new (n,) int32 = ``counters`` plus the sum of
+    ``upd_delta[b]`` over the updates with ``upd_src[b] == v``, and dead
+    (n,) bool = ``status & (new <= 0)``.  Out-of-range sources (negative
+    or >= n, e.g. the sentinel n) add nothing.  The inputs are not
+    modified."""
+    n = counters.shape[0]
+    if n == 0:
+        return counters.clone(), torch.zeros((0,), dtype=torch.bool,
+                                             device=counters.device)
+    ok = (upd_src >= 0) & (upd_src < n)
+    ids = torch.where(ok, upd_src, 0).to(torch.int64)
+    delta = torch.where(ok, upd_delta, 0).to(counters.dtype)
+    new = counters.clone().index_add_(0, ids, delta)
+    return new, status & (new <= 0)

@@ -7,7 +7,9 @@ benchmark's own sizes, on the CPU:
   arguments and the AC-6 trim ``rounds``;
 * ``BENCH_peel.json``: its eight integer keys (generations, pivots,
   trim-2 removals and SCCs, ``max_core``, ``one_core``) on the fringe
-  graphs.
+  graphs;
+* ``BENCH_stream.json``: ``n``, ``m``, ``batch_edges``,
+  ``median_incr_rounds`` and ``trimmed`` under ``bench_family``'s feed.
 
 The counters are deterministic integers, so they must be equal.
 ``BENCH_scc.json``'s ``frontier_path_taken`` comes from per-round stats,
@@ -20,7 +22,7 @@ import torch
 
 import numpy as np
 
-from repro_torch.core import plan, plan_peel
+from repro_torch.core import plan, plan_peel, plan_stream
 from repro_torch.core.scc import scc_decompose
 from repro_torch.graphs import generators as G
 
@@ -120,3 +122,51 @@ def test_bench_peel_json_keys(family):
     assert got == {k: bench[k] for k in PEEL_KEYS}
     assert (bench["fringe_pairs"], bench["fringe_loops"]) == (
         FRINGE["pairs"], FRINGE["loops"])
+
+
+# benchmarks/bench_stream.py SIZES
+STREAM_SIZES = {
+    "ER": dict(n=50_000, m=400_000, seed=1, simple=True),
+    "BA": dict(n=20_000, deg=8, seed=1),
+    "RMAT": dict(n_log2=14, m=131_072, seed=1),
+    "chain": dict(n=5_000),
+    "layered": dict(n=50_000, layers=37, deg=4, seed=1),
+    "sink_heavy": dict(n=50_000, m=200_000, sink_frac=0.9, seed=1),
+}
+STREAM_KEYS = ("n", "m", "batch_edges", "median_incr_rounds", "trimmed")
+
+
+@pytest.mark.parametrize("family", sorted(STREAM_SIZES))
+def test_bench_stream_json_keys(family):
+    """``benchmarks/bench_stream.py`` ``bench_family``'s feed, timing left
+    out: seed 0, batches of m // 100 random live edges; a check batch
+    (``retrim()`` equals a fresh AC-4 run on the snapshot), a settle
+    batch, then 5 measured batches, with ``retrim(full=True)`` where the
+    benchmark calls it."""
+    bench = _bench("stream", family)
+    g = G.BENCHMARK_GRAPHS[family][0](**STREAM_SIZES[family], device="cpu")
+    engine = plan_stream(g)
+    rng = np.random.default_rng(0)
+    src, dst = engine.delta._src_np.copy(), engine.delta._dst_np.copy()
+    k = max(1, g.m // 100)
+    alive = np.ones(g.m, bool)
+
+    def next_batch():
+        ids = rng.choice(np.nonzero(alive)[0], k, replace=False)
+        alive[ids] = False
+        return src[ids], dst[ids]
+
+    engine.apply(deletions=next_batch())
+    want = plan(engine.snapshot(), method="ac4", device="cpu").run().status
+    assert torch.equal(engine.retrim().status, want)
+    engine.retrim(full=True)
+    engine.apply(deletions=next_batch())
+    engine.retrim(full=True)
+    rounds = []
+    for _ in range(bench["batches"]):
+        rounds.append(engine.apply(deletions=next_batch()).rounds)
+        engine.retrim(full=True)
+    got = dict(n=g.n, m=g.m, batch_edges=k,
+               median_incr_rounds=int(np.median(rounds)),
+               trimmed=engine.retrim().n_trimmed)
+    assert got == {key: bench[key] for key in STREAM_KEYS}

@@ -12,10 +12,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import plan, plan_peel, plan_reach
+from repro_torch.core import plan, plan_peel, plan_reach, plan_stream
 from repro_torch.core.scc import scc_decompose
 from repro_torch.graphs import generators as G
 from repro_torch.kernels import bucket_peel as bpl
+from repro_torch.kernels import counter_scatter as cs
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import first_live_scan as fls
 from repro_torch.kernels import frontier_compact as fc
@@ -214,3 +215,89 @@ def test_scc_reach_peel_on_card_match_cpu(cuda, family):
             assert a.rounds == b.rounds
     for name in ("frontier_expand", "bucket_peel"):
         assert ops.LAUNCHES[name] > before[name], name
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 333, 4096, 4099, 1_000_003])
+@pytest.mark.parametrize("b", [0, 1, 7, 4096, 100_000])
+def test_counter_scatter_kernel(cuda, n, b):
+    """Sources in [-2, n] (negatives and the sentinel n add nothing),
+    deltas in {-1, 0, 1} plus a few large ones, half the batch on one
+    source; the inputs stay untouched; offset views take the scalar death
+    pass."""
+    rng = np.random.default_rng(n * 7 + b)
+    counters = torch.as_tensor(rng.integers(-2, 6, n).astype(np.int32),
+                               device=cuda)
+    status = torch.as_tensor(rng.random(n) < 0.7, device=cuda)
+    src = rng.integers(-2, n + 1, b).astype(np.int32)
+    src[::2] = rng.integers(0, n)
+    delta = rng.integers(-1, 2, b).astype(np.int32)
+    delta[::97] = rng.integers(-1 << 16, 1 << 16, delta[::97].size)
+    src, delta = torch.as_tensor(src, device=cuda), torch.as_tensor(
+        delta, device=cuda)
+    before = counters.clone()
+    for args in ((counters, status, src, delta),
+                 (counters[1:], status[1:], src, delta),
+                 (counters, status, src[::2], delta[::2])):
+        got = cs.counter_scatter(*args)
+        torch.cuda.synchronize()
+        want = ref.counter_scatter_ref(*args)
+        assert _eq(got[0], want[0]) and _eq(got[1], want[1])
+        assert got[0].dtype == torch.int32 and got[1].dtype == torch.bool
+    assert _eq(counters, before)
+
+
+def test_counter_scatter_empty_inputs(cuda):
+    before = dict(ops.LAUNCHES)
+    z = torch.zeros((0,), dtype=torch.int32, device=cuda)
+    new, dead = cs.counter_scatter(z, z.bool(), torch.tensor(
+        [0, 1], dtype=torch.int32, device=cuda), torch.ones(
+        2, dtype=torch.int32, device=cuda))
+    assert new.shape == dead.shape == (0,)
+    assert ops.LAUNCHES == before
+    c = torch.tensor([0, 1, -1], dtype=torch.int32, device=cuda)
+    st = torch.tensor([True, True, False], device=cuda)
+    new, dead = cs.counter_scatter(c, st, z, z)      # B = 0
+    assert _eq(new, c) and _eq(dead, st & (c <= 0))
+    with pytest.raises(TypeError):
+        cs.counter_scatter(c.long(), st, z, z)
+
+
+@pytest.mark.parametrize("family", ["ER", "RMAT", "chain", "sink_heavy"])
+def test_stream_on_card_matches_cpu(cuda, family):
+    """A small mixed feed (deletions, re-insertions that revive, a
+    compaction and a buffer growth) on the card and on the CPU: equal
+    status, counters, rounds and dirty flags, and retrim() equals AC-4 on
+    the snapshot, through counter_scatter."""
+    sizes = {"ER": dict(n=2_000, m=16_000, seed=1, simple=True),
+             "RMAT": dict(n_log2=10, m=8_192, seed=1),
+             "chain": dict(n=500),
+             "sink_heavy": dict(n=2_000, m=8_000, sink_frac=0.9, seed=1)}
+    fn = G.BENCHMARK_GRAPHS[family][0]
+    g_cpu = fn(**sizes[family], device="cpu")
+    engines = [plan_stream(g, capacity=64, load_factor=0.05)
+               for g in (g_cpu, g_cpu.to(cuda))]
+    before = ops.LAUNCHES["counter_scatter"]
+    rng = np.random.default_rng(5)
+    src, dst = engines[0].delta._src_np.copy(), engines[0].delta._dst_np.copy()
+    alive = np.ones(src.size, bool)
+    pending = []
+    for tick in range(6):
+        k = min(max(1, src.size // 50), int(alive.sum()))
+        ids = rng.choice(np.nonzero(alive)[0], k, replace=False)
+        alive[ids] = False
+        ins = pending.pop(0) if len(pending) >= 2 else None
+        batch = dict(deletions=(src[ids], dst[ids]),
+                     insertions=None if ins is None else (src[ins],
+                                                          dst[ins]))
+        a, b = (e.apply(**batch) for e in engines)
+        assert (a.rounds, a.dirty) == (b.rounds, b.dirty)
+        assert _eq(engines[0]._state[1], engines[1]._state[1])
+        if ins is not None:
+            alive[ins] = True
+        pending.append(ids)
+        got = engines[1].retrim().status
+        want = plan(engines[1].snapshot(), method="ac4",
+                    device=cuda).run().status
+        assert _eq(got, want) and _eq(got, engines[0].retrim().status)
+    assert engines[1].compactions == engines[0].compactions >= 1
+    assert ops.LAUNCHES["counter_scatter"] > before

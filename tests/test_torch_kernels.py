@@ -13,6 +13,7 @@ import torch
 
 from repro.kernels import ref as jref
 from repro.kernels.bucket_peel import bucket_peel_pallas
+from repro.kernels.counter_scatter import counter_scatter_pallas
 from repro.kernels.first_live_scan import first_live_scan as pallas_first_live
 from repro.kernels.frontier_compact import (frontier_compact_pallas,
                                             prefix_positions,
@@ -20,6 +21,7 @@ from repro.kernels.frontier_compact import (frontier_compact_pallas,
 from repro.kernels.frontier_expand import frontier_expand as pallas_expand
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import bucket_peel as tbpl
+from repro_torch.kernels import counter_scatter as tcs
 from repro_torch.kernels import first_live_scan as tfls
 from repro_torch.kernels import frontier_compact as tfc
 from repro_torch.kernels import frontier_expand as tfex
@@ -202,6 +204,56 @@ def test_bucket_peel_ref_matches_pallas(n, bv, alive_kind):
         assert not got.any()
 
 
+def _counter_case(n, b, seed, kind):
+    """Counters, status and a (B,) update batch: sources in [-2, n] (the
+    negatives and the sentinel n add nothing), deltas in [-2, 2] (zeros
+    included); ``kind`` "dup" puts half the batch on one vertex, "one" all
+    of it."""
+    rng = np.random.default_rng(seed)
+    counters = rng.integers(0, 5, n).astype(np.int32)
+    status = rng.random(n) < 0.7
+    src = rng.integers(-2, n + 1, b).astype(np.int32)
+    if n and kind == "dup":
+        src[::2] = rng.integers(0, n)
+    if n and kind == "one":
+        src[:] = rng.integers(0, n)
+    delta = rng.integers(-2, 3, b).astype(np.int32)
+    return counters, status, src, delta
+
+
+# the cases of tests/test_kernels.py test_counter_scatter and
+# test_counter_scatter_duplicate_sources, plus n = 0, B = 0 and n = 1
+@pytest.mark.parametrize("n,b,bv,bu", [
+    (333, 16, 128, 8), (64, 4, 64, 4), (1024, 256, 256, 64),
+    (7, 3, 512, 256), (50, 1, 512, 256), (64, 32, 64, 8), (333, 64, 128, 16),
+    (1, 5, 512, 256), (100, 0, 512, 256), (0, 4, 512, 256), (0, 0, 512, 256)])
+@pytest.mark.parametrize("kind", ["random", "dup", "one", "zero_delta"])
+def test_counter_scatter_ref_matches_pallas(n, b, bv, bu, kind):
+    counters, status, src, delta = _counter_case(n, b, n * 31 + b, kind)
+    if kind == "zero_delta":
+        delta[:] = 0
+    tc = torch.as_tensor(counters)
+    before = tc.clone()
+    got = ref.counter_scatter_ref(tc, torch.as_tensor(status),
+                                  torch.as_tensor(src), torch.as_tensor(delta))
+    assert torch.equal(tc, before)                   # inputs untouched
+    assert got[0].dtype == torch.int32 and got[1].dtype == torch.bool
+    assert got[0].shape == got[1].shape == (n,)
+    args = (jnp.asarray(counters), jnp.asarray(status), jnp.asarray(src),
+            jnp.asarray(delta))
+    wants = [jref.counter_scatter_ref(*args)]
+    if n:                    # the Pallas kernel's grid needs a vertex
+        wants.append(counter_scatter_pallas(*args, block_v=bv, block_u=bu,
+                                            interpret=True))
+    for want in wants:
+        assert _same(got[0], want[0]) and _same(got[1], want[1])
+    # an independent numpy oracle
+    ok = (src >= 0) & (src < n)
+    new = counters.astype(np.int64)
+    np.add.at(new, src[ok], delta[ok])
+    assert _same(got[0], new) and _same(got[1], status & (new <= 0))
+
+
 def test_ops_take_the_plain_path_on_cpu():
     """CPU tensors go to the plain versions and never count a launch."""
     _build.reset_launches()
@@ -224,6 +276,11 @@ def test_ops_take_the_plain_path_on_cpu():
     k = torch.tensor([2], dtype=torch.int32)
     assert _same(ops.bucket_peel(x, active, k),
                  ref.bucket_peel_ref(x, active, k))
+    src = torch.as_tensor(rng.integers(-1, 101, 50).astype(np.int32))
+    delta = torch.as_tensor(rng.integers(-1, 2, 50).astype(np.int32))
+    for g, w in zip(ops.counter_scatter(x, active, src, delta),
+                    ref.counter_scatter_ref(x, active, src, delta)):
+        assert _same(g, w)
     assert all(v == 0 for v in ops.LAUNCHES.values()), ops.LAUNCHES
 
 
@@ -246,4 +303,6 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         tbpl.bucket_peel(z, torch.zeros(4, dtype=torch.bool), z[:1])
     with pytest.raises(TypeError, match="host value"):
         tbpl.bucket_peel(z, torch.zeros(4, dtype=torch.bool), 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        tcs.counter_scatter(z, torch.zeros(4, dtype=torch.bool), z, z)
     assert all(v == 0 for v in ops.LAUNCHES.values())
