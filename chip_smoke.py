@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one CUDA device: the trimming engine,
 then the SCC driver, the reachability engine, the k-core peel, the stream
-engine (incremental trimming) and the command line.
+engine (incremental trimming), the command line and LM serving.
 
     python3 chip_smoke.py               # the check, a few minutes on an H100
     python3 chip_smoke.py --profile     # also: where the time goes (phase 7)
@@ -24,6 +24,12 @@ non-zero and prints no result line):
    time (CUDA events over back-to-back calls, and its device time alone
    from the profiler), the plain version's, one library call's where one
    computes the same function, and the bytes bound at 3.35 TB/s.
+   flash_attention against its plain version (the Pallas kernel's
+   arithmetic) at qwen3-1.7b's prefill shape (B, Hq, Hkv, S, D) = (8, 16,
+   8, 2048, 128), causal, in f32 (to 1e-4) and bf16 (to 1e-2), and at
+   edge cases (Sq < Sk, Sq > Sk, single blocks, D = 16, non-causal, GQA
+   groups 1-3, transposed and sliced inputs); its bound is operations
+   (2 B Hq S (S+1) D FLOP at 989 TFLOP/s bf16), its library call SDPA.
 2. the deterministic counters of ``BENCH_trim.json`` (rounds, edges_total,
    max_per_worker, trimmed, max_qp) for 6 families x 4 methods x
    {dense, windowed} at the benchmark's own sizes.
@@ -66,6 +72,19 @@ non-zero and prints no result line):
    ``retrim(full=True)``.
 10. the command line on the card: ``--app trim``, ``scc``, ``stream`` and
    ``peel`` on ``--graph RMAT`` (scale 17).
+11. LM serving at full width: ``serve_lm("qwen3-1.7b")`` at its published
+   config (28 layers, random weights from seed 0), 8 requests of 2048
+   prompt tokens and 32 generated tokens, with the launch counts set to 0
+   just before it and read just after: flash_attention must have run 28
+   times (once a layer, in the one prefill).  Prefill and decode times,
+   tok/s, peak device memory, weight and cache bytes.  Then decode
+   against forward at full width: ``decode_step(pos=p)`` after
+   ``prefill(tokens[:, :p])`` equals ``forward(tokens)[:, p]`` (the
+   prefill through the kernel, decode through plain einsums) in f32 at
+   B = 2, T = 512 (to 1e-3), and in bf16 at B = 8, T = 2048, where both
+   decode and forward are held against the f32 forward on the same
+   weights (decode within 1.5x the bf16 forward's distance).
+   ``--profile`` adds a prefill and a decode step to phase 7.
 
 The last two lines are the kernel table and the result, as JSON.  Needs
 one CUDA device; imports nothing of JAX or of the JAX package.
@@ -132,11 +151,14 @@ KERNELS = {   # name -> (CUDA source, the Pallas kernel it replaces)
                     "src/repro/kernels/bucket_peel.py:43"),
     "counter_scatter": ("src/repro_torch/kernels/csrc/counter_scatter.cu",
                         "src/repro/kernels/counter_scatter.py:63"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:87"),
 }
 TRIM_PATH = ("first_live_scan", "prefix_positions", "frontier_compact",
              "sparse_expand")
 SCC_PEEL_PATH = ("frontier_expand", "bucket_peel")
 STREAM_PATH = ("counter_scatter",)
+SERVE_PATH = ("flash_attention",)
 # benchmarks/bench_stream.py SIZES (the sizes BENCH_stream.json was made at)
 STREAM_SIZES = {
     "ER": dict(n=50_000, m=400_000, seed=1, simple=True),
@@ -148,6 +170,14 @@ STREAM_SIZES = {
 }
 STREAM_KEYS = ("n", "m", "batch_edges", "median_incr_rounds", "trimmed")
 STREAM_TICKS = 8          # real-size ticks of the trim-stream feed
+# phase 11: qwen3-1.7b at its published config, 8 requests of 2048 prompt
+# tokens and 32 generated tokens; the flash kernel's real shape follows
+SERVE = dict(arch="qwen3-1.7b", batch=8, prompt_len=2048, gen_len=32, seed=0)
+FLASH_REAL = dict(b=8, hq=16, hkv=8, s=2048, d=128)
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM data sheet
+# bf16 outputs of size ~1 round by up to 2^-8; the f32 kernel and its plain
+# version sum in f32 in other orders
+FLASH_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
 
 
 def log(msg: str) -> None:
@@ -452,6 +482,99 @@ def counter_updates(rng, n: int, b: int, dev, pool=None):
     delta[::97] = rng.integers(-(1 << 16), 1 << 16, delta[::97].size)
     return (torch.as_tensor(src, dtype=torch.int32, device=dev),
             torch.as_tensor(delta, dtype=torch.int32, device=dev))
+
+
+def flash_phase(dev):
+    """Phase 1 for flash_attention: the kernel against its plain version
+    (the Pallas kernel's arithmetic) at edge cases and at the real
+    prefill shape of qwen3-1.7b, in f32 and bf16; times there.  Returns
+    the bf16 row of the kernel table (the serving path's dtype)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def qkv(b, hq, hkv, sq, sk, d, dtype):
+        return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+                for shape in ((b, hq, sq, d), (b, hkv, sk, d),
+                              (b, hkv, sk, d))]
+
+    def err(got, want):
+        check(got.shape == want.shape and got.dtype == want.dtype,
+              f"flash_attention shape/dtype {tuple(got.shape)} {got.dtype}")
+        return float((got.float() - want.float()).abs().max())
+
+    # Sq < Sk, Sq > Sk (zero rows and mean rows), one short block, D = 16,
+    # non-causal, GQA groups 1, 2 and 3
+    for (b, hq, hkv, sq, sk, d, causal) in (
+            (2, 4, 2, 256, 512, 128, True), (1, 2, 1, 384, 128, 64, True),
+            (1, 4, 2, 128, 64, 32, True), (2, 3, 1, 96, 96, 16, True),
+            (1, 4, 4, 48, 48, 128, True), (1, 8, 2, 256, 384, 64, False),
+            (3, 6, 2, 128, 128, 16, True)):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = qkv(b, hq, hkv, sq, sk, d, dtype)
+            e = err(fa.flash_attention(*args, causal=causal),
+                    ref.flash_attention_ref(*args, causal=causal))
+            check(e <= FLASH_TOL[str(dtype).split(".")[1]],
+                  f"flash_attention {(b, hq, hkv, sq, sk, d, causal)} "
+                  f"{dtype}: max |err| {e}")
+    # non-contiguous: the model's transposed (B, S, H, D) views, and a
+    # strided slice of the keys
+    q, k, v = (torch.randn((2, 256, h, 64), generator=gen, device=dev)
+               for h in (8, 4, 4))
+    views = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    e = err(fa.flash_attention(*views), ref.flash_attention_ref(*views))
+    check(e <= FLASH_TOL["float32"], f"flash_attention strided: {e}")
+    wide = [t[:, :, ::2] for t in qkv(1, 4, 2, 256, 512, 32, torch.float32)]
+    e = err(fa.flash_attention(*wide), ref.flash_attention_ref(*wide))
+    check(e <= FLASH_TOL["float32"], f"flash_attention sliced: {e}")
+    torch.cuda.synchronize()
+    log("# phase 1: flash_attention edge cases within tolerance (f32 1e-4, "
+        "bf16 1e-2): Sq < Sk, Sq > Sk (zero and mean rows), S <= 128 "
+        "single blocks, D in {16, 32, 64, 128}, non-causal, GQA groups 1, "
+        "2, 3, transposed and sliced inputs")
+
+    b, hq, hkv, s, d = (FLASH_REAL[k_] for k_ in ("b", "hq", "hkv", "s",
+                                                    "d"))
+    flops = 2 * b * hq * s * (s + 1) * d       # QK^T and PV, causal
+    row = None
+    for dtype in (torch.float32, torch.bfloat16):
+        args = qkv(b, hq, hkv, s, s, d, dtype)
+        name = str(dtype).split(".")[1]
+        e = err(fa.flash_attention(*args), ref.flash_attention_ref(*args))
+        check(e <= FLASH_TOL[name], f"flash_attention real shape {name}: "
+                                    f"max |err| {e}")
+        nbytes = (2 * b * hq * s * d + 2 * b * hkv * s * d) \
+            * args[0].element_size()
+        bound = max(flops / PEAK_FLOPS[name], nbytes / HBM_BYTES_PER_S) * 1e3
+
+        def kern():
+            return fa.flash_attention(*args)
+
+        def lib():
+            return F.scaled_dot_product_attention(*args, is_causal=True,
+                                                  enable_gqa=True)
+        lib_err = err(lib(), ref.flash_attention_ref(*args))
+        r = dict(max_abs_err=e, ms=time_ms(kern, reps=10),
+                 plain_ms=time_ms(lambda: ref.flash_attention_ref(*args),
+                                  reps=3, warmup=1),
+                 library_ms=time_ms(lib, reps=10), bound_ms=bound,
+                 bound_by="operations")
+        log(f"# phase 1: flash_attention {name} (B, Hq, Hkv, S, D) = "
+            f"({b}, {hq}, {hkv}, {s}, {d}) causal: max |err| {e:.3g} "
+            f"(tolerance {FLASH_TOL[name]}); kernel_ms={r['ms']:.4f} "
+            f"device_ms={device_ms(kern, reps=10):.4f} "
+            f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
+            f"(SDPA, enable_gqa; max |err| {lib_err:.3g}) "
+            f"bound_ms={bound:.4f} ({flops / 1e9:.1f} GFLOP at "
+            f"{PEAK_FLOPS[name] / 1e12:.0f} TFLOP/s; {nbytes / 1e6:.0f} MB); "
+            f"achieved {flops / r['ms'] / 1e9:.1f} TFLOP/s")
+        row = r
+        del args
+    return row
 
 
 # -- phase 2: the committed reference counters ---------------------------------
@@ -876,6 +999,131 @@ def cli_phase():
             f"{time.perf_counter() - t0:.1f} s")
 
 
+# -- phase 11: LM serving at full width --------------------------------------
+
+def decode_vs_forward(lm, tokens, prompt: int, steps: int):
+    """The logits at positions prompt - 1 .. prompt + steps - 1, two ways:
+    ``forward(tokens)``, and ``prefill(tokens[:, :prompt])``'s last logits
+    followed by ``steps`` decode steps teacher-forced on ``tokens``.  The
+    prefill and forward attend through the flash kernel, decode through
+    plain einsums.  Returns two (B, steps + 1, V) f32 tensors."""
+    import torch
+    full, _, _ = lm(tokens)
+    check(bool(torch.isfinite(full).all()), "non-finite logits")
+    fwd = full[:, prompt - 1:prompt + steps].clone()
+    del full
+    last, cache = lm.prefill(tokens[:, :prompt], cache_len=tokens.shape[1])
+    got = [last]
+    for p in range(prompt, prompt + steps):
+        logits, cache = lm.decode_step(cache, tokens[:, p:p + 1], p)
+        got.append(logits)
+    return fwd, torch.stack(got, dim=1)
+
+
+def serve_phase(dev):
+    """Phase 11: ``serve_lm`` at the published width, launch counts set to
+    0 just before it and read just after; then the prefill against the
+    decode at full width in bf16, and in f32 at B = 2."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate, serve_lm
+    from repro_torch.models import LM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = configs.get(SERVE["arch"]).make_config()
+    lm = LM(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SERVE["seed"]))     # as serve_lm draws it
+    torch.cuda.synchronize()
+    weights = sum(p.numel() * p.element_size() for p in lm.parameters())
+    total = SERVE["prompt_len"] + SERVE["gen_len"]
+    cache_bytes = 2 * cfg.n_layers * SERVE["batch"] * total \
+        * cfg.n_kv_heads * cfg.d_head * 2
+    log(f"# phase 11: {cfg.name}: {cfg.param_count():,} parameters "
+        f"({weights / 1e9:.2f} GB in {cfg.param_dtype}), drawn on the card "
+        f"in {(time.perf_counter() - t0) * 1e3:.0f} ms; KV cache "
+        f"{cache_bytes / 1e9:.2f} GB in {cfg.compute_dtype}")
+    ops.reset_launches()
+    toks, stats = serve_lm(SERVE["arch"], batch=SERVE["batch"],
+                           prompt_len=SERVE["prompt_len"],
+                           gen_len=SERVE["gen_len"], seed=SERVE["seed"],
+                           smoke=False, device=dev, lm=lm, return_stats=True)
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"flash_attention launched {launches['flash_attention']} times "
+          f"in one prefill, not {cfg.n_layers}")
+    check(toks.shape == (SERVE["batch"], SERVE["gen_len"] + 1)
+          and toks.min() >= 0 and toks.max() < cfg.vocab,
+          f"served tokens {toks.shape} out of range")
+    dec = np.asarray(stats["decode_ms"])
+    n_tok = SERVE["batch"] * SERVE["gen_len"]
+    log(f"# phase 11: serve_lm {SERVE['batch']} x {SERVE['prompt_len']} "
+        f"prompt tokens, {SERVE['gen_len']} new: launches {launches}; "
+        f"prefill_ms={stats['prefill_ms']:.1f} decode_ms per step median "
+        f"{np.median(dec):.2f} (first {dec[0]:.2f}, max {dec.max():.2f}); "
+        f"{n_tok / dec.sum() * 1e3:.0f} tok/s decode; peak device memory "
+        f"{peak / 1e9:.2f} GB")
+    _, warm = generate(lm, torch.as_tensor(
+        np.random.default_rng(SERVE["seed"] + 1).integers(
+            0, cfg.vocab, (SERVE["batch"], SERVE["prompt_len"])),
+        device=dev), SERVE["gen_len"])
+    dec = np.asarray(warm["decode_ms"])
+    log(f"# phase 11: warm repeat: prefill_ms={warm['prefill_ms']:.1f} "
+        f"decode_ms per step median {np.median(dec):.2f}; "
+        f"{n_tok / dec.sum() * 1e3:.0f} tok/s decode; prefill "
+        f"{SERVE['batch'] * SERVE['prompt_len'] / warm['prefill_ms'] * 1e3:.0f}"
+        f" tok/s")
+
+    # decode against forward.  f32: directly, to 1e-3.  bf16: 28 layers of
+    # bf16 rounding move the full-width logits (std 1, max ~5.4) by up to
+    # ~0.12 on either path (measured on an H100: 0.11-0.13 for forward and
+    # for decode), more than the reference's 2-layer 6e-2.  So both are
+    # held against the f32 forward on the same weights: the bf16 forward
+    # within 5% of the largest logit, and decode at most 1.5x as far from
+    # it as the bf16 forward.
+    rng = np.random.default_rng(SERVE["seed"] + 2)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (
+        SERVE["batch"], SERVE["prompt_len"])), device=dev)
+    prompt, steps = SERVE["prompt_len"] - 128, 4
+    lm32 = LM(dataclasses.replace(cfg, compute_dtype=torch.float32),
+              device=dev, init=False)
+    lm32.load_state_dict(lm.state_dict(), assign=True)    # shared weights
+    fwd, dec = decode_vs_forward(lm32, tokens[:2, :512], 384, steps)
+    err = float((dec - fwd).abs().max())
+    check(err <= 1e-3, f"f32, B=2, T=512: decode differs from forward "
+                       f"(max |err| {err}, tolerance 1e-3)")
+    log(f"# phase 11: f32, B=2, T=512: prefill(384) and {steps} decode "
+        f"steps equal forward(512): max |err| {err:.3g} (tolerance 1e-3)")
+    truth = lm32(tokens)[0][:, prompt - 1:prompt + steps].clone()
+    del lm32
+    fwd, dec = decode_vs_forward(lm, tokens, prompt, steps)
+    noise = float((fwd - truth).abs().max())
+    err = float((dec - truth).abs().max())
+    direct = float((dec - fwd).abs().max())
+    agree = float((dec.argmax(-1) == fwd.argmax(-1)).float().mean())
+    check(noise <= 0.05 * float(truth.abs().max()),
+          f"bf16 forward lies {noise} from the f32 forward")
+    check(err <= 1.5 * noise, f"bf16, B={SERVE['batch']}, T="
+          f"{SERVE['prompt_len']}: decode lies {err} from the f32 forward, "
+          f"over 1.5x the bf16 forward's {noise}")
+    log(f"# phase 11: bf16, B={SERVE['batch']}, T={SERVE['prompt_len']}: "
+        f"prefill({prompt}) and {steps} decode steps against forward: max "
+        f"|err| {direct:.3g}, argmax equal {agree:.3f}; against the f32 "
+        f"forward: decode {err:.3g}, bf16 forward {noise:.3g} (decode "
+        f"within 1.5x); |logits| max {float(truth.abs().max()):.2f}")
+    torch.cuda.empty_cache()
+    return lm, launches
+
+
 # -- phase 7 (--profile): where the time goes ----------------------------------
 
 def profile_run(label, fn):
@@ -901,6 +1149,7 @@ def profile_run(label, fn):
             tot, cnt = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (tot + e.device_time / 1e3, cnt + 1)
     busy = sum(tot for tot, _ in by_name.values())
+    items = sum(cnt for _, cnt in by_name.values())
     kern = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     with warnings.catch_warnings(record=True) as rec:
         warnings.simplefilter("always")
@@ -914,7 +1163,7 @@ def profile_run(label, fn):
                     for name, (tot, cnt) in kern[:6])
     log(f"# profile: {label}: wall_ms={wall:.1f} "
         f"device_busy_ms={busy:.1f} idle_share={1 - busy / wall:.3f} "
-        f"{note} host_syncs={syncs} | {top}")
+        f"{note} host_syncs={syncs} device_items={items} | {top}")
 
 def host_profile(label, fn, top: int = 8):
     """One call of ``fn`` under cProfile: the host functions that take the
@@ -940,10 +1189,11 @@ def host_profile(label, fn, top: int = 8):
                     for fn_, (_, nc, tt, _, _) in rows))
 
 
-def profile_phase(dev, g, gt, stream, feed):
+def profile_phase(dev, g, gt, stream, feed, lm):
     """Per trimming method at the real size, then one ``scc_decompose``,
-    one full peel, and the stream engine's deletion-only ``apply``, its
-    ``apply`` with insertions and ``retrim(full=True)``: see
+    one full peel, the stream engine's deletion-only ``apply``, its
+    ``apply`` with insertions and ``retrim(full=True)``, and the served
+    LM's prefill (8 x 2048 tokens) and one decode step: see
     :func:`profile_run`.  Each engine runs once before it is profiled;
     each stream call takes the feed's next batch."""
     from repro_torch.core import plan, plan_peel
@@ -977,6 +1227,24 @@ def profile_phase(dev, g, gt, stream, feed):
     profile_run("stream apply, with insertions", lambda: apply(True))
     profile_run("stream retrim(full=True)",
                 lambda: f"rounds={stream.retrim(full=True).rounds}")
+
+    import numpy as np
+    import torch
+    prompts = torch.as_tensor(np.random.default_rng(3).integers(
+        0, lm.cfg.vocab, (SERVE["batch"], SERVE["prompt_len"])), device=dev)
+    held = {}
+
+    def prefill():
+        held["logits"], held["cache"] = lm.prefill(
+            prompts, cache_len=SERVE["prompt_len"] + SERVE["gen_len"])
+        return f"B={SERVE['batch']} S={SERVE['prompt_len']}"
+    profile_run("serve prefill", prefill)
+    tok = held["logits"].argmax(-1, keepdim=True)
+
+    def step():
+        lm.decode_step(held["cache"], tok, SERVE["prompt_len"])
+        return f"B={SERVE['batch']} pos={SERVE['prompt_len']}"
+    profile_run("serve decode step", step)
 
 
 def main() -> int:
@@ -1017,6 +1285,7 @@ def main() -> int:
         f"cap={fplan.cap} ecap={fplan.ecap}")
 
     rows = kernel_phase(dev, gt, fplan.cap, fplan.ecap)
+    rows["flash_attention"] = flash_phase(dev)
     ops.reset_launches()
     reference_phase(dev)
     log(f"# phase 4: launches in phase 2 (BENCH_trim.json sizes): "
@@ -1048,12 +1317,17 @@ def main() -> int:
         check(stream_launches[name] > 0,
               f"{name} was never launched on the stream path")
     cli_phase()
+    lm, serve_launches = serve_phase(dev)
+    for name in SERVE_PATH:
+        check(serve_launches[name] > 0,
+              f"{name} was never launched on the serving path")
     if args.profile:
-        profile_phase(dev, g, gt, stream, feed)
+        profile_phase(dev, g, gt, stream, feed, lm)
 
     path_launches = {**{n: trim_launches for n in TRIM_PATH},
                      **{n: scc_launches for n in SCC_PEEL_PATH},
-                     **{n: stream_launches for n in STREAM_PATH}}
+                     **{n: stream_launches for n in STREAM_PATH},
+                     **{n: serve_launches for n in SERVE_PATH}}
     launches = {name: path_launches[name][name] for name in KERNELS}
     table = [dict(name=name, route="cuda", source=KERNELS[name][0],
                   replaces=KERNELS[name][1], launches=launches[name],

@@ -7,8 +7,9 @@ launch to the plain version.  Each kernel wrapper counts its launches in
 :data:`LAUNCHES` (a plain int per kernel); the plain path never counts.
 
 Mirrors ``src/repro/kernels/ops.py`` for the kernels of the trimming,
-reachability, peel and stream engines' paths.  The reference's
-``use_kernel`` switch is not carried over: the device is the only switch.
+reachability, peel and stream engines' paths and of the LM prefill.  The
+reference's ``use_kernel`` switch is not carried over: the device is the
+only switch.
 """
 from __future__ import annotations
 
@@ -17,12 +18,14 @@ from ._build import LAUNCHES, reset_launches
 from . import bucket_peel as _bpl
 from . import counter_scatter as _cs
 from . import first_live_scan as _fls
+from . import flash_attention as _fa
 from . import frontier_compact as _fc
 from . import frontier_expand as _fex
 
 __all__ = ["LAUNCHES", "reset_launches", "first_live_scan",
            "prefix_positions", "frontier_compact", "sparse_expand",
-           "frontier_expand", "bucket_peel", "counter_scatter"]
+           "frontier_expand", "bucket_peel", "counter_scatter",
+           "flash_attention"]
 
 
 def _on_cpu(t) -> bool:
@@ -77,3 +80,14 @@ def counter_scatter(counters, status, upd_src, upd_delta):
     if _on_cpu(counters):
         return ref.counter_scatter_ref(counters, status, upd_src, upd_delta)
     return _cs.counter_scatter(counters, status, upd_src, upd_delta)
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    sm_scale: float | None = None):
+    """q (B, Hq, Sq, D), k and v (B, Hkv, Sk, D) -> (B, Hq, Sq, D) in
+    q.dtype: causal GQA attention, queries aligned to the end of the keys.
+    On a CUDA tensor an unsupported head dim or dtype raises."""
+    if _on_cpu(q):
+        return ref.flash_attention_ref(q, k, v, causal=causal,
+                                       sm_scale=sm_scale)
+    return _fa.flash_attention(q, k, v, causal=causal, sm_scale=sm_scale)

@@ -6,12 +6,22 @@ contract).
 They mirror ``src/repro/kernels/ref.py`` (``first_live_ref``,
 ``frontier_compact_ref``, ``sparse_expand_ref``, ``frontier_expand_ref``,
 ``bucket_peel_ref``, ``counter_scatter_ref``) plus the plain scan that
-stands beside ``prefix_positions``.  Every output is int32 or bool, so a
-kernel and its plain version agree bit for bit.
+stands beside ``prefix_positions``.  Those outputs are int32 or bool, so a
+kernel and its plain version agree bit for bit.  ``flash_attention_ref``
+repeats the flash kernel's float arithmetic (its blocks, its masking and
+its online softmax, f32 inside) and ``attention_ref`` is the naive
+softmax oracle; a float kernel agrees with them to a stated tolerance.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+
+#: the flash kernel's masking value (a finite "minus infinity") and its
+#: block length, as in ``src/repro/kernels/flash_attention.py``
+NEG_INF = -1e30
+FLASH_BLOCK = 128
 
 
 def first_live_ref(flags, valid, active):
@@ -117,3 +127,90 @@ def counter_scatter_ref(counters, status, upd_src, upd_delta):
     delta = torch.where(ok, upd_delta, 0).to(counters.dtype)
     new = counters.clone().index_add_(0, ids, delta)
     return new, status & (new <= 0)
+
+
+def flash_blocks(sq: int, sk: int) -> tuple[int, int]:
+    """The flash kernel's logical blocks: ``min(128, S)`` each, and both
+    sequence lengths must be multiples of theirs (a prompt longer than
+    128 tokens is a multiple of 128)."""
+    bq, bk = min(FLASH_BLOCK, sq), min(FLASH_BLOCK, sk)
+    if bq <= 0 or bk <= 0 or sq % bq or sk % bk:
+        raise ValueError(f"flash_attention: Sq={sq} and Sk={sk} must be "
+                         f"multiples of their blocks ({bq}, {bk})")
+    return bq, bk
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        sm_scale: float | None = None):
+    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D), Hq % Hkv == 0 -> (B, Hq,
+    Sq, D) in q.dtype: the Pallas flash kernel's own arithmetic.
+
+    Queries are aligned to the end of the keys (``q_offset = Sk - Sq``);
+    q head h reads kv head ``h // (Hq // Hkv)``.  Per (q block, kv block)
+    of :func:`flash_blocks`: a causal kv block entirely above the diagonal
+    of its q block is skipped; in the others masked scores are ``-1e30``
+    and an online softmax accumulates in f32.  So a row whose q block
+    computes no kv block comes out 0 (``l == 0``), and a fully masked row
+    of a computed block comes out as the mean of v over the computed kv
+    blocks (Sq > Sk only; the naive oracle gives the mean over all keys).
+    """
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    if hq % hkv:
+        raise ValueError(f"flash_attention: Hq={hq} is not a multiple of "
+                         f"Hkv={hkv}")
+    g = hq // hkv
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    bq, bk = flash_blocks(sq, sk)
+    q_offset = sk - sq
+    dev = q.device
+    qf = q.float().reshape(b, hkv, g, sq, d)
+    kf, vf = k.float(), v.float()
+    out = torch.empty((b, hkv, g, sq, d), dtype=torch.float32, device=dev)
+    for qi in range(sq // bq):
+        qb = qf[:, :, :, qi * bq:(qi + 1) * bq]
+        m = torch.full((b, hkv, g, bq, 1), NEG_INF, device=dev)
+        l = torch.zeros((b, hkv, g, bq, 1), device=dev)
+        acc = torch.zeros((b, hkv, g, bq, d), device=dev)
+        q_pos = q_offset + qi * bq + torch.arange(bq, device=dev)
+        for ki in range(sk // bk):
+            if causal and q_offset + qi * bq + bq - 1 < ki * bk:
+                continue                    # block above the diagonal
+            kb = kf[:, :, ki * bk:(ki + 1) * bk]
+            vb = vf[:, :, ki * bk:(ki + 1) * bk]
+            s = torch.einsum("bhgqd,bhkd->bhgqk", qb, kb) * sm_scale
+            if causal:
+                k_pos = ki * bk + torch.arange(bk, device=dev)
+                s = torch.where(q_pos[:, None] >= k_pos[None, :], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            p = torch.exp(s - m_new)
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1, keepdim=True)
+            acc = acc * corr + torch.einsum("bhgqk,bhkd->bhgqd", p, vb)
+            m = m_new
+        l = torch.where(l == 0.0, 1.0, l)    # fully-masked rows -> 0
+        out[:, :, :, qi * bq:(qi + 1) * bq] = acc / l
+    return out.reshape(b, hq, sq, d).to(q.dtype)
+
+
+def attention_ref(q, k, v, *, causal: bool = True,
+                  sm_scale: float | None = None):
+    """Naive softmax attention with GQA, f32 math (the oracle of
+    ``src/repro/kernels/ref.py``): masked scores are ``-1e30``, so a fully
+    masked row is the mean of v over all keys."""
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    group = hq // hkv
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    k = k.repeat_interleave(group, dim=1)
+    v = v.repeat_interleave(group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
+    if causal:
+        qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+        kpos = torch.arange(sk, device=q.device)[None, :]
+        s = torch.where(qpos >= kpos, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
+    return out.to(q.dtype)

@@ -1,0 +1,238 @@
+"""Transformer building blocks: RMSNorm, RoPE, GQA attention (full /
+chunked-local / decode) and the SwiGLU FFN (PyTorch port of
+``src/repro/models/layers.py``).
+
+Plain functions on tensors; the weights come from ``transformer.LM``.
+Compute runs in ``cfg.compute_dtype`` (bf16) over fp32 master weights cast
+at use, with fp32 softmax and normalization statistics.  Where the
+reference accumulates a bf16 product in f32
+(``preferred_element_type=jnp.float32``) the port computes in f32; where
+its output is bf16 (``x @ W.astype(dt)``) the port's is bf16 too.
+
+The prefill's causal attention goes through ``kernels.ops.flash_attention``
+(the hand-written Hopper kernel on a CUDA tensor, its plain version on a
+CPU one); decode attention is plain einsum, as the reference leaves it to
+XLA.  The capacity-based MoE (``moe_ffn``) and the mesh-sharded head
+layout (``axes``) are not ported: an ``LMConfig`` with ``moe=True`` raises
+:class:`NotImplementedError` naming ROADMAP A11 when a model is built.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ops as kops
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_head: int
+    d_ff: int
+    vocab: int
+    qk_norm: bool = False
+    # MoE (configs only: the MoE FFN is not ported, ROADMAP A11)
+    moe: bool = False
+    n_experts: int = 0
+    top_k: int = 0
+    moe_dense_residual: bool = False   # arctic: parallel dense FFN branch
+    moe_shared_expert: bool = False    # llama4: always-on shared expert
+    capacity_factor: float = 1.25
+    # attention structure
+    attention: str = "full"            # "full" | "chunked"
+    chunk_size: int = 8192
+    layer_group: int = 1               # llama4: 4 (3 chunked + 1 global)
+    rope_theta: float = 1e6
+    # numerics / memory
+    compute_dtype: Any = torch.bfloat16
+    param_dtype: Any = torch.float32
+    remat: bool = True                 # kept for parity; no gradient here
+    scan_unroll: bool = False          # kept for parity; layers are a loop
+
+    @property
+    def q_dim(self):
+        return self.n_heads * self.d_head
+
+    @property
+    def kv_dim(self):
+        return self.n_kv_heads * self.d_head
+
+    def param_count(self) -> int:
+        """Total parameters (for MODEL_FLOPS = 6·N·D accounting)."""
+        d, f, v = self.d_model, self.d_ff, self.vocab
+        attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+        if self.moe:
+            ffn = self.n_experts * 3 * d * f
+            ffn += d * self.n_experts                    # router
+            if self.moe_dense_residual or self.moe_shared_expert:
+                ffn += 3 * d * f
+        else:
+            ffn = 3 * d * f
+        per_layer = attn + ffn + 2 * d                  # two norms
+        return self.n_layers * per_layer + 2 * v * d + d
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top_k experts + dense branches)."""
+        if not self.moe:
+            return self.param_count()
+        d, f = self.d_model, self.d_ff
+        attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+        ffn = self.top_k * 3 * d * f + d * self.n_experts
+        if self.moe_dense_residual or self.moe_shared_expert:
+            ffn += 3 * d * f
+        per_layer = attn + ffn + 2 * d
+        return self.n_layers * per_layer + 2 * self.vocab * d + d
+
+
+# ---------------------------------------------------------------- numerics
+
+
+def rms_norm(x, scale, eps: float = 1e-6):
+    """RMSNorm: the variance accumulates in f32 (the reference's f32
+    einsum over the compute-dtype activation); the full-size multiplies
+    stay in ``x.dtype``."""
+    d = x.shape[-1]
+    xf = x.float()
+    var = (xf * xf).sum(-1, keepdim=True) / d
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    return x * inv * scale.to(x.dtype)
+
+
+def rope(x, positions, theta: float):
+    """x: (..., S, H, D); positions: (..., S).  f32 inside, cast back."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    angles = positions[..., :, None, None].float() * freqs   # S,1,half
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+# --------------------------------------------------------------- attention
+
+
+def _split_heads(x, n_heads, d_head):
+    b, s, _ = x.shape
+    return x.reshape(b, s, n_heads, d_head)
+
+
+def attention(p, cfg: LMConfig, x, positions, *, chunked: bool,
+              kv_cache=None, cache_pos=None):
+    """GQA attention.  ``p``: the layer's weights (``wq``, ``wk``, ``wv``,
+    ``wo``, and ``q_norm``/``k_norm`` under ``qk_norm``), stored (in, out).
+
+    Prefill: ``kv_cache`` None -> causal over x itself; returns
+    ``(out, (k, v))`` with k/v shaped (B, S, Hkv, Dh).
+    Decode: ``kv_cache = (k, v)`` over S_cache positions, x is (B, 1, D),
+    ``cache_pos`` the int position of the new token.  The new k/v are
+    written into the cache tensors IN PLACE (the reference returns updated
+    copies; the values are the same) and ``(out, (k, v))`` is returned.
+    """
+    dt = cfg.compute_dtype
+    b, s, _ = x.shape
+    q = _split_heads(x @ p["wq"].to(dt), cfg.n_heads, cfg.d_head)
+    k = _split_heads(x @ p["wk"].to(dt), cfg.n_kv_heads, cfg.d_head)
+    v = _split_heads(x @ p["wv"].to(dt), cfg.n_kv_heads, cfg.d_head)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+
+    if kv_cache is None:
+        if chunked and s > cfg.chunk_size:
+            out = _chunked_causal(q, k, v, cfg)
+        else:
+            out = _causal(q, k, v)
+        new_kv = (k, v)
+    else:
+        ck, cv = kv_cache              # (B, S_c, Hkv, Dh)
+        pos = int(cache_pos)
+        ck[:, pos:pos + 1] = k.to(ck.dtype)
+        cv[:, pos:pos + 1] = v.to(cv.dtype)
+        s_c = ck.shape[1]
+        if chunked:
+            # local layers attend within the CURRENT chunk (chunk-aligned,
+            # iRoPE semantics), not a sliding window
+            span = min(cfg.chunk_size, s_c)
+            start = min((pos // cfg.chunk_size) * cfg.chunk_size, s_c - span)
+            valid = (start + torch.arange(span, device=ck.device)) <= pos
+            out = _decode_attend(q, ck[:, start:start + span],
+                                 cv[:, start:start + span], valid)
+        else:
+            valid = torch.arange(s_c, device=ck.device) <= pos
+            out = _decode_attend(q, ck, cv, valid)
+        new_kv = (ck, cv)
+
+    out = out.reshape(b, s, cfg.q_dim)
+    return out @ p["wo"].to(dt), new_kv
+
+
+def _causal(q, k, v):
+    """(B, S, H, D) GQA causal attention through the flash kernel, which
+    takes (B, H, S, D): the transposes are views, read by strides."""
+    out = kops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), causal=True)
+    return out.transpose(1, 2)
+
+
+def _chunked_causal(q, k, v, cfg):
+    """Local (chunked) causal attention: queries attend only within their
+    own chunk (iRoPE-style local layers).  Sequences not divisible by the
+    chunk are padded at the end (causality keeps real queries clean)."""
+    b, s, h, d = q.shape
+    c = cfg.chunk_size
+    pad = (-s) % c
+    if pad:
+        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+    sp = s + pad
+    nc = sp // c
+
+    def rs(t):
+        return t.reshape(b * nc, c, t.shape[2], d)
+    out = _causal(rs(q), rs(k), rs(v))
+    return out.reshape(b, sp, h, d)[:, :s]
+
+
+def _decode_attend(q, k, v, valid):
+    """q: (B, 1, Hq, D); k/v: (B, S, Hkv, D); valid: (S,) bool mask.
+
+    The reference's einsums accumulate in f32 over the compute-dtype
+    operands; here the operands are upcast to f32 first (bf16 products
+    are exact in f32).  The probabilities are cast to ``v.dtype`` before
+    the PV product, as in the reference."""
+    b, one, hq, d = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    qf = q.reshape(b, hkv, g, d)
+    s = torch.einsum("bkgd,bskd->bkgs", qf.float(), k.float()) / math.sqrt(d)
+    s = torch.where(valid[None, None, None, :], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p.to(v.dtype).float(), v.float())
+    return out.reshape(b, 1, hq, d).to(q.dtype)
+
+
+# -------------------------------------------------------------------- FFN
+
+
+def swiglu(p, x, dt):
+    gate = F.silu(x @ p["w_gate"].to(dt))
+    up = x @ p["w_up"].to(dt)
+    return (gate * up) @ p["w_down"].to(dt)
+
+
+def moe_ffn(p, cfg: LMConfig, x):
+    raise NotImplementedError(
+        "the capacity-based MoE FFN is not ported to repro_torch yet "
+        "(ROADMAP A11, MoE)")

@@ -1,7 +1,8 @@
 """Card-only tests of the PyTorch port: every Hopper kernel against its
-plain PyTorch version on the same CUDA tensors (bit for bit: all outputs
-are int32 or bool), and the engine on the card against the engine on the
-CPU.  They skip where no CUDA device is present; on a machine with one
+plain PyTorch version on the same CUDA tensors (bit for bit where the
+outputs are int32 or bool; the flash attention kernel to a stated float
+tolerance), the engines on the card against the engines on the CPU, and
+the LM's prefill (through the flash kernel) against its decode.  They skip where no CUDA device is present; on a machine with one
 run them with::
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -19,6 +20,7 @@ from repro_torch.kernels import bucket_peel as bpl
 from repro_torch.kernels import counter_scatter as cs
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import first_live_scan as fls
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import frontier_compact as fc
 from repro_torch.kernels import frontier_expand as fex
 
@@ -301,3 +303,79 @@ def test_stream_on_card_matches_cpu(cuda, family):
         assert _eq(got, want) and _eq(got, engines[0].retrim().status)
     assert engines[1].compactions == engines[0].compactions >= 1
     assert ops.LAUNCHES["counter_scatter"] > before
+
+
+@pytest.mark.parametrize(
+    "b,hq,hkv,sq,sk,d,causal,dtype",
+    [(2, 4, 2, 256, 256, 128, True, torch.float32),
+     (2, 4, 2, 256, 256, 128, True, torch.bfloat16),
+     (1, 8, 2, 128, 256, 64, False, torch.float32),
+     (1, 2, 1, 256, 512, 64, True, torch.float32),   # Sk > Sq
+     (1, 3, 1, 256, 128, 16, True, torch.float32),   # Sq > Sk: 0 and mean
+     (1, 2, 2, 128, 64, 32, True, torch.bfloat16),   # Sq > Sk
+     (2, 6, 2, 48, 48, 32, True, torch.float32),     # one block, group 3
+     (1, 4, 4, 16, 80, 16, True, torch.bfloat16)])
+def test_flash_attention_kernel(cuda, b, hq, hkv, sq, sk, d, causal, dtype):
+    """The kernel against its plain version on the same tensors: f32 to
+    2e-5 (both sum in f32, in other orders), bf16 outputs to 1e-2 (one
+    bf16 rounding of values of size ~1 is 4e-3)."""
+    rng = np.random.default_rng(sq * 7 + sk + d)
+    q, k, v = (torch.as_tensor(rng.normal(size=shape), device=cuda).to(dtype)
+               for shape in ((b, hq, sq, d), (b, hkv, sk, d),
+                             (b, hkv, sk, d)))
+    before = ops.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    tol = 2e-5 if dtype == torch.float32 else 1e-2
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_flash_attention_kernel_strided_and_errors(cuda):
+    """Transposed (B, S, H, D) views are read by strides, and the output
+    keeps their layout; unsupported shapes and dtypes raise."""
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.as_tensor(rng.normal(size=(2, 256, h, 64)),
+                               dtype=torch.float32, device=cuda)
+               for h in (4, 2, 2))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    got = fa.flash_attention(qt, kt, vt)
+    want = ref.flash_attention_ref(qt, kt, vt)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    assert got.transpose(1, 2).is_contiguous()
+    with pytest.raises(ValueError):
+        fa.flash_attention(qt[:, :, :200], kt[:, :, :200], vt[:, :, :200])
+    with pytest.raises(ValueError):
+        fa.flash_attention(qt[..., :48], kt[..., :48], vt[..., :48])
+    with pytest.raises(TypeError):
+        fa.flash_attention(qt.half(), kt.half(), vt.half())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lm_prefill_decode_on_card(cuda, dtype):
+    """The reduced qwen3 on the card: decode_step(pos=P) after
+    prefill(tokens[:, :P]) equals forward(tokens)[:, P], the prefill
+    through the flash kernel and the decode through plain attention;
+    and the card's logits equal the CPU's."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import LM
+    cfg = dataclasses.replace(configs.get("qwen3-1.7b").make_reduced(),
+                              compute_dtype=dtype)
+    lm = LM(cfg, device=cuda)
+    rng = np.random.default_rng(1)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 256)), device=cuda)
+    before = ops.LAUNCHES["flash_attention"]
+    full, _, _ = lm(toks)
+    _, cache = lm.prefill(toks[:, :128], cache_len=256)
+    assert ops.LAUNCHES["flash_attention"] == before + 2 * cfg.n_layers
+    got, _ = lm.decode_step(cache, toks[:, 128:129], 128)
+    tol = 1e-4 if dtype == torch.float32 else 6e-2
+    torch.testing.assert_close(got, full[:, 128], atol=tol, rtol=tol)
+    lm_cpu = LM(cfg, device="cpu", init=False)
+    lm_cpu.load_state_dict({k_: t.cpu() for k_, t in lm.state_dict().items()})
+    cpu, _, _ = lm_cpu(toks.cpu())
+    torch.testing.assert_close(full.cpu(), cpu, atol=tol, rtol=tol)

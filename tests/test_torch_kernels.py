@@ -3,6 +3,9 @@
 Each plain PyTorch version in ``repro_torch.kernels.ref`` is held against
 the JAX Pallas kernel (interpret mode) and the JAX ref twin on the same
 numpy inputs.  All outputs are int32 or bool, so the tolerance is exact.
+The flash attention twins are float: ``flash_attention_ref`` is held
+against the Pallas kernel at ``tests/test_kernels.py``'s tolerances, and
+against the naive oracle where the two agree (Sq <= Sk).
 The CUDA kernels themselves run only on a card: ``tests/test_torch_gpu.py``
 holds them against these plain versions there.
 """
@@ -15,6 +18,7 @@ from repro.kernels import ref as jref
 from repro.kernels.bucket_peel import bucket_peel_pallas
 from repro.kernels.counter_scatter import counter_scatter_pallas
 from repro.kernels.first_live_scan import first_live_scan as pallas_first_live
+from repro.kernels.flash_attention import flash_attention as pallas_flash
 from repro.kernels.frontier_compact import (frontier_compact_pallas,
                                             prefix_positions,
                                             sparse_expand_pallas)
@@ -23,6 +27,7 @@ from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import bucket_peel as tbpl
 from repro_torch.kernels import counter_scatter as tcs
 from repro_torch.kernels import first_live_scan as tfls
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import frontier_compact as tfc
 from repro_torch.kernels import frontier_expand as tfex
 
@@ -306,3 +311,109 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tcs.counter_scatter(z, torch.zeros(4, dtype=torch.bool), z, z)
     assert all(v == 0 for v in ops.LAUNCHES.values())
+
+
+FLASH_CASES = [
+    # tests/test_kernels.py's five shapes
+    (1, 2, 2, 128, 128, 64, True, "f32"),
+    (2, 4, 2, 256, 256, 64, True, "f32"),
+    (1, 8, 2, 128, 256, 128, False, "f32"),
+    (1, 2, 1, 256, 512, 64, True, "f32"),      # sk > sq (prefix)
+    (1, 4, 4, 128, 128, 64, True, "bf16"),
+    # Sq > Sk: skipped q blocks give 0, fully masked rows of computed
+    # blocks the mean of v over the computed kv blocks
+    (1, 2, 1, 256, 128, 64, True, "f32"),
+    (1, 4, 2, 128, 64, 32, True, "f32"),
+    (1, 2, 1, 256, 128, 16, True, "bf16"),
+    # D = 16 and 128, GQA group 3, one short block
+    (1, 3, 1, 128, 128, 16, True, "f32"),
+    (2, 2, 2, 48, 48, 128, True, "bf16"),
+]
+
+
+def _flash_inputs(b, hq, hkv, sq, sk, d, dt):
+    rng = np.random.default_rng(sq * 3 + sk + d + hq)
+    arrs = [rng.normal(size=s).astype(np.float32)
+            for s in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d))]
+    jdt = jnp.bfloat16 if dt == "bf16" else jnp.float32
+    tdt = torch.bfloat16 if dt == "bf16" else torch.float32
+    return ([jnp.asarray(a, jdt) for a in arrs],
+            [torch.as_tensor(a).to(tdt) for a in arrs])
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal,dt", FLASH_CASES)
+def test_flash_attention_ref_matches_pallas(b, hq, hkv, sq, sk, d, causal,
+                                            dt):
+    """The plain version of the flash kernel against the Pallas kernel in
+    interpret mode (and the naive oracles where Sq <= Sk), at
+    tests/test_kernels.py's tolerances: 2e-5 in f32, 2e-2 in bf16."""
+    jx, tx = _flash_inputs(b, hq, hkv, sq, sk, d, dt)
+    got = ref.flash_attention_ref(*tx, causal=causal)
+    assert got.dtype == tx[0].dtype and got.shape == (b, hq, sq, d)
+    wants = [pallas_flash(*jx, causal=causal, interpret=True)]
+    if sq <= sk:
+        wants.append(jref.attention_ref(*jx, causal=causal))
+        wants.append(ref.attention_ref(*tx, causal=causal).float())
+    tol = 2e-5 if dt == "f32" else 2e-2
+    for want in wants:
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   atol=tol, rtol=tol)
+    # ops takes the plain version for CPU tensors and counts no launch
+    same = ops.flash_attention(*tx, causal=causal)
+    assert torch.equal(same, got)
+    assert ops.LAUNCHES["flash_attention"] == 0
+
+
+@pytest.mark.parametrize("sq,sk", [(256, 128), (128, 64)])
+def test_flash_attention_masked_rows(sq, sk):
+    """Sq > Sk, rows that see no key: in a q block that computes no kv
+    block the kernel gives 0 where the naive oracle averages v over all
+    keys; in a computed block both give that mean (with the reference's
+    blocks, such a block always spans every key).  The plain version
+    keeps the kernel's rows."""
+    jx, tx = _flash_inputs(1, 2, 1, sq, sk, 32, "f32")
+    got = ref.flash_attention_ref(*tx).numpy()
+    kernel = np.asarray(pallas_flash(*jx, interpret=True))
+    oracle = ref.attention_ref(*tx).numpy()
+    np.testing.assert_allclose(got, kernel, atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(oracle, np.asarray(jref.attention_ref(*jx)),
+                               atol=2e-5, rtol=2e-5)
+    seen = np.arange(sq) >= sq - sk          # q_pos = row - (sq - sk) >= 0
+    np.testing.assert_allclose(got[:, :, seen], oracle[:, :, seen],
+                               atol=2e-5, rtol=2e-5)
+    skipped = np.arange(sq) < (sq - sk) // 128 * 128
+    assert not got[:, :, skipped].any()
+    if skipped.any():                        # the oracle's are not zero
+        assert np.abs(oracle[:, :, skipped]).max() > 1e-3
+    mean_v = tx[2].numpy().mean(axis=2, keepdims=True)
+    rows = ~seen & ~skipped
+    np.testing.assert_allclose(got[:, :, rows],
+                               np.broadcast_to(mean_v, got[:, :, rows].shape),
+                               atol=2e-5, rtol=2e-5)
+
+
+def test_flash_attention_block_divisibility():
+    """A sequence longer than one block must be a multiple of it: the
+    reference asserts, the port raises ValueError on both paths."""
+    jx, tx = _flash_inputs(1, 2, 2, 200, 200, 16, "f32")
+    with pytest.raises(AssertionError):
+        pallas_flash(*jx, interpret=True)
+    with pytest.raises(ValueError, match="multiples"):
+        ref.flash_attention_ref(*tx)
+    with pytest.raises(ValueError, match="multiples"):
+        ops.flash_attention(*tx)
+
+
+def test_flash_attention_wrapper_refuses_cpu_tensors():
+    """The kernel wrapper launches on a CUDA device or raises, and an
+    unsupported head dim or dtype raises before any device question."""
+    _, tx = _flash_inputs(1, 2, 2, 16, 16, 16, "f32")
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention(*tx)
+    _, t48 = _flash_inputs(1, 2, 2, 16, 16, 48, "f32")
+    with pytest.raises(ValueError, match="head dims"):
+        tfa.flash_attention(*t48)
+    with pytest.raises(TypeError, match="float32 or"):
+        tfa.flash_attention(*(t.half() for t in tx))
+    assert ops.LAUNCHES["flash_attention"] == 0
