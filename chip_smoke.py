@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one CUDA device: the trimming engine,
 then the SCC driver, the reachability engine, the k-core peel, the stream
-engine (incremental trimming), the command line and LM serving.
+engine (incremental trimming), the command line, LM serving and GNN
+training.
 
     python3 chip_smoke.py               # the check, a few minutes on an H100
     python3 chip_smoke.py --profile     # also: where the time goes (phase 7)
@@ -30,6 +31,15 @@ non-zero and prints no result line):
    edge cases (Sq < Sk, Sq > Sk, single blocks, D = 16, non-causal, GQA
    groups 1-3, transposed and sliced inputs); its bound is operations
    (2 B Hq S (S+1) D FLOP at 989 TFLOP/s bf16), its library call SDPA.
+   segment_sum against its plain version to 1e-5 of each segment's sum of
+   |v| (float atomics add in another order) at the training path's shapes
+   (MeshGraphNet on molecule (8,192, 128) -> 3,840 and on minibatch_lg
+   (168,960, 128) -> 169,984; EquiformerV2 on molecule (8,192, 6,272) ->
+   3,840), at one layer's aggregation at ogb-products scale ((61,859,140,
+   128) -> 2,449,029, 31.7 GB, uniform and RMAT-skewed ids) and at edge
+   cases (m = 0, n = 1, d in {1, 3, 4, 6272}, f32 and bf16, ids in [-2,
+   n + 2) int32 and int64, column slices, 3-D values); its bound is bytes,
+   its library call ``index_add_``.
 2. the deterministic counters of ``BENCH_trim.json`` (rounds, edges_total,
    max_per_worker, trimmed, max_qp) for 6 families x 4 methods x
    {dense, windowed} at the benchmark's own sizes.
@@ -85,6 +95,20 @@ non-zero and prints no result line):
    decode and forward are held against the f32 forward on the same
    weights (decode within 1.5x the bf16 forward's distance).
    ``--profile`` adds a prefill and a decode step to phase 7.
+12. GNN training at full width (f32, no TF32): MeshGraphNet, SchNet, MACE
+   and EquiformerV2 at their published configs on the molecule cell (128
+   graphs of 30 nodes and 64 edges from ``GraphBatchStream(seed=0)``,
+   batched as one disjoint union), 5 AdamW steps each through the
+   ``Trainer``, weights from a seeded generator on the card.  The first
+   step's loss (1e-4 relative) and gradients (1e-3 of each tensor's largest
+   entry) equal the port's CPU path on the same weights and batch; the loss
+   falls; segment_sum runs 15 / 3 / 30 / 24 times a step.  Then
+   MeshGraphNet full-graph on minibatch_lg's exact counts (169,984 nodes,
+   168,960 edges, d_feat 602, 41 classes, numpy seed 0), 3 steps: ms per
+   step, nodes/s, peak memory, launches; and ``python -m
+   repro_torch.launch.train --arch meshgraphnet --steps 5``.  The launch
+   counts are set to 0 before each run and summed.  ``--profile`` adds one
+   molecule and one minibatch_lg step to phase 7.
 
 The last two lines are the kernel table and the result, as JSON.  Needs
 one CUDA device; imports nothing of JAX or of the JAX package.
@@ -93,6 +117,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -153,12 +178,15 @@ KERNELS = {   # name -> (CUDA source, the Pallas kernel it replaces)
                         "src/repro/kernels/counter_scatter.py:63"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:87"),
+    "segment_sum": ("src/repro_torch/kernels/csrc/segment_sum.cu",
+                    "src/repro/kernels/segment_reduce.py:47"),
 }
 TRIM_PATH = ("first_live_scan", "prefix_positions", "frontier_compact",
              "sparse_expand")
 SCC_PEEL_PATH = ("frontier_expand", "bucket_peel")
 STREAM_PATH = ("counter_scatter",)
 SERVE_PATH = ("flash_attention",)
+TRAIN_PATH = ("segment_sum",)
 # benchmarks/bench_stream.py SIZES (the sizes BENCH_stream.json was made at)
 STREAM_SIZES = {
     "ER": dict(n=50_000, m=400_000, seed=1, simple=True),
@@ -178,6 +206,31 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM data sheet
 # bf16 outputs of size ~1 round by up to 2^-8; the f32 kernel and its plain
 # version sum in f32 in other orders
 FLASH_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+# segment_sum: |kernel - plain| <= SEG_TOL * (the segment's sum of |v|) +
+# 1e-6.  Both sum in f32, the kernel's atomics in an order that changes from
+# run to run; a k-term sum moves by ~sqrt(k) 2^-24 of its largest partial
+SEG_TOL = 1e-5
+# phase 12: the four GNNs at their published configs on the molecule cell
+# (configs.base.gnn_shapes), 5 AdamW steps each; MeshGraphNet full-graph on
+# the minibatch_lg cell's exact counts, 3 steps
+GNN_ARCHS = ("meshgraphnet", "schnet", "mace", "equiformer-v2")
+MOLECULE = dict(batch=128, n_nodes=30, n_edges=64)
+TRAIN_STEPS = 5
+LG = dict(n=169_984, m=168_960, d_feat=602, classes=41, steps=3)
+# segment_sum launches per training step (one per aggregation: a layer of
+# MeshGraphNet, an interaction of SchNet, a CG path of a MACE layer, and the
+# softmax normaliser and the messages of an EquiformerV2 layer)
+SEG_PER_STEP = {"meshgraphnet": lambda c: c.n_layers,
+                "schnet": lambda c: c.n_interactions,
+                "mace": lambda c: 15 * c.n_layers,
+                "equiformer-v2": lambda c: 2 * c.n_layers}
+# one layer's aggregation at ogb-products scale (configs.base.gnn_shapes)
+OGB = dict(n=2_449_029, m=61_859_140, d=128)
+# phase 12 step against the CPU: loss relative, gradients to a share of
+# each tensor's largest entry (the f32 sums run in other orders)
+TRAIN_TOL = dict(loss=1e-4, grad=1e-3)
+INF_NOTE = (" (overflows float32: the reference's clip scales every update "
+            "to 0, so the parameters stay as they are; ROADMAP C)")
 
 
 def log(msg: str) -> None:
@@ -574,6 +627,161 @@ def flash_phase(dev):
             f"achieved {flops / r['ms'] / 1e9:.1f} TFLOP/s")
         row = r
         del args
+    return row
+
+
+def segment_check(got, values, ids, n: int, what: str) -> float:
+    """Hold a segment_sum result against the plain version: |err| <=
+    SEG_TOL * (the segment's sum of |v|) + 1e-6, per entry.  Returns the
+    largest |err| / sum |v|.  The sum of |v| is taken in chunks of rows, so
+    a 31.7 GB input is not copied whole."""
+    import torch
+
+    from repro_torch.kernels import ref
+    want = ref.segment_sum_ref(values, ids, n)
+    absum = torch.zeros_like(want)
+    for lo in range(0, values.shape[0], 1 << 22):
+        absum += ref.segment_sum_ref(values[lo:lo + (1 << 22)].abs(),
+                                     ids[lo:lo + (1 << 22)], n)
+    check(got.shape == want.shape and got.dtype == torch.float32,
+          f"segment_sum {what}: shape/dtype {tuple(got.shape)} {got.dtype}")
+    err = (got - want).abs()
+    check(bool((err <= SEG_TOL * absum + 1e-6).all()),
+          f"segment_sum {what}: differs from its plain version beyond "
+          f"{SEG_TOL} of the segment's sum of |v|")
+    rel = float((err / absum.clamp(min=1e-30)).max()) if err.numel() else 0.0
+    del want, absum, err
+    return rel
+
+
+def segment_phase(dev):
+    """Phase 1 for segment_sum: the kernel against its plain version at edge
+    cases and at the training path's real shapes (MeshGraphNet on molecule
+    and minibatch_lg, EquiformerV2 on molecule) and at one layer's
+    aggregation at ogb-products scale, with uniform and RMAT-skewed ids;
+    times there.  Returns the minibatch_lg row of the kernel table."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import GraphBatchStream
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import segment_sum as ss
+    from repro_torch.models.gnn.common import molecule_union
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rng = np.random.default_rng(0)
+
+    def vals(m, d, dtype=torch.float32):
+        return torch.randn((m, d), generator=gen, device=dev).to(dtype)
+
+    def ids_in(lo, hi, m, dtype=torch.int32):
+        return torch.as_tensor(rng.integers(lo, hi, m), dtype=dtype,
+                               device=dev)
+
+    # m = 0, n = 1, d in {1, 3, 4, 6272}, ids in [-2, n + 2), int64 ids,
+    # bf16, a column slice (row stride > d, unaligned start) and 3-D values
+    worst = 0.0
+    for m, d, n in ((0, 4, 7), (5, 4, 1), (1000, 1, 177), (1000, 3, 177),
+                    (1000, 4, 177), (333, 6272, 50)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for lo, hi, idt in ((0, n, torch.int32), (-2, n + 2, torch.int32),
+                                (-2, n + 2, torch.int64)):
+                v, i = vals(m, d, dtype), ids_in(lo, hi, m, idt)
+                worst = max(worst, segment_check(
+                    ss.segment_sum(v, i, n), v, i, n,
+                    f"m={m} d={d} n={n} {dtype} ids [{lo}, {hi})"))
+    wide = vals(4096, 134)
+    i = ids_in(0, 300, 4096)
+    for cols in (slice(0, 128), slice(1, 129), slice(3, 9)):
+        worst = max(worst, segment_check(ss.segment_sum(wide[:, cols], i, 300),
+                                         wide[:, cols], i, 300, "slice"))
+    v3 = wide[:, :120].reshape(4096, 15, 8)
+    got = ops.segment_sum(v3, i, 300)
+    check(got.shape == (300, 15, 8), "segment_sum 3-D shape")
+    worst = max(worst, segment_check(got, v3, i, 300, "3-D"))
+    torch.cuda.synchronize()
+    log(f"# phase 1: segment_sum edge cases within {SEG_TOL} of each "
+        f"segment's sum of |v| (largest {worst:.3g}): m = 0, n = 1, d in "
+        f"{{1, 3, 4, 6272}}, f32 and bf16, ids in [-2, n + 2) int32 and "
+        f"int64, column slices, 3-D values")
+
+    union = molecule_union(GraphBatchStream(**MOLECULE, seed=0).batch_at(0),
+                           dev)
+    n_mol = MOLECULE["batch"] * MOLECULE["n_nodes"]
+    lg_ids = ids_in(0, LG["n"], LG["m"], torch.int64)
+    cases = [("MeshGraphNet molecule", vals(union["edge_dst"].shape[0], 128),
+              union["edge_dst"], n_mol),
+             ("MeshGraphNet minibatch_lg", vals(LG["m"], 128), lg_ids,
+              LG["n"]),
+             ("EquiformerV2 molecule", vals(union["edge_dst"].shape[0],
+                                            49 * 128),
+              union["edge_dst"], n_mol)]
+    row = None
+    for label, v, i, n in cases:
+        row_ = segment_time(label, v, i, n)
+        if label == "MeshGraphNet minibatch_lg":
+            row = row_
+        del v
+    del cases, lg_ids, union
+
+    # one layer's aggregation at ogb-products scale: 31.7 GB of values
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    m, d, n = OGB["m"], OGB["d"], OGB["n"]
+    v = vals(m, d)
+    uni = torch.randint(0, n, (m,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    segment_time("ogb_products uniform", v, uni, n, reps=5)
+    del uni
+    # RMAT-skewed destinations: the generator's column bits (a=0.57,
+    # b=0.19, c=0.19, so a bit is 1 with p = b + d = 0.24) folded into [0, n)
+    skew = torch.zeros((m,), dtype=torch.int64, device=dev)
+    for _ in range(22):
+        skew = skew * 2 + (torch.rand((m,), generator=gen, device=dev)
+                           < 0.24)
+    skew = skew % n
+    hub = int(torch.bincount(skew, minlength=n).max())
+    skew = skew.to(torch.int32)
+    segment_time(f"ogb_products RMAT-skewed (hub in-degree {hub:,})", v,
+                 skew, n, reps=5)
+    log(f"# phase 1: segment_sum at ogb-products scale: peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del v, skew
+    torch.cuda.empty_cache()
+    return row
+
+
+def segment_time(label, v, ids, n: int, reps: int = 20):
+    """Check and time segment_sum at one real shape: kernel (CUDA events
+    and profiler), plain version, and the library call (``index_add_`` of
+    the rows into a zeroed output; all ids are in range); the bytes bound
+    reads each value and id once and writes each output once."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import segment_sum as ss
+    m, d = v.shape
+    rel = segment_check(ss.segment_sum(v, ids, n), v, ids, n, label)
+    nbytes = m * d * v.element_size() + m * ids.element_size() + 4 * n * d
+
+    def kern():
+        return ss.segment_sum(v, ids, n)
+
+    def lib():
+        return torch.zeros((n, d), device=v.device).index_add_(0, ids, v)
+    row = dict(max_abs_err=float((kern() - ref.segment_sum_ref(v, ids, n))
+                                 .abs().max()),
+               ms=time_ms(kern, reps=reps),
+               plain_ms=time_ms(lambda: ref.segment_sum_ref(v, ids, n),
+                                reps=reps),
+               library_ms=time_ms(lib, reps=reps),
+               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    log(f"# phase 1: segment_sum {label} ({m:,}, {d}) -> {n:,}: max |err| "
+        f"{row['max_abs_err']:.3g} ({rel:.3g} of the segment's sum of |v|); "
+        f"kernel_ms={row['ms']:.4f} device_ms={device_ms(kern, reps=reps):.4f} "
+        f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
+        f"(zeros + index_add_) bound_ms={row['bound_ms']:.4f} "
+        f"({nbytes / 1e6:.0f} MB)")
     return row
 
 
@@ -1124,6 +1332,250 @@ def serve_phase(dev):
     return lm, launches
 
 
+# -- phase 12: GNN training at full width --------------------------------------
+
+def grad_check(model, cpu_model, union_dev, union_cpu, arch: str):
+    """One molecule step's loss and gradients on the card against the same
+    step on the CPU (the plain segment sum), on the same weights and batch.
+    Returns (loss on the card, relative loss error, worst gradient error
+    as a share of its tensor's largest entry, the gradients' float32
+    global norm as AdamW computes it, and the largest |g| with its
+    parameter's name)."""
+    import torch
+
+    from repro_torch.models.gnn.common import molecule_loss
+    from repro_torch.optim import global_norm
+    loss = molecule_loss(model, union_dev)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    closs = molecule_loss(cpu_model, union_cpu)
+    cgrads = torch.autograd.grad(closs, list(cpu_model.parameters()))
+    lerr = abs(loss.item() - closs.item()) / abs(closs.item())
+    gerr = max(float((g.cpu() - c).abs().max())
+               / max(float(c.abs().max()), 1e-30)
+               for g, c in zip(grads, cgrads))
+    check(lerr <= TRAIN_TOL["loss"], f"{arch}: loss on the card differs from "
+          f"the CPU's by {lerr:.3g} relative")
+    check(gerr <= TRAIN_TOL["grad"], f"{arch}: a gradient on the card "
+          f"differs from the CPU's by {gerr:.3g} of its largest entry")
+    top = max((float(g.abs().max()), name) for g, (name, _) in
+              zip(grads, model.named_parameters()))
+    return loss.item(), lerr, gerr, float(global_norm(grads)), top
+
+
+def train_run(model, stream, put, steps: int, loss_fn):
+    """``steps`` AdamW steps (lr 1e-3, the launcher's) through the port's
+    Trainer, the launch counts set to 0 just before and read just after.
+    Returns (losses, step seconds, launches, (peak device bytes, bytes
+    already held when the run began: the model, the batch and what earlier
+    phases keep, such as the served LM))."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.optim import AdamW
+    from repro_torch.train import Trainer, TrainerConfig
+
+    opt = AdamW(lr=1e-3)
+    params = list(model.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    ops.reset_launches()
+    tr = Trainer(make_train_step(model, opt, loss_fn), params,
+                 opt.init(params), stream,
+                 TrainerConfig(num_steps=steps, log_every=steps), put_batch=put)
+    hist = tr.run()
+    launches = dict(ops.LAUNCHES)
+    losses = [h["loss"] for h in hist]
+    check(all(map(math.isfinite, losses)), f"non-finite loss {losses}")
+    return losses, list(tr.monitor.times), launches, \
+        (torch.cuda.max_memory_allocated(), held)
+
+
+def loss_after(model, batch, loss_fn, before: float, what: str,
+               frozen=None) -> float:
+    """The loss on the first step's batch after training; it must lie
+    below the first step's loss on that batch (the stream's batches differ
+    from step to step, so the history alone does not show learning).
+    ``frozen``: the parameters before training, where the gradients' f32
+    global norm overflowed: the reference's AdamW then clips every update
+    to 0, so the parameters must be unchanged bit for bit and the loss the
+    same up to the atomics' order (1e-5 relative)."""
+    import torch
+    with torch.no_grad():
+        after = loss_fn(model, batch).item()
+    if frozen is None:
+        check(math.isfinite(after) and after < before,
+              f"{what}: the loss on the first batch went {before} -> {after}")
+    else:
+        check(all(torch.equal(p, q) for p, q in zip(model.parameters(),
+                                                    frozen)),
+              f"{what}: parameters moved under an infinite global norm")
+        check(abs(after - before) <= 1e-5 * abs(before),
+              f"{what}: the loss on the first batch went {before} -> {after} "
+              "with the parameters unchanged")
+    return after
+
+
+class FixedBatch:
+    """A stream that serves one batch at every step (full-graph training)."""
+
+    def __init__(self, batch):
+        self.batch = batch
+
+    def batch_at(self, step: int):
+        return self.batch
+
+
+def lg_batch(dev):
+    """The minibatch_lg cell at its exact counts: a random graph, features
+    and labels from numpy seed 0, on the card."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(0)
+    n, m = LG["n"], LG["m"]
+    host = {"feats": rng.standard_normal((n, LG["d_feat"]), np.float32),
+            "pos": rng.standard_normal((n, 3), np.float32),
+            "edge_src": rng.integers(0, n, m),
+            "edge_dst": rng.integers(0, n, m),
+            "labels": rng.integers(0, LG["classes"], n)}
+    return {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
+
+
+def train_phase(dev):
+    """Phase 12: the four GNNs at their published configs on the molecule
+    cell (5 steps each; the first step's loss and gradients against the CPU
+    on the same weights and batch), MeshGraphNet on minibatch_lg (3 steps),
+    and the train launcher.  Returns the summed launch counts and the step
+    closures that ``--profile`` times."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data import GraphBatchStream
+    from repro_torch.launch import train as cli
+    from repro_torch.models import convert
+    from repro_torch.models.gnn import MODELS
+    from repro_torch.models.gnn.common import (molecule_loss,
+                                               molecule_union, pooled_loss)
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 products in f32
+    torch.backends.cudnn.allow_tf32 = False
+    totals = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+
+    profiled = {}
+    for arch in GNN_ARCHS:
+        cfg = configs.get(arch).make_config()
+        t0 = time.perf_counter()
+        model = MODELS[type(cfg)](cfg, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(0))
+        cpu_model = convert.gnn_from_numpy(cfg, convert.gnn_to_numpy(model),
+                                           device="cpu")
+        stream = GraphBatchStream(**MOLECULE, seed=0)
+        batch0 = stream.batch_at(0)
+        loss0, lerr, gerr, gnorm, top = grad_check(
+            model, cpu_model, molecule_union(batch0, dev),
+            molecule_union(batch0, "cpu"), arch)
+        check_s = time.perf_counter() - t0
+        # EquiformerV2 at its published depth: each equivariant layer norm
+        # divides an all-zero l > 0 block by sqrt(1e-6), so the gradients
+        # reach ~1e29 at initialisation and their f32 global norm
+        # overflows.  The reference does the same at the published depth
+        # with 8 channels (tests/test_torch_train.py; ROADMAP C)
+        frozen = ([p.detach().clone() for p in model.parameters()]
+                  if math.isinf(gnorm) else None)
+        losses, times, launches, peak = train_run(
+            model, stream, lambda b: molecule_union(b, dev), TRAIN_STEPS,
+            molecule_loss)
+        want = TRAIN_STEPS * SEG_PER_STEP[arch](cfg)
+        check(launches["segment_sum"] == want,
+              f"{arch}: segment_sum launched {launches['segment_sum']} times "
+              f"in {TRAIN_STEPS} steps, not {want}")
+        check(abs(losses[0] - loss0) <= TRAIN_TOL["loss"] * abs(loss0),
+              f"{arch}: the trainer's first loss {losses[0]} is not the "
+              f"checked step's {loss0}")
+        after = loss_after(model, molecule_union(batch0, dev), molecule_loss,
+                           loss0, arch, frozen)
+        del frozen
+        add(launches)
+        n_par = sum(p.numel() for p in model.parameters())
+        log(f"# phase 12: {arch} ({n_par:,} parameters) on molecule "
+            f"(B={MOLECULE['batch']}, {MOLECULE['n_nodes']} nodes, "
+            f"{MOLECULE['n_edges']} edges): step 1 against the CPU: loss "
+            f"{lerr:.3g} relative (tolerance {TRAIN_TOL['loss']}), gradients "
+            f"{gerr:.3g} of their largest entry (tolerance "
+            f"{TRAIN_TOL['grad']}) ({check_s:.1f} s); global norm "
+            f"{gnorm:.4g}{INF_NOTE if math.isinf(gnorm) else ''}, largest "
+            f"|g| {top[0]:.4g} ({top[1]}); loss "
+            f"{' -> '.join(f'{x:.4f}' for x in losses)}, on the first batch "
+            f"{loss0:.4f} -> {after:.4f}; step_ms first "
+            f"{times[0] * 1e3:.1f}, median of the rest "
+            f"{np.median(times[1:]) * 1e3:.1f}; launches {launches}; peak "
+            f"device memory {peak[0] / 1e9:.2f} GB ({peak[1] / 1e9:.2f} GB "
+            f"held before the run)")
+        if arch == "meshgraphnet":
+            held = molecule_union(stream.batch_at(7), dev)
+            profiled["meshgraphnet molecule step"] = (model, held,
+                                                      molecule_loss)
+        del cpu_model
+        torch.cuda.empty_cache()
+
+    # MeshGraphNet on minibatch_lg: full-graph node classification
+    t0 = time.perf_counter()
+    batch = lg_batch(dev)
+    cfg = dataclasses.replace(configs.get("meshgraphnet").make_config(),
+                              out_dim=LG["classes"])
+    model = MODELS[type(cfg)](cfg, d_feat=LG["d_feat"], device=dev,
+                              generator=torch.Generator(
+                                  device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    losses, times, launches, peak = train_run(
+        model, FixedBatch(batch), None, LG["steps"], pooled_loss)
+    after = loss_after(model, batch, pooled_loss, losses[0], "minibatch_lg")
+    want = LG["steps"] * cfg.n_layers
+    check(launches["segment_sum"] == want,
+          f"minibatch_lg: segment_sum launched {launches['segment_sum']} "
+          f"times, not {want}")
+    add(launches)
+    med = float(np.median(times[1:]))
+    log(f"# phase 12: meshgraphnet on minibatch_lg ({LG['n']:,} nodes, "
+        f"{LG['m']:,} edges, d_feat {LG['d_feat']}, {LG['classes']} "
+        f"classes; data drawn in {setup_s:.1f} s): loss "
+        f"{' -> '.join(f'{x:.4f}' for x in losses)} -> {after:.4f}; "
+        f"step_ms first "
+        f"{times[0] * 1e3:.1f}, median of the rest {med * 1e3:.1f}; "
+        f"{LG['n'] / med:,.0f} nodes/s; launches {launches}; peak device "
+        f"memory {peak[0] / 1e9:.2f} GB ({peak[1] / 1e9:.2f} GB held before "
+        f"the run)")
+    profiled["meshgraphnet minibatch_lg step"] = (model, batch, pooled_loss)
+
+    # the launcher, as a user runs it: the published config on the card
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli.main(["--arch", "meshgraphnet", "--steps", str(TRAIN_STEPS)])
+    line = out.getvalue().strip().splitlines()[-1]
+    check(line.startswith("[train] meshgraphnet: first loss "),
+          f"the train launcher printed {line!r}")
+    add(dict(ops.LAUNCHES))
+    log(line)
+    log(f"# phase 12: python -m repro_torch.launch.train --arch meshgraphnet "
+        f"--steps {TRAIN_STEPS} done in {time.perf_counter() - t0:.1f} s; "
+        f"launches {dict(ops.LAUNCHES)}")
+    return totals, profiled
+
+
 # -- phase 7 (--profile): where the time goes ----------------------------------
 
 def profile_run(label, fn):
@@ -1189,13 +1641,14 @@ def host_profile(label, fn, top: int = 8):
                     for fn_, (_, nc, tt, _, _) in rows))
 
 
-def profile_phase(dev, g, gt, stream, feed, lm):
+def profile_phase(dev, g, gt, stream, feed, lm, profiled):
     """Per trimming method at the real size, then one ``scc_decompose``,
     one full peel, the stream engine's deletion-only ``apply``, its
-    ``apply`` with insertions and ``retrim(full=True)``, and the served
-    LM's prefill (8 x 2048 tokens) and one decode step: see
-    :func:`profile_run`.  Each engine runs once before it is profiled;
-    each stream call takes the feed's next batch."""
+    ``apply`` with insertions and ``retrim(full=True)``, the served LM's
+    prefill (8 x 2048 tokens) and one decode step, and one MeshGraphNet
+    training step on molecule and on minibatch_lg (forward, backward and
+    AdamW): see :func:`profile_run`.  Each engine and step runs once before
+    it is profiled; each stream call takes the feed's next batch."""
     from repro_torch.core import plan, plan_peel
     from repro_torch.core.scc import scc_decompose
 
@@ -1245,6 +1698,23 @@ def profile_phase(dev, g, gt, stream, feed, lm):
         lm.decode_step(held["cache"], tok, SERVE["prompt_len"])
         return f"B={SERVE['batch']} pos={SERVE['prompt_len']}"
     profile_run("serve decode step", step)
+    del lm, held
+    torch.cuda.empty_cache()
+
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.optim import AdamW
+    for label, (model, batch, loss_fn) in profiled.items():
+        opt = AdamW(lr=1e-3)
+        params = list(model.parameters())
+        state = {"opt": opt.init(params)}
+        train_step = make_train_step(model, opt, loss_fn)
+
+        def one_step():
+            _, state["opt"], metrics = train_step(params, state["opt"],
+                                                  batch)
+            return f"loss={metrics['loss'].item():.4f}"
+        one_step()
+        profile_run(label, one_step)
 
 
 def main() -> int:
@@ -1286,6 +1756,7 @@ def main() -> int:
 
     rows = kernel_phase(dev, gt, fplan.cap, fplan.ecap)
     rows["flash_attention"] = flash_phase(dev)
+    rows["segment_sum"] = segment_phase(dev)
     ops.reset_launches()
     reference_phase(dev)
     log(f"# phase 4: launches in phase 2 (BENCH_trim.json sizes): "
@@ -1321,13 +1792,20 @@ def main() -> int:
     for name in SERVE_PATH:
         check(serve_launches[name] > 0,
               f"{name} was never launched on the serving path")
+    train_launches, profiled = train_phase(dev)
+    log(f"# phase 12: launches in phase 12 (the training path, counts set "
+        f"to 0 before each run and summed): {train_launches}")
+    for name in TRAIN_PATH:
+        check(train_launches[name] > 0,
+              f"{name} was never launched on the training path")
     if args.profile:
-        profile_phase(dev, g, gt, stream, feed, lm)
+        profile_phase(dev, g, gt, stream, feed, lm, profiled)
 
     path_launches = {**{n: trim_launches for n in TRIM_PATH},
                      **{n: scc_launches for n in SCC_PEEL_PATH},
                      **{n: stream_launches for n in STREAM_PATH},
-                     **{n: serve_launches for n in SERVE_PATH}}
+                     **{n: serve_launches for n in SERVE_PATH},
+                     **{n: train_launches for n in TRAIN_PATH}}
     launches = {name: path_launches[name][name] for name in KERNELS}
     table = [dict(name=name, route="cuda", source=KERNELS[name][0],
                   replaces=KERNELS[name][1], launches=launches[name],

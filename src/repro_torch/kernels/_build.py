@@ -35,7 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"first_live_scan": 0, "prefix_positions": 0,
             "frontier_compact": 0, "sparse_expand": 0,
             "frontier_expand": 0, "bucket_peel": 0, "counter_scatter": 0,
-            "flash_attention": 0}
+            "flash_attention": 0, "segment_sum": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

@@ -7,11 +7,14 @@ launch to the plain version.  Each kernel wrapper counts its launches in
 :data:`LAUNCHES` (a plain int per kernel); the plain path never counts.
 
 Mirrors ``src/repro/kernels/ops.py`` for the kernels of the trimming,
-reachability, peel and stream engines' paths and of the LM prefill.  The
+reachability, peel and stream engines' paths, of the LM prefill and of the
+GNN layers' aggregation.  The
 reference's ``use_kernel`` switch is not carried over: the device is the
 only switch.
 """
 from __future__ import annotations
+
+import math
 
 from . import ref
 from ._build import LAUNCHES, reset_launches
@@ -21,11 +24,12 @@ from . import first_live_scan as _fls
 from . import flash_attention as _fa
 from . import frontier_compact as _fc
 from . import frontier_expand as _fex
+from . import segment_sum as _ss
 
 __all__ = ["LAUNCHES", "reset_launches", "first_live_scan",
            "prefix_positions", "frontier_compact", "sparse_expand",
            "frontier_expand", "bucket_peel", "counter_scatter",
-           "flash_attention"]
+           "flash_attention", "segment_sum"]
 
 
 def _on_cpu(t) -> bool:
@@ -91,3 +95,16 @@ def flash_attention(q, k, v, *, causal: bool = True,
         return ref.flash_attention_ref(q, k, v, causal=causal,
                                        sm_scale=sm_scale)
     return _fa.flash_attention(q, k, v, causal=causal, sm_scale=sm_scale)
+
+
+def segment_sum(values, seg_ids, num_segments: int):
+    """values (m, *rest) float32 or bfloat16, seg_ids (m,) int32/int64 ->
+    (num_segments, *rest) float32 sums, out-of-range ids dropped.  The
+    trailing dims are flattened to one (a view where the layout allows)
+    and restored afterwards."""
+    if _on_cpu(values):
+        return ref.segment_sum_ref(values, seg_ids, num_segments)
+    rest = tuple(values.shape[1:])
+    flat = values.reshape(values.shape[0], math.prod(rest))
+    return _ss.segment_sum(flat, seg_ids, num_segments).view(
+        (num_segments,) + rest)

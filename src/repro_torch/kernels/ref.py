@@ -7,7 +7,9 @@ They mirror ``src/repro/kernels/ref.py`` (``first_live_ref``,
 ``frontier_compact_ref``, ``sparse_expand_ref``, ``frontier_expand_ref``,
 ``bucket_peel_ref``, ``counter_scatter_ref``) plus the plain scan that
 stands beside ``prefix_positions``.  Those outputs are int32 or bool, so a
-kernel and its plain version agree bit for bit.  ``flash_attention_ref``
+kernel and its plain version agree bit for bit.  ``segment_sum_ref`` is a
+float sum: the kernel's atomics add in another order, so the two agree to
+a tolerance stated relative to each segment's sum of absolute values.  ``flash_attention_ref``
 repeats the flash kernel's float arithmetic (its blocks, its masking and
 its online softmax, f32 inside) and ``attention_ref`` is the naive
 softmax oracle; a float kernel agrees with them to a stated tolerance.
@@ -127,6 +129,19 @@ def counter_scatter_ref(counters, status, upd_src, upd_delta):
     delta = torch.where(ok, upd_delta, 0).to(counters.dtype)
     new = counters.clone().index_add_(0, ids, delta)
     return new, status & (new <= 0)
+
+
+def segment_sum_ref(values, seg_ids, num_segments: int):
+    """(m, *rest) float + (m,) int ids -> (num_segments, *rest) float32
+    sums; ids outside ``[0, num_segments)``, negatives too, add nothing.
+    Out-of-range rows are sent to one extra row that is cut off, so the
+    values are not copied (``index_add_`` raises on such ids itself)."""
+    ok = (seg_ids >= 0) & (seg_ids < num_segments)
+    idx = torch.where(ok, seg_ids, num_segments).to(torch.int64)
+    out = torch.zeros((num_segments + 1,) + tuple(values.shape[1:]),
+                      dtype=torch.float32, device=values.device)
+    out.index_add_(0, idx, values.to(torch.float32))
+    return out[:num_segments]
 
 
 def flash_blocks(sq: int, sk: int) -> tuple[int, int]:

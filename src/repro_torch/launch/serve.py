@@ -14,8 +14,9 @@ reference.  The prefill's attention runs the flash kernel
 cache with plain einsums.
 
 Not ported yet, and raising :class:`NotImplementedError` that names the
-ROADMAP item: ``--app trim-stream`` (A10), the recsys and GNN
-architectures and the MoE LMs (A11).
+ROADMAP item: ``--app trim-stream`` (A10), the recsys architecture and
+the MoE LMs (A11).  A GNN id exits, as in the reference: serving applies
+to the lm and recsys families.
 """
 from __future__ import annotations
 
@@ -104,6 +105,8 @@ def main(argv=None):
             "--app trim-stream is not ported yet: ROADMAP A10")
     if args.arch is None:
         ap.error("--arch is required for --app model")
+    if configs.get(args.arch).family != "lm":      # recsys raises (A11)
+        raise SystemExit("serving applies to lm/recsys archs")
     return serve_lm(args.arch, batch=args.batch, gen_len=args.gen_len,
                     smoke=args.smoke, device=args.device)
 

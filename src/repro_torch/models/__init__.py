@@ -1,5 +1,7 @@
 """Models of the port: the dense decoder-only LM (``transformer.LM``), its
-building blocks (``layers``) and the weight converter (``convert``)."""
+building blocks (``layers``), the four GNNs (``gnn``) with their
+equivariant constants (``equivariant``), and the weight converter
+(``convert``)."""
 from .layers import LMConfig
 from .transformer import LM
 

@@ -1,6 +1,6 @@
 """Weights carried between the JAX reference and the port.
 
-The reference keeps an LM's parameters as a pytree with the layer weights
+**Language models.** The reference keeps an LM's parameters as a pytree with the layer weights
 stacked on a leading L axis::
 
     {"embed": (V, d), "out_head": (d, V), "final_norm": (d,),
@@ -11,12 +11,21 @@ stacked on a leading L axis::
 :func:`lm_from_numpy` takes that tree as numpy arrays (``jax.tree.map(
 np.asarray, params)``) and returns the port's :class:`~.transformer.LM`;
 :func:`lm_to_numpy` goes back.  Both keep the values and dtypes exactly.
+
+**GNNs.** The reference keeps a GNN's parameters as nested dicts and lists
+(an MLP is a list of ``{"w", "b"}``).  The port's GNN modules mirror that
+tree attribute for attribute (a dict key is a child module or parameter,
+a list index an entry of an ``nn.ModuleList``), so :func:`gnn_from_numpy`
+walks the tree into a freshly built module and :func:`gnn_to_numpy` walks
+the module back into the tree, both exactly.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .. import configs
+from .gnn import MODELS
 from .layers import LMConfig
 from .transformer import LM
 
@@ -64,3 +73,66 @@ def lm_to_numpy(lm: LM) -> dict:
                    "ln2": stack(lambda b: b.ln2),
                    "ffn": ffn},
     }
+
+
+def _gnn_config(arch_or_cfg):
+    if isinstance(arch_or_cfg, str):
+        spec = configs.get(arch_or_cfg)
+        if spec.family != "gnn":
+            raise ValueError(f"{arch_or_cfg!r} is not a GNN architecture")
+        return spec.make_config()
+    return arch_or_cfg
+
+
+def _walk_into(module, tree, path="") -> None:
+    if isinstance(tree, dict):
+        for key, sub in tree.items():
+            _walk_into(getattr(module, key), sub, f"{path}/{key}")
+    elif isinstance(tree, (list, tuple)):
+        if len(tree) != len(module):
+            raise ValueError(f"{path}: {len(tree)} entries, the port has "
+                             f"{len(module)}")
+        for i, sub in enumerate(tree):
+            _walk_into(module[i], sub, f"{path}/{i}")
+    else:
+        arr = np.asarray(tree)
+        if tuple(arr.shape) != tuple(module.shape):
+            raise ValueError(f"{path}: shape {arr.shape} does not match the "
+                             f"port's {tuple(module.shape)}")
+        module.copy_(torch.tensor(arr, dtype=module.dtype))
+
+
+def gnn_from_numpy(arch_or_cfg, tree: dict, *, d_feat=None, device="cuda"):
+    """The port's GNN module for ``arch_or_cfg`` (an arch id, whose published
+    config is taken, or a config dataclass) with the weights of the
+    reference's parameter tree (``jax.tree.map(np.asarray, params)``)."""
+    cfg = _gnn_config(arch_or_cfg)
+    model = MODELS[type(cfg)](cfg, d_feat=d_feat, device=device, init=False)
+    have = gnn_to_numpy(model)
+    if _keys(have) != _keys(tree):
+        raise ValueError(f"{cfg.name}: parameter tree differs from the "
+                         f"port's: {sorted(_keys(tree) ^ _keys(have))[:8]}")
+    with torch.no_grad():
+        _walk_into(model, tree)
+    return model
+
+
+def _keys(tree, path=""):
+    if isinstance(tree, dict):
+        return set().union(*(_keys(v, f"{path}/{k}") for k, v in
+                             tree.items())) if tree else set()
+    if isinstance(tree, (list, tuple)):
+        return set().union(*(_keys(v, f"{path}/{i}") for i, v in
+                             enumerate(tree))) if tree else set()
+    return {path}
+
+
+def gnn_to_numpy(module) -> dict | list:
+    """The reference's parameter tree of a port GNN module, as numpy."""
+    if isinstance(module, torch.nn.ModuleList):
+        return [gnn_to_numpy(m) for m in module]
+    tree = {name: p.detach().cpu().numpy()
+            for name, p in module.named_parameters(recurse=False)}
+    for name, child in module.named_children():
+        tree[name] = gnn_to_numpy(child)
+    return tree

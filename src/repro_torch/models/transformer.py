@@ -13,7 +13,7 @@ types (llama4: 3 chunked-local layers + 1 global).
 
 Not ported: the MoE FFN (an ``LMConfig`` with ``moe=True`` raises,
 ROADMAP A11), sharding (``MeshAxes``, ``param_specs``, ``cache_specs``),
-and training (``loss``, ``make_train_step``: slice 5).  ``remat`` has no
+and training (``loss``, ``make_train_step``; ROADMAP A11).  ``remat`` has no
 meaning without a gradient and is ignored.
 """
 from __future__ import annotations

@@ -1,8 +1,11 @@
 """Card-only tests of the PyTorch port: every Hopper kernel against its
 plain PyTorch version on the same CUDA tensors (bit for bit where the
 outputs are int32 or bool; the flash attention kernel to a stated float
-tolerance), the engines on the card against the engines on the CPU, and
-the LM's prefill (through the flash kernel) against its decode.  They skip where no CUDA device is present; on a machine with one
+tolerance; the segment sum, whose float atomics add in another order, to
+1e-5 of each segment's sum of absolute values), the engines on the card
+against the engines on the CPU, the LM's prefill (through the flash
+kernel) against its decode, and a GNN training step on the card against
+the same step on the CPU.  They skip where no CUDA device is present; on a machine with one
 run them with::
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -23,6 +26,7 @@ from repro_torch.kernels import first_live_scan as fls
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import frontier_compact as fc
 from repro_torch.kernels import frontier_expand as fex
+from repro_torch.kernels import segment_sum as ss
 
 pytestmark = pytest.mark.gpu
 
@@ -379,3 +383,82 @@ def test_lm_prefill_decode_on_card(cuda, dtype):
     lm_cpu.load_state_dict({k_: t.cpu() for k_, t in lm.state_dict().items()})
     cpu, _, _ = lm_cpu(toks.cpu())
     torch.testing.assert_close(full.cpu(), cpu, atol=tol, rtol=tol)
+
+
+def _segment_close(got, values, ids, n):
+    """|kernel - plain| <= 1e-5 * (sum of |v| in the segment) + 1e-6: f32
+    atomics add in an order that changes from run to run."""
+    want = ref.segment_sum_ref(values, ids, n)
+    absum = ref.segment_sum_ref(values.abs(), ids, n)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert bool(((got - want).abs() <= 1e-5 * absum + 1e-6).all())
+
+
+@pytest.mark.parametrize("m,d,n", [(0, 4, 1), (1, 4, 1), (5, 1, 3),
+                                   (1000, 3, 177), (1000, 4, 177),
+                                   (513, 16, 37), (333, 6272, 50),
+                                   (8192, 128, 3840)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ids_kind", ["in_range", "out_of_range", "int64"])
+def test_segment_sum_kernel(cuda, m, d, n, dtype, ids_kind):
+    rng = np.random.default_rng(m * 13 + d)
+    vals = torch.as_tensor(rng.normal(size=(m, d)), dtype=torch.float32,
+                           device=cuda).to(dtype)
+    lo, hi = (-2, n + 2) if ids_kind == "out_of_range" else (0, n)
+    ids = torch.as_tensor(rng.integers(lo, hi, m), device=cuda,
+                          dtype=torch.int64 if ids_kind == "int64"
+                          else torch.int32)
+    before = ops.LAUNCHES["segment_sum"]
+    _segment_close(ss.segment_sum(vals, ids, n), vals, ids, n)
+    assert ops.LAUNCHES["segment_sum"] == before + 1
+
+
+def test_segment_sum_kernel_views_and_3d(cuda):
+    rng = np.random.default_rng(3)
+    wide = torch.as_tensor(rng.normal(size=(700, 134)), dtype=torch.float32,
+                           device=cuda)
+    ids = torch.as_tensor(rng.integers(0, 90, 700), device=cuda)
+    for cols in (slice(0, 128), slice(1, 129), slice(3, 9)):
+        _segment_close(ss.segment_sum(wide[:, cols], ids, 90),
+                       wide[:, cols], ids, 90)
+    v3 = wide[:, :120].reshape(700, 15, 8)
+    got = ops.segment_sum(v3, ids, 90)
+    assert got.shape == (90, 15, 8)
+    _segment_close(got, v3, ids, 90)
+    with pytest.raises(TypeError):
+        ss.segment_sum(wide.half(), ids, 90)
+
+
+@pytest.mark.parametrize("arch", ["meshgraphnet", "schnet", "mace",
+                                  "equiformer-v2"])
+def test_gnn_train_step_on_card_matches_cpu(cuda, arch):
+    """One molecule step at the reduced config: loss and gradients on the
+    card (through the segment_sum kernel) equal the CPU's (its plain
+    version), loss to 1e-4 relative and every gradient to 1e-3 of its
+    tensor's largest entry; the kernel runs once per aggregation."""
+    from repro_torch import configs
+    from repro_torch.data import GraphBatchStream
+    from repro_torch.models import convert
+    from repro_torch.models.gnn import MODELS
+    from repro_torch.models.gnn.common import molecule_loss, molecule_union
+    cfg = configs.get(arch).make_reduced()
+    model = MODELS[type(cfg)](cfg, device=cuda,
+                              generator=torch.Generator(cuda).manual_seed(0))
+    cpu = convert.gnn_from_numpy(cfg, convert.gnn_to_numpy(model),
+                                 device="cpu")
+    batch = GraphBatchStream(4, 16, 48, seed=0).batch_at(0)
+    before = ops.LAUNCHES["segment_sum"]
+    loss = molecule_loss(model, molecule_union(batch, cuda))
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    per_step = {"meshgraphnet": lambda c: c.n_layers,
+                "schnet": lambda c: c.n_interactions,
+                "mace": lambda c: 15 * c.n_layers,       # 15 CG paths
+                "equiformer-v2": lambda c: 2 * c.n_layers}[arch](cfg)
+    assert ops.LAUNCHES["segment_sum"] == before + per_step
+    closs = molecule_loss(cpu, molecule_union(batch, "cpu"))
+    cgrads = torch.autograd.grad(closs, list(cpu.parameters()))
+    torch.testing.assert_close(loss.cpu(), closs, rtol=1e-4, atol=0)
+    for g, c in zip(grads, cgrads):
+        tol = 1e-3 * max(float(c.abs().max()), 1e-12)
+        torch.testing.assert_close(g.cpu(), c, atol=tol, rtol=0)

@@ -5,7 +5,9 @@ the JAX Pallas kernel (interpret mode) and the JAX ref twin on the same
 numpy inputs.  All outputs are int32 or bool, so the tolerance is exact.
 The flash attention twins are float: ``flash_attention_ref`` is held
 against the Pallas kernel at ``tests/test_kernels.py``'s tolerances, and
-against the naive oracle where the two agree (Sq <= Sk).
+against the naive oracle where the two agree (Sq <= Sk).  So is
+``segment_sum_ref``: against the Pallas segment sum at that file's 1e-4
+(the one-hot product and ``index_add_`` sum in other orders).
 The CUDA kernels themselves run only on a card: ``tests/test_torch_gpu.py``
 holds them against these plain versions there.
 """
@@ -23,6 +25,7 @@ from repro.kernels.frontier_compact import (frontier_compact_pallas,
                                             prefix_positions,
                                             sparse_expand_pallas)
 from repro.kernels.frontier_expand import frontier_expand as pallas_expand
+from repro.kernels.segment_reduce import segment_sum_pallas
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import bucket_peel as tbpl
 from repro_torch.kernels import counter_scatter as tcs
@@ -30,6 +33,7 @@ from repro_torch.kernels import first_live_scan as tfls
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import frontier_compact as tfc
 from repro_torch.kernels import frontier_expand as tfex
+from repro_torch.kernels import segment_sum as tss
 
 # the tensors here are tiny: intra-op threads only add overhead, and the
 # suite runs several test files side by side
@@ -417,3 +421,68 @@ def test_flash_attention_wrapper_refuses_cpu_tensors():
     with pytest.raises(TypeError, match="float32 or"):
         tfa.flash_attention(*(t.half() for t in tx))
     assert ops.LAUNCHES["flash_attention"] == 0
+
+
+# the cases of tests/test_kernels.py's test_segment_sum (m, d, n, be, bn),
+# its numpy-oracle cases with ids in [-2, n + 2), and 3-D values, m = 0,
+# bf16 and a column slice
+SEGMENT_CASES = [
+    (1000, (32,), 177, 256, 128, "f32", False), (512, (8,), 64, 128, 64,
+                                                 "f32", False),
+    (77, (16,), 33, 512, 512, "f32", False),
+    (513, (16,), 37, 128, 64, "f32", True), (128, (4,), 200, 128, 64, "f32",
+                                             True),
+    (300, (5, 8), 41, 128, 64, "f32", True), (96, (3,), 10, 128, 64, "bf16",
+                                              True),
+    (0, (6,), 9, 128, 64, "f32", False)]
+
+
+@pytest.mark.parametrize("m,rest,n,be,bn,dt,oob", SEGMENT_CASES)
+def test_segment_sum_ref_matches_pallas(m, rest, n, be, bn, dt, oob):
+    rng = np.random.default_rng(m * 7 + n)
+    vals = rng.normal(size=(m,) + rest).astype(np.float32)
+    ids = rng.integers(-2 if oob else 0, n + 2 if oob else n,
+                       m).astype(np.int32)
+    jdt, tdt = (jnp.float32, torch.float32) if dt == "f32" else \
+        (jnp.bfloat16, torch.bfloat16)
+    tv = torch.as_tensor(vals).to(tdt)
+    got = ops.segment_sum(tv, torch.as_tensor(ids), n)
+    assert got.dtype == torch.float32 and got.shape == (n,) + rest
+    assert torch.equal(got, ref.segment_sum_ref(tv, torch.as_tensor(ids), n))
+    want64 = np.zeros((n,) + rest, np.float64)
+    ok = (ids >= 0) & (ids < n)
+    np.add.at(want64, ids[ok], tv.float().numpy()[ok].astype(np.float64))
+    np.testing.assert_allclose(got.numpy(), want64, atol=1e-4, rtol=1e-4)
+    if m == 0:       # the Pallas kernel takes no empty input
+        return
+    d = int(np.prod(rest))
+    want = segment_sum_pallas(jnp.asarray(vals.reshape(m, d), jdt),
+                              jnp.asarray(ids), n, block_e=be, block_n=bn,
+                              interpret=True)
+    np.testing.assert_allclose(got.numpy().reshape(n, d), np.asarray(want),
+                               atol=1e-4, rtol=1e-4)
+
+
+def test_segment_sum_column_slice_and_int64_ids():
+    rng = np.random.default_rng(5)
+    wide = torch.as_tensor(rng.normal(size=(200, 12)).astype(np.float32))
+    ids = torch.as_tensor(rng.integers(0, 30, 200))
+    got = ops.segment_sum(wide[:, 2:9], ids, 30)
+    want = ops.segment_sum(wide[:, 2:9].contiguous(), ids.to(torch.int32),
+                           30)
+    assert torch.equal(got, want)
+
+
+def test_segment_sum_wrapper_refuses_cpu_tensors():
+    """The kernel wrapper launches on a CUDA device or raises; bad dtypes
+    and shapes raise before any device question."""
+    v, ids = torch.zeros((4, 3)), torch.zeros((4,), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        tss.segment_sum(v, ids, 2)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tss.segment_sum(v.half(), ids, 2)
+    with pytest.raises(TypeError, match="int32 or int64"):
+        tss.segment_sum(v, ids.to(torch.int16), 2)
+    with pytest.raises(ValueError, match=r"\(m, d\)"):
+        tss.segment_sum(v[None], ids, 2)
+    assert ops.LAUNCHES["segment_sum"] == 0

@@ -79,10 +79,14 @@ def test_configs_match_reference():
                  for k, c in configs.get(arch).shapes.items()}
                 == {k: dataclasses.asdict(c)
                     for k, c in jconfigs.get(arch).shapes.items()})
-    for arch in ("meshgraphnet", "schnet", "mace", "equiformer-v2",
-                 "wide-deep"):
-        with pytest.raises(NotImplementedError, match="A11"):
-            configs.get(arch)
+    for arch in ("meshgraphnet", "schnet", "mace", "equiformer-v2"):
+        assert configs.get(arch).family == "gnn"      # ported (GNN slice)
+        for make in ("make_config", "make_reduced"):
+            assert (dataclasses.asdict(getattr(configs.get(arch), make)())
+                    == dataclasses.asdict(getattr(jconfigs.get(arch),
+                                                  make)()))
+    with pytest.raises(NotImplementedError, match="A11"):
+        configs.get("wide-deep")
     with pytest.raises(KeyError):
         configs.get("no-such-arch")
 

@@ -118,3 +118,5 @@ def test_serve_cli_refuses_unported():
         serve.main(["--arch", "arctic-480b", "--smoke", "--device", "cpu"])
     with pytest.raises(SystemExit):
         serve.main(["--smoke", "--device", "cpu"])         # no --arch
+    with pytest.raises(SystemExit, match="lm/recsys"):     # as the reference
+        serve.main(["--arch", "schnet", "--smoke", "--device", "cpu"])
