@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one CUDA device: the trimming engine,
-then the SCC driver, the reachability engine, the k-core peel, the stream
-engine (incremental trimming), the command line, LM serving and GNN
-training.
+the static checks, then the SCC driver, the reachability engine, the
+k-core peel, the stream engine (incremental trimming), the command line,
+LM serving and GNN training.
 
     python3 chip_smoke.py               # the check, a few minutes on an H100
     python3 chip_smoke.py --profile     # also: where the time goes (phase 7)
@@ -109,6 +109,24 @@ non-zero and prints no result line):
    repro_torch.launch.train --arch meshgraphnet --steps 5``.  The launch
    counts are set to 0 before each run and summed.  ``--profile`` adds one
    molecule and one minibatch_lg step to phase 7.
+13. (run right after phase 1) the static checks on the card's machine,
+   with the launch counts set to 0 just before and read just after: (a)
+   ``python -m repro_torch.analysis.check --strict`` (0 errors, 0
+   warnings; subject counts per checker) and ``--mutants`` (every mutant
+   run caught, the A7 ones waiting), also through ``launch.trim --app
+   check``; (b) the declarations held against the card: every
+   ``KERNEL_CATALOG`` point, the copy kernel's and one real-size call of
+   each kernel (phase 1's shapes) run on zero-filled CUDA tensors under
+   torch.profiler, and the kernels' grid and block read from the chrome
+   trace must equal the captured launch records, in order; every kernel
+   must have run.  Then (c) ``mutant_copy`` (the corpus's well-formed
+   geometry; its twins never run) against ``x.clone()`` bit for bit at
+   n = 4,194,304, n = 0, n = 1 and a ragged tail, with and without the
+   carry word: kernel, plain and ``x.clone()`` times and the bytes bound;
+   (d) the host syncs of one warm AC-4 and one AC-6 trim at RMAT scale 22,
+   counted by ``torch.cuda.set_sync_debug_mode("warn")`` and by the CPU
+   lint's counter, must both equal the lint's budget for the rounds and
+   probe steps the card ran.
 
 The last two lines are the kernel table and the result, as JSON.  Needs
 one CUDA device; imports nothing of JAX or of the JAX package.
@@ -180,6 +198,8 @@ KERNELS = {   # name -> (CUDA source, the Pallas kernel it replaces)
                         "src/repro/kernels/flash_attention.py:87"),
     "segment_sum": ("src/repro_torch/kernels/csrc/segment_sum.cu",
                     "src/repro/kernels/segment_reduce.py:47"),
+    "mutant_copy": ("src/repro_torch/kernels/csrc/mutant_copy.cu",
+                    "src/repro/analysis/mutants.py:60"),
 }
 TRIM_PATH = ("first_live_scan", "prefix_positions", "frontier_compact",
              "sparse_expand")
@@ -187,6 +207,9 @@ SCC_PEEL_PATH = ("frontier_expand", "bucket_peel")
 STREAM_PATH = ("counter_scatter",)
 SERVE_PATH = ("flash_attention",)
 TRAIN_PATH = ("segment_sum",)
+# phase 13 launches every kernel; the copy kernel is this path's own
+ANALYSIS_PATH = tuple(KERNELS)
+MUTANT_N = 4_194_304
 # benchmarks/bench_stream.py SIZES (the sizes BENCH_stream.json was made at)
 STREAM_SIZES = {
     "ER": dict(n=50_000, m=400_000, seed=1, simple=True),
@@ -229,6 +252,10 @@ OGB = dict(n=2_449_029, m=61_859_140, d=128)
 # phase 12 step against the CPU: loss relative, gradients to a share of
 # each tensor's largest entry (the f32 sums run in other orders)
 TRAIN_TOL = dict(loss=1e-4, grad=1e-3)
+# the message of torch's sync debug mode for one synchronizing operation
+# (enabling the mode also warns, once a process, with another message that
+# mentions synchronizing operations: it is not a sync)
+SYNC_WARNING = "called a synchronizing CUDA operation"
 INF_NOTE = (" (overflows float32: the reference's clip scales every update "
             "to 0, so the parameters stay as they are; ROADMAP C)")
 
@@ -1196,6 +1223,212 @@ def stream_real_phase(dev, g):
     return engine, feed
 
 
+# -- phase 13: the static checks ----------------------------------------------
+
+def static_checks_phase():
+    """(a): the checker's strict and mutant runs through both entry
+    points."""
+    from repro_torch.analysis import check as ac
+    from repro_torch.launch import trim as cli
+    out = ROOT / "build" / "analysis_strict.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    check(ac.main(["--strict", "--json", str(out)]) == 0,
+          "the static checks failed under --strict")
+    report = json.loads(out.read_text())
+    check(report["counts"]["error"] == 0 and report["counts"]["warning"] == 0,
+          f"static checks: {report['counts']}")
+    t_strict = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mutants, ok = ac.run_mutant_checks()
+    check(ok, "a mutant survived its checker, or the copy kernel's own "
+              "geometry was flagged")
+    caught = sum(f.checker == "mutant-caught" for f in mutants.findings)
+    waiting = sum(f.checker == "mutant-waiting" for f in mutants.findings)
+    check(cli.main(["--app", "check", "--mutants"]) == 0,
+          "launch.trim --app check --mutants failed")
+    log(f"# phase 13: static checks --strict: 0 errors, 0 warnings; "
+        f"subjects per checker {report['subjects_checked']} "
+        f"({t_strict:.1f} s on the host CPU); --mutants: {caught} caught, "
+        f"{waiting} waiting (A7), copy kernel clean "
+        f"({time.perf_counter() - t0:.2f} s for both entry points)")
+
+
+def card_launches(calls):
+    """Run ``calls`` (thunks) on the card under torch.profiler; the port's
+    kernels that ran, in order, as ``(kernel, grid, block)`` from the
+    chrome trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.analysis.capture import profiled_launches
+    from repro_torch.analysis.catalog import LAUNCH_DECLARATIONS
+    from repro_torch.analysis.mutants import MUTANT_DECLARATIONS
+    names = {k for _, k in (*LAUNCH_DECLARATIONS, *MUTANT_DECLARATIONS)}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for fn in calls:
+            fn()
+        torch.cuda.synchronize()
+    path = ROOT / "build" / "analysis_trace.json"
+    prof.export_chrome_trace(str(path))
+    trace = json.loads(path.read_text())
+    path.unlink()
+    return profiled_launches(trace, names)
+
+
+def declarations_phase(dev, g_t, cap, ecap):
+    """(b): every catalog point and one real-size call per kernel: the
+    captured launch records against the kernels the card ran."""
+    import torch
+
+    from repro_torch.analysis.capture import capture_kernel
+    from repro_torch.analysis.catalog import KERNEL_CATALOG, tensor
+    from repro_torch.kernels import bucket_peel as bpl
+    from repro_torch.kernels import counter_scatter as cs
+    from repro_torch.kernels import first_live_scan as fls
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import frontier_compact as fc
+    from repro_torch.kernels import frontier_expand as fex
+    from repro_torch.kernels import mutant_copy as mc
+    from repro_torch.kernels import segment_sum as ss
+
+    n = g_t.n
+    b, hq, hkv, s_, d = (FLASH_REAL[k] for k in ("b", "hq", "hkv", "s", "d"))
+    # phase 1's real shapes, zero-filled (zeros are valid input to each)
+    real = [
+        (fls.first_live_scan, ((n, 16), (n, 16), n), ("bool",) * 3, {}),
+        (fc.prefix_positions, (n,), ("int32",), {}),
+        (fc.frontier_compact, (n, cap), ("bool", None), {}),
+        (fc.sparse_expand, (n + 1, g_t.m, cap, ecap),
+         ("int32", "int32", "int32", None), {}),
+        (fex.frontier_expand, ((n, 16), (n, 16), n), ("bool",) * 3, {}),
+        (bpl.bucket_peel, (n, n, 1), ("int32", "bool", "int32"), {}),
+        (cs.counter_scatter, (n, n, 65_536, 65_536),
+         ("int32", "bool", "int32", "int32"), {}),
+        (fa.flash_attention, ((b, hq, s_, d), (b, hkv, s_, d),
+                              (b, hkv, s_, d)), ("bfloat16",) * 3, {}),
+        (ss.segment_sum, ((LG["m"], 128), LG["m"], LG["n"]),
+         ("float32", "int64", None), {}),
+        (mc.mutant_copy, (MUTANT_N,), ("int32",), {}),
+        (mc.mutant_copy, (64, 1), ("int32", "int32"), {"block": 16}),
+        (mc.mutant_copy, (64,), ("int32",), {"block": 16}),
+    ]
+
+    def args_on(shapes, dtypes, device):
+        return [sh if dt is None else tensor(sh, dt, 0, device)
+                for sh, dt in zip(shapes, dtypes)]
+
+    want, calls, points = [], [], 0
+    for entry in KERNEL_CATALOG:
+        for point in entry.points:
+            want += entry.build(point)
+            calls.append(lambda e=entry, p=point: e.run(p, dev))
+            points += 1
+    for fn, shapes, dtypes, kw in real:
+        want += capture_kernel(fn, *args_on(shapes, dtypes, "meta"), **kw)
+        args = args_on(shapes, dtypes, dev)
+        calls.append(lambda fn=fn, args=args, kw=kw: fn(*args, **kw))
+    got = card_launches(calls)
+    want = [(w.kernel, tuple(w.grid), tuple(w.block)) for w in want]
+    for i, (w, g_) in enumerate(zip(want, got)):
+        check(w == g_, f"launch {i}: captured {w}, the card ran {g_}")
+    check(len(want) == len(got), f"{len(want)} launches captured, "
+                                 f"{len(got)} on the card")
+    torch.cuda.synchronize()
+    log(f"# phase 13: declarations held against the card: {len(got)} "
+        f"launches ({points} catalog points, {len(real)} real-size calls; "
+        f"{len({k for k, _, _ in got})} kernels) ran with the captured "
+        f"kernel, grid and block, in order")
+
+
+def mutant_copy_phase(dev):
+    """(c): the copy kernel against x.clone(), bit for bit; times at
+    n = MUTANT_N.  Returns its row of the kernel table."""
+    import torch
+
+    from repro_torch.kernels import mutant_copy as mc
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def ints(n):
+        return torch.randint(-2**31, 2**31 - 1, (n,), generator=gen,
+                             device=dev, dtype=torch.int32)
+    carry = torch.tensor([7], dtype=torch.int32, device=dev)
+    for n in (0, 1, 255, 1000, 4097):
+        x = ints(n)
+        for c in (None, carry):
+            for block in (16, 256, 1024):
+                got = mc.mutant_copy(x, c, block=block)
+                check(torch.equal(got, ref.mutant_copy_ref(x, c)),
+                      f"mutant_copy n={n} block={block} carry={c}")
+    x = ints(MUTANT_N)
+    err = max_abs_err((mc.mutant_copy(x),), (x.clone(),))
+    check(err == 0, "mutant_copy differs from x.clone() at the real size")
+    check(torch.equal(mc.mutant_copy(x, carry), x + 7),
+          "mutant_copy with a carry differs at the real size")
+
+    def kern():
+        return mc.mutant_copy(x)
+    row = dict(max_abs_err=err, ms=time_ms(kern),
+               plain_ms=time_ms(lambda: ref.mutant_copy_ref(x)),
+               library_ms=time_ms(x.clone),
+               bound_ms=8 * MUTANT_N / HBM_BYTES_PER_S * 1e3,
+               bound_by="bytes")
+    log(f"# phase 13: mutant_copy bit-identical to x.clone() (n = 0, 1, "
+        f"255, 1000, 4097 and {MUTANT_N:,}; blocks 16, 256, 1024; with and "
+        f"without the carry word); n={MUTANT_N:,}: kernel_ms="
+        f"{row['ms']:.4f} device_ms={device_ms(kern):.4f} plain_ms="
+        f"{row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
+        f"(x.clone()) bound_ms={row['bound_ms']:.4f}")
+    return row
+
+
+def sync_budget_phase(dev, g, gt):
+    """(d): one warm AC-4 and one AC-6 trim at the real size: the host
+    syncs torch counts on the card, and the CPU lint's counter, against
+    the lint's budget for the rounds and probe steps the card ran."""
+    import warnings
+
+    import torch
+
+    from repro_torch.analysis import syncs
+    from repro_torch.analysis.catalog import PLAN_CATALOG
+    from repro_torch.core import plan
+    budgets = {e.name: e for e in PLAN_CATALOG}
+    # the auto frontier syncs as the sparse one does: one read a round,
+    # which also carries the dense/sparse choice
+    for method, entry in (("ac4", "trim/ac4[probe=dense,frontier=sparse]"),
+                          ("ac6", "trim/ac6[probe=dense,frontier=sparse]")):
+        eng = plan(g, method=method, workers=16, transpose=gt, device=dev)
+        eng.run()
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            with syncs.probe_tests() as probes:
+                with syncs.SyncCounter() as counter:
+                    torch.cuda.set_sync_debug_mode("warn")
+                    try:
+                        res = eng.run()
+                    finally:
+                        torch.cuda.set_sync_debug_mode("default")
+        card = sum(SYNC_WARNING in str(w.message) for w in rec)
+        rounds, tests = res.rounds, probes.tests()
+        want = syncs.budget(budgets[entry], rounds, tests)
+        log(f"# phase 13: {method} at RMAT scale 22 (auto frontier): "
+            f"{rounds} rounds, {tests} probe-loop tests; host syncs on the "
+            f"card {card}, counted by the lint {counter.syncs}, budget "
+            f"{want}")
+        sites = [f"{Path(w.filename).name}:{w.lineno}" for w in rec
+                 if SYNC_WARNING in str(w.message)]
+        check(card == want and counter.syncs == want,
+              f"{method}: {card} syncs on the card ({sites}), "
+              f"{counter.syncs} by the lint ({counter.events}), budget "
+              f"{want}")
+
+
 # -- phase 10: the command line ------------------------------------------------
 
 def cli_phase():
@@ -1610,7 +1843,7 @@ def profile_run(label, fn):
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    syncs = sum("synchroniz" in str(w.message) for w in rec)
+    syncs = sum(SYNC_WARNING in str(w.message) for w in rec)
     top = "; ".join(f"{name[:48]} {tot:.1f}ms x{cnt}"
                     for name, (tot, cnt) in kern[:6])
     log(f"# profile: {label}: wall_ms={wall:.1f} "
@@ -1757,6 +1990,18 @@ def main() -> int:
     rows = kernel_phase(dev, gt, fplan.cap, fplan.ecap)
     rows["flash_attention"] = flash_phase(dev)
     rows["segment_sum"] = segment_phase(dev)
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    static_checks_phase()
+    declarations_phase(dev, gt, fplan.cap, fplan.ecap)
+    analysis_launches = dict(ops.LAUNCHES)
+    log(f"# phase 13: launches in (a) and (b): {analysis_launches}")
+    for name in ANALYSIS_PATH:
+        check(analysis_launches[name] > 0,
+              f"{name} was never launched in the static checks' phase")
+    rows["mutant_copy"] = mutant_copy_phase(dev)
+    sync_budget_phase(dev, g, gt)
+    log(f"# phase 13: done in {time.perf_counter() - t0:.1f} s")
     ops.reset_launches()
     reference_phase(dev)
     log(f"# phase 4: launches in phase 2 (BENCH_trim.json sizes): "
@@ -1805,7 +2050,8 @@ def main() -> int:
                      **{n: scc_launches for n in SCC_PEEL_PATH},
                      **{n: stream_launches for n in STREAM_PATH},
                      **{n: serve_launches for n in SERVE_PATH},
-                     **{n: train_launches for n in TRAIN_PATH}}
+                     **{n: train_launches for n in TRAIN_PATH},
+                     "mutant_copy": analysis_launches}
     launches = {name: path_launches[name][name] for name in KERNELS}
     table = [dict(name=name, route="cuda", source=KERNELS[name][0],
                   replaces=KERNELS[name][1], launches=launches[name],

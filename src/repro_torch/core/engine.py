@@ -110,6 +110,25 @@ class TrimEngine(EngineBase):
         self._tarrs = None
         self._worker_ids = None
 
+    def plan_signature(self) -> str:
+        """The reference's signature string for the same plan."""
+        sig = (f"trim[{self.method}/{self.backend}]"
+               f"(n={self.graph.n},m={self.graph.m},w={self.workers})")
+        if self.fplan.mode != "dense":
+            sig += f"+frontier[{self.fplan.mode}]"
+        return sig
+
+    def _plan_kwargs(self):
+        """The reference's plan kwargs without ``use_kernel`` (the device
+        is the port's only switch); ``packed`` is the sharded backend's
+        (ROADMAP A6) and ``instrument`` / ``max_rounds`` the stats' (A7),
+        so they keep their defaults."""
+        return {"method": self.method, "backend": self.backend,
+                "workers": self.workers, "chunk": self.chunk,
+                "window": self.window, "packed": False,
+                "unmasked": self.unmasked, "frontier": self.fplan.mode,
+                "instrument": False, "max_rounds": None}
+
     # -- cached resources --------------------------------------------------
     def _transpose_arrays(self):
         if not self.spec.needs_transpose:

@@ -284,6 +284,19 @@ class PeelEngine(EngineBase):
         self._garrs = None
         self._tarrs = None
 
+    def plan_signature(self) -> str:
+        """The reference's signature string for the same plan."""
+        return (f"peel[{self.method}]"
+                f"(n={self.graph.n},m={self.graph.m})"
+                f"+frontier[{self.fplan.mode}]")
+
+    def _plan_kwargs(self):
+        """The reference's plan kwargs without ``use_kernel``;
+        ``instrument`` / ``max_rounds`` keep their defaults (ROADMAP
+        A7)."""
+        return {"method": self.method, "frontier": self.fplan.mode,
+                "instrument": False, "max_rounds": None}
+
     # -- cached resources --------------------------------------------------
     def _graph_arrays(self):
         if self._garrs is None:

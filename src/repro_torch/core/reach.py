@@ -319,6 +319,20 @@ class ReachEngine(EngineBase):
         self._overflow = None
         self._tile = None
 
+    def plan_signature(self) -> str:
+        """The reference's signature string for the same plan."""
+        return (f"reach[{self.method}/{self.backend}]"
+                f"(n={self.graph.n},m={self.graph.m})"
+                f"+frontier[{self.fplan.mode}]")
+
+    def _plan_kwargs(self):
+        """The reference's plan kwargs without ``use_kernel``;
+        ``instrument`` / ``max_rounds`` keep their defaults (ROADMAP
+        A7)."""
+        return {"backend": self.backend, "window": self.window,
+                "frontier": self.fplan.mode, "instrument": False,
+                "max_rounds": None}
+
     # -- cached arrays -----------------------------------------------------
     def _graph_arrays(self):
         if self._garrs is None:

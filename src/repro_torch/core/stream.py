@@ -303,6 +303,16 @@ class StreamEngine(EngineBase):
                 f"cap={self.delta.capacity})"
                 f"+frontier[{self.fplan.mode}]")
 
+    def _plan_kwargs(self):
+        """The reference's plan kwargs without ``use_kernel``;
+        ``instrument`` / ``max_rounds`` keep their defaults (ROADMAP
+        A7)."""
+        return {"method": self.method, "backend": self.backend,
+                "capacity": self.delta.capacity,
+                "load_factor": self.delta.load_factor,
+                "frontier": self.fplan.mode, "instrument": False,
+                "max_rounds": None}
+
     # -- cached resources --------------------------------------------------
     def _transpose_arrays(self):
         """Base Gᵀ arrays, Gᵀ row ids and the Gᵀ-edge -> base-edge

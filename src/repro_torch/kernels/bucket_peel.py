@@ -19,17 +19,10 @@ import torch
 from . import _build
 
 _VP = ctypes.c_void_p
-_READY = []
-
-
-def _lib():
-    lib = _build.load("bucket_peel")
-    if not _READY:
-        lib.bucket_peel_launch.restype = ctypes.c_int
-        lib.bucket_peel_launch.argtypes = [
-            _VP, _VP, _VP, _VP, ctypes.c_int64, ctypes.c_int, _VP]
-        _READY.append(True)
-    return lib
+_build.declare("bucket_peel", {
+    "bucket_peel_vec4_launch": [_VP] * 4 + [ctypes.c_int64, _VP],
+    "bucket_peel_scalar_launch": [_VP] * 4 + [ctypes.c_int64, _VP]})
+THREADS = 256
 
 
 def bucket_peel(counters, alive, k):
@@ -54,11 +47,21 @@ def bucket_peel(counters, alive, k):
     out = torch.empty((n,), dtype=torch.bool, device=counters.device)
     if n == 0:
         return out
-    lib = _lib()
-    vec4 = int(counters.data_ptr() % 16 == 0 and alive.data_ptr() % 4 == 0
-               and out.data_ptr() % 4 == 0)
-    _build.check(lib, "bucket_peel", lib.bucket_peel_launch(
-        _build.c_ptr(counters), _build.c_ptr(alive), _build.c_ptr(k),
-        _build.c_ptr(out), n, vec4, _build.stream_of(counters)))
+    ptrs = [_build.c_ptr(t) for t in (counters, alive, k, out)]
+    if (counters.data_ptr() % 16 == 0 and alive.data_ptr() % 4 == 0
+            and out.data_ptr() % 4 == 0):
+        # a thread per quad, plus one for the n % 4 tail when there is one
+        spec = _build.Launch(
+            "bucket_peel", "bucket_peel_vec4",
+            (_build.blocks(n // 4 + (n % 4 != 0), THREADS), 1, 1),
+            (THREADS, 1, 1), 0, {"out": out})
+        _build.launch(spec, "bucket_peel_vec4_launch", *ptrs, n,
+                      _build.stream_of(counters))
+    else:
+        spec = _build.Launch("bucket_peel", "bucket_peel_scalar",
+                             (_build.blocks(n, THREADS), 1, 1),
+                             (THREADS, 1, 1), 0, {"out": out})
+        _build.launch(spec, "bucket_peel_scalar_launch", *ptrs, n,
+                      _build.stream_of(counters))
     _build.LAUNCHES["bucket_peel"] += 1
     return out

@@ -17,9 +17,12 @@
 //   kernel).  A quad with no alive vertex stores zeros and never loads its
 //   counters: the GPU form of the TPU kernel's block skip, which is what
 //   makes late peel rounds (most vertices assigned) cheap.  The n % 4 tail
-//   goes to one extra thread.
+//   goes to one extra thread, which the wrapper's grid holds only when
+//   there is a tail.
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "launch.cuh"
 
 namespace {
 
@@ -70,37 +73,32 @@ __global__ void bucket_peel_scalar(const int32_t* __restrict__ counters,
 
 extern "C" {
 
-const char* repro_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+// counters: (n,) int32, 16-byte aligned; alive, out: (n,) uint8
+// (torch.bool), 4-byte aligned; k: 1 int32 on the device.  One thread per
+// quad of vertices, plus one for the n % 4 tail when there is one.
+int bucket_peel_vec4_launch(const void* counters, const void* alive,
+                            const void* k, void* out, int64_t n, void* stream,
+                            REPRO_GEOMETRY) {
+  bucket_peel_vec4<<<REPRO_GRID, REPRO_BLOCK, smem,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int4*>(counters), static_cast<const uint32_t*>(alive),
+      static_cast<const int32_t*>(k), static_cast<uint32_t*>(out),
+      static_cast<const int32_t*>(counters),
+      static_cast<const uint8_t*>(alive), static_cast<uint8_t*>(out), n / 4,
+      n);
+  return repro_last_error();
 }
 
-// counters: (n,) int32; alive, out: (n,) uint8 (torch.bool); k: 1 int32
-// on the device.  vec4 != 0 promises counters 16-byte aligned and alive,
-// out 4-byte aligned.
-int bucket_peel_launch(const void* counters, const void* alive, const void* k,
-                       void* out, int64_t n, int vec4, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaGetLastError());
-  const int threads = 256;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec4) {
-    const int64_t quads = n / 4;
-    const int64_t work = quads + 1;  // + the tail thread
-    const unsigned blocks =
-        static_cast<unsigned>((work + threads - 1) / threads);
-    bucket_peel_vec4<<<blocks, threads, 0, s>>>(
-        static_cast<const int4*>(counters),
-        static_cast<const uint32_t*>(alive), static_cast<const int32_t*>(k),
-        static_cast<uint32_t*>(out), static_cast<const int32_t*>(counters),
-        static_cast<const uint8_t*>(alive), static_cast<uint8_t*>(out), quads,
-        n);
-  } else {
-    const unsigned blocks = static_cast<unsigned>((n + threads - 1) / threads);
-    bucket_peel_scalar<<<blocks, threads, 0, s>>>(
-        static_cast<const int32_t*>(counters),
-        static_cast<const uint8_t*>(alive), static_cast<const int32_t*>(k),
-        static_cast<uint8_t*>(out), n);
-  }
-  return static_cast<int>(cudaGetLastError());
+// The same without alignment: one thread per vertex.
+int bucket_peel_scalar_launch(const void* counters, const void* alive,
+                              const void* k, void* out, int64_t n,
+                              void* stream, REPRO_GEOMETRY) {
+  bucket_peel_scalar<<<REPRO_GRID, REPRO_BLOCK, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(counters),
+      static_cast<const uint8_t*>(alive), static_cast<const int32_t*>(k),
+      static_cast<uint8_t*>(out), n);
+  return repro_last_error();
 }
 
 }  // extern "C"

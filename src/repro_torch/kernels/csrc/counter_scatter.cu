@@ -16,7 +16,8 @@
 // Design: the TPU has no scatter-add, so the Pallas kernel builds a
 //   (block_u x block_v) membership matrix per grid cell and skips vertex
 //   blocks that no update touches.  Hopper has int32 atomics, so:
-//   1. out <- counters, one device-to-device copy on the stream;
+//   1. out <- counters, one device-to-device copy on the stream (the
+//      wrapper clones instead when the batch is empty);
 //   2. one thread per update: atomicAdd(&out[src], delta) when the source
 //      is in range and the delta is non-zero.  Int32 addition is exact and
 //      does not depend on order, so the result is bit-identical to the
@@ -26,11 +27,14 @@
 //      one 4-byte load of status, one 4-byte store of dead (the wrapper
 //      checks the alignment; unaligned pointers take a scalar kernel).  A
 //      quad with no live vertex stores zeros without loading its counters.
-//      The n % 4 tail goes to one extra thread.
+//      The n % 4 tail goes to one extra thread, which the wrapper's grid
+//      holds only when there is a tail.
 //   Many updates on one source (an RMAT hub) serialise their atomics on
 //   one address; aggregating them within a warp first is later work.
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "launch.cuh"
 
 namespace {
 
@@ -88,48 +92,43 @@ __global__ void deaths_scalar(const int32_t* __restrict__ out,
 
 extern "C" {
 
-const char* repro_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
-// counters, out: (n,) int32; status, dead: (n,) uint8 (torch.bool); src,
-// delta: (b,) int32.  vec4 != 0 promises out 16-byte aligned and status,
-// dead 4-byte aligned.
-int counter_scatter_launch(const void* counters, const void* status,
-                           const void* src, const void* delta, void* out,
-                           void* dead, int64_t n, int64_t b, int vec4,
-                           void* stream) {
-  if (n <= 0) return static_cast<int>(cudaGetLastError());
-  const int threads = 256;
+// counters, out: (n,) int32; src, delta: (b,) int32, b >= 1.  Copies the
+// counters into out, then one thread per update adds its delta.
+int scatter_updates_launch(const void* counters, const void* src,
+                           const void* delta, void* out, int64_t n, int64_t b,
+                           void* stream, REPRO_GEOMETRY) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemcpyAsync(out, counters, n * sizeof(int32_t),
                                     cudaMemcpyDeviceToDevice, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (b > 0) {
-    const unsigned blocks = static_cast<unsigned>((b + threads - 1) / threads);
-    scatter_updates<<<blocks, threads, 0, s>>>(
-        static_cast<const int32_t*>(src), static_cast<const int32_t*>(delta),
-        static_cast<int32_t*>(out), b, n);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  if (vec4) {
-    const int64_t quads = n / 4;
-    const int64_t work = quads + 1;  // + the tail thread
-    const unsigned blocks =
-        static_cast<unsigned>((work + threads - 1) / threads);
-    deaths_vec4<<<blocks, threads, 0, s>>>(
-        static_cast<const int4*>(out), static_cast<const uint32_t*>(status),
-        static_cast<uint32_t*>(dead), static_cast<const int32_t*>(out),
-        static_cast<const uint8_t*>(status), static_cast<uint8_t*>(dead),
-        quads, n);
-  } else {
-    const unsigned blocks = static_cast<unsigned>((n + threads - 1) / threads);
-    deaths_scalar<<<blocks, threads, 0, s>>>(
-        static_cast<const int32_t*>(out), static_cast<const uint8_t*>(status),
-        static_cast<uint8_t*>(dead), n);
-  }
-  return static_cast<int>(cudaGetLastError());
+  scatter_updates<<<REPRO_GRID, REPRO_BLOCK, smem, s>>>(
+      static_cast<const int32_t*>(src), static_cast<const int32_t*>(delta),
+      static_cast<int32_t*>(out), b, n);
+  return repro_last_error();
+}
+
+// out: (n,) int32, 16-byte aligned; status, dead: (n,) uint8
+// (torch.bool), 4-byte aligned.  One thread per quad of vertices, plus one
+// for the n % 4 tail when there is one.
+int deaths_vec4_launch(const void* out, const void* status, void* dead,
+                       int64_t n, void* stream, REPRO_GEOMETRY) {
+  deaths_vec4<<<REPRO_GRID, REPRO_BLOCK, smem,
+                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int4*>(out), static_cast<const uint32_t*>(status),
+      static_cast<uint32_t*>(dead), static_cast<const int32_t*>(out),
+      static_cast<const uint8_t*>(status), static_cast<uint8_t*>(dead),
+      n / 4, n);
+  return repro_last_error();
+}
+
+// The same without alignment: one thread per vertex.
+int deaths_scalar_launch(const void* out, const void* status, void* dead,
+                         int64_t n, void* stream, REPRO_GEOMETRY) {
+  deaths_scalar<<<REPRO_GRID, REPRO_BLOCK, smem,
+                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(out), static_cast<const uint8_t*>(status),
+      static_cast<uint8_t*>(dead), n);
+  return repro_last_error();
 }
 
 }  // extern "C"

@@ -21,6 +21,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
+
 namespace {
 
 __device__ __forceinline__ int first_set_byte(uint32_t w) {
@@ -77,31 +79,30 @@ __global__ void first_live_any(const uint8_t* __restrict__ flags,
 
 extern "C" {
 
-const char* repro_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+// flags, valid: (n, 16) uint8 (torch.bool), row-major, contiguous, 16-byte
+// aligned.  One thread per row.
+int first_live_w16_launch(const void* flags, const void* valid,
+                          const void* active, void* first, void* found,
+                          int64_t n, void* stream, REPRO_GEOMETRY) {
+  first_live_w16<<<REPRO_GRID, REPRO_BLOCK, smem,
+                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(flags), static_cast<const uint4*>(valid),
+      static_cast<const uint8_t*>(active), static_cast<int32_t*>(first),
+      static_cast<uint8_t*>(found), n);
+  return repro_last_error();
 }
 
 // flags, valid: (n, window) uint8 (torch.bool), row-major, contiguous.
-// vec16 != 0 promises window == 16 and 16-byte aligned flags/valid.
-int first_live_scan_launch(const void* flags, const void* valid,
-                           const void* active, void* first, void* found,
-                           int64_t n, int window, int vec16, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaGetLastError());
-  const int threads = 256;
-  const unsigned blocks = static_cast<unsigned>((n + threads - 1) / threads);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec16) {
-    first_live_w16<<<blocks, threads, 0, s>>>(
-        static_cast<const uint4*>(flags), static_cast<const uint4*>(valid),
-        static_cast<const uint8_t*>(active), static_cast<int32_t*>(first),
-        static_cast<uint8_t*>(found), n);
-  } else {
-    first_live_any<<<blocks, threads, 0, s>>>(
-        static_cast<const uint8_t*>(flags), static_cast<const uint8_t*>(valid),
-        static_cast<const uint8_t*>(active), static_cast<int32_t*>(first),
-        static_cast<uint8_t*>(found), n, window);
-  }
-  return static_cast<int>(cudaGetLastError());
+int first_live_any_launch(const void* flags, const void* valid,
+                          const void* active, void* first, void* found,
+                          int64_t n, int window, void* stream,
+                          REPRO_GEOMETRY) {
+  first_live_any<<<REPRO_GRID, REPRO_BLOCK, smem,
+                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(flags), static_cast<const uint8_t*>(valid),
+      static_cast<const uint8_t*>(active), static_cast<int32_t*>(first),
+      static_cast<uint8_t*>(found), n, window);
+  return repro_last_error();
 }
 
 }  // extern "C"

@@ -38,6 +38,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int TQ = 64;        // q rows per thread block
@@ -247,25 +249,34 @@ __global__ void __launch_bounds__(THREADS, 2) flash_fwd(Params p) {
   }
 }
 
+// The wrapper's geometry must be the kernel's: THREADS threads, the
+// dynamic shared memory of smem_floats<D>(), and one block per (b, hq,
+// q tile) (the kernel decodes blockIdx.x into them).
 template <typename T, int D>
-int launch(const Params& p, cudaStream_t stream) {
+int launch(const Params& p, cudaStream_t stream, dim3 grid, dim3 block,
+           unsigned smem) {
   constexpr int bytes = smem_floats<D>() * static_cast<int>(sizeof(float));
+  const int64_t tiles = (p.sq + TQ - 1) / TQ * p.b * p.hq;
+  if (block.x != THREADS || block.y != 1 || block.z != 1 ||
+      smem != static_cast<unsigned>(bytes) ||
+      static_cast<int64_t>(grid.x) != tiles || grid.y != 1 || grid.z != 1)
+    return repro_invalid();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t blocks = (p.sq + TQ - 1) / TQ * p.b * p.hq;
-  flash_fwd<T, D><<<static_cast<unsigned>(blocks), THREADS, bytes, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  flash_fwd<T, D><<<grid, block, smem, stream>>>(p);
+  return repro_last_error();
 }
 
 template <typename T>
-int launch_d(const Params& p, int64_t d, cudaStream_t stream) {
+int launch_d(const Params& p, int64_t d, cudaStream_t stream, dim3 grid,
+             dim3 block, unsigned smem) {
   switch (d) {
-    case 16: return launch<T, 16>(p, stream);
-    case 32: return launch<T, 32>(p, stream);
-    case 64: return launch<T, 64>(p, stream);
-    case 128: return launch<T, 128>(p, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 16: return launch<T, 16>(p, stream, grid, block, smem);
+    case 32: return launch<T, 32>(p, stream, grid, block, smem);
+    case 64: return launch<T, 64>(p, stream, grid, block, smem);
+    case 128: return launch<T, 128>(p, stream, grid, block, smem);
+    default: return repro_invalid();
   }
 }
 
@@ -273,29 +284,27 @@ int launch_d(const Params& p, int64_t d, cudaStream_t stream) {
 
 extern "C" {
 
-const char* repro_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out alike).  strides: 12
 // element strides, dims 0-2 of q, k, v and out in that order (dim 3 has
-// stride 1).  d in {16, 32, 64, 128}; the wrapper checks shapes and blocks.
-int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* out, int64_t b, int64_t hq, int64_t hkv,
-                           int64_t sq, int64_t sk, int64_t d,
-                           const int64_t* strides, int64_t block_q,
-                           int64_t block_k, int causal, float sm_scale,
-                           int dtype, void* stream) {
+// stride 1).  d in {16, 32, 64, 128}; b * hq * sq >= 1; the wrapper checks
+// shapes and blocks.
+int flash_fwd_launch(const void* q, const void* k, const void* v, void* out,
+                     int64_t b, int64_t hq, int64_t hkv, int64_t sq,
+                     int64_t sk, int64_t d, const int64_t* strides,
+                     int64_t block_q, int64_t block_k, int causal,
+                     float sm_scale, int dtype, void* stream,
+                     REPRO_GEOMETRY) {
   Params p{q, k, v, out, b, hq, hkv, sq, sk,
            strides[0], strides[1], strides[2], strides[3], strides[4],
            strides[5], strides[6], strides[7], strides[8], strides[9],
            strides[10], strides[11], block_q, block_k, sk - sq, causal,
            sm_scale};
-  if (b * hq * sq == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_d<float>(p, d, s);
-  if (dtype == 1) return launch_d<__nv_bfloat16>(p, d, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0)
+    return launch_d<float>(p, d, s, REPRO_GRID, REPRO_BLOCK, smem);
+  if (dtype == 1)
+    return launch_d<__nv_bfloat16>(p, d, s, REPRO_GRID, REPRO_BLOCK, smem);
+  return repro_invalid();
 }
 
 }  // extern "C"

@@ -15,7 +15,7 @@
 // Design:
 //   prefix_positions — the TPU carries the running sum from one grid step
 //     to the next in SMEM.  Hopper blocks run in no order, so that becomes
-//     reduce-then-scan: (1) every 4096-element tile sums itself, (2) one
+//     reduce-then-scan: (1) every TILE-element tile sums itself, (2) one
 //     block scans the tile sums into tile offsets and writes `total` on
 //     the device (no host sync), (3) every tile scans itself from its
 //     offset.  Tiles are staged through padded shared memory so both the
@@ -39,11 +39,19 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
+
 namespace {
 
+// TILE (elements per scan tile) comes from the build, -DTILE=, the same
+// constant the wrapper sizes its grid with (kernels/_build.py SCAN_TILE)
+#ifndef TILE
+#error "frontier_compact.cu is compiled with -DTILE=<elements per tile>"
+#endif
 constexpr int SCAN_THREADS = 256;
-constexpr int SCAN_ITEMS = 16;
-constexpr int TILE = SCAN_THREADS * SCAN_ITEMS;  // 4096 elements
+constexpr int SCAN_ITEMS = TILE / SCAN_THREADS;
+static_assert(SCAN_ITEMS * SCAN_THREADS == TILE,
+              "TILE must be a multiple of 256");
 constexpr int SUM_THREADS = 1024;
 
 __device__ __forceinline__ int padded(int i) { return i + (i >> 5); }
@@ -151,17 +159,6 @@ tile_scan(const T* __restrict__ x, int64_t n,
   }
 }
 
-template <typename T>
-void prefix_positions_impl(const T* x, int32_t* out, int32_t* total,
-                           int32_t* tile_sums, int64_t n, cudaStream_t s) {
-  const int64_t tiles = (n + TILE - 1) / TILE;
-  tile_reduce<T><<<static_cast<unsigned>(tiles), SCAN_THREADS, 0, s>>>(
-      x, n, tile_sums);
-  scan_tile_sums<<<1, SUM_THREADS, 0, s>>>(tile_sums, tiles, total);
-  tile_scan<T><<<static_cast<unsigned>(tiles), SCAN_THREADS, 0, s>>>(
-      x, n, tile_sums, out);
-}
-
 __global__ void compact_fill(const uint8_t* __restrict__ mask,
                              const int32_t* __restrict__ pos,
                              const int32_t* __restrict__ count,
@@ -223,84 +220,92 @@ __global__ void expand_slots(const int32_t* __restrict__ ids,
   valid[e] = 1;
 }
 
-inline unsigned blocks_for(int64_t work, int threads) {
-  return static_cast<unsigned>((work + threads - 1) / threads);
+template <typename T>
+int prefix_positions_impl(const T* x, int64_t n, int64_t tiles,
+                          int32_t* sums, int32_t* total, int32_t* out,
+                          cudaStream_t s, dim3 g0, dim3 b0, unsigned m0,
+                          dim3 g1, dim3 b1, unsigned m1, dim3 g2, dim3 b2,
+                          unsigned m2) {
+  tile_reduce<T><<<g0, b0, m0, s>>>(x, n, sums);
+  scan_tile_sums<<<g1, b1, m1, s>>>(sums, tiles, total);
+  tile_scan<T><<<g2, b2, m2, s>>>(x, n, sums, out);
+  return repro_last_error();
 }
 
 }  // namespace
 
 extern "C" {
 
-const char* repro_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
-// x: (n,) int32 (x_is_u8 == 0) or uint8/bool (x_is_u8 != 0); out: (n,)
-// int32 exclusive prefix; total: (1,) int32; tile_sums: scratch of
-// ceil(n / 4096) int32.  n >= 1.
-int prefix_positions_launch(const void* x, int x_is_u8, void* out,
-                            void* total, void* tile_sums, int64_t n,
-                            void* stream) {
+// x: (n,) int32 (x_is_u8 == 0) or uint8/bool (x_is_u8 != 0); sums:
+// scratch of tiles = ceil(n / TILE) int32; total: (1,) int32; out: (n,)
+// int32 exclusive prefix.  Three launches in order: tile_reduce (one
+// SCAN_THREADS-thread block per tile), scan_tile_sums (one SUM_THREADS-
+// thread block) and tile_scan (as tile_reduce).
+int prefix_positions_launch(const void* x, int x_is_u8, int64_t n,
+                            int64_t tiles, void* sums, void* total,
+                            void* out, void* stream, REPRO_GEOMETRY_K(0),
+                            REPRO_GEOMETRY_K(1), REPRO_GEOMETRY_K(2)) {
+  if (block_x0 != SCAN_THREADS || block_x1 != SUM_THREADS ||
+      block_x2 != SCAN_THREADS || block_y0 != 1 || block_z0 != 1 ||
+      block_y1 != 1 || block_z1 != 1 || block_y2 != 1 || block_z2 != 1)
+    return repro_invalid();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int32_t* sp = static_cast<int32_t*>(sums);
+  int32_t* tp = static_cast<int32_t*>(total);
+  int32_t* op = static_cast<int32_t*>(out);
   if (x_is_u8)
-    prefix_positions_impl(static_cast<const uint8_t*>(x),
-                          static_cast<int32_t*>(out),
-                          static_cast<int32_t*>(total),
-                          static_cast<int32_t*>(tile_sums), n, s);
-  else
-    prefix_positions_impl(static_cast<const int32_t*>(x),
-                          static_cast<int32_t*>(out),
-                          static_cast<int32_t*>(total),
-                          static_cast<int32_t*>(tile_sums), n, s);
-  return static_cast<int>(cudaGetLastError());
+    return prefix_positions_impl(static_cast<const uint8_t*>(x), n, tiles,
+                                 sp, tp, op, s, REPRO_GRID_K(0),
+                                 REPRO_BLOCK_K(0), smem0, REPRO_GRID_K(1),
+                                 REPRO_BLOCK_K(1), smem1, REPRO_GRID_K(2),
+                                 REPRO_BLOCK_K(2), smem2);
+  return prefix_positions_impl(static_cast<const int32_t*>(x), n, tiles, sp,
+                               tp, op, s, REPRO_GRID_K(0), REPRO_BLOCK_K(0),
+                               smem0, REPRO_GRID_K(1), REPRO_BLOCK_K(1),
+                               smem1, REPRO_GRID_K(2), REPRO_BLOCK_K(2),
+                               smem2);
 }
-
-int prefix_positions_tile() { return TILE; }
 
 // mask: (n,) bool; pos, count: prefix_positions of the mask; ids:
-// (capacity,) int32 output.  n >= 1, capacity >= 1.
-int frontier_compact_launch(const void* mask, const void* pos,
-                            const void* count, void* ids, int64_t n,
-                            int64_t capacity, void* stream) {
-  const int threads = 256;
-  const int64_t work = n > capacity ? n : capacity;
-  compact_fill<<<blocks_for(work, threads), threads, 0,
+// (capacity,) int32 output.  One thread per slot of max(n, capacity).
+int compact_fill_launch(const void* mask, const void* pos, const void* count,
+                        void* ids, int64_t n, int64_t capacity, void* stream,
+                        REPRO_GEOMETRY) {
+  compact_fill<<<REPRO_GRID, REPRO_BLOCK, smem,
                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(mask), static_cast<const int32_t*>(pos),
       static_cast<const int32_t*>(count), static_cast<int32_t*>(ids), n,
       capacity);
-  return static_cast<int>(cudaGetLastError());
+  return repro_last_error();
 }
 
 // ids: (C,) compacted rows (sentinel n); row_base, deg: (C,) int32 out.
-int sparse_expand_rows_launch(const void* indptr, const void* ids,
-                              void* row_base, void* deg, int64_t C, int64_t n,
-                              void* stream) {
-  if (C <= 0) return static_cast<int>(cudaGetLastError());
-  const int threads = 256;
-  expand_rows<<<blocks_for(C, threads), threads, 0,
+// One thread per row.
+int expand_rows_launch(const void* indptr, const void* ids, void* row_base,
+                       void* deg, int64_t C, int64_t n, void* stream,
+                       REPRO_GEOMETRY) {
+  expand_rows<<<REPRO_GRID, REPRO_BLOCK, smem,
                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(indptr), static_cast<const int32_t*>(ids),
       static_cast<int32_t*>(row_base), static_cast<int32_t*>(deg), C, n);
-  return static_cast<int>(cudaGetLastError());
+  return repro_last_error();
 }
 
 // excl, total: prefix_positions of deg; src/tgt/pos: (ecap,) int32 out,
-// valid: (ecap,) bool out.  m >= 1, ecap >= 1.
-int sparse_expand_slots_launch(const void* ids, const void* row_base,
-                               const void* excl, const void* total,
-                               const void* indices, void* src, void* tgt,
-                               void* pos, void* valid, int64_t C, int64_t ecap,
-                               int64_t m, void* stream) {
-  const int threads = 256;
-  expand_slots<<<blocks_for(ecap, threads), threads, 0,
+// valid: (ecap,) bool out; m >= 1.  One thread per edge slot.
+int expand_slots_launch(const void* ids, const void* row_base,
+                        const void* excl, const void* total,
+                        const void* indices, void* src, void* tgt, void* pos,
+                        void* valid, int64_t C, int64_t ecap, int64_t m,
+                        void* stream, REPRO_GEOMETRY) {
+  expand_slots<<<REPRO_GRID, REPRO_BLOCK, smem,
                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(ids), static_cast<const int32_t*>(row_base),
       static_cast<const int32_t*>(excl), static_cast<const int32_t*>(total),
       static_cast<const int32_t*>(indices), static_cast<int32_t*>(src),
       static_cast<int32_t*>(tgt), static_cast<int32_t*>(pos),
       static_cast<uint8_t*>(valid), C, ecap, m);
-  return static_cast<int>(cudaGetLastError());
+  return repro_last_error();
 }
 
 }  // extern "C"

@@ -26,6 +26,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
+
 namespace {
 
 __global__ void frontier_expand_vec16(const uint4* __restrict__ flags,
@@ -74,31 +76,29 @@ __global__ void frontier_expand_any(const uint8_t* __restrict__ flags,
 
 extern "C" {
 
-const char* repro_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+// flags, valid: (n, 16 * chunks) uint8 (torch.bool), row-major,
+// contiguous, 16-byte aligned.  One thread per row.
+int frontier_expand_vec16_launch(const void* flags, const void* valid,
+                                 const void* pending, void* hit, int64_t n,
+                                 int chunks, void* stream, REPRO_GEOMETRY) {
+  frontier_expand_vec16<<<REPRO_GRID, REPRO_BLOCK, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(flags), static_cast<const uint4*>(valid),
+      static_cast<const uint8_t*>(pending), static_cast<uint8_t*>(hit), n,
+      chunks);
+  return repro_last_error();
 }
 
 // flags, valid: (n, window) uint8 (torch.bool), row-major, contiguous.
-// vec16 != 0 promises window % 16 == 0 and 16-byte aligned flags/valid.
-int frontier_expand_launch(const void* flags, const void* valid,
-                           const void* pending, void* hit, int64_t n,
-                           int window, int vec16, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaGetLastError());
-  const int threads = 256;
-  const unsigned blocks = static_cast<unsigned>((n + threads - 1) / threads);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec16) {
-    frontier_expand_vec16<<<blocks, threads, 0, s>>>(
-        static_cast<const uint4*>(flags), static_cast<const uint4*>(valid),
-        static_cast<const uint8_t*>(pending), static_cast<uint8_t*>(hit), n,
-        window / 16);
-  } else {
-    frontier_expand_any<<<blocks, threads, 0, s>>>(
-        static_cast<const uint8_t*>(flags), static_cast<const uint8_t*>(valid),
-        static_cast<const uint8_t*>(pending), static_cast<uint8_t*>(hit), n,
-        window);
-  }
-  return static_cast<int>(cudaGetLastError());
+int frontier_expand_any_launch(const void* flags, const void* valid,
+                               const void* pending, void* hit, int64_t n,
+                               int window, void* stream, REPRO_GEOMETRY) {
+  frontier_expand_any<<<REPRO_GRID, REPRO_BLOCK, smem,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(flags), static_cast<const uint8_t*>(valid),
+      static_cast<const uint8_t*>(pending), static_cast<uint8_t*>(hit), n,
+      window);
+  return repro_last_error();
 }
 
 }  // extern "C"

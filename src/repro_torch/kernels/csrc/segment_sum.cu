@@ -19,7 +19,8 @@
 //   (block_e x block_n) matrix per grid cell and multiplies it into the
 //   output on the MXU, O(m * n * d) work.  Hopper has float atomics in L2,
 //   so the sum is a scatter:
-//   1. out <- 0, one memset on the stream;
+//   1. out <- 0, one memset on the stream (the wrapper allocates zeros
+//      instead when there are no rows);
 //   2. one thread per (row, group of 4 columns): it reads the row's id once,
 //      loads its 4 values with one 16-byte (f32) or 8-byte (bf16) load where
 //      the wrapper vouches for the alignment, and adds them with one 16-byte
@@ -38,6 +39,8 @@
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "launch.cuh"
 
 namespace {
 
@@ -98,55 +101,49 @@ __global__ void scatter_rows(const T* __restrict__ vals,
 }
 
 template <typename T, typename I>
-cudaError_t launch(const void* vals, const void* ids, void* out, int64_t m,
-                   int64_t d, int64_t row_stride, int64_t n, int vec_in,
-                   int vec_out, cudaStream_t s) {
-  const int threads = 256;
-  const int64_t groups = (d + 3) / 4;
-  const int64_t work = m * groups;
-  const unsigned blocks = static_cast<unsigned>((work + threads - 1) / threads);
-  scatter_rows<T, I><<<blocks, threads, 0, s>>>(
+void launch(const void* vals, const void* ids, void* out, int64_t m,
+            int64_t d, int64_t row_stride, int64_t n, int vec_in, int vec_out,
+            cudaStream_t s, dim3 grid, dim3 block, unsigned smem) {
+  scatter_rows<T, I><<<grid, block, smem, s>>>(
       static_cast<const T*>(vals), static_cast<const I*>(ids),
-      static_cast<float*>(out), m, d, row_stride, n, groups, vec_in, vec_out);
-  return cudaGetLastError();
+      static_cast<float*>(out), m, d, row_stride, n, (d + 3) / 4, vec_in,
+      vec_out);
 }
 
 }  // namespace
 
 extern "C" {
 
-const char* repro_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
 // vals: (m, d) with row stride row_stride (elements), f32 (bf16 = 0) or
 // bf16 (bf16 = 1); ids: (m,) int32 (ids64 = 0) or int64 (ids64 = 1); out:
-// (n, d) f32, contiguous.  vec_in != 0 promises vals 16-byte (f32) or
+// (n, d) f32, contiguous; m, n, d >= 1.  Zeroes out, then one thread per
+// (row, group of 4 columns).  vec_in != 0 promises vals 16-byte (f32) or
 // 8-byte (bf16) aligned with row_stride % 4 == 0; vec_out != 0 promises
 // out 16-byte aligned with d % 4 == 0.
-int segment_sum_launch(const void* vals, const void* ids, void* out,
-                       int64_t m, int64_t d, int64_t row_stride, int64_t n,
-                       int bf16, int ids64, int vec_in, int vec_out,
-                       void* stream) {
+int scatter_rows_launch(const void* vals, const void* ids, void* out,
+                        int64_t m, int64_t d, int64_t row_stride, int64_t n,
+                        int bf16, int ids64, int vec_in, int vec_out,
+                        void* stream, REPRO_GEOMETRY) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n <= 0 || d <= 0) return static_cast<int>(cudaGetLastError());
   cudaError_t err = cudaMemsetAsync(out, 0, n * d * sizeof(float), s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (m <= 0) return static_cast<int>(cudaGetLastError());
+  const dim3 grid = REPRO_GRID, block = REPRO_BLOCK;
   if (bf16) {
-    err = ids64 ? launch<__nv_bfloat16, int64_t>(vals, ids, out, m, d,
-                                                 row_stride, n, vec_in,
-                                                 vec_out, s)
-                : launch<__nv_bfloat16, int32_t>(vals, ids, out, m, d,
-                                                 row_stride, n, vec_in,
-                                                 vec_out, s);
+    if (ids64)
+      launch<__nv_bfloat16, int64_t>(vals, ids, out, m, d, row_stride, n,
+                                     vec_in, vec_out, s, grid, block, smem);
+    else
+      launch<__nv_bfloat16, int32_t>(vals, ids, out, m, d, row_stride, n,
+                                     vec_in, vec_out, s, grid, block, smem);
   } else {
-    err = ids64 ? launch<float, int64_t>(vals, ids, out, m, d, row_stride, n,
-                                         vec_in, vec_out, s)
-                : launch<float, int32_t>(vals, ids, out, m, d, row_stride, n,
-                                         vec_in, vec_out, s);
+    if (ids64)
+      launch<float, int64_t>(vals, ids, out, m, d, row_stride, n, vec_in,
+                             vec_out, s, grid, block, smem);
+    else
+      launch<float, int32_t>(vals, ids, out, m, d, row_stride, n, vec_in,
+                             vec_out, s, grid, block, smem);
   }
-  return static_cast<int>(err);
+  return repro_last_error();
 }
 
 }  // extern "C"

@@ -18,18 +18,11 @@ import torch
 from . import _build
 
 _VP = ctypes.c_void_p
-_READY = []
-
-
-def _lib():
-    lib = _build.load("first_live_scan")
-    if not _READY:
-        lib.first_live_scan_launch.restype = ctypes.c_int
-        lib.first_live_scan_launch.argtypes = [
-            _VP, _VP, _VP, _VP, _VP, ctypes.c_int64, ctypes.c_int,
-            ctypes.c_int, _VP]
-        _READY.append(True)
-    return lib
+_build.declare("first_live_scan", {
+    "first_live_w16_launch": [_VP] * 5 + [ctypes.c_int64, _VP],
+    "first_live_any_launch": [_VP] * 5 + [ctypes.c_int64, ctypes.c_int,
+                                          _VP]})
+THREADS = 256           # one thread per row
 
 
 def first_live_scan(flags, valid, active):
@@ -50,12 +43,18 @@ def first_live_scan(flags, valid, active):
     found = torch.empty((n,), dtype=torch.bool, device=flags.device)
     if n == 0:
         return first, found
-    lib = _lib()
-    vec16 = int(window == 16 and flags.data_ptr() % 16 == 0
-                and valid.data_ptr() % 16 == 0)
-    _build.check(lib, "first_live_scan", lib.first_live_scan_launch(
-        _build.c_ptr(flags), _build.c_ptr(valid), _build.c_ptr(active),
-        _build.c_ptr(first), _build.c_ptr(found), n, window, vec16,
-        _build.stream_of(flags)))
+    ptrs = [_build.c_ptr(t) for t in (flags, valid, active, first, found)]
+    vec16 = (window == 16 and flags.data_ptr() % 16 == 0
+             and valid.data_ptr() % 16 == 0)
+    spec = _build.Launch(
+        "first_live_scan", "first_live_w16" if vec16 else "first_live_any",
+        (_build.blocks(n, THREADS), 1, 1), (THREADS, 1, 1), 0,
+        {"first": first, "found": found})
+    if vec16:
+        _build.launch(spec, "first_live_w16_launch", *ptrs, n,
+                      _build.stream_of(flags))
+    else:
+        _build.launch(spec, "first_live_any_launch", *ptrs, n, window,
+                      _build.stream_of(flags))
     _build.LAUNCHES["first_live_scan"] += 1
     return first, found

@@ -25,22 +25,24 @@ from .ref import flash_blocks
 
 _VP = ctypes.c_void_p
 _I64 = ctypes.c_int64
-_READY = []
+_build.declare("flash_attention", {
+    "flash_fwd_launch": [_VP] * 4 + [_I64] * 6 + [ctypes.POINTER(_I64),
+                                                  _I64, _I64, ctypes.c_int,
+                                                  ctypes.c_float,
+                                                  ctypes.c_int, _VP]})
 #: head widths and dtypes the kernel is compiled for
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the kernel's geometry (csrc/flash_attention.cu): q rows and keys per
+#: tile, threads per block
+TQ, TK, THREADS = 64, 64, 256
 
 
-def _lib():
-    lib = _build.load("flash_attention")
-    if not _READY:
-        lib.flash_attention_launch.restype = ctypes.c_int
-        lib.flash_attention_launch.argtypes = [
-            _VP, _VP, _VP, _VP, _I64, _I64, _I64, _I64, _I64, _I64,
-            ctypes.POINTER(_I64), _I64, _I64, ctypes.c_int, ctypes.c_float,
-            ctypes.c_int, _VP]
-        _READY.append(True)
-    return lib
+def smem_bytes(d: int) -> int:
+    """Dynamic shared memory of one block: the q tile and one k/v tile
+    (rows padded to D + 1), the score tile (padded to TK + 1) and three
+    per-row statistics, all f32."""
+    return 4 * (TQ * (d + 1) + TK * (d + 1) + TQ * (TK + 1) + 3 * TQ)
 
 
 def _rows_contiguous(t):
@@ -77,7 +79,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     bq, bk = flash_blocks(sq, sk)
     q, k, v = (_rows_contiguous(t) for t in (q, k, v))
     for t in (q, k, v):
-        if t.device.type != "cuda" or t.device != q.device:
+        if t.device.type not in _build.ACCEPTED or t.device != q.device:
             raise ValueError(f"flash_attention: the CUDA kernel takes "
                              f"tensors on one CUDA device, got {t.device}")
     if sm_scale is None:
@@ -87,10 +89,13 @@ def flash_attention(q, k, v, *, causal: bool = True,
         return out
     strides = (_I64 * 12)(*(t.stride(i) for t in (q, k, v, out)
                             for i in range(3)))
-    lib = _lib()
-    _build.check(lib, "flash_attention", lib.flash_attention_launch(
-        _build.c_ptr(q), _build.c_ptr(k), _build.c_ptr(v), _build.c_ptr(out),
-        b, hq, hkv, sq, sk, d, strides, bq, bk, int(bool(causal)),
-        float(sm_scale), DTYPES[q.dtype], _build.stream_of(q)))
+    # one block per (batch, q head, TQ-row q tile)
+    spec = _build.Launch("flash_attention", "flash_fwd",
+                         (_build.blocks(sq, TQ) * b * hq, 1, 1),
+                         (THREADS, 1, 1), smem_bytes(d), {"out": out})
+    _build.launch(spec, "flash_fwd_launch", _build.c_ptr(q), _build.c_ptr(k),
+                  _build.c_ptr(v), _build.c_ptr(out), b, hq, hkv, sq, sk, d,
+                  strides, bq, bk, int(bool(causal)), float(sm_scale),
+                  DTYPES[q.dtype], _build.stream_of(q))
     _build.LAUNCHES["flash_attention"] += 1
     return out

@@ -21,28 +21,15 @@ from . import _build
 
 _VP = ctypes.c_void_p
 _I64 = ctypes.c_int64
-_READY = []
-
-
-def _lib():
-    lib = _build.load("frontier_compact")
-    if not _READY:
-        sigs = {
-            "prefix_positions_launch": [_VP, ctypes.c_int, _VP, _VP, _VP,
-                                        _I64, _VP],
-            "prefix_positions_tile": [],
-            "frontier_compact_launch": [_VP, _VP, _VP, _VP, _I64, _I64, _VP],
-            "sparse_expand_rows_launch": [_VP, _VP, _VP, _VP, _I64, _I64,
-                                          _VP],
-            "sparse_expand_slots_launch": [_VP] * 9 + [_I64, _I64, _I64,
-                                                       _VP],
-        }
-        for name, argtypes in sigs.items():
-            fn = getattr(lib, name)
-            fn.restype = ctypes.c_int
-            fn.argtypes = argtypes
-        _READY.append(lib.prefix_positions_tile())
-    return lib
+_build.declare("frontier_compact", {
+    "prefix_positions_launch": [_VP, ctypes.c_int, _I64, _I64, _VP, _VP,
+                                _VP, _VP],
+    "compact_fill_launch": [_VP] * 4 + [_I64, _I64, _VP],
+    "expand_rows_launch": [_VP] * 4 + [_I64, _I64, _VP],
+    "expand_slots_launch": [_VP] * 9 + [_I64, _I64, _I64, _VP]})
+SCAN_THREADS = 256      # a block scans one tile of _build.SCAN_TILE
+SUM_THREADS = 1024      # the one block that scans the tile sums
+THREADS = 256           # compact_fill, expand_rows, expand_slots
 
 
 def prefix_positions(x):
@@ -54,15 +41,24 @@ def prefix_positions(x):
                         f"tensor, got {x.dtype} {tuple(x.shape)}")
     n = x.shape[0]
     out = torch.empty((n,), dtype=torch.int32, device=x.device)
-    total = torch.zeros((), dtype=torch.int32, device=x.device)
     if n == 0:
-        return out, total
-    lib = _lib()
-    tiles = -(-n // _READY[0])
-    scratch = torch.empty((tiles,), dtype=torch.int32, device=x.device)
-    _build.check(lib, "prefix_positions", lib.prefix_positions_launch(
-        _build.c_ptr(x), int(x.dtype == torch.bool), _build.c_ptr(out),
-        _build.c_ptr(total), _build.c_ptr(scratch), n, _build.stream_of(x)))
+        return out, torch.zeros((), dtype=torch.int32, device=x.device)
+    total = torch.empty((), dtype=torch.int32, device=x.device)
+    tiles = _build.blocks(n, _build.SCAN_TILE)
+    # the tile sums, then the tiles' exclusive offsets (scanned in place)
+    sums = torch.empty((tiles,), dtype=torch.int32, device=x.device)
+    grid, block = (tiles, 1, 1), (SCAN_THREADS, 1, 1)
+    _build.launch(
+        (_build.Launch("frontier_compact", "tile_reduce", grid, block, 0,
+                       {"sums": sums}),
+         _build.Launch("frontier_compact", "scan_tile_sums", (1, 1, 1),
+                       (SUM_THREADS, 1, 1), 0,
+                       {"sums": sums, "total": total}),
+         _build.Launch("frontier_compact", "tile_scan", grid, block, 0,
+                       {"out": out})),
+        "prefix_positions_launch", _build.c_ptr(x),
+        int(x.dtype == torch.bool), n, tiles, _build.c_ptr(sums),
+        _build.c_ptr(total), _build.c_ptr(out), _build.stream_of(x))
     _build.LAUNCHES["prefix_positions"] += 1
     return out, total
 
@@ -80,10 +76,14 @@ def frontier_compact(mask, capacity: int):
                 torch.zeros((), dtype=torch.int32, device=mask.device))
     pos, count = prefix_positions(mask)
     ids = torch.empty((capacity,), dtype=torch.int32, device=mask.device)
-    lib = _lib()
-    _build.check(lib, "frontier_compact", lib.frontier_compact_launch(
-        _build.c_ptr(mask), _build.c_ptr(pos), _build.c_ptr(count),
-        _build.c_ptr(ids), n, capacity, _build.stream_of(mask)))
+    # a thread per slot of max(n, capacity): members write their slot,
+    # slots past the count the sentinel
+    spec = _build.Launch("frontier_compact", "compact_fill",
+                         (_build.blocks(max(n, capacity), THREADS), 1, 1),
+                         (THREADS, 1, 1), 0, {"ids": ids})
+    _build.launch(spec, "compact_fill_launch", _build.c_ptr(mask),
+                  _build.c_ptr(pos), _build.c_ptr(count), _build.c_ptr(ids),
+                  n, capacity, _build.stream_of(mask))
     _build.LAUNCHES["frontier_compact"] += 1
     return ids, count
 
@@ -108,18 +108,26 @@ def sparse_expand(indptr, indices, ids, ecap: int):
     src, tgt, pos = (torch.empty((ecap,), dtype=torch.int32, device=dev)
                      for _ in range(3))
     valid = torch.empty((ecap,), dtype=torch.bool, device=dev)
-    lib = _lib()
     stream = _build.stream_of(indptr)
     row_base = torch.empty((C,), dtype=torch.int32, device=dev)
     deg = torch.empty((C,), dtype=torch.int32, device=dev)
-    _build.check(lib, "sparse_expand", lib.sparse_expand_rows_launch(
-        _build.c_ptr(indptr), _build.c_ptr(ids), _build.c_ptr(row_base),
-        _build.c_ptr(deg), C, n, stream))
+    _build.launch(_build.Launch("frontier_compact", "expand_rows",
+                                (_build.blocks(C, THREADS), 1, 1),
+                                (THREADS, 1, 1), 0,
+                                {"row_base": row_base, "deg": deg}),
+                  "expand_rows_launch", _build.c_ptr(indptr),
+                  _build.c_ptr(ids), _build.c_ptr(row_base),
+                  _build.c_ptr(deg), C, n, stream)
     excl, total = prefix_positions(deg)
-    _build.check(lib, "sparse_expand", lib.sparse_expand_slots_launch(
-        _build.c_ptr(ids), _build.c_ptr(row_base), _build.c_ptr(excl),
-        _build.c_ptr(total), _build.c_ptr(indices), _build.c_ptr(src),
-        _build.c_ptr(tgt), _build.c_ptr(pos), _build.c_ptr(valid), C, ecap,
-        m, stream))
+    _build.launch(_build.Launch("frontier_compact", "expand_slots",
+                                (_build.blocks(ecap, THREADS), 1, 1),
+                                (THREADS, 1, 1), 0,
+                                {"src": src, "tgt": tgt, "pos": pos,
+                                 "valid": valid}),
+                  "expand_slots_launch", _build.c_ptr(ids),
+                  _build.c_ptr(row_base), _build.c_ptr(excl),
+                  _build.c_ptr(total), _build.c_ptr(indices),
+                  _build.c_ptr(src), _build.c_ptr(tgt), _build.c_ptr(pos),
+                  _build.c_ptr(valid), C, ecap, m, stream)
     _build.LAUNCHES["sparse_expand"] += 1
     return src, tgt, pos, valid

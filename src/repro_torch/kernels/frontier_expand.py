@@ -20,18 +20,12 @@ import torch
 from . import _build
 
 _VP = ctypes.c_void_p
-_READY = []
-
-
-def _lib():
-    lib = _build.load("frontier_expand")
-    if not _READY:
-        lib.frontier_expand_launch.restype = ctypes.c_int
-        lib.frontier_expand_launch.argtypes = [
-            _VP, _VP, _VP, _VP, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-            _VP]
-        _READY.append(True)
-    return lib
+_build.declare("frontier_expand", {
+    "frontier_expand_vec16_launch": [_VP] * 4 + [ctypes.c_int64,
+                                                 ctypes.c_int, _VP],
+    "frontier_expand_any_launch": [_VP] * 4 + [ctypes.c_int64, ctypes.c_int,
+                                               _VP]})
+THREADS = 256           # one thread per row
 
 
 def frontier_expand(flags, valid, pending):
@@ -52,11 +46,14 @@ def frontier_expand(flags, valid, pending):
     hit = torch.empty((n,), dtype=torch.bool, device=flags.device)
     if n == 0:
         return hit
-    lib = _lib()
-    vec16 = int(window > 0 and window % 16 == 0
-                and flags.data_ptr() % 16 == 0 and valid.data_ptr() % 16 == 0)
-    _build.check(lib, "frontier_expand", lib.frontier_expand_launch(
-        _build.c_ptr(flags), _build.c_ptr(valid), _build.c_ptr(pending),
-        _build.c_ptr(hit), n, window, vec16, _build.stream_of(flags)))
+    ptrs = [_build.c_ptr(t) for t in (flags, valid, pending, hit)]
+    vec16 = (window > 0 and window % 16 == 0 and flags.data_ptr() % 16 == 0
+             and valid.data_ptr() % 16 == 0)
+    kernel = "frontier_expand_vec16" if vec16 else "frontier_expand_any"
+    spec = _build.Launch("frontier_expand", kernel,
+                         (_build.blocks(n, THREADS), 1, 1), (THREADS, 1, 1),
+                         0, {"hit": hit})
+    _build.launch(spec, kernel + "_launch", *ptrs, n,
+                  window // 16 if vec16 else window, _build.stream_of(flags))
     _build.LAUNCHES["frontier_expand"] += 1
     return hit

@@ -8,7 +8,7 @@ launch to the plain version.  Each kernel wrapper counts its launches in
 
 Mirrors ``src/repro/kernels/ops.py`` for the kernels of the trimming,
 reachability, peel and stream engines' paths, of the LM prefill and of the
-GNN layers' aggregation.  The
+GNN layers' aggregation, and the static checks' copy kernel.  The
 reference's ``use_kernel`` switch is not carried over: the device is the
 only switch.
 """
@@ -24,12 +24,13 @@ from . import first_live_scan as _fls
 from . import flash_attention as _fa
 from . import frontier_compact as _fc
 from . import frontier_expand as _fex
+from . import mutant_copy as _mc
 from . import segment_sum as _ss
 
 __all__ = ["LAUNCHES", "reset_launches", "first_live_scan",
            "prefix_positions", "frontier_compact", "sparse_expand",
            "frontier_expand", "bucket_peel", "counter_scatter",
-           "flash_attention", "segment_sum"]
+           "flash_attention", "segment_sum", "mutant_copy"]
 
 
 def _on_cpu(t) -> bool:
@@ -108,3 +109,11 @@ def segment_sum(values, seg_ids, num_segments: int):
     flat = values.reshape(values.shape[0], math.prod(rest))
     return _ss.segment_sum(flat, seg_ids, num_segments).view(
         (num_segments,) + rest)
+
+
+def mutant_copy(x, carry=None, *, block: int = 256):
+    """(n,) int32 (+ a 1-element int32 carry) -> (n,) int32 ``x +
+    carry``: the static checks' copy kernel."""
+    if _on_cpu(x):
+        return ref.mutant_copy_ref(x, carry)
+    return _mc.mutant_copy(x, carry, block=block)

@@ -13,6 +13,7 @@ a tolerance stated relative to each segment's sum of absolute values.  ``flash_a
 repeats the flash kernel's float arithmetic (its blocks, its masking and
 its online softmax, f32 inside) and ``attention_ref`` is the naive
 softmax oracle; a float kernel agrees with them to a stated tolerance.
+``mutant_copy_ref`` is the static checks' copy kernel's plain version.
 """
 from __future__ import annotations
 
@@ -229,3 +230,9 @@ def attention_ref(q, k, v, *, causal: bool = True,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
     return out.to(q.dtype)
+
+
+def mutant_copy_ref(x, carry=None):
+    """(n,) int32 -> ``x + carry[0]`` ((n,) int32; a copy without a
+    carry)."""
+    return x.clone() if carry is None else x + carry.reshape(())

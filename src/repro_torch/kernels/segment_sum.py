@@ -1,7 +1,7 @@
 """Segment sum on Hopper: GNN message aggregation.
 
-The CUDA kernel is ``csrc/segment_sum.cu``: a memset of the output, then
-one thread per (row, group of 4 columns) that loads the row's values and
+The CUDA kernel is ``csrc/segment_sum.cu`` ``scatter_rows``: a memset of
+the output, then one thread per (row, group of 4 columns) that loads the row's values and
 adds them into ``out[ids[row]]`` with float atomics.  It computes what
 ``src/repro/kernels/segment_reduce.py`` ``segment_sum_pallas`` computes:
 float32 sums of (m, d) f32 or bf16 rows, with out-of-range ids (negatives
@@ -23,18 +23,10 @@ from . import _build
 
 _VP = ctypes.c_void_p
 _I64 = ctypes.c_int64
-_READY = []
-
-
-def _lib():
-    lib = _build.load("segment_sum")
-    if not _READY:
-        lib.segment_sum_launch.restype = ctypes.c_int
-        lib.segment_sum_launch.argtypes = [
-            _VP, _VP, _VP, _I64, _I64, _I64, _I64, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP]
-        _READY.append(True)
-    return lib
+_build.declare("segment_sum", {
+    "scatter_rows_launch": [_VP] * 3 + [_I64] * 4 + [ctypes.c_int] * 4
+    + [_VP]})
+THREADS = 256           # a thread per (row, group of 4 columns)
 
 
 def segment_sum(values, seg_ids, num_segments: int):
@@ -61,19 +53,23 @@ def segment_sum(values, seg_ids, num_segments: int):
     if values.device != seg_ids.device:
         raise ValueError("segment_sum: values and seg_ids lie on different "
                          f"devices ({values.device}, {seg_ids.device})")
+    if num_segments == 0 or d == 0 or m == 0:
+        return torch.zeros((num_segments, d), dtype=torch.float32,
+                           device=values.device)
+    # the entry point zeroes out, then scatters
     out = torch.empty((num_segments, d), dtype=torch.float32,
                       device=values.device)
-    if num_segments == 0 or d == 0:
-        return out
     row_stride = values.stride(0) if m > 1 else d
     align = 16 if values.dtype == torch.float32 else 8
     vec_in = int(values.data_ptr() % align == 0 and row_stride % 4 == 0)
     vec_out = int(out.data_ptr() % 16 == 0 and d % 4 == 0)
-    lib = _lib()
-    _build.check(lib, "segment_sum", lib.segment_sum_launch(
-        _build.c_ptr(values), _build.c_ptr(seg_ids), _build.c_ptr(out), m, d,
-        row_stride, num_segments, int(values.dtype == torch.bfloat16),
-        int(seg_ids.dtype == torch.int64), vec_in, vec_out,
-        _build.stream_of(values)))
+    spec = _build.Launch("segment_sum", "scatter_rows",
+                         (_build.blocks(m * -(-d // 4), THREADS), 1, 1),
+                         (THREADS, 1, 1), 0, {"out": out})
+    _build.launch(spec, "scatter_rows_launch", _build.c_ptr(values),
+                  _build.c_ptr(seg_ids), _build.c_ptr(out), m, d, row_stride,
+                  num_segments, int(values.dtype == torch.bfloat16),
+                  int(seg_ids.dtype == torch.int64), vec_in, vec_out,
+                  _build.stream_of(values))
     _build.LAUNCHES["segment_sum"] += 1
     return out

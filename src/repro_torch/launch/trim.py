@@ -8,17 +8,21 @@ trimming and k-core peeling on one named graph (PyTorch port of
     python -m repro_torch.launch.trim --app stream --graph BA
     python -m repro_torch.launch.trim --app peel --graph BA
     python -m repro_torch.launch.trim --app stream --graph chain --device cpu
+    python -m repro_torch.launch.trim --app check --strict
 
 ``--graph`` names one of ``graphs.BENCHMARK_GRAPHS``.  Everything runs on
 ``--device`` (default ``cuda``; a missing card raises).  Each app plans
 its engine once and runs it twice: ``first`` includes the one-time set-up
-(row ids, tiles, the kernels' build), ``steady`` is a warm run.
+(row ids, tiles, the kernels' build), ``steady`` is a warm run.  ``--app check`` runs the static-analysis
+plane instead (``repro_torch.analysis.check``; ``--strict``,
+``--mutants``, and ``--metrics-json PATH`` for the findings JSON): no
+graph, no engine, nothing on the card.
 
 Not ported yet, and raising :class:`NotImplementedError` that names the
-ROADMAP item: ``--dryrun`` (A11), ``--app check``, ``--strict`` and
-``--mutants`` (A9), ``--backend sharded`` (A6), ``--metrics-json`` (A7),
-``--checkpoint-dir``, ``--checkpoint-every``, ``--fault-seed``,
-``--fault-rate`` and ``--retries`` (A8).
+ROADMAP item: ``--dryrun`` (A11), ``--backend sharded`` (A6),
+``--metrics-json`` outside ``--app check`` (A7), ``--checkpoint-dir``,
+``--checkpoint-every``, ``--fault-seed``, ``--fault-rate`` and
+``--retries`` (A8).
 """
 from __future__ import annotations
 
@@ -160,9 +164,6 @@ def _refuse_unported(args) -> None:
     naming the ROADMAP item that brings each."""
     for given, flag, item in (
             (args.dryrun, "--dryrun", "A11"),
-            (args.app == "check", "--app check", "A9"),
-            (args.strict, "--strict", "A9"),
-            (args.mutants, "--mutants", "A9"),
             (args.backend == "sharded", "--backend sharded", "A6"),
             (args.metrics_json is not None, "--metrics-json", "A7"),
             (args.checkpoint_dir is not None, "--checkpoint-dir", "A8"),
@@ -188,17 +189,34 @@ def main(argv=None):
                     choices=("dense", "windowed"))
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default: the card)")
+    ap.add_argument("--strict", action="store_true",
+                    help="--app check: fail on warnings as well as errors")
+    ap.add_argument("--mutants", action="store_true",
+                    help="--app check: run the mutation corpus")
+    ap.add_argument("--metrics-json", metavar="PATH",
+                    help="--app check: write the findings JSON to PATH")
     # the reference's flags whose planes are not ported yet: each raises
     ap.add_argument("--dryrun", action="store_true")
-    ap.add_argument("--strict", action="store_true")
-    ap.add_argument("--mutants", action="store_true")
-    ap.add_argument("--metrics-json", metavar="PATH")
     ap.add_argument("--checkpoint-dir", metavar="DIR")
     ap.add_argument("--checkpoint-every", type=int, metavar="GENS")
     ap.add_argument("--fault-seed", type=int, metavar="SEED")
     ap.add_argument("--fault-rate", type=float)
     ap.add_argument("--retries", type=int)
     args = ap.parse_args(argv)
+    if args.app == "check":
+        # the static-analysis plane: no graph, no engine, no device work
+        if any(v is not None for v in (
+                args.fault_seed, args.fault_rate, args.retries,
+                args.checkpoint_dir, args.checkpoint_every)):
+            ap.error("--app check is static analysis; fault injection and "
+                     "checkpoints don't apply")
+        from ..analysis.check import main as check_main
+        argv = ["--strict"] * args.strict + ["--mutants"] * args.mutants
+        if args.metrics_json:
+            argv += ["--json", args.metrics_json]
+        return check_main(argv)
+    if args.strict or args.mutants:
+        ap.error("--strict/--mutants apply to --app check")
     _refuse_unported(args)
     if args.app == "scc":
         return run_scc(args.graph, args.method, args.backend,
@@ -212,4 +230,5 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    out = main()
+    raise SystemExit(out if isinstance(out, int) else 0)

@@ -71,22 +71,36 @@ def segment_mean(values, seg_ids, num_segments: int):
 
 
 def segment_max(values, seg_ids, num_segments: int):
-    """Per-segment maximum, -inf for an empty segment (as
-    ``jax.ops.segment_max``)."""
-    out = torch.full((num_segments,) + tuple(values.shape[1:]),
+    """Per-segment maximum, -inf for an empty segment; ids outside
+    ``[0, num_segments)``, negatives too, are dropped (as
+    ``jax.ops.segment_max``).  They go to one extra row that is cut off,
+    so the scatter never sees an out-of-range index (a device-side assert
+    on the card)."""
+    ok = (seg_ids >= 0) & (seg_ids < num_segments)
+    ids = torch.where(ok, seg_ids, num_segments).to(torch.int64)
+    out = torch.full((num_segments + 1,) + tuple(values.shape[1:]),
                      float("-inf"), dtype=values.dtype, device=values.device)
-    idx = seg_ids.to(torch.int64).view(
-        (-1,) + (1,) * (values.dim() - 1)).expand_as(values)
-    return out.scatter_reduce(0, idx, values, "amax", include_self=False)
+    idx = ids.view((-1,) + (1,) * (values.dim() - 1)).expand_as(values)
+    return out.scatter_reduce(0, idx, values, "amax",
+                              include_self=False)[:num_segments]
+
+
+def _take(x, ids):
+    """``x[ids]`` under JAX's gather rule: a negative id wraps once, then
+    every id is clamped into ``[0, len(x))``."""
+    n = x.shape[0]
+    return x[torch.where(ids < 0, ids + n, ids).clamp(0, n - 1)]
 
 
 def segment_softmax(logits, seg_ids, num_segments: int):
-    """Softmax over edges grouped by destination (graph attention)."""
+    """Softmax over edges grouped by destination (graph attention).  An
+    edge whose id lies outside ``[0, num_segments)`` reads the clamped
+    segment's max and sum, as the reference's gathers do."""
     mx = segment_max(logits, seg_ids, num_segments)
     mx = torch.where(torch.isfinite(mx), mx, torch.zeros_like(mx))
-    e = torch.exp(logits - mx[seg_ids])
+    e = torch.exp(logits - _take(mx, seg_ids))
     z = segment_sum(e, seg_ids, num_segments)
-    return e / torch.clamp(z[seg_ids], min=1e-9)
+    return e / torch.clamp(_take(z, seg_ids), min=1e-9)
 
 
 # ------------------------------------------------------------------ params

@@ -235,6 +235,31 @@ def test_equivariant_constants_match_reference():
     assert teq.l_slices(3) == jeq.l_slices(3)
 
 
+
+@pytest.mark.parametrize("case", ["roadmap", "2d"])
+def test_segment_max_softmax_out_of_range_ids(case):
+    """Ids outside ``[0, n)``, negatives too: segment_max drops them (as
+    ``jax.ops.segment_max``) and segment_softmax reads the max and sum of
+    the segment JAX's gather wraps and clamps them to, on the CPU and
+    without a scatter out of range; to 1e-6 relative."""
+    if case == "roadmap":
+        ids = np.array([0, 1, 1, 3], np.int32)
+        logits = np.array([0.0, -0.5, 0.5, np.log(2.0)], np.float32)
+        n = 3
+    else:
+        rng = np.random.default_rng(9)
+        ids = rng.integers(-7, 9, 40).astype(np.int32)
+        logits = rng.normal(size=(40, 3)).astype(np.float32)
+        n = 5
+    tl, ti = torch.as_tensor(logits), torch.as_tensor(ids)
+    jl, ji = jnp.asarray(logits), jnp.asarray(ids)
+    np.testing.assert_array_equal(
+        common.segment_max(tl, ti, n).numpy(),
+        np.asarray(jax.ops.segment_max(jl, ji, num_segments=n)))
+    np.testing.assert_allclose(
+        common.segment_softmax(tl, ti, n).numpy(),
+        np.asarray(jcommon.segment_softmax(jl, ji, n)), rtol=1e-6, atol=0)
+
 def test_segment_ops_match_reference():
     """segment_mean / segment_softmax (with an empty segment) and the
     segment_sum gradient (a gather, zero for dropped ids)."""

@@ -4,8 +4,10 @@ outputs are int32 or bool; the flash attention kernel to a stated float
 tolerance; the segment sum, whose float atomics add in another order, to
 1e-5 of each segment's sum of absolute values), the engines on the card
 against the engines on the CPU, the LM's prefill (through the flash
-kernel) against its decode, and a GNN training step on the card against
-the same step on the CPU.  They skip where no CUDA device is present; on a machine with one
+kernel) against its decode, a GNN training step on the card against
+the same step on the CPU, the static checks' copy kernel against
+``x.clone()``, and every captured launch record against the grid and
+block the profiler sees.  They skip where no CUDA device is present; on a machine with one
 run them with::
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -411,7 +413,8 @@ def test_segment_sum_kernel(cuda, m, d, n, dtype, ids_kind):
                           else torch.int32)
     before = ops.LAUNCHES["segment_sum"]
     _segment_close(ss.segment_sum(vals, ids, n), vals, ids, n)
-    assert ops.LAUNCHES["segment_sum"] == before + 1
+    # no rows: zeros, and no kernel to launch
+    assert ops.LAUNCHES["segment_sum"] == before + (m > 0)
 
 
 def test_segment_sum_kernel_views_and_3d(cuda):
@@ -462,3 +465,51 @@ def test_gnn_train_step_on_card_matches_cpu(cuda, arch):
     for g, c in zip(grads, cgrads):
         tol = 1e-3 * max(float(c.abs().max()), 1e-12)
         torch.testing.assert_close(g.cpu(), c, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("n", [0, 1, 255, 1000, 4097, 1 << 20])
+@pytest.mark.parametrize("block", [16, 256, 1024])
+@pytest.mark.parametrize("carry", [False, True])
+def test_mutant_copy_kernel(cuda, n, block, carry):
+    """The static checks' copy kernel equals x.clone() (x + the carry
+    word) bit for bit, ragged tails included."""
+    from repro_torch.kernels import mutant_copy as mc
+    x = torch.as_tensor(np.random.default_rng(n).integers(
+        -2**31, 2**31 - 1, n), dtype=torch.int32, device=cuda)
+    c = torch.tensor([-5], dtype=torch.int32, device=cuda) if carry else None
+    before = ops.LAUNCHES["mutant_copy"]
+    got = mc.mutant_copy(x, c, block=block)
+    want = x.clone() if c is None else x - 5
+    torch.cuda.synchronize()
+    assert _eq(got, want) and got.dtype == torch.int32
+    assert ops.LAUNCHES["mutant_copy"] == before + (n > 0)
+
+
+def test_captured_launches_are_the_cards(cuda, tmp_path):
+    """Every kernel catalog point: the launch records captured on meta
+    tensors equal the kernels, grids and blocks the profiler sees on the
+    card, in order."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.analysis.capture import profiled_launches
+    from repro_torch.analysis.catalog import (KERNEL_CATALOG,
+                                              LAUNCH_DECLARATIONS)
+    want, points = [], []
+    for entry in KERNEL_CATALOG:
+        for point in entry.points:
+            want += [(w.kernel, tuple(w.grid), tuple(w.block))
+                     for w in entry.build(point)]
+            points.append((entry, point))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for entry, point in points:
+            entry.run(point, cuda)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    got = profiled_launches(json.loads((tmp_path / "trace.json")
+                                       .read_text()),
+                            {k for _, k in LAUNCH_DECLARATIONS})
+    assert got == want
+    assert {k for k, _, _ in got} == {k for _, k in LAUNCH_DECLARATIONS}
