@@ -24,13 +24,18 @@ non-zero and prints no result line):
    inputs, all-dead buckets, sentinel and negative sources); the kernel's
    time (CUDA events over back-to-back calls, and its device time alone
    from the profiler), the plain version's, one library call's where one
-   computes the same function, and the bytes bound at 3.35 TB/s.
-   flash_attention against its plain version (the Pallas kernel's
-   arithmetic) at qwen3-1.7b's prefill shape (B, Hq, Hkv, S, D) = (8, 16,
-   8, 2048, 128), causal, in f32 (to 1e-4) and bf16 (to 1e-2), and at
-   edge cases (Sq < Sk, Sq > Sk, single blocks, D = 16, non-causal, GQA
-   groups 1-3, transposed and sliced inputs); its bound is operations
-   (2 B Hq S (S+1) D FLOP at 989 TFLOP/s bf16), its library call SDPA.
+   computes the same function (CUDA events, and its device time alone),
+   and the bytes bound at 3.35 TB/s.
+   flash_attention's two kernels against their plain version (the Pallas
+   kernel's arithmetic) at qwen3-1.7b's prefill shape (B, Hq, Hkv, S, D) =
+   (8, 16, 8, 2048, 128), causal, in f32 (to 1e-4, flash_fwd) and bf16 (to
+   1e-2, flash_fwd_wgmma), and at edge cases in both dtypes (Sq < Sk, Sq >
+   Sk, single blocks, D in {16, 32, 64, 128}, non-causal, GQA groups 1-3,
+   transposed, sliced and unaligned inputs), logging the kernel each
+   (dtype, D) reached; flash_fwd_wgmma's SASS must hold HGMMA instructions
+   (``cuobjdump -sass``), printed with ptxas's registers and spills; the
+   bound is operations (2 B Hq S (S+1) D FLOP at 989 TFLOP/s bf16), the
+   library call SDPA (CUDA events and device time).
    segment_sum against its plain version to 1e-5 of each segment's sum of
    |v| (float atomics add in another order) at the training path's shapes
    (MeshGraphNet on molecule (8,192, 128) -> 3,840 and on minibatch_lg
@@ -86,8 +91,9 @@ non-zero and prints no result line):
    config (28 layers, random weights from seed 0), 8 requests of 2048
    prompt tokens and 32 generated tokens, with the launch counts set to 0
    just before it and read just after: flash_attention must have run 28
-   times (once a layer, in the one prefill).  Prefill and decode times,
-   tok/s, peak device memory, weight and cache bytes.  Then decode
+   times (once a layer, in the one prefill), on flash_fwd_wgmma (bf16,
+   D = 128).  Prefill and decode times, tok/s, peak device memory, weight
+   and cache bytes.  Then decode
    against forward at full width: ``decode_step(pos=p)`` after
    ``prefill(tokens[:, :p])`` equals ``forward(tokens)[:, p]`` (the
    prefill through the kernel, decode through plain einsums) in f32 at
@@ -499,11 +505,13 @@ def kernel_phase(dev, g_t, cap, ecap):
                    bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                    bound_by="bytes")
         rows[name] = row
+        lib_dev = "" if lib is None else \
+            f" (library device_ms={device_ms(lib):.4f})"
         log(f"# phase 1: {name}: bit-identical at the real shapes; "
             f"kernel_ms={row['ms']:.4f} device_ms={device_ms(kern):.4f} "
             f"plain_ms={row['plain_ms']:.4f} "
-            f"library_ms={row['library_ms'] if lib is None else round(row['library_ms'], 4)} "
-            f"bound_ms={row['bound_ms']:.4f}")
+            f"library_ms={row['library_ms'] if lib is None else round(row['library_ms'], 4)}"
+            f"{lib_dev} bound_ms={row['bound_ms']:.4f}")
 
     # counter_scatter: RMAT-skewed sources (the sources of random edges of
     # the real graph, so hubs repeat), plus the sentinel n and negatives;
@@ -537,7 +545,8 @@ def kernel_phase(dev, g_t, cap, ecap):
                 f"{device_ms(lambda: cs.counter_scatter(*args)):.4f} "
                 f"plain_ms={row['plain_ms']:.4f} library_ms="
                 f"{row['library_ms']:.4f} (index_add_ of the in-range "
-                f"updates + the compare) bound_ms={row['bound_ms']:.4f}")
+                f"updates + the compare; device_ms={device_ms(lib):.4f}) "
+                f"bound_ms={row['bound_ms']:.4f}")
             if b == 65_536 and label == "rmat":
                 rows["counter_scatter"] = row
     return rows
@@ -564,17 +573,52 @@ def counter_updates(rng, n: int, b: int, dev, pool=None):
             torch.as_tensor(delta, dtype=torch.int32, device=dev))
 
 
+def flash_build_report():
+    """The Hopper flash kernel as built: its HGMMA instructions per
+    instantiation (``cuobjdump -sass``; none means it missed the tensor
+    cores) and ptxas's registers and spills.  Returns ``{D: (hgmma,
+    "ptxas line")}``."""
+    import re
+
+    from repro_torch.kernels import _build
+    found, fn = {}, None
+    for line in _build.sass("flash_attention").splitlines():
+        if "Function : " in line:
+            m = re.search(r"flash_fwd_wgmmaILi(\d+)E", line)
+            fn = int(m.group(1)) if m else None
+            if fn is not None:
+                found[fn] = [0, ""]
+        elif fn is not None and "HGMMA" in line:
+            found[fn][0] += 1
+    fn = None
+    for line in _build.build_log("flash_attention").splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"flash_fwd_wgmmaILi(\d+)E", line)
+            fn = int(m.group(1)) if m else None
+        elif fn in found and ("spill" in line or "registers" in line):
+            found[fn][1] += line.split(":")[-1].strip() + "; "
+    check(sorted(found) == [64, 128] and all(c > 0 for c, _ in
+                                             found.values()),
+          f"flash_fwd_wgmma's SASS holds no HGMMA: {found}")
+    return {d: tuple(v) for d, v in found.items()}
+
+
 def flash_phase(dev):
-    """Phase 1 for flash_attention: the kernel against its plain version
-    (the Pallas kernel's arithmetic) at edge cases and at the real
+    """Phase 1 for flash_attention: both kernels against their plain
+    version (the Pallas kernel's arithmetic) at edge cases and at the real
     prefill shape of qwen3-1.7b, in f32 and bf16; times there.  Returns
-    the bf16 row of the kernel table (the serving path's dtype)."""
+    the bf16 row of the kernel table (the serving path's dtype, on
+    flash_fwd_wgmma)."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
+    built = flash_build_report()
+    log("# phase 1: flash_fwd_wgmma as built: " + "; ".join(
+        f"D={d}: {n} HGMMA in its SASS, ptxas {ptx}"
+        for d, (n, ptx) in sorted(built.items())))
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def qkv(b, hq, hkv, sq, sk, d, dtype):
@@ -588,34 +632,50 @@ def flash_phase(dev):
         return float((got.float() - want.float()).abs().max())
 
     # Sq < Sk, Sq > Sk (zero rows and mean rows), one short block, D = 16,
-    # non-causal, GQA groups 1, 2 and 3
+    # non-causal, GQA groups 1, 2 and 3; bf16 at D in {64, 128} runs
+    # flash_fwd_wgmma, the rest flash_fwd
+    reached = {}
     for (b, hq, hkv, sq, sk, d, causal) in (
             (2, 4, 2, 256, 512, 128, True), (1, 2, 1, 384, 128, 64, True),
             (1, 4, 2, 128, 64, 32, True), (2, 3, 1, 96, 96, 16, True),
             (1, 4, 4, 48, 48, 128, True), (1, 8, 2, 256, 384, 64, False),
             (3, 6, 2, 128, 128, 16, True)):
         for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
             args = qkv(b, hq, hkv, sq, sk, d, dtype)
             e = err(fa.flash_attention(*args, causal=causal),
                     ref.flash_attention_ref(*args, causal=causal))
-            check(e <= FLASH_TOL[str(dtype).split(".")[1]],
+            check(e <= FLASH_TOL[name],
                   f"flash_attention {(b, hq, hkv, sq, sk, d, causal)} "
                   f"{dtype}: max |err| {e}")
-    # non-contiguous: the model's transposed (B, S, H, D) views, and a
-    # strided slice of the keys
-    q, k, v = (torch.randn((2, 256, h, 64), generator=gen, device=dev)
-               for h in (8, 4, 4))
-    views = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
-    e = err(fa.flash_attention(*views), ref.flash_attention_ref(*views))
-    check(e <= FLASH_TOL["float32"], f"flash_attention strided: {e}")
+            reached[(name, d)] = fa.kernel_for(dtype, d)
+    # non-contiguous: the model's transposed (B, S, H, D) views (read by
+    # strides, or by TMA), a strided slice of the keys, and a bf16 input
+    # that breaks TMA's alignment (the wrapper copies it)
+    for dtype, d in ((torch.float32, 64), (torch.bfloat16, 128)):
+        name = str(dtype).split(".")[1]
+        q, k, v = (torch.randn((2, 256, h, d), generator=gen,
+                               device=dev).to(dtype) for h in (8, 4, 4))
+        views = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+        e = err(fa.flash_attention(*views), ref.flash_attention_ref(*views))
+        check(e <= FLASH_TOL[name], f"flash_attention strided {name}: {e}")
     wide = [t[:, :, ::2] for t in qkv(1, 4, 2, 256, 512, 32, torch.float32)]
     e = err(fa.flash_attention(*wide), ref.flash_attention_ref(*wide))
     check(e <= FLASH_TOL["float32"], f"flash_attention sliced: {e}")
+    q, k, v = qkv(1, 4, 2, 256, 256, 64, torch.bfloat16)
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)
+    shifted = flat[1:].view(q.shape).copy_(q)            # 2-byte offset
+    check(not fa.tma_ready(shifted), "the shifted input is TMA-aligned")
+    e = err(fa.flash_attention(shifted, k, v),
+            ref.flash_attention_ref(q, k, v))
+    check(e <= FLASH_TOL["bfloat16"], f"flash_attention unaligned: {e}")
     torch.cuda.synchronize()
     log("# phase 1: flash_attention edge cases within tolerance (f32 1e-4, "
         "bf16 1e-2): Sq < Sk, Sq > Sk (zero and mean rows), S <= 128 "
         "single blocks, D in {16, 32, 64, 128}, non-causal, GQA groups 1, "
-        "2, 3, transposed and sliced inputs")
+        "2, 3, transposed (f32 and bf16), sliced and unaligned inputs; "
+        "kernels reached: " + ", ".join(
+            f"{n} D={d} {k_}" for (n, d), k_ in sorted(reached.items())))
 
     b, hq, hkv, s, d = (FLASH_REAL[k_] for k_ in ("b", "hq", "hkv", "s",
                                                     "d"))
@@ -627,6 +687,11 @@ def flash_phase(dev):
         e = err(fa.flash_attention(*args), ref.flash_attention_ref(*args))
         check(e <= FLASH_TOL[name], f"flash_attention real shape {name}: "
                                     f"max |err| {e}")
+        # the bf16 output against the plain version's f32 result, before
+        # its rounding: the kernel's own error, about one output rounding
+        e32 = float((fa.flash_attention(*args).float()
+                     - ref.flash_attention_ref(*(t.float() for t in args)))
+                    .abs().max())
         nbytes = (2 * b * hq * s * d + 2 * b * hkv * s * d) \
             * args[0].element_size()
         bound = max(flops / PEAK_FLOPS[name], nbytes / HBM_BYTES_PER_S) * 1e3
@@ -643,15 +708,19 @@ def flash_phase(dev):
                                   reps=3, warmup=1),
                  library_ms=time_ms(lib, reps=10), bound_ms=bound,
                  bound_by="operations")
+        dev_ms = device_ms(kern, reps=10)
         log(f"# phase 1: flash_attention {name} (B, Hq, Hkv, S, D) = "
-            f"({b}, {hq}, {hkv}, {s}, {d}) causal: max |err| {e:.3g} "
-            f"(tolerance {FLASH_TOL[name]}); kernel_ms={r['ms']:.4f} "
-            f"device_ms={device_ms(kern, reps=10):.4f} "
+            f"({b}, {hq}, {hkv}, {s}, {d}) causal on "
+            f"{fa.kernel_for(dtype, d)}: max |err| {e:.3g} (tolerance "
+            f"{FLASH_TOL[name]}; {e32:.3g} against the plain version's f32 "
+            f"result); kernel_ms={r['ms']:.4f} device_ms={dev_ms:.4f} "
             f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
-            f"(SDPA, enable_gqa; max |err| {lib_err:.3g}) "
-            f"bound_ms={bound:.4f} ({flops / 1e9:.1f} GFLOP at "
-            f"{PEAK_FLOPS[name] / 1e12:.0f} TFLOP/s; {nbytes / 1e6:.0f} MB); "
-            f"achieved {flops / r['ms'] / 1e9:.1f} TFLOP/s")
+            f"(SDPA, enable_gqa; device_ms={device_ms(lib, reps=10):.4f}; "
+            f"max |err| {lib_err:.3g}) bound_ms={bound:.4f} "
+            f"({flops / 1e9:.1f} GFLOP at {PEAK_FLOPS[name] / 1e12:.0f} "
+            f"TFLOP/s; {nbytes / 1e6:.0f} MB); achieved "
+            f"{flops / r['ms'] / 1e9:.1f} TFLOP/s ({flops / dev_ms / 1e9:.1f}"
+            f" on the device time)")
         row = r
         del args
     return row
@@ -807,7 +876,8 @@ def segment_time(label, v, ids, n: int, reps: int = 20):
         f"{row['max_abs_err']:.3g} ({rel:.3g} of the segment's sum of |v|); "
         f"kernel_ms={row['ms']:.4f} device_ms={device_ms(kern, reps=reps):.4f} "
         f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
-        f"(zeros + index_add_) bound_ms={row['bound_ms']:.4f} "
+        f"(zeros + index_add_; device_ms={device_ms(lib, reps=reps):.4f}) "
+        f"bound_ms={row['bound_ms']:.4f} "
         f"({nbytes / 1e6:.0f} MB)")
     return row
 
@@ -1382,7 +1452,8 @@ def mutant_copy_phase(dev):
         f"without the carry word); n={MUTANT_N:,}: kernel_ms="
         f"{row['ms']:.4f} device_ms={device_ms(kern):.4f} plain_ms="
         f"{row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
-        f"(x.clone()) bound_ms={row['bound_ms']:.4f}")
+        f"(x.clone(); device_ms={device_ms(x.clone):.4f}) "
+        f"bound_ms={row['bound_ms']:.4f}")
     return row
 
 
@@ -1471,6 +1542,7 @@ def serve_phase(dev):
     import torch
 
     from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import generate, serve_lm
     from repro_torch.models import LM
@@ -1502,13 +1574,18 @@ def serve_phase(dev):
     check(launches["flash_attention"] == cfg.n_layers,
           f"flash_attention launched {launches['flash_attention']} times "
           f"in one prefill, not {cfg.n_layers}")
+    # the wrapper's dispatch is static: (dtype, D) decides the kernel
+    kernel = fa.kernel_for(cfg.compute_dtype, cfg.d_head)
+    check(kernel == "flash_fwd_wgmma", f"the {cfg.compute_dtype} prefill "
+          f"at D={cfg.d_head} runs {kernel}, not flash_fwd_wgmma")
     check(toks.shape == (SERVE["batch"], SERVE["gen_len"] + 1)
           and toks.min() >= 0 and toks.max() < cfg.vocab,
           f"served tokens {toks.shape} out of range")
     dec = np.asarray(stats["decode_ms"])
     n_tok = SERVE["batch"] * SERVE["gen_len"]
     log(f"# phase 11: serve_lm {SERVE['batch']} x {SERVE['prompt_len']} "
-        f"prompt tokens, {SERVE['gen_len']} new: launches {launches}; "
+        f"prompt tokens, {SERVE['gen_len']} new: launches {launches} "
+        f"(flash_attention on {kernel}); "
         f"prefill_ms={stats['prefill_ms']:.1f} decode_ms per step median "
         f"{np.median(dec):.2f} (first {dec[0]:.2f}, max {dec.max():.2f}); "
         f"{n_tok / dec.sum() * 1e3:.0f} tok/s decode; peak device memory "

@@ -7,7 +7,8 @@ concretely, so its guarantee is per lattice point, not universal.  The
 points exercise every structural regime of each wrapper: one block, many
 blocks, padded grids (a size that is not a multiple of a block's
 extent), the aligned and unaligned (or W != 16) kernel variants, and for
-flash attention GQA, both causal modes and Sq != Sk.
+flash attention both kernels (bf16 at D in {64, 128} reaches
+``flash_fwd_wgmma``), GQA, both causal modes and Sq != Sk.
 
 **Declarations.**  ``LAUNCH_DECLARATIONS`` maps each ``__global__``
 kernel, keyed by ``(library, kernel)``, to what it writes: per output, the
@@ -56,8 +57,10 @@ PLAN_WINDOW = 16
 PLAN_UPDATE_W = 8
 PLAN_INS_CAP = 64
 
-#: csrc/flash_attention.cu TQ: q rows per block
+#: csrc/flash_attention.cu: q rows per block of flash_fwd (TQ) and of
+#: flash_fwd_wgmma (WG_ROWS)
 FLASH_ROWS = 64
+FLASH_WGMMA_ROWS = 128
 
 class OutputDecl(NamedTuple):
     """How a kernel writes one output.
@@ -109,17 +112,20 @@ def whole(mode: str = "owned", guard: str = "") -> OutputDecl:
                       guard)
 
 
-def _flash_extent(launch, shape):
-    return (1, 1, FLASH_ROWS, shape[3])
+def flash_out(rows: int) -> OutputDecl:
+    """The (B, Hq, Sq, D) output of a flash kernel with ``rows`` q rows a
+    block: both kernels decode their 1-D grid as bh = x % (B Hq), q tile =
+    nqt - 1 - x / (B Hq) (heaviest causal tiles first), and a block owns
+    that tile's rows of one (batch, q head)."""
+    def extent(launch, shape):
+        return (1, 1, rows, shape[3])
 
-
-def _flash_index(launch, shape, b):
-    # flash_fwd decodes its 1-D grid: bh = x % (B Hq), q tile = nqt - 1 -
-    # x / (B Hq) (heaviest causal tiles first)
-    bh_count = shape[0] * shape[1]
-    nqt = -(-shape[2] // FLASH_ROWS)
-    bh = b[0] % bh_count
-    return (bh // shape[1], bh % shape[1], nqt - 1 - b[0] // bh_count, 0)
+    def index(launch, shape, b):
+        bh_count = shape[0] * shape[1]
+        nqt = -(-shape[2] // rows)
+        bh = b[0] % bh_count
+        return (bh // shape[1], bh % shape[1], nqt - 1 - b[0] // bh_count, 0)
+    return OutputDecl("owned", extent, index)
 
 
 LAUNCH_DECLARATIONS: dict[tuple[str, str], LaunchDecl] = {
@@ -162,7 +168,9 @@ LAUNCH_DECLARATIONS: dict[tuple[str, str], LaunchDecl] = {
     ("frontier_compact", "expand_slots"): LaunchDecl(
         {"src": rows(), "tgt": rows(), "pos": rows(), "valid": rows()}),
     ("flash_attention", "flash_fwd"): LaunchDecl(
-        {"out": OutputDecl("owned", _flash_extent, _flash_index)}),
+        {"out": flash_out(FLASH_ROWS)}),
+    ("flash_attention", "flash_fwd_wgmma"): LaunchDecl(
+        {"out": flash_out(FLASH_WGMMA_ROWS)}),
     # sound: float atomicAdd into an output the entry point zeroes first;
     # out-of-range ids add nothing
     ("segment_sum", "scatter_rows"): LaunchDecl({"out": whole("atomic")}),
@@ -298,6 +306,13 @@ KERNEL_CATALOG: tuple[KernelEntry, ...] = (
          "causal": True},                     # padded q tiles
         {"b": 1, "hq": 2, "hkv": 1, "sq": 256, "sk": 128, "d": 16,
          "causal": True},                     # sq > sk
+        # bf16 at D in {64, 128}: flash_fwd_wgmma (128-row tiles)
+        {"b": 2, "hq": 4, "hkv": 2, "sq": 256, "sk": 256, "d": 128,
+         "causal": True, "dtype": "bfloat16"},  # GQA, 16 blocks
+        {"b": 1, "hq": 3, "hkv": 1, "sq": 48, "sk": 96, "d": 64,
+         "causal": False, "dtype": "bfloat16"},  # one short tile, group 3
+        {"b": 1, "hq": 2, "hkv": 1, "sq": 384, "sk": 128, "d": 64,
+         "causal": True, "dtype": "bfloat16"},  # sq > sk
     ), _flash),
     KernelEntry("first_live_scan", (
         {"n": 200, "w": 16},                  # one block, padded

@@ -36,7 +36,8 @@ from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+              "-Xptxas", "-v")
 
 #: elements per tile of the prefix scan (``prefix_positions``): the wrapper
 #: sizes its grid with it and ``csrc/frontier_compact.cu`` is compiled with
@@ -110,7 +111,9 @@ def build_all() -> dict[str, float]:
     """Compile every source whose library is missing, one ``nvcc`` process
     per source, all started together.  Returns the wall seconds each build
     took (0.0 for a cached library); raises with the compiler's output if
-    any build fails."""
+    any build fails.  The compiler's output (``-Xptxas -v``: registers,
+    shared memory and spills of every kernel) is kept beside each library
+    (:func:`build_log`)."""
     import time
 
     names = sorted(p.stem for p in CSRC.glob("*.cu"))
@@ -136,10 +139,23 @@ def build_all() -> dict[str, float]:
             failed.append(f"--- nvcc {name}.cu (exit {proc.returncode})\n"
                           f"{log}")
             continue
+        target.with_suffix(".log").write_text(log)
         os.replace(tmp, target)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return took
+
+
+def build_log(name: str) -> str:
+    """The compiler's output of the built ``csrc/<name>.cu``."""
+    return _lib_path(name).with_suffix(".log").read_text()
+
+
+def sass(name: str) -> str:
+    """The SASS of the built ``csrc/<name>.cu`` (``cuobjdump -sass``)."""
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    return subprocess.run([tool, "-sass", str(_lib_path(name))],
+                          capture_output=True, text=True, check=True).stdout
 
 
 def load(name: str) -> ctypes.CDLL:

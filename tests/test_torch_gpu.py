@@ -359,6 +359,59 @@ def test_flash_attention_kernel_strided_and_errors(cuda):
         fa.flash_attention(qt.half(), kt.half(), vt.half())
 
 
+def _flash_once(q, k, v, causal=True):
+    """One wrapper call: exactly one launch counted, on the kernel that
+    (dtype, D) selects, within 1e-2 of the plain version (bf16)."""
+    before = ops.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    assert got.dtype == q.dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-2,
+                               rtol=1e-2)
+    return got
+
+
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2), (6, 2)])  # groups 1-3
+@pytest.mark.parametrize("sq,sk", [(256, 256), (128, 384), (384, 128),
+                                   (48, 96), (128, 64)])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_wgmma_kernel(cuda, hq, hkv, sq, sk, d, causal):
+    """bf16 at D in {64, 128} runs flash_fwd_wgmma: GQA groups 1-3, Sq <
+    Sk, Sq > Sk (zero rows and mean rows when causal), short single
+    tiles."""
+    assert fa.kernel_for(torch.bfloat16, d) == "flash_fwd_wgmma"
+    rng = np.random.default_rng(sq * 7 + sk + d + hq)
+    q, k, v = (torch.as_tensor(rng.normal(size=shape), device=cuda)
+               .to(torch.bfloat16)
+               for shape in ((2, hq, sq, d), (2, hkv, sk, d),
+                             (2, hkv, sk, d)))
+    _flash_once(q, k, v, causal)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_wgmma_views_and_unaligned(cuda, d):
+    """The model's transposed (B, S, H, D) views go to TMA as they are and
+    the output keeps their layout; an input with a 2-byte offset, or with
+    rows that are not a multiple of 16 bytes, takes the wrapper's copy."""
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.as_tensor(rng.normal(size=(2, 256, h, d)),
+                               device=cuda).to(torch.bfloat16)
+               for h in (8, 4, 4))
+    views = [t.transpose(1, 2) for t in (q, k, v)]
+    assert all(fa.tma_ready(t) for t in views)
+    assert _flash_once(*views).transpose(1, 2).is_contiguous()
+    flat = torch.as_tensor(rng.normal(size=2 * 8 * 256 * d + 1),
+                           device=cuda).to(torch.bfloat16)
+    shifted = flat[1:].view(2, 8, 256, d)               # 2-byte offset
+    wide = torch.as_tensor(rng.normal(size=(2, 4, 256, d + 4)),
+                           device=cuda).to(torch.bfloat16)[..., :d]
+    assert not fa.tma_ready(shifted) and not fa.tma_ready(wide)
+    _flash_once(shifted, views[1], wide)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_lm_prefill_decode_on_card(cuda, dtype):
     """The reduced qwen3 on the card: decode_step(pos=P) after

@@ -409,6 +409,128 @@ def test_flash_attention_block_divisibility():
         ops.flash_attention(*tx)
 
 
+# chip_smoke.py's tolerances for the flash kernels against their plain
+# version: one bf16 rounding of outputs of size ~1 (2^-8 relative), and f32
+# sums in other orders
+FLASH_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+
+
+def _split_p(p):
+    """flash_fwd_wgmma's p on its way to PV: two bf16 halves, summed in
+    the f32 accumulator."""
+    hi = p.bfloat16().float()
+    return hi + (p - hi).bfloat16().float()
+
+
+def _flash_emulation(q, k, v, causal=True, p_round=_split_p,
+                     dtype=torch.float32):
+    """A plain emulation of flash_fwd_wgmma's rounding: q, k, v as given
+    (bf16 values, exact in f32), products and the online softmax in
+    ``dtype`` over the reference's blocks (128-key tiles, the causal skip,
+    -1e30 inside computed blocks, ``l == 0`` -> 1), the denominator summing
+    the unrounded p, and ``p_round(p)`` entering the PV product.  Returns
+    (B, Hq, Sq, D) in ``dtype``."""
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    g = hq // hkv
+    bq, bk = ref.flash_blocks(sq, sk)
+    qf = q.to(dtype).reshape(b, hkv, g, sq, d)
+    kf, vf = k.to(dtype), v.to(dtype)
+    scale = 1.0 / np.sqrt(d)
+    out = torch.zeros((b, hkv, g, sq, d), dtype=dtype)
+    for qi in range(sq // bq):
+        qb = qf[:, :, :, qi * bq:(qi + 1) * bq]
+        m = torch.full((b, hkv, g, bq, 1), ref.NEG_INF, dtype=dtype)
+        l = torch.zeros((b, hkv, g, bq, 1), dtype=dtype)
+        acc = torch.zeros((b, hkv, g, bq, d), dtype=dtype)
+        q_pos = sk - sq + qi * bq + torch.arange(bq)
+        for ki in range(sk // bk):
+            if causal and sk - sq + qi * bq + bq - 1 < ki * bk:
+                continue
+            s = torch.einsum("bhgqd,bhkd->bhgqk", qb,
+                             kf[:, :, ki * bk:(ki + 1) * bk]) * scale
+            if causal:
+                k_pos = ki * bk + torch.arange(bk)
+                s = torch.where(q_pos[:, None] >= k_pos[None, :], s,
+                                ref.NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            p = torch.exp(s - m_new)
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1, keepdim=True)
+            acc = acc * corr + torch.einsum(
+                "bhgqk,bhkd->bhgqd", p_round(p),
+                vf[:, :, ki * bk:(ki + 1) * bk])
+            m = m_new
+        out[:, :, :, qi * bq:(qi + 1) * bq] = acc / torch.where(l == 0, 1, l)
+    return out.reshape(b, hq, sq, d)
+
+
+WGMMA_CASES = [
+    (1, 2, 1, 128, 256, 64, True),       # Sq < Sk, GQA group 2
+    (1, 2, 2, 128, 128, 128, False),     # non-causal
+    (1, 2, 1, 256, 128, 64, True),       # Sq > Sk: a zero block, mean rows
+    (1, 3, 1, 128, 64, 128, True),       # Sq > Sk: mean rows, group 3
+    (2, 4, 2, 256, 256, 128, True),      # causal, two tiles a row
+    (1, 2, 1, 48, 96, 64, False),        # one short tile each
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal", WGMMA_CASES)
+def test_flash_wgmma_rounding_matches_pallas(b, hq, hkv, sq, sk, d, causal):
+    """flash_fwd_wgmma's arithmetic (bf16 products exact in f32, p split
+    into two bf16 halves for PV), emulated on the CPU, against the Pallas
+    kernel in interpret mode: on bf16 inputs to FLASH_TOL["bfloat16"] after
+    the output's bf16 rounding, and on the same values in f32 to
+    FLASH_TOL["float32"] before it."""
+    jx, tx = _flash_inputs(b, hq, hkv, sq, sk, d, "bf16")
+    emu = _flash_emulation(*tx, causal=causal)
+    want = np.asarray(pallas_flash(*jx, causal=causal, interpret=True),
+                      np.float32)
+    np.testing.assert_allclose(emu.bfloat16().float().numpy(), want,
+                               atol=FLASH_TOL["bfloat16"], rtol=0)
+    want32 = pallas_flash(*[jnp.asarray(t.float().numpy()) for t in tx],
+                          causal=causal, interpret=True)
+    np.testing.assert_allclose(emu.numpy(), np.asarray(want32),
+                               atol=FLASH_TOL["float32"], rtol=0)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_wgmma_split_beats_one_rounding(causal):
+    """Why p is split: against an f64 run of the same blocks, the split's
+    error is at least 10x below that of rounding p to bf16 once."""
+    _, tx = _flash_inputs(1, 4, 1, 256, 256, 128, "bf16")
+    exact = _flash_emulation(*tx, causal=causal, p_round=lambda p: p,
+                             dtype=torch.float64)
+    split = _flash_emulation(*tx, causal=causal)
+    once = _flash_emulation(*tx, causal=causal,
+                            p_round=lambda p: p.bfloat16().float())
+    err_split = float((split.double() - exact).abs().max())
+    err_once = float((once.double() - exact).abs().max())
+    assert 10 * err_split <= err_once, (err_split, err_once)
+
+
+def test_flash_wgmma_dispatch():
+    """The wrapper picks the kernel from (dtype, D) alone: bf16 at D in
+    {64, 128} goes to flash_fwd_wgmma, f32 and bf16 at D in {16, 32} to
+    flash_fwd; a bf16 input that breaks TMA's alignment is copied."""
+    for dt in (torch.float32, torch.bfloat16):
+        for d in tfa.HEAD_DIMS:
+            want = ("flash_fwd_wgmma" if dt == torch.bfloat16 and d >= 64
+                    else "flash_fwd")
+            assert tfa.kernel_for(dt, d) == want
+    x = torch.zeros((2, 4, 128, 72), dtype=torch.bfloat16)
+    assert tfa.tma_ready(x[..., :64])                    # 144-byte rows
+    assert tfa.tma_ready(x.transpose(1, 2).contiguous().transpose(1, 2))
+    one = torch.as_strided(torch.zeros(4 * 128 * 64, dtype=torch.bfloat16),
+                           (1, 4, 128, 64), (3, 128 * 64, 64, 1))
+    assert tfa.tma_ready(one)            # a length-1 dim is never stepped
+    assert not tfa.tma_ready(x.view(-1)[1:1 + 2 * 4 * 128 * 64]
+                             .view(2, 4, 128, 64))       # 2-byte offset
+    y = torch.zeros((2, 4, 128, 68), dtype=torch.bfloat16)
+    assert not tfa.tma_ready(y[..., :64])                # 136-byte rows
+    assert tfa.wgmma_smem_bytes(128) == 5 * 32768 + 64 + 1024
+
+
 def test_flash_attention_wrapper_refuses_cpu_tensors():
     """The kernel wrapper launches on a CUDA device or raises, and an
     unsupported head dim or dtype raises before any device question."""

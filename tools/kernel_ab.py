@@ -6,12 +6,12 @@ in turns: A, B, B, A, each in a process of its own.
 
 Each process runs, from its own checkout, phase 1 of that checkout's
 ``chip_smoke.py`` (every kernel against its plain version at the main
-paths' real shapes: ``kernel_phase``, ``flash_phase``, ``segment_phase``)
-and prints the kernel table rows it returns; then it times the host side
-of each wrapper, the microseconds one call takes to return (Python, the
-ctypes call and the launch; the median of 5 runs of 2,000 calls) at a
-small shape whose kernel takes a few microseconds, so the card never
-holds the host back.  The last line is one JSON object: kernel -> the
+paths' real shapes: ``kernel_phase``, ``flash_phase``, ``segment_phase``,
+and ``mutant_copy_phase`` of phase 13) and prints the kernel table rows
+it returns; then it times the host side of each wrapper, the
+microseconds one call takes to return (Python, the ctypes call and the
+launch; the median of 5 runs of 2,000 calls) at a small shape whose
+kernel takes a few microseconds, so the card never holds the host back.  The last line is one JSON object: kernel -> the
 kernel times (CUDA events over back-to-back calls, wrapper host time
 included), the plain versions' and the host microseconds of the four
 turns.  Two versions are compared only inside one such call, on one card.
@@ -38,11 +38,12 @@ fp = frontier_plan("auto", g.n, g.m)
 rows = cs.kernel_phase(dev, gt, fp.cap, fp.ecap)
 rows["flash_attention"] = cs.flash_phase(dev)
 rows["segment_sum"] = cs.segment_phase(dev)
+rows["mutant_copy"] = cs.mutant_copy_phase(dev)
 
 import time
 from repro_torch.kernels import bucket_peel, counter_scatter, \
     first_live_scan, flash_attention, frontier_compact, frontier_expand, \
-    segment_sum
+    mutant_copy, segment_sum
 gen = torch.Generator(device=dev).manual_seed(0)
 n = 4096
 b16 = torch.rand((n, 16), generator=gen, device=dev) < 0.5
@@ -71,6 +72,7 @@ calls = {
         i32, mask, i32[:512], i32[:512]),
     "flash_attention": lambda: flash_attention.flash_attention(q, kv, kv),
     "segment_sum": lambda: segment_sum.segment_sum(vals, i32, 8),
+    "mutant_copy": lambda: mutant_copy.mutant_copy(i32),
 }
 for name, fn in calls.items():
     fn()
