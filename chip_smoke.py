@@ -21,7 +21,11 @@ non-zero and prints no result line):
    and with all B on one source) and at edge cases (n = 0, n = 1, B = 0,
    ragged tails, all-inactive rows, capacity and ecap overflow,
    zero-degree rows, W in {4, 8, 17, 32}, non-contiguous and unaligned
-   inputs, all-dead buckets, sentinel and negative sources); the kernel's
+   inputs, all-dead buckets, sentinel and negative sources;
+   frontier_compact at its tile size +-1, over 38 tiles with a ragged
+   tail, on mask[1:], with count > capacity, all-true and empty masks,
+   each called twice so the second call meets the first's status words,
+   and at the real shape with 1,024 and 0 members); the kernel's
    time (CUDA events over back-to-back calls, and its device time alone
    from the profiler), the plain version's, one library call's where one
    computes the same function (CUDA events, and its device time alone),
@@ -127,8 +131,10 @@ non-zero and prints no result line):
    trace must equal the captured launch records, in order; every kernel
    must have run.  Then (c) ``mutant_copy`` (the corpus's well-formed
    geometry; its twins never run) against ``x.clone()`` bit for bit at
-   n = 4,194,304, n = 0, n = 1 and a ragged tail, with and without the
-   carry word: kernel, plain and ``x.clone()`` times and the bytes bound;
+   n = 4,194,304, n = 0 to 7 (n % 4 in {0, 1, 2, 3}) and ragged tails,
+   aligned and at an unaligned ``x[1:]``, with and without the carry
+   word: kernel, plain and ``x.clone()`` times, warm (L2-resident) and
+   cold (L2 flushed before each call), and the bytes bound;
    (d) the host syncs of one warm AC-4 and one AC-6 trim at RMAT scale 22,
    counted by ``torch.cuda.set_sync_debug_mode("warn")`` and by the CPU
    lint's counter, must both equal the lint's budget for the rounds and
@@ -311,6 +317,35 @@ def device_ms(fn, reps: int = 20) -> float:
     return busy_us / 1e3 / reps
 
 
+def cold_device_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of ``fn`` with the L2 cache cold: a 256 MB
+    buffer (five times the H100's 50 MB L2) is written before each call,
+    and only the device items that ``fn`` launches (by name) are
+    counted."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def items(prof):
+        return [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+    flush = torch.empty((256 << 20,), dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = {e.name for e in items(prof)}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    busy_us = sum(e.device_time for e in items(prof) if e.name in names)
+    return busy_us / 1e3 / reps
+
+
 def max_abs_err(got, want) -> int:
     """Largest absolute difference over a tuple of int/bool outputs."""
     err = 0
@@ -332,6 +367,7 @@ def kernel_phase(dev, g_t, cap, ecap):
     import numpy as np
     import torch
 
+    from repro_torch.kernels import _build
     from repro_torch.kernels import bucket_peel as bpl
     from repro_torch.kernels import counter_scatter as cs
     from repro_torch.kernels import first_live_scan as fls
@@ -359,12 +395,19 @@ def kernel_phase(dev, g_t, cap, ecap):
             check(max_abs_err(fc.prefix_positions(x),
                               ref.prefix_positions_ref(x)) == 0,
                   f"prefix_positions n={n} {x.dtype}")
-    for n, c in ((1, 1), (700, 16), (4097, 64), (4097, 8192)):
-        for mask in (np.zeros(n, bool), np.ones(n, bool), rng.random(n) < .2):
-            mk = t(mask)
-            check(max_abs_err(fc.frontier_compact(mk, c),
-                              ref.frontier_compact_ref(mk, c)) == 0,
-                  f"frontier_compact n={n} cap={c}")
+    tile = _build.COMPACT_TILE
+    for n, c in ((1, 1), (700, 16), (4097, 64), (4097, 8192),
+                 (tile - 1, 512), (tile, 512), (tile + 1, 512),
+                 (37 * tile + 5, 70_000), (37 * tile + 5, 9_000)):
+        for mask in (np.zeros(n + 1, bool), np.ones(n + 1, bool),
+                     rng.random(n + 1) < .2):
+            for off in (0, 1):                           # 1: mask[1:]
+                mk = t(mask)[off:off + n]
+                want = ref.frontier_compact_ref(mk, c)
+                for _ in range(2):           # the second reads stale words
+                    check(max_abs_err(fc.frontier_compact(mk, c), want)
+                          == 0, f"frontier_compact n={n} cap={c} "
+                                f"offset={off}")
     small = g_t.indptr[:5001] - 0
     small_idx = g_t.indices[: int(small[-1])]
     for c, e, p in ((8192, 8192, 1.0), (512, 64, 0.9), (64, 512, 0.05)):
@@ -417,7 +460,10 @@ def kernel_phase(dev, g_t, cap, ecap):
         "all-inactive, capacity/ecap overflow, zero-degree rows, W in "
         "{4, 8, 16, 17, 32}, non-contiguous and unaligned inputs, "
         "all-dead buckets, negative counters, sentinel and negative "
-        "sources, all updates on one source)")
+        "sources, all updates on one source; frontier_compact at n = "
+        f"{tile - 1}, {tile}, {tile + 1} and {37 * tile + 5} (38 tiles), "
+        "all-true, empty and 20% masks, count > capacity, aligned and "
+        "mask[1:], each twice)")
 
     # real shapes
     n = g_t.n
@@ -453,6 +499,22 @@ def kernel_phase(dev, g_t, cap, ecap):
             f"device_ms={device_ms(kern):.4f} plain_ms="
             f"{time_ms(lambda: ref.frontier_expand_ref(xflags, valid, pend)):.4f} "
             f"bound_ms={(2 * n + 2 * window * rows) / HBM_BYTES_PER_S * 1e3:.4f}")
+    # frontier_compact where few members leave most slots to the sentinel
+    # fill (the sparse rounds), and the empty frontier
+    for members_n in (1024, 0):
+        few = torch.zeros(n, dtype=torch.bool, device=dev)
+        few[t(rng.choice(n, members_n, replace=False))] = True
+        check(max_abs_err(fc.frontier_compact(few, cap),
+                          ref.frontier_compact_ref(few, cap)) == 0,
+              f"frontier_compact real shape, {members_n} members")
+
+        def kern():
+            return fc.frontier_compact(few, cap)
+        log(f"# phase 1: frontier_compact, {members_n} members of cap "
+            f"{cap}: kernel_ms={time_ms(kern):.4f} "
+            f"device_ms={device_ms(kern):.4f} library device_ms="
+            f"{device_ms(lambda: torch.nonzero(few)):.4f} bound_ms="
+            f"{(n + 4 * cap + 4) / HBM_BYTES_PER_S * 1e3:.4f}")
     for k in (0, 1):
         kt = t([k], torch.int32)
         check(max_abs_err((bpl.bucket_peel(pcount, palive, kt),),
@@ -1384,10 +1446,14 @@ def declarations_phase(dev, g_t, cap, ecap):
         (mc.mutant_copy, (MUTANT_N,), ("int32",), {}),
         (mc.mutant_copy, (64, 1), ("int32", "int32"), {"block": 16}),
         (mc.mutant_copy, (64,), ("int32",), {"block": 16}),
+        # unaligned views (offset 1): the byte-load compaction and the
+        # scalar copy
+        (fc.frontier_compact, (n - 1, cap), ("bool", None), {}, 1),
+        (mc.mutant_copy, (MUTANT_N - 1,), ("int32",), {}, 1),
     ]
 
-    def args_on(shapes, dtypes, device):
-        return [sh if dt is None else tensor(sh, dt, 0, device)
+    def args_on(shapes, dtypes, device, offset=0):
+        return [sh if dt is None else tensor(sh, dt, offset, device)
                 for sh, dt in zip(shapes, dtypes)]
 
     want, calls, points = [], [], 0
@@ -1396,9 +1462,10 @@ def declarations_phase(dev, g_t, cap, ecap):
             want += entry.build(point)
             calls.append(lambda e=entry, p=point: e.run(p, dev))
             points += 1
-    for fn, shapes, dtypes, kw in real:
-        want += capture_kernel(fn, *args_on(shapes, dtypes, "meta"), **kw)
-        args = args_on(shapes, dtypes, dev)
+    for fn, shapes, dtypes, kw, *offset in real:
+        want += capture_kernel(fn, *args_on(shapes, dtypes, "meta", *offset),
+                               **kw)
+        args = args_on(shapes, dtypes, dev, *offset)
         calls.append(lambda fn=fn, args=args, kw=kw: fn(*args, **kw))
     got = card_launches(calls)
     want = [(w.kernel, tuple(w.grid), tuple(w.block)) for w in want]
@@ -1415,7 +1482,8 @@ def declarations_phase(dev, g_t, cap, ecap):
 
 def mutant_copy_phase(dev):
     """(c): the copy kernel against x.clone(), bit for bit; times at
-    n = MUTANT_N.  Returns its row of the kernel table."""
+    n = MUTANT_N, warm (x in L2 from the call before) and cold (L2 flushed
+    before each call).  Returns its row of the kernel table."""
     import torch
 
     from repro_torch.kernels import mutant_copy as mc
@@ -1427,18 +1495,26 @@ def mutant_copy_phase(dev):
         return torch.randint(-2**31, 2**31 - 1, (n,), generator=gen,
                              device=dev, dtype=torch.int32)
     carry = torch.tensor([7], dtype=torch.int32, device=dev)
-    for n in (0, 1, 255, 1000, 4097):
-        x = ints(n)
-        for c in (None, carry):
-            for block in (16, 256, 1024):
-                got = mc.mutant_copy(x, c, block=block)
-                check(torch.equal(got, ref.mutant_copy_ref(x, c)),
-                      f"mutant_copy n={n} block={block} carry={c}")
-    x = ints(MUTANT_N)
+    # n % 4 in {0, 1, 2, 3}; offset 1: an unaligned x[1:] (scalar kernels)
+    for n in (0, 1, 2, 3, 5, 6, 7, 255, 1000, 4097, 4098, 4099):
+        base = ints(n + 1)
+        for off in (0, 1):
+            x = base[off:off + n]
+            for c in (None, carry):
+                for block in (16, 256, 1024):
+                    got = mc.mutant_copy(x, c, block=block)
+                    check(torch.equal(got, ref.mutant_copy_ref(x, c)),
+                          f"mutant_copy n={n} offset={off} block={block} "
+                          f"carry={c}")
+    base = ints(MUTANT_N + 1)
+    x = base[:MUTANT_N]
     err = max_abs_err((mc.mutant_copy(x),), (x.clone(),))
     check(err == 0, "mutant_copy differs from x.clone() at the real size")
     check(torch.equal(mc.mutant_copy(x, carry), x + 7),
           "mutant_copy with a carry differs at the real size")
+    xu = base[1:]
+    check(torch.equal(mc.mutant_copy(xu), xu.clone()),
+          "mutant_copy differs from x.clone() at the real size, x[1:]")
 
     def kern():
         return mc.mutant_copy(x)
@@ -1447,13 +1523,17 @@ def mutant_copy_phase(dev):
                library_ms=time_ms(x.clone),
                bound_ms=8 * MUTANT_N / HBM_BYTES_PER_S * 1e3,
                bound_by="bytes")
-    log(f"# phase 13: mutant_copy bit-identical to x.clone() (n = 0, 1, "
-        f"255, 1000, 4097 and {MUTANT_N:,}; blocks 16, 256, 1024; with and "
-        f"without the carry word); n={MUTANT_N:,}: kernel_ms="
-        f"{row['ms']:.4f} device_ms={device_ms(kern):.4f} plain_ms="
-        f"{row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
-        f"(x.clone(); device_ms={device_ms(x.clone):.4f}) "
-        f"bound_ms={row['bound_ms']:.4f}")
+    log(f"# phase 13: mutant_copy bit-identical to x.clone() (n = 0-7, "
+        f"255, 1000, 4097-4099 and {MUTANT_N:,}, aligned and x[1:]; blocks "
+        f"16, 256, 1024; with and without the carry word); n="
+        f"{MUTANT_N:,}: kernel_ms={row['ms']:.4f} device_ms="
+        f"{device_ms(kern):.4f} cold device_ms={cold_device_ms(kern):.4f} "
+        f"plain_ms={row['plain_ms']:.4f} library_ms="
+        f"{row['library_ms']:.4f} (x.clone(); device_ms="
+        f"{device_ms(x.clone):.4f} cold device_ms="
+        f"{cold_device_ms(x.clone):.4f}) bound_ms={row['bound_ms']:.4f}; "
+        f"x[1:] (scalar) device_ms="
+        f"{device_ms(lambda: mc.mutant_copy(xu)):.4f}")
     return row
 
 

@@ -24,11 +24,15 @@ block's extent, and how it writes it —
 
 and whether the launch uses cross-block scratch.  CUDA blocks run in no
 order, so scratch shared across a launch's blocks is sound only under an
-ordered protocol, which none of the port's kernels has: the reference's
-sequential SMEM carry (``frontier_compact._scan_kernel``) became three
-launches (``tile_reduce``, ``scan_tile_sums``, ``tile_scan``).  The
-detector trusts declarations only structurally, and a launched kernel
-without one is an error (``unregistered-kernel``).
+ordered protocol, which the declaration names (``ordered``).  One kernel
+has one: ``compact_lookback``, the single-pass compaction that takes the
+place of the reference's sequential SMEM carry
+(``frontier_compact._scan_kernel``), orders its blocks by tile tickets
+and passes the carry by decoupled look-back.  The prefix scan
+(``prefix_positions``) still splits the carry into three launches
+(``tile_reduce``, ``scan_tile_sums``, ``tile_scan``).  The detector
+trusts declarations only structurally, and a launched kernel without one
+is an error (``unregistered-kernel``).
 
 **Plans.**  ``PLAN_CATALOG`` holds the reference's 23 ``family/variant``
 runner configurations (``src/repro/analysis/catalog.py``).  Each
@@ -80,8 +84,8 @@ class OutputDecl(NamedTuple):
 
 class LaunchDecl(NamedTuple):
     """What a ``__global__`` kernel declares: its outputs by name, whether
-    it uses cross-block scratch, and the ordered protocol that would make
-    such scratch sound (none of the port's kernels has one)."""
+    it uses cross-block scratch, and the ordered protocol that makes such
+    scratch sound (``compact_lookback``'s tickets and look-back)."""
 
     outputs: dict
     scratch: bool = False
@@ -154,14 +158,25 @@ LAUNCH_DECLARATIONS: dict[tuple[str, str], LaunchDecl] = {
         {"sums": whole(), "total": whole()}),
     ("frontier_compact", "tile_scan"): LaunchDecl(
         {"out": tile(_build.SCAN_TILE)}),
-    # sound: member i writes slot pos[i], an exclusive prefix sum, so the
-    # member slots are distinct, and the sentinel fill writes only slots
-    # t >= count, which no member takes
-    ("frontier_compact", "compact_fill"): LaunchDecl(
+    # sound: a CTA takes its tile from a ticket counter, so every tile's
+    # predecessors are resident; it writes its members to the slots after
+    # their exclusive prefix (distinct across tiles); the sentinel fill
+    # writes only slots at or past count, which no member takes
+    ("frontier_compact", "compact_lookback"): LaunchDecl(
         {"ids": whole("data-dependent",
-                      guard="a member writes ids[pos[i]] only where "
-                            "pos[i] < capacity; thread t < capacity fills "
-                            "slot t only where t >= count")}),
+                      guard="a member writes ids[excl + rank] only where "
+                            "excl + rank < capacity; the fill writes slot s "
+                            "only where count <= s < capacity"),
+         "count": whole("data-dependent",
+                        guard="only the last tile's CTA writes count[0]")},
+        scratch=True,
+        ordered="tile tickets from an atomic counter (atomicInc, clear "
+                "again after the last ticket), then decoupled look-back: "
+                "each tile publishes its aggregate and its inclusive prefix "
+                "as one self-contained 64-bit epoch-tagged word "
+                "(st.relaxed.gpu) and reads its predecessors' words "
+                "(ld.relaxed.gpu); fill CTAs hold the tickets after the "
+                "last tile and wait for its prefix"),
     ("frontier_compact", "expand_rows"): LaunchDecl(
         {"row_base": rows(), "deg": rows()}),
     # thread e writes slot e; only the values come from the scan
@@ -271,7 +286,8 @@ def _prefix_positions(p: dict, dev) -> tuple:
 
 def _frontier_compact(p: dict, dev) -> tuple:
     from ..kernels.frontier_compact import frontier_compact
-    return frontier_compact, (tensor(p["n"], "bool", 0, dev), p["cap"]), {}
+    return frontier_compact, (tensor(p["n"], "bool", p.get("offset", 0),
+                                     dev), p["cap"]), {}
 
 
 def _sparse_expand(p: dict, dev) -> tuple:
@@ -339,8 +355,11 @@ KERNEL_CATALOG: tuple[KernelEntry, ...] = (
     ), _prefix_positions),
     KernelEntry("frontier_compact", (
         {"n": 100, "cap": 32},
-        {"n": 5000, "cap": 64},               # n > capacity, 20 blocks
+        {"n": 5000, "cap": 64},               # n > capacity
         {"n": 50, "cap": 600},                # capacity > n
+        # 5 tiles, a ragged tail, 2 fill CTAs
+        {"n": 4 * _build.COMPACT_TILE + 9, "cap": 9000},
+        {"n": 5000, "cap": 64, "offset": 1},  # unaligned: byte loads
     ), _frontier_compact),
     KernelEntry("sparse_expand", (
         {"n": 32, "m": 64, "c": 16, "ecap": 64},

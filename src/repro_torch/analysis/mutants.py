@@ -14,11 +14,13 @@ field.
 the output index map under mutation.  Here they are launch records of the
 port's copy kernel (``kernels/mutant_copy.py``, ``csrc/mutant_copy.cu``),
 built through the real capture path with the same names, ``expect``
-checkers and geometry (n = 64, blocks of 16 or 32), and their mutated
-block maps declared in ``MUTANT_DECLARATIONS``.  They are never launched:
-a twin refuses to run outside capture (the out-of-bounds one would write
-out of bounds on a card).  The well-formed geometry is the real kernel,
-and its capture must come out clean (``MUTANT_CONTROLS``).
+checkers and the reference's geometry (n = 64, blocks of 16 or 32, grid
+n // block, one element a thread), and their mutated block maps declared
+in ``MUTANT_DECLARATIONS``.  They are never launched: a twin refuses to
+run outside capture (the out-of-bounds one would write out of bounds on a
+card).  The well-formed geometry is the real kernel, whose block owns
+``PER_THREAD`` elements a thread (one where a slice is not 16-byte
+aligned), and its capture must come out clean (``MUTANT_CONTROLS``).
 
 **The rest of the corpus, mapped:** the reference's jaxpr mutants become
 plans whose host syncs break the budget (``analysis.syncs``); the probe
@@ -34,6 +36,7 @@ import numpy as np
 import torch
 
 from ..kernels import _build
+from ..kernels.mutant_copy import PER_THREAD
 from .capture import capture_kernel, capturing
 from .catalog import LaunchDecl, OutputDecl, rows, tensor
 from .findings import Finding
@@ -51,9 +54,12 @@ def _map(index) -> OutputDecl:
 
 
 MUTANT_DECLARATIONS: dict[tuple[str, str], LaunchDecl] = {
-    # the real kernels: one thread per element
-    (LIB, "mutant_copy"): LaunchDecl({"out": rows()}),
-    (LIB, "mutant_copy_carry"): LaunchDecl({"out": rows()}),
+    # the real kernels: PER_THREAD elements a thread where aligned, one
+    # where not
+    (LIB, "mutant_copy"): LaunchDecl({"out": rows(PER_THREAD)}),
+    (LIB, "mutant_copy_carry"): LaunchDecl({"out": rows(PER_THREAD)}),
+    (LIB, "mutant_copy_scalar"): LaunchDecl({"out": rows()}),
+    (LIB, "mutant_copy_carry_scalar"): LaunchDecl({"out": rows()}),
     # blocks 2i and 2i+1 both write block i
     (LIB, "overlap_copy"): LaunchDecl({"out": _map(lambda b: b // 2)}),
     # every block writes block 0

@@ -43,8 +43,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: sizes its grid with it and ``csrc/frontier_compact.cu`` is compiled with
 #: ``-DTILE=`` of it, so the two cannot disagree
 SCAN_TILE = 4096
+#: mask bytes per tile of the single-pass compaction (``frontier_compact``),
+#: passed as ``-DCOMPACT_TILE=`` in the same way
+COMPACT_TILE = 16384
 #: per-source preprocessor definitions, part of each library's hash
-DEFINES = {"frontier_compact": (f"-DTILE={SCAN_TILE}",)}
+DEFINES = {"frontier_compact": (f"-DTILE={SCAN_TILE}",
+                                f"-DCOMPACT_TILE={COMPACT_TILE}")}
 
 #: kernel launches per public wrapper (a plain int each), counted only where
 #: a wrapper actually launches its CUDA kernel — the plain CPU path never

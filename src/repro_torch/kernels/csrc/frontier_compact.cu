@@ -13,20 +13,83 @@
 // each output once (3.35 TB/s).
 //
 // Design:
-//   prefix_positions — the TPU carries the running sum from one grid step
-//     to the next in SMEM.  Hopper blocks run in no order, so that becomes
-//     reduce-then-scan: (1) every TILE-element tile sums itself, (2) one
-//     block scans the tile sums into tile offsets and writes `total` on
-//     the device (no host sync), (3) every tile scans itself from its
-//     offset.  Tiles are staged through padded shared memory so both the
-//     load and the store are coalesced; each thread scans 16 contiguous
-//     items, a warp-shuffle scan joins the threads.  The input is int32 or
-//     a bool mask read as bytes, so a mask is never widened in memory.
-//     Traffic: 2 reads of the input and 1 write of the output.
-//   frontier_compact — one kernel after the scan: slot j >= count gets the
-//     sentinel n, member i writes ids[pos[i]] = i when pos[i] < capacity.
-//     The two sets of writes never overlap, so there is no ordering to
-//     enforce and no separate fill pass.
+//   prefix_positions — reduce-then-scan: (1) every TILE-element tile sums
+//     itself, (2) one block scans the tile sums into tile offsets and
+//     writes `total` on the device (no host sync), (3) every tile scans
+//     itself from its offset.  Tiles are staged through padded shared
+//     memory so both the load and the store are coalesced; each thread
+//     scans 16 contiguous items, a warp-shuffle scan joins the threads.
+//     The input is int32 or a bool mask read as bytes, so a mask is never
+//     widened in memory.  Traffic: 2 reads of the input and 1 write of the
+//     output.
+//   frontier_compact — compact_lookback, one launch and one pass over the
+//     mask: a single-pass stream compaction with decoupled look-back, the
+//     GPU form of the TPU kernel's sequential carry.  Each CTA handles one
+//     COMPACT_TILE-byte tile:
+//     1. Tile ticket.  The CTA takes its tile from an atomic counter, not
+//        from blockIdx.x, so tile k is taken only after tiles 0..k-1 were
+//        taken by CTAs that are already resident.  A CTA waits only on
+//        lower tickets, and tile 0 waits on nothing, so by induction every
+//        wait ends, whatever order the hardware schedules the blocks in:
+//        that is the kernel's deadlock argument.  The counter is bumped
+//        with atomicInc(.., gridDim.x - 1), which wraps to 0 at the last
+//        ticket, so it is clear again for the next launch.
+//     2. Load.  Each thread reads LB_ROUNDS 16-byte vectors of mask bytes
+//        (a CTA's loads of one round are one contiguous 4 KB run).  A mask
+//        whose base is not 16-byte aligned (a slice such as mask[1:])
+//        takes the <false> instantiation, which reads the same bytes one
+//        at a time.  Bytes are normalised to 0/1 and counted with popc.
+//     3. Count and scan.  The per-thread counts of the four rounds are
+//        packed into one 64-bit word, 16 bits a round (a round's block
+//        total is at most 4,096, so no lane carries into the next), and
+//        one block scan gives every thread its offsets in all four rounds.
+//        Warp 0 publishes the tile's aggregate, looks back over the
+//        predecessors 32 status words at a time (one warp lane a word)
+//        until it meets an inclusive prefix, and publishes its own
+//        inclusive prefix (lookback(), meant to be reused by any
+//        single-pass scan of this file).  A status word is one 64-bit word
+//        (epoch << 2 | flag, value) written by one store, so no reader can
+//        see a flag with a stale value.  Memory order: strong relaxed
+//        accesses at GPU scope, st.relaxed.gpu on publish and
+//        ld.relaxed.gpu on read.  That is enough because the word carries
+//        everything a reader uses: an aligned 64-bit access is
+//        single-copy atomic, and no reader reads any other data that the
+//        publisher wrote before it (the ids and the count are read only
+//        after the launch).  A tile's two publishes go to one address
+//        from one thread, so coherence keeps the prefix after the
+//        aggregate.  st.release.gpu / ld.acquire.gpu would order nothing
+//        more and put a fence on the look-back chain twice a tile
+//        (tools/compact_variants.py times that variant; PERF.md).
+//     4. Write.  Round by round, each thread stages its members' ids in
+//        shared memory at its scanned offset, then the CTA writes the
+//        round's run to ids[excl + ...] with coalesced stores, only the
+//        slots below capacity.  Rounds that start at or past capacity are
+//        skipped.
+//     5. Count and sentinels.  The last tile's CTA knows `count` (its
+//        inclusive prefix) and writes it.  Slots [count, capacity) get the
+//        sentinel n, written by FILL CTAs that take the tickets after the
+//        last tile (grid = tiles + FILL, FILL = ceil(capacity / 4,096) - 1):
+//        they wait for the last tile's inclusive prefix and fill the range
+//        grid-stride; with FILL = 0 (capacity <= 4,096) the last tile's CTA
+//        fills it.  The fill CTAs hold later tickets than every tile, so
+//        their wait cannot hold a tile back.  Measured against two
+//        alternatives (the last tile's CTA filling a 256 KB range alone,
+//        or a second launch) by tools/compact_variants.py; see PERF.md.
+//     6. Scratch.  The status words and the ticket live in one persistent
+//        buffer per (device, stream) that the wrapper keeps
+//        (kernels/frontier_compact.py).  Nothing clears it between calls:
+//        the ticket clears itself (1) and every status word carries the
+//        call's epoch, so a word left by an earlier call reads as "not
+//        published yet".  The wrapper zeroes the buffer only when it is
+//        made or when the 30-bit epoch wraps.  Safe on one stream: the
+//        launches that share a buffer run one after another in stream
+//        order, so no two calls are in flight on it at once.  No host
+//        sync: count stays on the device.  The epoch is an argument fixed
+//        at launch, so a CUDA graph that captured this launch would replay
+//        one epoch over its own stale words: such a capture needs the
+//        status words cleared inside the graph first.
+//     Traffic: the mask once, the ids and the count once; the status words
+//     (8 bytes a tile) stay in L2.
 //   sparse_expand — slot-parallel: after the degree gather and the scan
 //     over the C compacted rows, every edge slot e finds its owning row by
 //     a binary search over the exclusive degree sums (the last row whose
@@ -53,6 +116,19 @@ constexpr int SCAN_ITEMS = TILE / SCAN_THREADS;
 static_assert(SCAN_ITEMS * SCAN_THREADS == TILE,
               "TILE must be a multiple of 256");
 constexpr int SUM_THREADS = 1024;
+
+// compact_lookback: COMPACT_TILE (elements per tile) comes from the build,
+// -DCOMPACT_TILE=, the constant the wrapper sizes its grid with
+// (kernels/_build.py COMPACT_TILE)
+#ifndef COMPACT_TILE
+#error "frontier_compact.cu is compiled with -DCOMPACT_TILE=<bytes a tile>"
+#endif
+constexpr int LB_THREADS = 256;
+constexpr int LB_ROUNDS = 4;                  // 16-byte vectors a thread
+constexpr int LB_ROUND = LB_THREADS * 16;     // mask bytes a round
+static_assert(LB_ROUNDS * LB_ROUND == COMPACT_TILE,
+              "COMPACT_TILE must be 4 rounds of 256 threads x 16 bytes");
+static_assert(LB_ROUNDS * 16 <= 64, "a round's counts are 16-bit lanes");
 
 __device__ __forceinline__ int padded(int i) { return i + (i >> 5); }
 
@@ -159,17 +235,223 @@ tile_scan(const T* __restrict__ x, int64_t n,
   }
 }
 
-__global__ void compact_fill(const uint8_t* __restrict__ mask,
-                             const int32_t* __restrict__ pos,
-                             const int32_t* __restrict__ count,
-                             int32_t* __restrict__ ids, int64_t n,
-                             int64_t capacity) {
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t < capacity && t >= count[0]) ids[t] = static_cast<int32_t>(n);
-  if (t < n && mask[t]) {
-    const int32_t p = pos[t];
-    if (p < capacity) ids[p] = static_cast<int32_t>(t);
+// -- single-pass scan with decoupled look-back ---------------------------
+//
+// A tile's status word: the call's epoch and a flag in the high 32 bits,
+// the value in the low 32.  kAggregate: the tile's own sum; kPrefix: the
+// sum of tiles 0..k.  A word of another epoch reads as kInvalid.
+enum : uint32_t { kInvalid = 0, kAggregate = 1, kPrefix = 2 };
+
+// Strong, relaxed, GPU scope: see the note at the top for why no release
+// or acquire is needed.
+__device__ __forceinline__ void publish(uint64_t* word, uint32_t epoch,
+                                        uint32_t flag, int32_t value) {
+  const uint64_t w = (static_cast<uint64_t>(epoch << 2 | flag) << 32) |
+                     static_cast<uint32_t>(value);
+  asm volatile("st.relaxed.gpu.u64 [%0], %1;" ::"l"(word), "l"(w)
+               : "memory");
+}
+
+__device__ __forceinline__ uint64_t peek(const uint64_t* word) {
+  uint64_t w;
+  asm volatile("ld.relaxed.gpu.u64 %0, [%1];"
+               : "=l"(w)
+               : "l"(word)
+               : "memory");
+  return w;
+}
+
+__device__ __forceinline__ uint32_t flag_of(uint64_t w, uint32_t epoch) {
+  const uint32_t hi = static_cast<uint32_t>(w >> 32);
+  return (hi >> 2) == epoch ? (hi & 3u) : kInvalid;
+}
+
+// The exclusive prefix of tile `tile` > 0: the sum of tiles [0, tile).
+// Called by all 32 lanes of one warp after the tile published its
+// aggregate; lane l reads the status word of tile end - 1 - l, the warp
+// waits until all 32 are published, sums the words up to the nearest
+// inclusive prefix and stops there, or steps 32 tiles further back.
+__device__ int32_t lookback(const uint64_t* status, int64_t tile,
+                            uint32_t epoch) {
+  const int lane = threadIdx.x & 31;
+  int32_t excl = 0;
+  for (int64_t end = tile;; end -= 32) {
+    const int64_t idx = end - 1 - lane;
+    uint32_t flag, value;
+    do {
+      flag = kPrefix;  // before tile 0: an empty prefix
+      value = 0;
+      if (idx >= 0) {
+        const uint64_t w = peek(status + idx);
+        flag = flag_of(w, epoch);
+        value = static_cast<uint32_t>(w);
+      }
+    } while (__any_sync(0xffffffffu, flag == kInvalid));
+    const unsigned prefix = __ballot_sync(0xffffffffu, flag == kPrefix);
+    const int stop = prefix ? __ffs(prefix) - 1 : 31;
+    excl += static_cast<int32_t>(
+        __reduce_add_sync(0xffffffffu, lane <= stop ? value : 0u));
+    if (prefix) return excl;
   }
+}
+
+// ids[s] = n for the slots s in [from, capacity) that this thread owns:
+// first, first + stride, ...
+__device__ __forceinline__ void fill_sentinels(int32_t* __restrict__ ids,
+                                               int64_t from, int64_t capacity,
+                                               int64_t n, int64_t first,
+                                               int64_t stride) {
+  for (int64_t s = from + first; s < capacity; s += stride)
+    ids[s] = static_cast<int32_t>(n);
+}
+
+// mask bytes [at, at + 16) (zero past n) as four words of 0/1 bytes
+template <bool kAligned>
+__device__ __forceinline__ void load16(const uint8_t* __restrict__ mask,
+                                       int64_t at, int64_t n, uint32_t w[4]) {
+  w[0] = w[1] = w[2] = w[3] = 0u;
+  if (kAligned && at + 16 <= n) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(mask + at));
+    w[0] = v.x;
+    w[1] = v.y;
+    w[2] = v.z;
+    w[3] = v.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      if (at + j < n) w[j >> 2] |= static_cast<uint32_t>(mask[at + j])
+                                   << (8 * (j & 3));
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) w[k] = __vcmpne4(w[k], 0u) & 0x01010101u;
+}
+
+// One CTA per ticket: tickets [0, tiles) compact one COMPACT_TILE-byte
+// tile each, tickets [tiles, gridDim.x) fill the sentinels (see the note
+// at the top).  scratch: word 0 the ticket counter, words 1.. the tiles'
+// status words.
+template <bool kAligned>
+__global__ void __launch_bounds__(LB_THREADS)
+compact_lookback(const uint8_t* __restrict__ mask, int64_t n,
+                 int64_t capacity, int64_t tiles,
+                 unsigned long long* __restrict__ scratch, uint32_t epoch,
+                 int32_t* __restrict__ ids, int32_t* __restrict__ count) {
+  __shared__ int32_t stage[LB_ROUND];
+  __shared__ unsigned long long warp_tot[LB_THREADS / 32];
+  __shared__ int64_t s_ticket;
+  __shared__ int32_t s_excl;
+  unsigned* ticket = reinterpret_cast<unsigned*>(scratch);
+  uint64_t* status = reinterpret_cast<uint64_t*>(scratch) + 1;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) s_ticket = atomicInc(ticket, gridDim.x - 1);
+  __syncthreads();
+  const int64_t t = s_ticket;
+
+  if (t >= tiles) {  // a fill CTA: wait for the count, then the sentinels
+    if (threadIdx.x == 0) {
+      uint64_t w;
+      do {
+        w = peek(status + tiles - 1);
+      } while (flag_of(w, epoch) != kPrefix);
+      s_excl = static_cast<int32_t>(w);
+    }
+    __syncthreads();
+    fill_sentinels(ids, s_excl, capacity, n,
+                   (t - tiles) * LB_THREADS + threadIdx.x,
+                   (gridDim.x - tiles) * LB_THREADS);
+    return;
+  }
+
+  // load and count: round r, thread i holds bytes [r * LB_ROUND + 16 i,
+  // + 16) of the tile
+  const int64_t base = t * COMPACT_TILE;
+  uint32_t w[LB_ROUNDS][4];
+  unsigned long long packed = 0;
+#pragma unroll
+  for (int r = 0; r < LB_ROUNDS; ++r) {
+    load16<kAligned>(mask, base + r * LB_ROUND + threadIdx.x * 16, n, w[r]);
+    const uint32_t c = __popc(w[r][0]) + __popc(w[r][1]) +
+                       __popc(w[r][2]) + __popc(w[r][3]);
+    packed |= static_cast<unsigned long long>(c) << (16 * r);
+  }
+
+  // block scan of the packed counts (lane-wise: no lane carries)
+  unsigned long long incl = packed;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const unsigned long long o = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += o;
+  }
+  if (lane == 31) warp_tot[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    unsigned long long v = lane < LB_THREADS / 32 ? warp_tot[lane] : 0;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const unsigned long long o = __shfl_up_sync(0xffffffffu, v, d);
+      if (lane >= d) v += o;
+    }
+    if (lane < LB_THREADS / 32) warp_tot[lane] = v;
+  }
+  __syncthreads();
+  if (warp > 0) incl += warp_tot[warp - 1];
+  const unsigned long long total = warp_tot[LB_THREADS / 32 - 1];
+  const unsigned long long mine = incl - packed;
+  int32_t round_total[LB_ROUNDS];
+  int32_t agg = 0;
+#pragma unroll
+  for (int r = 0; r < LB_ROUNDS; ++r) {
+    round_total[r] = static_cast<int32_t>((total >> (16 * r)) & 0xffffu);
+    agg += round_total[r];
+  }
+
+  // publish, look back, publish
+  if (warp == 0) {
+    int32_t excl = 0;
+    if (t == 0) {
+      if (lane == 0) publish(status, epoch, kPrefix, agg);
+    } else {
+      if (lane == 0) publish(status + t, epoch, kAggregate, agg);
+      excl = lookback(status, t, epoch);
+      if (lane == 0) publish(status + t, epoch, kPrefix, excl + agg);
+    }
+    if (lane == 0) {
+      s_excl = excl;
+      if (t == tiles - 1) count[0] = excl + agg;
+    }
+  }
+  __syncthreads();
+  const int64_t excl = s_excl;
+
+  // write: round by round through shared memory, coalesced
+  int64_t run = excl;
+#pragma unroll
+  for (int r = 0; r < LB_ROUNDS; ++r) {
+    if (run >= capacity) break;
+    if (round_total[r] > 0) {
+      int32_t off = static_cast<int32_t>((mine >> (16 * r)) & 0xffffu);
+      const int64_t at = base + r * LB_ROUND + threadIdx.x * 16;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        uint32_t bits = w[r][k];
+        while (bits) {
+          const int b = __ffs(bits) - 1;
+          stage[off++] = static_cast<int32_t>(at + 4 * k + (b >> 3));
+          bits &= bits - 1;
+        }
+      }
+      __syncthreads();
+      const int64_t lim = capacity - run < round_total[r]
+                              ? capacity - run : round_total[r];
+      for (int64_t j = threadIdx.x; j < lim; j += LB_THREADS)
+        ids[run + j] = stage[j];
+      __syncthreads();
+    }
+    run += round_total[r];
+  }
+  if (t == tiles - 1 && gridDim.x == tiles)  // no fill CTAs: this one fills
+    fill_sentinels(ids, excl + agg, capacity, n, threadIdx.x, LB_THREADS);
 }
 
 __global__ void expand_rows(const int32_t* __restrict__ indptr,
@@ -266,16 +548,30 @@ int prefix_positions_launch(const void* x, int x_is_u8, int64_t n,
                                smem2);
 }
 
-// mask: (n,) bool; pos, count: prefix_positions of the mask; ids:
-// (capacity,) int32 output.  One thread per slot of max(n, capacity).
-int compact_fill_launch(const void* mask, const void* pos, const void* count,
-                        void* ids, int64_t n, int64_t capacity, void* stream,
-                        REPRO_GEOMETRY) {
-  compact_fill<<<REPRO_GRID, REPRO_BLOCK, smem,
-                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(mask), static_cast<const int32_t*>(pos),
-      static_cast<const int32_t*>(count), static_cast<int32_t*>(ids), n,
-      capacity);
+// mask: (n,) bool, n >= 1 (aligned != 0: 16-byte aligned); scratch: the
+// wrapper's persistent buffer of 1 + tiles words, ticket clear, no status
+// word of `epoch` (1 <= epoch < 2^30); ids: (capacity,) int32 and count:
+// (1,) int32 out.  One LB_THREADS-thread CTA per tile of COMPACT_TILE
+// bytes, plus the fill CTAs (grid x - tiles).
+int compact_lookback_launch(const void* mask, int aligned, int64_t n,
+                            int64_t capacity, int64_t tiles, void* scratch,
+                            unsigned epoch, void* ids, void* count,
+                            void* stream, REPRO_GEOMETRY) {
+  if (block_x != LB_THREADS || block_y != 1 || block_z != 1 ||
+      grid_y != 1 || grid_z != 1 || grid_x < tiles || tiles < 1 ||
+      epoch == 0 || epoch >= (1u << 30))
+    return repro_invalid();
+  auto* sc = static_cast<unsigned long long*>(scratch);
+  auto* ip = static_cast<int32_t*>(ids);
+  auto* cp = static_cast<int32_t*>(count);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* m = static_cast<const uint8_t*>(mask);
+  if (aligned)
+    compact_lookback<true><<<REPRO_GRID, REPRO_BLOCK, smem, s>>>(
+        m, n, capacity, tiles, sc, epoch, ip, cp);
+  else
+    compact_lookback<false><<<REPRO_GRID, REPRO_BLOCK, smem, s>>>(
+        m, n, capacity, tiles, sc, epoch, ip, cp);
   return repro_last_error();
 }
 

@@ -2,11 +2,12 @@
 ``frontier_compact`` and ``sparse_expand``.
 
 The CUDA kernels are ``csrc/frontier_compact.cu``: a reduce-then-scan
-exclusive prefix sum (the TPU's sequential grid with an SMEM carry has no
-counterpart on a GPU, whose blocks run in no order), a one-pass fill of
-the compacted id buffer, and a slot-parallel CSR expansion.  They compute
-what ``src/repro/kernels/frontier_compact.py`` computes; every total stays
-on the device, so no wrapper syncs with the host.
+exclusive prefix sum, a single-pass compaction with decoupled look-back
+(``compact_lookback``: one launch, one read of the mask; the GPU form of
+the TPU's sequential grid with an SMEM carry), and a slot-parallel CSR
+expansion.  They compute what ``src/repro/kernels/frontier_compact.py``
+computes; every total stays on the device, so no wrapper syncs with the
+host.
 
 These wrappers take CUDA tensors only: they launch or raise.
 ``kernels.ops`` routes CPU tensors to the plain versions in ``ref.py``.
@@ -24,12 +25,21 @@ _I64 = ctypes.c_int64
 _build.declare("frontier_compact", {
     "prefix_positions_launch": [_VP, ctypes.c_int, _I64, _I64, _VP, _VP,
                                 _VP, _VP],
-    "compact_fill_launch": [_VP] * 4 + [_I64, _I64, _VP],
+    "compact_lookback_launch": [_VP, ctypes.c_int, _I64, _I64, _I64, _VP,
+                                ctypes.c_uint, _VP, _VP, _VP],
     "expand_rows_launch": [_VP] * 4 + [_I64, _I64, _VP],
     "expand_slots_launch": [_VP] * 9 + [_I64, _I64, _I64, _VP]})
 SCAN_THREADS = 256      # a block scans one tile of _build.SCAN_TILE
 SUM_THREADS = 1024      # the one block that scans the tile sums
-THREADS = 256           # compact_fill, expand_rows, expand_slots
+THREADS = 256           # compact_lookback, expand_rows, expand_slots
+#: sentinel slots per fill CTA of compact_lookback: a capacity of up to
+#: FILL_SLOTS is filled by the last tile's CTA, a larger one by
+#: ceil(capacity / FILL_SLOTS) - 1 CTAs after the tiles
+FILL_SLOTS = 4096
+#: compact_lookback's status words carry a 30-bit epoch
+EPOCHS = 1 << 30
+#: (device, stream) -> (scratch buffer, epoch of the last call)
+_SCRATCH: dict = {}
 
 
 def prefix_positions(x):
@@ -63,9 +73,27 @@ def prefix_positions(x):
     return out, total
 
 
+def _lookback_scratch(device, stream, tiles: int):
+    """compact_lookback's scratch on ``device`` for launches on ``stream``
+    and the epoch of this call: one int64 buffer of the ticket word and a
+    status word per tile, kept from call to call and never cleared between
+    them (the ticket clears itself and the status words carry the epoch).
+    It is zeroed only when it is made, grown, or when the epoch wraps."""
+    key = (str(device), stream.value)
+    buf, epoch = _SCRATCH.get(key, (None, 0))
+    epoch += 1
+    if buf is None or buf.shape[0] < 1 + tiles or epoch == EPOCHS:
+        size = 1 + max(tiles, 0 if buf is None else buf.shape[0] - 1)
+        buf = torch.zeros((size,), dtype=torch.int64, device=device)
+        epoch = 1
+    _SCRATCH[key] = (buf, epoch)
+    return buf, epoch
+
+
 def frontier_compact(mask, capacity: int):
     """(n,) bool on a CUDA device -> (ids (capacity,) int32, count 0-d
-    int32) — see ``ref.frontier_compact_ref``."""
+    int32) — see ``ref.frontier_compact_ref``.  One launch of
+    compact_lookback."""
     _build.require_cuda("frontier_compact", mask)
     if mask.dtype != torch.bool or mask.dim() != 1:
         raise TypeError("frontier_compact: expected a 1-d bool mask")
@@ -74,16 +102,20 @@ def frontier_compact(mask, capacity: int):
         return (torch.zeros((capacity,), dtype=torch.int32,
                             device=mask.device),
                 torch.zeros((), dtype=torch.int32, device=mask.device))
-    pos, count = prefix_positions(mask)
     ids = torch.empty((capacity,), dtype=torch.int32, device=mask.device)
-    # a thread per slot of max(n, capacity): members write their slot,
-    # slots past the count the sentinel
-    spec = _build.Launch("frontier_compact", "compact_fill",
-                         (_build.blocks(max(n, capacity), THREADS), 1, 1),
-                         (THREADS, 1, 1), 0, {"ids": ids})
-    _build.launch(spec, "compact_fill_launch", _build.c_ptr(mask),
-                  _build.c_ptr(pos), _build.c_ptr(count), _build.c_ptr(ids),
-                  n, capacity, _build.stream_of(mask))
+    count = torch.empty((), dtype=torch.int32, device=mask.device)
+    tiles = _build.blocks(n, _build.COMPACT_TILE)
+    stream = _build.stream_of(mask)
+    scratch, epoch = _lookback_scratch(mask.device, stream, tiles)
+    # a CTA per tile, then the fill CTAs of the sentinel slots
+    fill = max(_build.blocks(capacity, FILL_SLOTS) - 1, 0)
+    spec = _build.Launch("frontier_compact", "compact_lookback",
+                         (tiles + fill, 1, 1), (THREADS, 1, 1), 0,
+                         {"ids": ids, "count": count}, scratch=True)
+    _build.launch(spec, "compact_lookback_launch", _build.c_ptr(mask),
+                  int(mask.data_ptr() % 16 == 0), n, capacity, tiles,
+                  _build.c_ptr(scratch), epoch, _build.c_ptr(ids),
+                  _build.c_ptr(count), stream)
     _build.LAUNCHES["frontier_compact"] += 1
     return ids, count
 

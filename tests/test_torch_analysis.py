@@ -103,6 +103,12 @@ def test_kernel_catalog_names_match_reference():
         [e.name for e in jcatalog.KERNEL_CATALOG]
 
 
+#: the copy kernel's four: bulk and vector copies where aligned, scalar
+#: where not
+COPY_KERNELS = ("mutant_copy", "mutant_copy_carry", "mutant_copy_scalar",
+                "mutant_copy_carry_scalar")
+
+
 def _global_kernels():
     """Every ``__global__`` function of the port's CUDA sources but the
     copy kernel's, by (library, name)."""
@@ -112,8 +118,7 @@ def _global_kernels():
         for name in re.findall(r"__global__\s+void\s+(?:__launch_bounds__"
                                r"\([^)]*\)\s+)?(\w+)", text):
             out.add((path.stem, name))
-    return out - {("mutant_copy", k) for k in ("mutant_copy",
-                                               "mutant_copy_carry")}
+    return out - {("mutant_copy", k) for k in COPY_KERNELS}
 
 
 def test_every_launch_is_declared_and_every_kernel_captured():
@@ -125,8 +130,90 @@ def test_every_launch_is_declared_and_every_kernel_captured():
             for entry in catalog.KERNEL_CATALOG for point in entry.points
             for launch in entry.build(point)}
     assert seen == declared
-    assert {(mutants.LIB, k) for k in ("mutant_copy", "mutant_copy_carry")} \
+    assert {(mutants.LIB, k) for k in COPY_KERNELS} \
         <= set(mutants.MUTANT_DECLARATIONS)
+
+
+_COMPACT = ("frontier_compact", "compact_lookback")
+
+
+@pytest.mark.parametrize("point", [
+    e for e in catalog.KERNEL_CATALOG if e.name == "frontier_compact"][0]
+    .points, ids=lambda p: ",".join(f"{k}={v}" for k, v in p.items()))
+def test_compact_lookback_capture_is_clean(point):
+    """Every frontier_compact lattice point (many tiles with a ragged tail
+    and an unaligned mask among them) captures one launch of the
+    single-pass kernel, a CTA per tile plus the fill CTAs, and it is
+    clean."""
+    from repro_torch.kernels import frontier_compact as fc
+    launches = _launch_all("frontier_compact", point)
+    assert [(x.library, x.kernel) for x in launches] == [_COMPACT]
+    (x,) = launches
+    tiles = _build.blocks(point["n"], _build.COMPACT_TILE)
+    fill = max(_build.blocks(point["cap"], fc.FILL_SLOTS) - 1, 0)
+    assert x.grid == (tiles + fill, 1, 1) and x.block == (fc.THREADS, 1, 1)
+    assert x.scratch
+    assert not _fired(x)
+
+
+def test_compact_lookback_declares_its_ordered_protocol():
+    decl = catalog.LAUNCH_DECLARATIONS[_COMPACT]
+    assert decl.scratch is True and decl.ordered
+    assert {k: d.mode for k, d in decl.outputs.items()} == {
+        "ids": "data-dependent", "count": "data-dependent"}
+    assert all(d.guard for d in decl.outputs.values())
+    assert ("frontier_compact", "compact_fill") not in \
+        catalog.LAUNCH_DECLARATIONS
+
+
+def test_compact_lookback_without_ordered_protocol_is_caught():
+    x = _launch("frontier_compact", {"n": 5000, "cap": 64})
+    decls = dict(catalog.LAUNCH_DECLARATIONS)
+    decls[_COMPACT] = decls[_COMPACT]._replace(ordered="")
+    assert "carry-without-sequential" in _fired(x, decls)
+    # the launch record's own scratch flag is enough to demand one
+    decls[_COMPACT] = decls[_COMPACT]._replace(scratch=False)
+    assert "carry-without-sequential" in _fired(x, decls)
+    assert not _fired(x)
+
+
+@pytest.mark.parametrize("n,block,offset", [
+    (64, 16, 0), (64, 32, 0),             # the twins' n and blocks
+    (1001, 16, 0), (4099, 32, 0),         # ragged: the n % 4 tail slot
+    (65, 16, 1)])                         # an unaligned x[1:]: scalar
+@pytest.mark.parametrize("carry", [False, True])
+def test_mutant_copy_control_geometry_is_clean(n, block, offset, carry):
+    """The real copy kernel's capture is clean under its declarations:
+    rows(PER_THREAD) for the aligned kernels, rows() for the scalar ones;
+    the bulk copy stages a block's range in dynamic shared memory."""
+    from repro_torch.kernels import mutant_copy as mc
+    x = catalog.tensor(n, "int32", offset)
+    c = catalog.tensor(1, "int32") if carry else None
+    (launch,) = capture.capture_kernel(mc.mutant_copy, x, c, block=block)
+    kernel = "mutant_copy" + "_carry" * carry + "_scalar" * bool(offset)
+    assert launch.kernel == kernel and launch.block == (block, 1, 1)
+    per = 1 if offset else mc.PER_THREAD
+    assert launch.grid == (_build.blocks(n, per * block), 1, 1)
+    bulk = not (carry or offset)
+    assert launch.smem == (4 * mc.PER_THREAD * block if bulk else 0)
+    found = races.check_capture("s", launch, mutants.MUTANT_DECLARATIONS)
+    assert not found, found
+
+
+@pytest.mark.parametrize("name", [m.name for m in mutants.MUTANT_KERNELS])
+def test_twins_keep_the_reference_geometry(name):
+    """The twins stay one element a thread, grid n // block, whatever the
+    real kernel's geometry, and each is still caught by its own
+    checker."""
+    tm = {m.name: m for m in mutants.MUTANT_KERNELS}[name]
+    decls = {**catalog.LAUNCH_DECLARATIONS, **mutants.MUTANT_DECLARATIONS}
+    fired = set()
+    for launch in tm.build():
+        assert launch.grid == (mutants.N // launch.block[0], 1, 1)
+        assert launch.block[0] in (16, 32)
+        fired |= {f.checker for f in races.check_capture("s", launch,
+                                                         decls)}
+    assert tm.expect in fired
 
 
 def test_registry_is_clean_under_strict():
@@ -141,9 +228,13 @@ def test_registry_is_clean_under_strict():
     assert report.subjects_checked["generator-dtypes"] == 6
 
 
-def _launch(entry_name, point):
+def _launch_all(entry_name, point):
     entry = {e.name: e for e in catalog.KERNEL_CATALOG}[entry_name]
-    return entry.build(point)[0]
+    return entry.build(point)
+
+
+def _launch(entry_name, point):
+    return _launch_all(entry_name, point)[0]
 
 
 def _fired(launch, decls=catalog.LAUNCH_DECLARATIONS):
@@ -263,6 +354,13 @@ def test_scan_tile_is_one_constant():
     assert "#error" in src and "4096" not in src
     launches = _launch("prefix_positions", {"n": 10000, "dtype": "int32"})
     assert launches.grid == (_build.blocks(10000, _build.SCAN_TILE), 1, 1)
+    # and the compaction's tile likewise, through -DCOMPACT_TILE
+    assert f"-DCOMPACT_TILE={_build.COMPACT_TILE}" in \
+        _build._flags("frontier_compact")
+    assert str(_build.COMPACT_TILE) not in src
+    x = _launch("frontier_compact", {"n": 3 * _build.COMPACT_TILE + 1,
+                                     "cap": 64})
+    assert x.grid == (4, 1, 1)
 
 
 def test_plan_catalog_names_match_reference():

@@ -76,18 +76,35 @@ def test_prefix_positions_kernel(cuda, n, dtype):
     assert pos.dtype == torch.int32 and total.dtype == torch.int32
 
 
-@pytest.mark.parametrize("n,cap", [(1, 1), (700, 16), (4097, 64),
-                                   (4097, 8192), (100_000, 1024)])
+T = 16384      # _build.COMPACT_TILE: bytes a tile of compact_lookback
+
+
+@pytest.mark.parametrize("n,cap", [
+    (1, 1), (700, 16), (4097, 64), (4097, 8192), (100_000, 1024),
+    (T - 1, 512), (T, 512), (T + 1, 512),          # tile boundaries
+    (37 * T + 5, 70_000),                          # many tiles, ragged tail
+    (37 * T + 5, 9_000)])                          # count > capacity
 @pytest.mark.parametrize("fill", ["none", "some", "all"])
-def test_frontier_compact_kernel(cuda, n, cap, fill):
+@pytest.mark.parametrize("offset", [0, 1])         # 1: unaligned mask[1:]
+def test_frontier_compact_kernel(cuda, n, cap, fill, offset):
+    """The single-pass compaction equals its plain version bit for bit
+    (ids, sentinels, the full count), in one launch of compact_lookback
+    that leaves prefix_positions' count alone; twice in a row, so the
+    second call reads the first call's status words as stale."""
     rng = np.random.default_rng(n + cap)
-    mask = {"none": np.zeros(n, bool), "all": np.ones(n, bool),
-            "some": rng.random(n) < 0.01}[fill]
-    mask = torch.as_tensor(mask, device=cuda)
-    ids, count = fc.frontier_compact(mask, cap)
-    wids, wcount = ref.frontier_compact_ref(mask, cap)
-    torch.cuda.synchronize()
-    assert _eq(ids, wids) and int(count) == int(wcount)
+    mask = {"none": np.zeros(n + offset, bool),
+            "all": np.ones(n + offset, bool),
+            "some": rng.random(n + offset) < 0.01}[fill]
+    mask = torch.as_tensor(mask, device=cuda)[offset:]
+    before = dict(ops.LAUNCHES)
+    for _ in range(2):
+        ids, count = fc.frontier_compact(mask, cap)
+        wids, wcount = ref.frontier_compact_ref(mask, cap)
+        torch.cuda.synchronize()
+        assert _eq(ids, wids) and int(count) == int(wcount)
+        assert ids.dtype == torch.int32 and count.shape == ()
+    assert ops.LAUNCHES["frontier_compact"] == before["frontier_compact"] + 2
+    assert ops.LAUNCHES["prefix_positions"] == before["prefix_positions"]
 
 
 @pytest.mark.parametrize("n,m,cap,ecap,p", [
@@ -520,15 +537,19 @@ def test_gnn_train_step_on_card_matches_cpu(cuda, arch):
         torch.testing.assert_close(g.cpu(), c, atol=tol, rtol=0)
 
 
-@pytest.mark.parametrize("n", [0, 1, 255, 1000, 4097, 1 << 20])
+@pytest.mark.parametrize("n", [0, 1, 2, 3, 5, 255, 1000, 4097, 4099,
+                               1 << 20, (1 << 20) + 3])
 @pytest.mark.parametrize("block", [16, 256, 1024])
 @pytest.mark.parametrize("carry", [False, True])
-def test_mutant_copy_kernel(cuda, n, block, carry):
+@pytest.mark.parametrize("offset", [0, 1])         # 1: unaligned x[1:]
+def test_mutant_copy_kernel(cuda, n, block, carry, offset):
     """The static checks' copy kernel equals x.clone() (x + the carry
-    word) bit for bit, ragged tails included."""
+    word) bit for bit: n % 4 in {0, 1, 2, 3}, ragged blocks, and an
+    unaligned slice (the scalar kernel)."""
     from repro_torch.kernels import mutant_copy as mc
     x = torch.as_tensor(np.random.default_rng(n).integers(
-        -2**31, 2**31 - 1, n), dtype=torch.int32, device=cuda)
+        -2**31, 2**31 - 1, n + offset), dtype=torch.int32,
+        device=cuda)[offset:]
     c = torch.tensor([-5], dtype=torch.int32, device=cuda) if carry else None
     before = ops.LAUNCHES["mutant_copy"]
     got = mc.mutant_copy(x, c, block=block)
