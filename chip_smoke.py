@@ -25,7 +25,10 @@ non-zero and prints no result line):
    frontier_compact at its tile size +-1, over 38 tiles with a ragged
    tail, on mask[1:], with count > capacity, all-true and empty masks,
    each called twice so the second call meets the first's status words,
-   and at the real shape with 1,024 and 0 members); the kernel's
+   and at the real shape with 1,024 and 0 members; prefix_positions, one
+   launch of scan_lookback, in int32 and bool at one tile, a ragged tail
+   and x[1:], twice in a row and interleaved with frontier_compact on one
+   stream, and timed at the real shape in both dtypes); the kernel's
    time (CUDA events over back-to-back calls, and its device time alone
    from the profiler), the plain version's, one library call's where one
    computes the same function (CUDA events, and its device time alone),
@@ -41,14 +44,22 @@ non-zero and prints no result line):
    bound is operations (2 B Hq S (S+1) D FLOP at 989 TFLOP/s bf16), the
    library call SDPA (CUDA events and device time).
    segment_sum against its plain version to 1e-5 of each segment's sum of
-   |v| (float atomics add in another order) at the training path's shapes
+   |v| (the kernel adds in sorted order plus carries) at the training
+   path's shapes
    (MeshGraphNet on molecule (8,192, 128) -> 3,840 and on minibatch_lg
    (168,960, 128) -> 169,984; EquiformerV2 on molecule (8,192, 6,272) ->
    3,840), at one layer's aggregation at ogb-products scale ((61,859,140,
    128) -> 2,449,029, 31.7 GB, uniform and RMAT-skewed ids) and at edge
    cases (m = 0, n = 1, d in {1, 3, 4, 6272}, f32 and bf16, ids in [-2,
-   n + 2) int32 and int64, column slices, 3-D values); its bound is bytes,
-   its library call ``index_add_``.
+   n + 2) int32 and int64, column slices, 3-D values, mostly empty
+   segments, a hub of 90% of the rows, d = 300), every call twice and
+   once more with the caller's index, all three bit-identical; the index
+   and the sum under torch's sync debug mode "error" (no host sync); the
+   library's SASS must hold no atomic but the ticket's integer increment
+   and a profiled call only segment_rows (one launch, no memset); times
+   with the index built apart, and the index's own time (``index_ms`` in
+   the kernels line: a forward builds it once for all its sums); its
+   bound is bytes, its library call ``index_add_``.
 2. the deterministic counters of ``BENCH_trim.json`` (rounds, edges_total,
    max_per_worker, trimmed, max_qp) for 6 families x 4 methods x
    {dense, windowed} at the benchmark's own sizes.
@@ -148,6 +159,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -242,8 +254,9 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM data sheet
 # version sum in f32 in other orders
 FLASH_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
 # segment_sum: |kernel - plain| <= SEG_TOL * (the segment's sum of |v|) +
-# 1e-6.  Both sum in f32, the kernel's atomics in an order that changes from
-# run to run; a k-term sum moves by ~sqrt(k) 2^-24 of its largest partial
+# 1e-6.  Both sum in f32, the kernel a segment's rows in sorted order plus
+# its carries, the plain version in index_add_'s order; a k-term sum moves
+# by ~sqrt(k) 2^-24 of its largest partial
 SEG_TOL = 1e-5
 # phase 12: the four GNNs at their published configs on the molecule cell
 # (configs.base.gnn_shapes), 5 AdamW steps each; MeshGraphNet full-graph on
@@ -395,6 +408,21 @@ def kernel_phase(dev, g_t, cap, ecap):
             check(max_abs_err(fc.prefix_positions(x),
                               ref.prefix_positions_ref(x)) == 0,
                   f"prefix_positions n={n} {x.dtype}")
+    # the single-pass scan on x[1:] (element loads), twice in a row, and
+    # interleaved with frontier_compact, whose scratch buffer it shares
+    st = _build.SCAN_TILE
+    for n in (1, st - 1, st, st + 1, 3 * st + 7, 1_000_003):
+        mk = t(rng.random(n) < 0.3)
+        for base in (t(rng.integers(-3, 1000, n + 1), torch.int32),
+                     t(rng.random(n + 1) < 0.4)):
+            for off in (0, 1, 0, 1):
+                x = base[off:off + n]
+                check(max_abs_err(fc.prefix_positions(x),
+                                  ref.prefix_positions_ref(x)) == 0,
+                      f"prefix_positions n={n} {x.dtype} offset={off}")
+                check(max_abs_err(fc.frontier_compact(mk, 512),
+                                  ref.frontier_compact_ref(mk, 512)) == 0,
+                      f"frontier_compact n={n} after prefix_positions")
     tile = _build.COMPACT_TILE
     for n, c in ((1, 1), (700, 16), (4097, 64), (4097, 8192),
                  (tile - 1, 512), (tile, 512), (tile + 1, 512),
@@ -463,7 +491,9 @@ def kernel_phase(dev, g_t, cap, ecap):
         "sources, all updates on one source; frontier_compact at n = "
         f"{tile - 1}, {tile}, {tile + 1} and {37 * tile + 5} (38 tiles), "
         "all-true, empty and 20% masks, count > capacity, aligned and "
-        "mask[1:], each twice)")
+        "mask[1:], each twice; prefix_positions in int32 and bool at one "
+        "tile, ragged tails and x[1:], twice in a row and interleaved with "
+        "frontier_compact)")
 
     # real shapes
     n = g_t.n
@@ -574,6 +604,23 @@ def kernel_phase(dev, g_t, cap, ecap):
             f"plain_ms={row['plain_ms']:.4f} "
             f"library_ms={row['library_ms'] if lib is None else round(row['library_ms'], 4)}"
             f"{lib_dev} bound_ms={row['bound_ms']:.4f}")
+
+    # prefix_positions over a bool mask of the real size: 1 byte read and
+    # 4 written an element
+    xb = t(rng.random(n) < 0.4)
+    check(max_abs_err(fc.prefix_positions(xb), ref.prefix_positions_ref(xb))
+          == 0, "prefix_positions bool at the real shape")
+
+    def kern():
+        return fc.prefix_positions(xb)
+
+    def lib():
+        return torch.cumsum(xb, 0, dtype=torch.int32)
+    log(f"# phase 1: prefix_positions bool: bit-identical at the real shape; "
+        f"kernel_ms={time_ms(kern):.4f} device_ms={device_ms(kern):.4f} "
+        f"library_ms={time_ms(lib):.4f} (torch.cumsum; device_ms="
+        f"{device_ms(lib):.4f}) bound_ms="
+        f"{(n + 4 * n + 4) / HBM_BYTES_PER_S * 1e3:.4f}")
 
     # counter_scatter: RMAT-skewed sources (the sources of random edges of
     # the real graph, so hubs repeat), plus the sentinel n and negatives;
@@ -822,7 +869,7 @@ def segment_phase(dev):
     import torch
 
     from repro_torch.data import GraphBatchStream
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import _build, ops
     from repro_torch.kernels import segment_sum as ss
     from repro_torch.models.gnn.common import molecule_union
 
@@ -836,32 +883,78 @@ def segment_phase(dev):
         return torch.as_tensor(rng.integers(lo, hi, m), dtype=dtype,
                                device=dev)
 
-    # m = 0, n = 1, d in {1, 3, 4, 6272}, ids in [-2, n + 2), int64 ids,
-    # bf16, a column slice (row stride > d, unaligned start) and 3-D values
+    def thrice(v, i, n, what):
+        """Check one call, and hold a second call and one with the
+        caller's index to its bits."""
+        got = ss.segment_sum(v, i, n)
+        rel = segment_check(got, v, i, n, what)
+        check(torch.equal(got, ss.segment_sum(v, i, n)) and torch.equal(
+            got, ss.segment_sum(v, i, n, ss.segment_index(i, n))),
+            f"segment_sum {what}: two calls differ")
+        return rel
+
+    # m = 0, n = 1, d in {1, 3, 4, 300, 6272}, ids in [-2, n + 2), int64
+    # ids, bf16, a column slice (row stride > d, unaligned start), 3-D
+    # values, mostly empty segments and a hub of 90% of the rows
     worst = 0.0
     for m, d, n in ((0, 4, 7), (5, 4, 1), (1000, 1, 177), (1000, 3, 177),
-                    (1000, 4, 177), (333, 6272, 50)):
+                    (1000, 4, 177), (333, 6272, 50), (20_000, 300, 3000)):
         for dtype in (torch.float32, torch.bfloat16):
             for lo, hi, idt in ((0, n, torch.int32), (-2, n + 2, torch.int32),
                                 (-2, n + 2, torch.int64)):
                 v, i = vals(m, d, dtype), ids_in(lo, hi, m, idt)
-                worst = max(worst, segment_check(
-                    ss.segment_sum(v, i, n), v, i, n,
-                    f"m={m} d={d} n={n} {dtype} ids [{lo}, {hi})"))
+                worst = max(worst, thrice(
+                    v, i, n, f"m={m} d={d} n={n} {dtype} ids [{lo}, {hi})"))
     wide = vals(4096, 134)
     i = ids_in(0, 300, 4096)
     for cols in (slice(0, 128), slice(1, 129), slice(3, 9)):
-        worst = max(worst, segment_check(ss.segment_sum(wide[:, cols], i, 300),
-                                         wide[:, cols], i, 300, "slice"))
+        worst = max(worst, thrice(wide[:, cols], i, 300, "slice"))
     v3 = wide[:, :120].reshape(4096, 15, 8)
     got = ops.segment_sum(v3, i, 300)
     check(got.shape == (300, 15, 8), "segment_sum 3-D shape")
     worst = max(worst, segment_check(got, v3, i, 300, "3-D"))
+    m, n = 20_000, 3_000
+    for d in (1, 3, 128):
+        v = vals(m, d)
+        empty = ids_in(0, 40, m) * 71                  # 40 of 3,000 used
+        hub = torch.where(torch.as_tensor(rng.random(m) < 0.9, device=dev),
+                          5, ids_in(0, n, m))
+        worst = max(worst, thrice(v, empty, n, f"d={d} empty segments"),
+                    thrice(v, hub, n, f"d={d} a hub of 90% of the rows"))
+    # neither the index nor the sum syncs with the host
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        index = ss.segment_index(hub, n)
+        ss.segment_sum(v, hub, n, index)
+        ss.segment_sum(v, hub, n)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    # no atomic in the library but the CTA ticket's increment (into the
+    # scratch), no memset on the stream
+    sass = _build.sass("segment_sum")
+    atomics = re.findall(r"\b(?:REDG?|ATOMG?)\.[\w.]*", sass)
+    check(all(a.startswith("ATOMG.") and ".INC" in a for a in atomics),
+          f"segment_sum's SASS holds an atomic other than the ticket's: "
+          f"{sorted(set(atomics))}")
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ss.segment_sum(v, hub, n, index)
+        torch.cuda.synchronize()
+    items = sorted({e.name for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA})
+    check(len(items) == 1 and "segment_rows" in items[0],
+          f"segment_sum with an index ran {items}")
     torch.cuda.synchronize()
     log(f"# phase 1: segment_sum edge cases within {SEG_TOL} of each "
         f"segment's sum of |v| (largest {worst:.3g}): m = 0, n = 1, d in "
-        f"{{1, 3, 4, 6272}}, f32 and bf16, ids in [-2, n + 2) int32 and "
-        f"int64, column slices, 3-D values")
+        f"{{1, 3, 4, 128, 300, 6272}}, f32 and bf16, ids in [-2, n + 2) "
+        f"int32 and int64, column slices, 3-D values, 40 of 3,000 segments "
+        f"used, a hub of 90% of the rows; a second call and one with the "
+        f"caller's index bit-identical; no host sync; no atomic in the "
+        f"SASS but the ticket's {sorted(set(atomics))}; a call with an "
+        f"index runs {items} and nothing else")
 
     union = molecule_union(GraphBatchStream(**MOLECULE, seed=0).batch_at(0),
                            dev)
@@ -910,33 +1003,46 @@ def segment_phase(dev):
 
 
 def segment_time(label, v, ids, n: int, reps: int = 20):
-    """Check and time segment_sum at one real shape: kernel (CUDA events
-    and profiler), plain version, and the library call (``index_add_`` of
-    the rows into a zeroed output; all ids are in range); the bytes bound
-    reads each value and id once and writes each output once."""
+    """Check and time segment_sum at one real shape: the kernels with the
+    index built apart, as a forward reuses it (CUDA events and profiler;
+    two calls bit-identical), the index itself, a call that builds its own,
+    the plain version, and the library call (``index_add_`` of the rows
+    into a zeroed output; all ids are in range); the bytes bound reads each
+    value and id once and writes each output once."""
     import torch
 
     from repro_torch.kernels import ref
     from repro_torch.kernels import segment_sum as ss
     m, d = v.shape
-    rel = segment_check(ss.segment_sum(v, ids, n), v, ids, n, label)
+    index = ss.segment_index(ids, n)
+    rel = segment_check(ss.segment_sum(v, ids, n, index), v, ids, n, label)
     nbytes = m * d * v.element_size() + m * ids.element_size() + 4 * n * d
 
     def kern():
-        return ss.segment_sum(v, ids, n)
+        return ss.segment_sum(v, ids, n, index)
+
+    def build():
+        return ss.segment_index(ids, n)
 
     def lib():
         return torch.zeros((n, d), device=v.device).index_add_(0, ids, v)
-    row = dict(max_abs_err=float((kern() - ref.segment_sum_ref(v, ids, n))
+    got = kern()
+    check(torch.equal(got, kern()), f"segment_sum {label}: two calls differ")
+    row = dict(max_abs_err=float((got - ref.segment_sum_ref(v, ids, n))
                                  .abs().max()),
                ms=time_ms(kern, reps=reps),
+               index_ms=time_ms(build, reps=reps),
                plain_ms=time_ms(lambda: ref.segment_sum_ref(v, ids, n),
                                 reps=reps),
                library_ms=time_ms(lib, reps=reps),
                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    del got
     log(f"# phase 1: segment_sum {label} ({m:,}, {d}) -> {n:,}: max |err| "
         f"{row['max_abs_err']:.3g} ({rel:.3g} of the segment's sum of |v|); "
         f"kernel_ms={row['ms']:.4f} device_ms={device_ms(kern, reps=reps):.4f} "
+        f"index: kernel_ms={row['index_ms']:.4f} device_ms="
+        f"{device_ms(build, reps=reps):.4f}; without an index: kernel_ms="
+        f"{time_ms(lambda: ss.segment_sum(v, ids, n), reps=reps):.4f} "
         f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
         f"(zeros + index_add_; device_ms={device_ms(lib, reps=reps):.4f}) "
         f"bound_ms={row['bound_ms']:.4f} "
@@ -1443,12 +1549,16 @@ def declarations_phase(dev, g_t, cap, ecap):
                               (b, hkv, s_, d)), ("bfloat16",) * 3, {}),
         (ss.segment_sum, ((LG["m"], 128), LG["m"], LG["n"]),
          ("float32", "int64", None), {}),
+        (ss.segment_sum, ((LG["m"], 1), LG["m"], LG["n"]),
+         ("float32", "int64", None), {}),
+        (fc.prefix_positions, (n,), ("bool",), {}),
         (mc.mutant_copy, (MUTANT_N,), ("int32",), {}),
         (mc.mutant_copy, (64, 1), ("int32", "int32"), {"block": 16}),
         (mc.mutant_copy, (64,), ("int32",), {"block": 16}),
-        # unaligned views (offset 1): the byte-load compaction and the
-        # scalar copy
+        # unaligned views (offset 1): the byte-load compaction and scan,
+        # and the scalar copy
         (fc.frontier_compact, (n - 1, cap), ("bool", None), {}, 1),
+        (fc.prefix_positions, (n - 1,), ("int32",), {}, 1),
         (mc.mutant_copy, (MUTANT_N - 1,), ("int32",), {}, 1),
     ]
 
@@ -1790,7 +1900,7 @@ def loss_after(model, batch, loss_fn, before: float, what: str,
     ``frozen``: the parameters before training, where the gradients' f32
     global norm overflowed: the reference's AdamW then clips every update
     to 0, so the parameters must be unchanged bit for bit and the loss the
-    same up to the atomics' order (1e-5 relative)."""
+    same up to rounding (1e-5 relative)."""
     import torch
     with torch.no_grad():
         after = loss_fn(model, batch).item()

@@ -53,8 +53,7 @@ def captured_launches() -> Iterator[list]:
 
 def capture_kernel(fn: Callable, *meta_tensors, **kwargs) -> list:
     """Run the wrapper ``fn`` on meta tensors and return every launch
-    record it made, in order (``prefix_positions`` makes three:
-    ``tile_reduce``, ``scan_tile_sums``, ``tile_scan``)."""
+    record it made, in order."""
     with captured_launches() as records:
         fn(*meta_tensors, **kwargs)
     return records

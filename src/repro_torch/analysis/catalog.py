@@ -24,13 +24,14 @@ block's extent, and how it writes it —
 
 and whether the launch uses cross-block scratch.  CUDA blocks run in no
 order, so scratch shared across a launch's blocks is sound only under an
-ordered protocol, which the declaration names (``ordered``).  One kernel
-has one: ``compact_lookback``, the single-pass compaction that takes the
-place of the reference's sequential SMEM carry
-(``frontier_compact._scan_kernel``), orders its blocks by tile tickets
-and passes the carry by decoupled look-back.  The prefix scan
-(``prefix_positions``) still splits the carry into three launches
-(``tile_reduce``, ``scan_tile_sums``, ``tile_scan``).  The detector
+ordered protocol, which the declaration names (``ordered``).  Three
+kernels have one.  The single-pass forms of the reference's sequential
+SMEM carry (``frontier_compact._scan_kernel``), ``scan_lookback``
+(``prefix_positions``) and ``compact_lookback`` (``frontier_compact``),
+order their blocks by tile tickets and pass the carry by decoupled
+look-back; ``segment_rows`` (``segment_sum``) takes tickets in the same
+way and passes a segment's partial sums from CTA to CTA.  All three use
+one scratch buffer.  The detector
 trusts declarations only structurally, and a launched kernel without one
 is an error (``unregistered-kernel``).
 
@@ -132,6 +133,16 @@ def flash_out(rows: int) -> OutputDecl:
     return OutputDecl("owned", extent, index)
 
 
+def segment_carry() -> OutputDecl:
+    """segment_rows' (tickets, 4 lanes) carries: the CTA that takes ticket
+    t = y * grid x + x (column chunk y, CTA x of it) owns row t.  Sound
+    over block indices for the reason the scan's tiles are: the tickets
+    are a permutation of the blocks."""
+    return OutputDecl("owned", lambda launch, shape: (1, shape[1]),
+                      lambda launch, shape, b: (
+                          b[1] * launch.grid[0] + b[0], 0))
+
+
 LAUNCH_DECLARATIONS: dict[tuple[str, str], LaunchDecl] = {
     # one thread per row
     ("first_live_scan", "first_live_w16"): LaunchDecl(
@@ -151,13 +162,21 @@ LAUNCH_DECLARATIONS: dict[tuple[str, str], LaunchDecl] = {
     # order, and out-of-range sources add nothing
     ("counter_scatter", "scatter_updates"): LaunchDecl(
         {"out": whole("atomic")}),
-    # the prefix scan: every tile sums itself, one block scans the sums in
-    # place, every tile scans itself from its offset
-    ("frontier_compact", "tile_reduce"): LaunchDecl({"sums": tile(1)}),
-    ("frontier_compact", "scan_tile_sums"): LaunchDecl(
-        {"sums": whole(), "total": whole()}),
-    ("frontier_compact", "tile_scan"): LaunchDecl(
-        {"out": tile(_build.SCAN_TILE)}),
+    # sound: the CTA that takes ticket t scans tile t, and the tickets are
+    # a permutation of the blocks, so the sweep over block indices checks
+    # the set of tiles written; the carry between tiles passes by
+    # look-back as in compact_lookback
+    ("frontier_compact", "scan_lookback"): LaunchDecl(
+        {"out": tile(_build.SCAN_TILE),
+         "total": whole("data-dependent",
+                        guard="only the last tile's CTA writes total[0]")},
+        scratch=True,
+        ordered="tile tickets from an atomic counter (atomicInc, clear "
+                "again after the last ticket), then decoupled look-back "
+                "over epoch-tagged 64-bit status words (st.relaxed.gpu / "
+                "ld.relaxed.gpu), in compact_lookback's scratch buffer: "
+                "launches on one stream run in order and each call has its "
+                "own epoch"),
     # sound: a CTA takes its tile from a ticket counter, so every tile's
     # predecessors are resident; it writes its members to the slots after
     # their exclusive prefix (distinct across tiles); the sentinel fill
@@ -186,9 +205,28 @@ LAUNCH_DECLARATIONS: dict[tuple[str, str], LaunchDecl] = {
         {"out": flash_out(FLASH_ROWS)}),
     ("flash_attention", "flash_fwd_wgmma"): LaunchDecl(
         {"out": flash_out(FLASH_WGMMA_ROWS)}),
-    # sound: float atomicAdd into an output the entry point zeroes first;
-    # out-of-range ids add nothing
-    ("segment_sum", "scatter_rows"): LaunchDecl({"out": whole("atomic")}),
+    # a worker of segment_rows writes the output row of each segment whose
+    # end lies in its merge-path range (every row once, no atomic), after
+    # adding the partial sums of the workers and CTAs before it where the
+    # segment began there; its CTA's carry goes to the row of its ticket
+    ("segment_sum", "segment_rows"): LaunchDecl(
+        {"out": whole("data-dependent",
+                      guard="the worker whose range holds segment s's end "
+                            "writes out[s] (s < num_segments: the merge "
+                            "path has one end per segment), one worker per "
+                            "segment and column chunk"),
+         "carry": segment_carry()},
+        scratch=True,
+        ordered="tickets from an atomic counter (atomicInc, clear again "
+                "after the last ticket), a CTA per ticket; each CTA writes "
+                "its trailing segment's partial sum to carry[ticket], "
+                "fences and publishes an epoch-tagged 64-bit status word "
+                "(st.relaxed.gpu) before it waits; a worker whose segment "
+                "began in an earlier CTA polls the lower tickets' words "
+                "(ld.relaxed.gpu), fences and reads their carries "
+                "(ld.global.cg), nearest first, in the scratch buffer of "
+                "frontier_compact's kernels: launches on one stream run in "
+                "order and each call has its own epoch"),
 }
 
 
@@ -281,7 +319,8 @@ def _bucket_peel(p: dict, dev) -> tuple:
 
 def _prefix_positions(p: dict, dev) -> tuple:
     from ..kernels.frontier_compact import prefix_positions
-    return prefix_positions, (tensor(p["n"], p["dtype"], 0, dev),), {}
+    return prefix_positions, (tensor(p["n"], p["dtype"], p.get("offset", 0),
+                                     dev),), {}
 
 
 def _frontier_compact(p: dict, dev) -> tuple:
@@ -309,9 +348,14 @@ KERNEL_CATALOG: tuple[KernelEntry, ...] = (
         {"n": 1000, "b": 40, "offset": 1},    # unaligned: deaths_scalar
     ), _counter_scatter),
     KernelEntry("segment_reduce", (
-        {"m": 64, "d": 8, "segs": 48},        # one block
-        {"m": 512, "d": 4, "segs": 100},      # 2 blocks exactly
-        {"m": 1000, "d": 6, "segs": 300},     # padded, d % 4 != 0
+        {"m": 64, "d": 8, "segs": 48},        # one block, 2 lanes a worker
+        {"m": 512, "d": 4, "segs": 100},      # one thread a worker
+        {"m": 1000, "d": 6, "segs": 300},     # d % 4 != 0
+        # a warp a worker, 33 blocks: each segment's rows cut across
+        # blocks, so carries from CTA to CTA
+        {"m": 4096, "d": 128, "segs": 3},
+        {"m": 300, "d": 1, "segs": 20_000},   # 5 blocks, mostly empty segs
+        {"m": 700, "d": 300, "segs": 90},     # 3 column chunks, padded
     ), _segment_sum),
     KernelEntry("flash_attention", (
         {"b": 2, "hq": 4, "hkv": 2, "sq": 256, "sk": 256, "d": 64,
@@ -350,8 +394,10 @@ KERNEL_CATALOG: tuple[KernelEntry, ...] = (
     ), _bucket_peel),
     KernelEntry("prefix_positions", (
         {"n": 100, "dtype": "int32"},         # one tile
-        {"n": 8192, "dtype": "bool"},         # 2 tiles exactly
-        {"n": 10000, "dtype": "int32"},       # padded
+        {"n": 2 * _build.SCAN_TILE, "dtype": "bool"},  # 2 tiles exactly
+        {"n": 20_000, "dtype": "int32"},      # 3 tiles, padded
+        {"n": 5000, "dtype": "int32", "offset": 1},  # unaligned: x[1:]
+        {"n": _build.SCAN_TILE + 1, "dtype": "bool", "offset": 1},
     ), _prefix_positions),
     KernelEntry("frontier_compact", (
         {"n": 100, "cap": 32},

@@ -41,8 +41,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: elements per tile of the prefix scan (``prefix_positions``): the wrapper
 #: sizes its grid with it and ``csrc/frontier_compact.cu`` is compiled with
-#: ``-DTILE=`` of it, so the two cannot disagree
-SCAN_TILE = 4096
+#: ``-DTILE=`` of it, so the two cannot disagree.  8,192 beat 4,096 and
+#: 16,384 on the H100 (``tools/kernel_ab.py --sweep``; PERF.md)
+SCAN_TILE = 8192
 #: mask bytes per tile of the single-pass compaction (``frontier_compact``),
 #: passed as ``-DCOMPACT_TILE=`` in the same way
 COMPACT_TILE = 16384
@@ -174,6 +175,22 @@ def load(name: str) -> ctypes.CDLL:
         lib.repro_error_string.argtypes = [ctypes.c_int]
         _LIBS[name] = lib
     return lib
+
+
+def use_scan_tile(tile: int) -> None:
+    """Launch ``prefix_positions`` with ``tile`` elements a scan tile from
+    now on: ``frontier_compact.cu`` is built with ``-DTILE=`` of it (a
+    library of its own, beside the others) and loaded at its next call.
+    For tuning (``tools/kernel_ab.py --sweep``); the static checks'
+    declarations keep the tile they were made with."""
+    global SCAN_TILE
+    SCAN_TILE = tile
+    DEFINES["frontier_compact"] = (f"-DTILE={tile}",
+                                   f"-DCOMPACT_TILE={COMPACT_TILE}")
+    _LIBS.pop("frontier_compact", None)
+    for entry, (library, _) in SIGNATURES.items():
+        if library == "frontier_compact":
+            _ENTRIES.pop(entry, None)
 
 
 def declare(library: str, entries: dict[str, list]) -> None:

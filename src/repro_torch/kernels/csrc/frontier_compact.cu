@@ -13,15 +13,23 @@
 // each output once (3.35 TB/s).
 //
 // Design:
-//   prefix_positions — reduce-then-scan: (1) every TILE-element tile sums
-//     itself, (2) one block scans the tile sums into tile offsets and
-//     writes `total` on the device (no host sync), (3) every tile scans
-//     itself from its offset.  Tiles are staged through padded shared
-//     memory so both the load and the store are coalesced; each thread
-//     scans 16 contiguous items, a warp-shuffle scan joins the threads.
-//     The input is int32 or a bool mask read as bytes, so a mask is never
-//     widened in memory.  Traffic: 2 reads of the input and 1 write of the
-//     output.
+//   prefix_positions — scan_lookback, one launch and one pass: the same
+//     single-pass protocol as frontier_compact's (tile tickets, decoupled
+//     look-back over epoch-tagged status words, steps 1, 3 and 6 below)
+//     on TILE-element tiles.  Each warp owns SCAN_ROUNDS runs of 128
+//     elements of its tile; in each round a lane loads the 4 consecutive
+//     elements it owns (one 16-byte vector of int32, or 4 mask bytes
+//     normalised to 0/1, so a mask is never widened in memory; a base
+//     that is not aligned, such as x[1:], takes the <false> instantiation
+//     and element loads), and a warp-shuffle scan gives each lane its
+//     offset within the round.  Warp 0 scans the warps' sums, publishes
+//     the tile's aggregate, looks back with lookback() and publishes the
+//     inclusive prefix; every lane then writes its quads, in place, as
+//     16-byte stores.  The last tile's CTA writes `total` (no host sync).
+//     The scratch is frontier_compact's own buffer: launches on one
+//     stream run in order, so the two kernels never hold it at once, and
+//     the epoch tells each call's words from the other kernel's.
+//     Traffic: 1 read of the input and 1 write of the output.
 //   frontier_compact — compact_lookback, one launch and one pass over the
 //     mask: a single-pass stream compaction with decoupled look-back, the
 //     GPU form of the TPU kernel's sequential carry.  Each CTA handles one
@@ -103,6 +111,7 @@
 #include <cuda_runtime.h>
 
 #include "launch.cuh"
+#include "status_word.cuh"
 
 namespace {
 
@@ -112,10 +121,13 @@ namespace {
 #error "frontier_compact.cu is compiled with -DTILE=<elements per tile>"
 #endif
 constexpr int SCAN_THREADS = 256;
-constexpr int SCAN_ITEMS = TILE / SCAN_THREADS;
-static_assert(SCAN_ITEMS * SCAN_THREADS == TILE,
-              "TILE must be a multiple of 256");
-constexpr int SUM_THREADS = 1024;
+constexpr int SCAN_WARPS = SCAN_THREADS / 32;
+// quads (4 consecutive elements) a lane scans: round r of warp w covers
+// tile elements [w * WARP_SPAN + 128 r, + 128), lane l the quad at 4 l
+constexpr int SCAN_ROUNDS = TILE / (SCAN_THREADS * 4);
+constexpr int WARP_SPAN = 128 * SCAN_ROUNDS;
+static_assert(SCAN_ROUNDS * SCAN_THREADS * 4 == TILE,
+              "TILE must be a multiple of 1024");
 
 // compact_lookback: COMPACT_TILE (elements per tile) comes from the build,
 // -DCOMPACT_TILE=, the constant the wrapper sizes its grid with
@@ -130,141 +142,9 @@ static_assert(LB_ROUNDS * LB_ROUND == COMPACT_TILE,
               "COMPACT_TILE must be 4 rounds of 256 threads x 16 bytes");
 static_assert(LB_ROUNDS * 16 <= 64, "a round's counts are 16-bit lanes");
 
-__device__ __forceinline__ int padded(int i) { return i + (i >> 5); }
-
-// Inclusive scan of one value per thread across a block of NT threads.
-// Every thread of the block must call it.  `warp_tot` holds NT/32 ints.
-template <int NT>
-__device__ __forceinline__ int32_t block_inclusive_scan(int32_t v,
-                                                        int32_t* warp_tot,
-                                                        int32_t* block_total) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    int32_t t = __shfl_up_sync(0xffffffffu, v, d);
-    if (lane >= d) v += t;
-  }
-  if (lane == 31) warp_tot[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    int32_t w = lane < NT / 32 ? warp_tot[lane] : 0;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      int32_t t = __shfl_up_sync(0xffffffffu, w, d);
-      if (lane >= d) w += t;
-    }
-    if (lane < NT / 32) warp_tot[lane] = w;
-  }
-  __syncthreads();
-  if (warp > 0) v += warp_tot[warp - 1];
-  *block_total = warp_tot[NT / 32 - 1];
-  __syncthreads();  // warp_tot may be reused by the caller's next scan
-  return v;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(SCAN_THREADS)
-tile_reduce(const T* __restrict__ x, int64_t n, int32_t* __restrict__ sums) {
-  __shared__ int32_t warp_tot[SCAN_THREADS / 32];
-  const int64_t base = (int64_t)blockIdx.x * TILE;
-  int32_t s = 0;
-#pragma unroll
-  for (int k = 0; k < SCAN_ITEMS; ++k) {
-    int64_t i = base + k * SCAN_THREADS + threadIdx.x;
-    if (i < n) s += static_cast<int32_t>(x[i]);
-  }
-  int32_t total;
-  block_inclusive_scan<SCAN_THREADS>(s, warp_tot, &total);
-  if (threadIdx.x == 0) sums[blockIdx.x] = total;
-}
-
-// One block: tile sums -> exclusive tile offsets (in place) + the total.
-__global__ void __launch_bounds__(SUM_THREADS)
-scan_tile_sums(int32_t* __restrict__ sums, int64_t num,
-               int32_t* __restrict__ total) {
-  __shared__ int32_t warp_tot[SUM_THREADS / 32];
-  int32_t carry = 0;
-  for (int64_t base = 0; base < num; base += SUM_THREADS) {
-    const int64_t i = base + threadIdx.x;
-    const int32_t v = i < num ? sums[i] : 0;
-    int32_t chunk;
-    const int32_t incl = block_inclusive_scan<SUM_THREADS>(v, warp_tot, &chunk);
-    if (i < num) sums[i] = carry + incl - v;
-    carry += chunk;
-  }
-  if (threadIdx.x == 0) total[0] = carry;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(SCAN_THREADS)
-tile_scan(const T* __restrict__ x, int64_t n,
-          const int32_t* __restrict__ offsets, int32_t* __restrict__ out) {
-  __shared__ int32_t s[TILE + TILE / 32];
-  __shared__ int32_t warp_tot[SCAN_THREADS / 32];
-  const int64_t base = (int64_t)blockIdx.x * TILE;
-#pragma unroll
-  for (int k = 0; k < SCAN_ITEMS; ++k) {
-    const int idx = k * SCAN_THREADS + threadIdx.x;
-    const int64_t i = base + idx;
-    s[padded(idx)] = i < n ? static_cast<int32_t>(x[i]) : 0;
-  }
-  __syncthreads();
-  int32_t local[SCAN_ITEMS];
-  int32_t sum = 0;
-#pragma unroll
-  for (int k = 0; k < SCAN_ITEMS; ++k) {
-    local[k] = s[padded(threadIdx.x * SCAN_ITEMS + k)];
-    sum += local[k];
-  }
-  int32_t tile_total;
-  const int32_t incl =
-      block_inclusive_scan<SCAN_THREADS>(sum, warp_tot, &tile_total);
-  int32_t run = offsets[blockIdx.x] + incl - sum;
-#pragma unroll
-  for (int k = 0; k < SCAN_ITEMS; ++k) {
-    s[padded(threadIdx.x * SCAN_ITEMS + k)] = run;
-    run += local[k];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < SCAN_ITEMS; ++k) {
-    const int idx = k * SCAN_THREADS + threadIdx.x;
-    const int64_t i = base + idx;
-    if (i < n) out[i] = s[padded(idx)];
-  }
-}
-
 // -- single-pass scan with decoupled look-back ---------------------------
 //
-// A tile's status word: the call's epoch and a flag in the high 32 bits,
-// the value in the low 32.  kAggregate: the tile's own sum; kPrefix: the
-// sum of tiles 0..k.  A word of another epoch reads as kInvalid.
-enum : uint32_t { kInvalid = 0, kAggregate = 1, kPrefix = 2 };
-
-// Strong, relaxed, GPU scope: see the note at the top for why no release
-// or acquire is needed.
-__device__ __forceinline__ void publish(uint64_t* word, uint32_t epoch,
-                                        uint32_t flag, int32_t value) {
-  const uint64_t w = (static_cast<uint64_t>(epoch << 2 | flag) << 32) |
-                     static_cast<uint32_t>(value);
-  asm volatile("st.relaxed.gpu.u64 [%0], %1;" ::"l"(word), "l"(w)
-               : "memory");
-}
-
-__device__ __forceinline__ uint64_t peek(const uint64_t* word) {
-  uint64_t w;
-  asm volatile("ld.relaxed.gpu.u64 %0, [%1];"
-               : "=l"(w)
-               : "l"(word)
-               : "memory");
-  return w;
-}
-
-__device__ __forceinline__ uint32_t flag_of(uint64_t w, uint32_t epoch) {
-  const uint32_t hi = static_cast<uint32_t>(w >> 32);
-  return (hi >> 2) == epoch ? (hi & 3u) : kInvalid;
-}
+// The status words: status_word.cuh (publish, peek, flag_of).
 
 // The exclusive prefix of tile `tile` > 0: the sum of tiles [0, tile).
 // Called by all 32 lanes of one warp after the tile published its
@@ -292,6 +172,129 @@ __device__ int32_t lookback(const uint64_t* status, int64_t tile,
     excl += static_cast<int32_t>(
         __reduce_add_sync(0xffffffffu, lane <= stop ? value : 0u));
     if (prefix) return excl;
+  }
+}
+
+// x[at, at + 4) as int32 (zero past n); a mask's bytes normalised to 0/1.
+// kAligned: x is 16-byte (int32) or 4-byte (mask) aligned, so a quad that
+// lies below n is one vector load; otherwise (a slice such as x[1:]) the
+// quad is read an element at a time.
+template <bool kAligned>
+__device__ __forceinline__ int4 load_quad(const int32_t* __restrict__ x,
+                                          int64_t at, int64_t n) {
+  if (kAligned && at + 4 <= n)
+    return __ldg(reinterpret_cast<const int4*>(x + at));
+  int4 q = make_int4(0, 0, 0, 0);
+  if (at < n) q.x = x[at];
+  if (at + 1 < n) q.y = x[at + 1];
+  if (at + 2 < n) q.z = x[at + 2];
+  if (at + 3 < n) q.w = x[at + 3];
+  return q;
+}
+
+template <bool kAligned>
+__device__ __forceinline__ int4 load_quad(const uint8_t* __restrict__ x,
+                                          int64_t at, int64_t n) {
+  uint32_t w = 0u;
+  if (kAligned && at + 4 <= n) {
+    w = __ldg(reinterpret_cast<const uint32_t*>(x + at));
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (at + j < n) w |= static_cast<uint32_t>(x[at + j]) << (8 * j);
+  }
+  w = __vcmpne4(w, 0u) & 0x01010101u;
+  return make_int4(w & 1u, (w >> 8) & 1u, (w >> 16) & 1u, w >> 24);
+}
+
+// prefix_positions in one launch: the exclusive prefix sum of x and its
+// total, single-pass with decoupled look-back (see the note at the top).
+// One CTA per ticket, a tile of TILE elements each.  scratch: the same
+// buffer as compact_lookback's (word 0 the ticket, words 1.. the status
+// words).
+template <typename T, bool kAligned>
+__global__ void __launch_bounds__(SCAN_THREADS)
+scan_lookback(const T* __restrict__ x, int64_t n, int64_t tiles,
+              unsigned long long* __restrict__ scratch, uint32_t epoch,
+              int32_t* __restrict__ out, int32_t* __restrict__ total) {
+  __shared__ int32_t warp_excl[SCAN_WARPS];
+  __shared__ int64_t s_ticket;
+  __shared__ int32_t s_excl;
+  unsigned* ticket = reinterpret_cast<unsigned*>(scratch);
+  uint64_t* status = reinterpret_cast<uint64_t*>(scratch) + 1;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) s_ticket = atomicInc(ticket, gridDim.x - 1);
+  __syncthreads();
+  const int64_t t = s_ticket;
+  const int64_t base = t * TILE + warp * WARP_SPAN + 4 * lane;
+
+  // load and scan round by round: each round is one coalesced 2 KB (int32)
+  // or 512-byte (mask) run of the warp; a lane's offset in its warp is the
+  // rounds before plus its lanes before
+  int4 q[SCAN_ROUNDS];
+  int32_t lane_excl[SCAN_ROUNDS];
+  int32_t warp_sum = 0;
+#pragma unroll
+  for (int r = 0; r < SCAN_ROUNDS; ++r) {
+    q[r] = load_quad<kAligned>(x, base + 128 * r, n);
+    const int32_t s = q[r].x + q[r].y + q[r].z + q[r].w;
+    int32_t incl = s;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int32_t o = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += o;
+    }
+    lane_excl[r] = warp_sum + incl - s;
+    warp_sum += __shfl_sync(0xffffffffu, incl, 31);
+  }
+  if (lane == 0) warp_excl[warp] = warp_sum;
+  __syncthreads();
+
+  // warp 0: the warps' offsets, then publish, look back, publish
+  if (warp == 0) {
+    const int32_t v = lane < SCAN_WARPS ? warp_excl[lane] : 0;
+    int32_t incl = v;
+#pragma unroll
+    for (int d = 1; d < SCAN_WARPS; d <<= 1) {
+      const int32_t o = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += o;
+    }
+    const int32_t agg = __shfl_sync(0xffffffffu, incl, SCAN_WARPS - 1);
+    if (lane < SCAN_WARPS) warp_excl[lane] = incl - v;
+    int32_t excl = 0;
+    if (t == 0) {
+      if (lane == 0) publish(status, epoch, kPrefix, agg);
+    } else {
+      if (lane == 0) publish(status + t, epoch, kAggregate, agg);
+      excl = lookback(status, t, epoch);
+      if (lane == 0) publish(status + t, epoch, kPrefix, excl + agg);
+    }
+    if (lane == 0) {
+      s_excl = excl;
+      if (t == tiles - 1) total[0] = excl + agg;
+    }
+  }
+  __syncthreads();
+
+  // write: each lane its quads at the positions it read (out is 16-byte
+  // aligned and every quad starts at a multiple of 4)
+  const int32_t off = s_excl + warp_excl[warp];
+#pragma unroll
+  for (int r = 0; r < SCAN_ROUNDS; ++r) {
+    const int64_t at = base + 128 * r;
+    int4 o;
+    o.x = off + lane_excl[r];
+    o.y = o.x + q[r].x;
+    o.z = o.y + q[r].y;
+    o.w = o.z + q[r].z;
+    if (at + 4 <= n) {
+      *reinterpret_cast<int4*>(out + at) = o;
+    } else {
+      if (at < n) out[at] = o.x;
+      if (at + 1 < n) out[at + 1] = o.y;
+      if (at + 2 < n) out[at + 2] = o.z;
+    }
   }
 }
 
@@ -503,49 +506,49 @@ __global__ void expand_slots(const int32_t* __restrict__ ids,
 }
 
 template <typename T>
-int prefix_positions_impl(const T* x, int64_t n, int64_t tiles,
-                          int32_t* sums, int32_t* total, int32_t* out,
-                          cudaStream_t s, dim3 g0, dim3 b0, unsigned m0,
-                          dim3 g1, dim3 b1, unsigned m1, dim3 g2, dim3 b2,
-                          unsigned m2) {
-  tile_reduce<T><<<g0, b0, m0, s>>>(x, n, sums);
-  scan_tile_sums<<<g1, b1, m1, s>>>(sums, tiles, total);
-  tile_scan<T><<<g2, b2, m2, s>>>(x, n, sums, out);
-  return repro_last_error();
+void scan(const void* x, int aligned, int64_t n, int64_t tiles,
+          unsigned long long* scratch, unsigned epoch, int32_t* out,
+          int32_t* total, cudaStream_t s, dim3 grid, dim3 block,
+          unsigned smem) {
+  const T* xp = static_cast<const T*>(x);
+  if (aligned)
+    scan_lookback<T, true><<<grid, block, smem, s>>>(xp, n, tiles, scratch,
+                                                     epoch, out, total);
+  else
+    scan_lookback<T, false><<<grid, block, smem, s>>>(xp, n, tiles, scratch,
+                                                      epoch, out, total);
 }
 
 }  // namespace
 
 extern "C" {
 
-// x: (n,) int32 (x_is_u8 == 0) or uint8/bool (x_is_u8 != 0); sums:
-// scratch of tiles = ceil(n / TILE) int32; total: (1,) int32; out: (n,)
-// int32 exclusive prefix.  Three launches in order: tile_reduce (one
-// SCAN_THREADS-thread block per tile), scan_tile_sums (one SUM_THREADS-
-// thread block) and tile_scan (as tile_reduce).
-int prefix_positions_launch(const void* x, int x_is_u8, int64_t n,
-                            int64_t tiles, void* sums, void* total,
-                            void* out, void* stream, REPRO_GEOMETRY_K(0),
-                            REPRO_GEOMETRY_K(1), REPRO_GEOMETRY_K(2)) {
-  if (block_x0 != SCAN_THREADS || block_x1 != SUM_THREADS ||
-      block_x2 != SCAN_THREADS || block_y0 != 1 || block_z0 != 1 ||
-      block_y1 != 1 || block_z1 != 1 || block_y2 != 1 || block_z2 != 1)
+// x: (n,) int32 (x_is_u8 == 0) or uint8/bool (x_is_u8 != 0), n >= 1
+// (aligned != 0: 16-byte aligned for int32, 4-byte for a mask); scratch:
+// the wrapper's persistent buffer of 1 + tiles words, shared with
+// compact_lookback, ticket clear, no status word of `epoch` (1 <= epoch <
+// 2^30); out: (n,) int32 exclusive prefix and total: (1,) int32 out.  One
+// launch of scan_lookback, one SCAN_THREADS-thread CTA per tile of TILE
+// elements.
+int scan_lookback_launch(const void* x, int x_is_u8, int aligned, int64_t n,
+                         int64_t tiles, void* scratch, unsigned epoch,
+                         void* out, void* total, void* stream,
+                         REPRO_GEOMETRY) {
+  if (block_x != SCAN_THREADS || block_y != 1 || block_z != 1 ||
+      grid_x != tiles || grid_y != 1 || grid_z != 1 || tiles < 1 ||
+      epoch == 0 || epoch >= (1u << 30))
     return repro_invalid();
+  auto* sc = static_cast<unsigned long long*>(scratch);
+  auto* op = static_cast<int32_t*>(out);
+  auto* tp = static_cast<int32_t*>(total);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int32_t* sp = static_cast<int32_t*>(sums);
-  int32_t* tp = static_cast<int32_t*>(total);
-  int32_t* op = static_cast<int32_t*>(out);
   if (x_is_u8)
-    return prefix_positions_impl(static_cast<const uint8_t*>(x), n, tiles,
-                                 sp, tp, op, s, REPRO_GRID_K(0),
-                                 REPRO_BLOCK_K(0), smem0, REPRO_GRID_K(1),
-                                 REPRO_BLOCK_K(1), smem1, REPRO_GRID_K(2),
-                                 REPRO_BLOCK_K(2), smem2);
-  return prefix_positions_impl(static_cast<const int32_t*>(x), n, tiles, sp,
-                               tp, op, s, REPRO_GRID_K(0), REPRO_BLOCK_K(0),
-                               smem0, REPRO_GRID_K(1), REPRO_BLOCK_K(1),
-                               smem1, REPRO_GRID_K(2), REPRO_BLOCK_K(2),
-                               smem2);
+    scan<uint8_t>(x, aligned, n, tiles, sc, epoch, op, tp, s, REPRO_GRID,
+                  REPRO_BLOCK, smem);
+  else
+    scan<int32_t>(x, aligned, n, tiles, sc, epoch, op, tp, s, REPRO_GRID,
+                  REPRO_BLOCK, smem);
+  return repro_last_error();
 }
 
 // mask: (n,) bool, n >= 1 (aligned != 0: 16-byte aligned); scratch: the

@@ -1,13 +1,14 @@
 """Frontier compaction on Hopper: ``prefix_positions``,
 ``frontier_compact`` and ``sparse_expand``.
 
-The CUDA kernels are ``csrc/frontier_compact.cu``: a reduce-then-scan
-exclusive prefix sum, a single-pass compaction with decoupled look-back
-(``compact_lookback``: one launch, one read of the mask; the GPU form of
-the TPU's sequential grid with an SMEM carry), and a slot-parallel CSR
-expansion.  They compute what ``src/repro/kernels/frontier_compact.py``
-computes; every total stays on the device, so no wrapper syncs with the
-host.
+The CUDA kernels are ``csrc/frontier_compact.cu``: a single-pass
+exclusive prefix sum (``scan_lookback``) and a single-pass compaction
+(``compact_lookback``), each one launch and one read of its input with
+decoupled look-back (the GPU form of the TPU's sequential grid with an
+SMEM carry), and a slot-parallel CSR expansion.  The two single-pass
+kernels share one scratch buffer per (device, stream).  They compute what
+``src/repro/kernels/frontier_compact.py`` computes; every total stays on
+the device, so no wrapper syncs with the host.
 
 These wrappers take CUDA tensors only: they launch or raise.
 ``kernels.ops`` routes CPU tensors to the plain versions in ``ref.py``.
@@ -23,20 +24,19 @@ from . import _build
 _VP = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _build.declare("frontier_compact", {
-    "prefix_positions_launch": [_VP, ctypes.c_int, _I64, _I64, _VP, _VP,
-                                _VP, _VP],
+    "scan_lookback_launch": [_VP, ctypes.c_int, ctypes.c_int, _I64, _I64,
+                             _VP, ctypes.c_uint, _VP, _VP, _VP],
     "compact_lookback_launch": [_VP, ctypes.c_int, _I64, _I64, _I64, _VP,
                                 ctypes.c_uint, _VP, _VP, _VP],
     "expand_rows_launch": [_VP] * 4 + [_I64, _I64, _VP],
     "expand_slots_launch": [_VP] * 9 + [_I64, _I64, _I64, _VP]})
-SCAN_THREADS = 256      # a block scans one tile of _build.SCAN_TILE
-SUM_THREADS = 1024      # the one block that scans the tile sums
+SCAN_THREADS = 256      # scan_lookback: a CTA per tile of _build.SCAN_TILE
 THREADS = 256           # compact_lookback, expand_rows, expand_slots
 #: sentinel slots per fill CTA of compact_lookback: a capacity of up to
 #: FILL_SLOTS is filled by the last tile's CTA, a larger one by
 #: ceil(capacity / FILL_SLOTS) - 1 CTAs after the tiles
 FILL_SLOTS = 4096
-#: compact_lookback's status words carry a 30-bit epoch
+#: the single-pass kernels' status words carry a 30-bit epoch
 EPOCHS = 1 << 30
 #: (device, stream) -> (scratch buffer, epoch of the last call)
 _SCRATCH: dict = {}
@@ -44,7 +44,8 @@ _SCRATCH: dict = {}
 
 def prefix_positions(x):
     """(n,) int32 or bool on a CUDA device -> (positions (n,) int32,
-    total 0-d int32): ``positions[i] = sum(x[:i])``, ``total = sum(x)``."""
+    total 0-d int32): ``positions[i] = sum(x[:i])``, ``total = sum(x)``.
+    One launch of scan_lookback."""
     _build.require_cuda("prefix_positions", x)
     if x.dtype not in (torch.int32, torch.bool) or x.dim() != 1:
         raise TypeError(f"prefix_positions: expected a 1-d int32 or bool "
@@ -55,30 +56,31 @@ def prefix_positions(x):
         return out, torch.zeros((), dtype=torch.int32, device=x.device)
     total = torch.empty((), dtype=torch.int32, device=x.device)
     tiles = _build.blocks(n, _build.SCAN_TILE)
-    # the tile sums, then the tiles' exclusive offsets (scanned in place)
-    sums = torch.empty((tiles,), dtype=torch.int32, device=x.device)
-    grid, block = (tiles, 1, 1), (SCAN_THREADS, 1, 1)
-    _build.launch(
-        (_build.Launch("frontier_compact", "tile_reduce", grid, block, 0,
-                       {"sums": sums}),
-         _build.Launch("frontier_compact", "scan_tile_sums", (1, 1, 1),
-                       (SUM_THREADS, 1, 1), 0,
-                       {"sums": sums, "total": total}),
-         _build.Launch("frontier_compact", "tile_scan", grid, block, 0,
-                       {"out": out})),
-        "prefix_positions_launch", _build.c_ptr(x),
-        int(x.dtype == torch.bool), n, tiles, _build.c_ptr(sums),
-        _build.c_ptr(total), _build.c_ptr(out), _build.stream_of(x))
+    stream = _build.stream_of(x)
+    scratch, epoch = lookback_scratch(x.device, stream, tiles)
+    mask = x.dtype == torch.bool
+    # a quad of int32 is one 16-byte load, of mask bytes one 4-byte load
+    aligned = x.data_ptr() % (4 if mask else 16) == 0
+    spec = _build.Launch("frontier_compact", "scan_lookback", (tiles, 1, 1),
+                         (SCAN_THREADS, 1, 1), 0,
+                         {"out": out, "total": total}, scratch=True)
+    _build.launch(spec, "scan_lookback_launch", _build.c_ptr(x), int(mask),
+                  int(aligned), n, tiles, _build.c_ptr(scratch), epoch,
+                  _build.c_ptr(out), _build.c_ptr(total), stream)
     _build.LAUNCHES["prefix_positions"] += 1
     return out, total
 
 
-def _lookback_scratch(device, stream, tiles: int):
-    """compact_lookback's scratch on ``device`` for launches on ``stream``
-    and the epoch of this call: one int64 buffer of the ticket word and a
-    status word per tile, kept from call to call and never cleared between
-    them (the ticket clears itself and the status words carry the epoch).
-    It is zeroed only when it is made, grown, or when the epoch wraps."""
+def lookback_scratch(device, stream, tiles: int):
+    """The single-pass kernels' scratch on ``device`` for launches on
+    ``stream`` and the epoch of this call: one int64 buffer of the ticket
+    word and a status word per tile (ticket), kept from call to call and
+    never cleared between them (the ticket clears itself and the status
+    words carry the epoch).  ``scan_lookback``, ``compact_lookback`` and
+    ``segment_sum``'s ``segment_rows`` share it: launches on one stream
+    run in order.  It is zeroed only when it is made, grown, or when the
+    epoch wraps.  A CUDA graph that captures any of them replays one
+    epoch, so it must clear the buffer inside the graph first."""
     key = (str(device), stream.value)
     buf, epoch = _SCRATCH.get(key, (None, 0))
     epoch += 1
@@ -106,7 +108,7 @@ def frontier_compact(mask, capacity: int):
     count = torch.empty((), dtype=torch.int32, device=mask.device)
     tiles = _build.blocks(n, _build.COMPACT_TILE)
     stream = _build.stream_of(mask)
-    scratch, epoch = _lookback_scratch(mask.device, stream, tiles)
+    scratch, epoch = lookback_scratch(mask.device, stream, tiles)
     # a CTA per tile, then the fill CTAs of the sentinel slots
     fill = max(_build.blocks(capacity, FILL_SLOTS) - 1, 0)
     spec = _build.Launch("frontier_compact", "compact_lookback",

@@ -30,7 +30,7 @@ from . import segment_sum as _ss
 __all__ = ["LAUNCHES", "reset_launches", "first_live_scan",
            "prefix_positions", "frontier_compact", "sparse_expand",
            "frontier_expand", "bucket_peel", "counter_scatter",
-           "flash_attention", "segment_sum", "mutant_copy"]
+           "flash_attention", "segment_index", "segment_sum", "mutant_copy"]
 
 
 def _on_cpu(t) -> bool:
@@ -98,16 +98,27 @@ def flash_attention(q, k, v, *, causal: bool = True,
     return _fa.flash_attention(q, k, v, causal=causal, sm_scale=sm_scale)
 
 
-def segment_sum(values, seg_ids, num_segments: int):
+def segment_index(seg_ids, num_segments: int):
+    """(m,) int32/int64 ids -> ``segment_sum.SegmentIndex`` (``order``,
+    the rows with in-range ids stably sorted by id; ``offsets``, each
+    segment's start): built once per graph and passed to every
+    :func:`segment_sum` over the same ids.  Plain PyTorch on every device,
+    no host sync."""
+    return _ss.segment_index(seg_ids, num_segments)
+
+
+def segment_sum(values, seg_ids, num_segments: int, index=None):
     """values (m, *rest) float32 or bfloat16, seg_ids (m,) int32/int64 ->
     (num_segments, *rest) float32 sums, out-of-range ids dropped.  The
     trailing dims are flattened to one (a view where the layout allows)
-    and restored afterwards."""
+    and restored afterwards.  ``index``: :func:`segment_index` of
+    ``seg_ids``, built here where it is None; the plain version on the CPU
+    does not need it."""
     if _on_cpu(values):
         return ref.segment_sum_ref(values, seg_ids, num_segments)
     rest = tuple(values.shape[1:])
     flat = values.reshape(values.shape[0], math.prod(rest))
-    return _ss.segment_sum(flat, seg_ids, num_segments).view(
+    return _ss.segment_sum(flat, seg_ids, num_segments, index).view(
         (num_segments,) + rest)
 
 

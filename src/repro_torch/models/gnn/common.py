@@ -4,7 +4,9 @@ Messages are gathered by edge index (``x[src]``, torch's own gather and
 its backward) and reduced by destination with :func:`segment_sum`, whose
 forward is the Hopper kernel (``kernels.ops.segment_sum``) on the card and
 its plain version on the CPU, and whose backward is a plain gather, as the
-reference leaves the transpose of ``jax.ops.segment_sum`` to XLA.  All four
+reference leaves the transpose of ``jax.ops.segment_sum`` to XLA.  Each
+forward groups its edges by destination once (:func:`segment_index`, a
+sort) and hands that index to every aggregation.  All four
 GNNs take the reference's batch schema, as torch tensors on one device:
 
   node input:  ``feats`` (n, d_feat) float  OR  ``species`` (n,) int
@@ -36,16 +38,16 @@ from ...kernels import ops
 
 
 class _SegmentSum(torch.autograd.Function):
-    """Forward: the kernel (float32 sums, out-of-range ids dropped).
-    Backward: ``grad[ids]`` with zeros for dropped ids, in the values'
-    dtype."""
+    """Forward: the kernel (float32 sums, out-of-range ids dropped), over
+    the caller's :func:`segment_index` where it passes one.  Backward:
+    ``grad[ids]`` with zeros for dropped ids, in the values' dtype."""
 
     @staticmethod
-    def forward(ctx, values, seg_ids, num_segments: int):
+    def forward(ctx, values, seg_ids, num_segments: int, index):
         ctx.save_for_backward(seg_ids)
         ctx.num_segments = num_segments
         ctx.dtype = values.dtype
-        return ops.segment_sum(values, seg_ids, num_segments)
+        return ops.segment_sum(values, seg_ids, num_segments, index)
 
     @staticmethod
     def backward(ctx, grad):
@@ -53,20 +55,27 @@ class _SegmentSum(torch.autograd.Function):
         ok = (seg_ids >= 0) & (seg_ids < ctx.num_segments)
         g = grad[torch.where(ok, seg_ids, 0)]
         g = g * ok.view((-1,) + (1,) * (g.dim() - 1))
-        return g.to(ctx.dtype), None, None
+        return g.to(ctx.dtype), None, None, None
 
 
-def segment_sum(values, seg_ids, num_segments: int):
+#: the rows of ``seg_ids`` grouped by segment (``kernels.ops``): a forward
+#: builds one from ``edge_dst`` and passes it to each aggregation
+segment_index = ops.segment_index
+
+
+def segment_sum(values, seg_ids, num_segments: int, index=None):
     """(m, *rest) values summed by ``seg_ids`` into (num_segments, *rest)
-    float32; differentiable in ``values``."""
-    return _SegmentSum.apply(values, seg_ids, num_segments)
+    float32; differentiable in ``values``.  ``index``: the
+    :func:`segment_index` of ``seg_ids``, built per call where it is
+    None."""
+    return _SegmentSum.apply(values, seg_ids, num_segments, index)
 
 
-def segment_mean(values, seg_ids, num_segments: int):
-    s = segment_sum(values, seg_ids, num_segments)
+def segment_mean(values, seg_ids, num_segments: int, index=None):
+    s = segment_sum(values, seg_ids, num_segments, index)
     ones = torch.ones(seg_ids.shape + (1,) * (values.dim() - 1),
                       dtype=torch.float32, device=values.device)
-    c = segment_sum(ones, seg_ids, num_segments)
+    c = segment_sum(ones, seg_ids, num_segments, index)
     return s / torch.clamp(c, min=1.0)
 
 
@@ -92,14 +101,15 @@ def _take(x, ids):
     return x[torch.where(ids < 0, ids + n, ids).clamp(0, n - 1)]
 
 
-def segment_softmax(logits, seg_ids, num_segments: int):
+def segment_softmax(logits, seg_ids, num_segments: int, index=None):
     """Softmax over edges grouped by destination (graph attention).  An
     edge whose id lies outside ``[0, num_segments)`` reads the clamped
-    segment's max and sum, as the reference's gathers do."""
+    segment's max and sum, as the reference's gathers do.  ``index``: as
+    :func:`segment_sum`'s."""
     mx = segment_max(logits, seg_ids, num_segments)
     mx = torch.where(torch.isfinite(mx), mx, torch.zeros_like(mx))
     e = torch.exp(logits - _take(mx, seg_ids))
-    z = segment_sum(e, seg_ids, num_segments)
+    z = segment_sum(e, seg_ids, num_segments, index)
     return e / torch.clamp(_take(z, seg_ids), min=1e-9)
 
 

@@ -27,8 +27,8 @@ from torch import nn
 
 from ..equivariant import (WignerConstants, bessel_basis, l_slices, num_sh,
                            wigner_d_align)
-from .common import MLP, normal, num_nodes, pooled_loss, segment_softmax, \
-    segment_sum
+from .common import MLP, normal, num_nodes, pooled_loss, segment_index, \
+    segment_softmax, segment_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,6 +173,7 @@ class EquiformerV2(nn.Module):
         h = torch.cat([h0[:, None, :], h0.new_zeros(
             (n, num_sh(cfg.l_max) - 1, c))], dim=1)
         edge_ok = (r > 1e-6)[:, None, None]
+        index = segment_index(dst, n)
 
         for lp in self.layers:
             hn = self._equiv_ln(h, lp.ln_scale)
@@ -185,9 +186,9 @@ class EquiformerV2(nn.Module):
             msg = msg * edge_ok
             # attention from the invariant part
             logits = msg[:, 0, :] @ lp.attn_w                 # (E, heads)
-            attn = segment_softmax(logits, dst, n)            # (E, heads)
+            attn = segment_softmax(logits, dst, n, index)     # (E, heads)
             attn = attn.mean(dim=-1)                          # head-avg gate
-            agg = segment_sum(msg * attn[:, None, None], dst, n)
+            agg = segment_sum(msg * attn[:, None, None], dst, n, index)
             # per-l output linear
             outs = [agg[:, a:b] @ lp.out_lin[l]
                     for l, (a, b) in enumerate(self.slices)]

@@ -23,7 +23,8 @@ import torch
 from torch import nn
 
 from ..equivariant import bessel_basis, l_slices, num_sh, real_cg, sh
-from .common import MLP, normal, num_nodes, pooled_loss, segment_sum
+from .common import MLP, normal, num_nodes, pooled_loss, segment_index, \
+    segment_sum
 
 
 def _triples(l_max: int):
@@ -121,6 +122,7 @@ class MACE(nn.Module):
             (n, num_sh(cfg.l_max) - 1, c))], dim=1)
 
         energy = 0.0
+        index = segment_index(dst, n)
         for lp, ro in zip(self.layers, self.readouts):
             rw = lp.radial(rad).reshape(-1, len(self.triples), c)  # (m, P, C)
             # zero-length edges (self-loops / padding) have no direction
@@ -134,7 +136,8 @@ class MACE(nn.Module):
                 # (uvw, ev) -> (e, u, w), then contract u with the channels
                 wy = torch.einsum("uvw,ev->euw", self.cg[p], yb[l2])
                 msg = wy.transpose(1, 2) @ mixed                # (m, w, C)
-                term = segment_sum(msg * rw[:, p][:, None, :], dst, n)
+                term = segment_sum(msg * rw[:, p][:, None, :], dst, n,
+                                   index)
                 a[l3] = term if a[l3] is None else a[l3] + term
             # symmetric contractions (correlation 2, 3)
             b2 = self._cg_prod(a, a, lp.w_B2)

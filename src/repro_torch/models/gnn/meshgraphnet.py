@@ -11,7 +11,7 @@ import torch
 from torch import nn
 
 from .common import MLP, NodeInput, layer_norm, num_nodes, pooled_loss, \
-    segment_sum
+    segment_index, segment_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,10 +54,11 @@ class MeshGraphNet(nn.Module):
         dist = torch.linalg.vector_norm(rel, dim=-1, keepdim=True)
         e = self.edge_enc(torch.cat([rel, dist], -1), norm=True)
         x = self.node_enc(self.input(batch), norm=True)
+        index = segment_index(dst, n)
         for lyr in self.layers:
             e_in = torch.cat([e, x[src], x[dst]], dim=-1)
             e = e + layer_norm(lyr.edge_mlp(e_in))
-            agg = segment_sum(e, dst, n)
+            agg = segment_sum(e, dst, n, index)
             x = x + layer_norm(lyr.node_mlp(torch.cat([x, agg], -1)))
         return self.decoder(x)
 

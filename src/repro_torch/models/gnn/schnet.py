@@ -14,7 +14,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..equivariant import gaussian_basis, poly_cutoff
-from .common import MLP, NodeInput, num_nodes, pooled_loss, segment_sum
+from .common import MLP, NodeInput, num_nodes, pooled_loss, \
+    segment_index, segment_sum
 
 
 def shifted_softplus(x):
@@ -62,10 +63,11 @@ class SchNet(nn.Module):
         rbf = gaussian_basis(d, cfg.n_rbf, cfg.cutoff)       # (m, n_rbf)
         cut = poly_cutoff(d, cfg.cutoff)[..., None]
         x = self.input(batch)
+        index = segment_index(dst, n)
         for lyr in self.layers:
             w = lyr.filter(rbf, act=shifted_softplus) * cut
             hsrc = lyr.in_lin(x)[src]
-            msg = segment_sum(hsrc * w, dst, n)
+            msg = segment_sum(hsrc * w, dst, n, index)
             x = x + lyr.out_mlp(msg, act=shifted_softplus)
         return self.readout(x, act=shifted_softplus)
 

@@ -122,10 +122,10 @@ def _global_kernels():
 
 
 def test_every_launch_is_declared_and_every_kernel_captured():
-    """The declarations name exactly the sources' kernels (18), and the
+    """The declarations name exactly the sources' kernels (16), and the
     lattice captures each of them at least once."""
     declared = set(catalog.LAUNCH_DECLARATIONS)
-    assert declared == _global_kernels() and len(declared) == 18
+    assert declared == _global_kernels() and len(declared) == 16
     seen = {(launch.library, launch.kernel)
             for entry in catalog.KERNEL_CATALOG for point in entry.points
             for launch in entry.build(point)}
@@ -175,6 +175,64 @@ def test_compact_lookback_without_ordered_protocol_is_caught():
     decls[_COMPACT] = decls[_COMPACT]._replace(scratch=False)
     assert "carry-without-sequential" in _fired(x, decls)
     assert not _fired(x)
+
+
+_SCAN = ("frontier_compact", "scan_lookback")
+
+
+@pytest.mark.parametrize("point", [
+    e for e in catalog.KERNEL_CATALOG if e.name == "prefix_positions"][0]
+    .points, ids=lambda p: ",".join(f"{k}={v}" for k, v in p.items()))
+def test_scan_lookback_capture_is_clean(point):
+    """Every prefix_positions lattice point (one tile, a ragged tail,
+    int32 and bool, aligned and x[1:]) captures one launch of the
+    single-pass scan, a CTA per tile with the shared scratch, and it is
+    clean; its ordered protocol is declared, and dropping it is
+    caught."""
+    from repro_torch.kernels import frontier_compact as fc
+    (x,) = _launch_all("prefix_positions", point)
+    assert (x.library, x.kernel) == _SCAN and x.scratch
+    assert x.grid == (_build.blocks(point["n"], _build.SCAN_TILE), 1, 1)
+    assert x.block == (fc.SCAN_THREADS, 1, 1)
+    assert not _fired(x)
+    decls = dict(catalog.LAUNCH_DECLARATIONS)
+    assert decls[_SCAN].ordered and decls[_SCAN].outputs["total"].guard
+    decls[_SCAN] = decls[_SCAN]._replace(ordered="")
+    assert "carry-without-sequential" in _fired(x, decls)
+
+
+@pytest.mark.parametrize("point", [
+    e for e in catalog.KERNEL_CATALOG if e.name == "segment_reduce"][0]
+    .points, ids=lambda p: ",".join(f"{k}={v}" for k, v in p.items()))
+def test_segment_sum_capture_is_clean(point):
+    """Every segment_sum lattice point captures one segment_rows launch on
+    the merge-path split's grid (workers over x, column chunks over y),
+    and it is clean: a carry row per ticket, every output row written by
+    one worker, the cross-CTA scratch under a declared ordered
+    protocol."""
+    from repro_torch.kernels import segment_sum as ss
+    (rows,) = _launch_all("segment_reduce", point)
+    assert rows.kernel == "segment_rows" and rows.scratch
+    lanes, chunks, _, workers = ss.split(point["m"], point["segs"],
+                                         point["d"], ss.META_SMS)
+    grid = (_build.blocks(workers, ss.THREADS // lanes), chunks, 1)
+    assert rows.grid == grid
+    assert rows.outputs["carry"].shape == (grid[0] * chunks, 4 * lanes)
+    assert not _fired(rows)
+
+
+def test_segment_rows_overlapping_carries_are_caught():
+    """Blocks 2i and 2i + 1 claiming one carry row (a kernel indexing
+    its carry by blockIdx.x / 2) is a write race."""
+    (rows,) = _launch_all("segment_reduce", {"m": 4096, "d": 128,
+                                              "segs": 3})
+    key = ("segment_sum", "segment_rows")
+    decls = dict(catalog.LAUNCH_DECLARATIONS)
+    bad = decls[key].outputs["carry"]._replace(
+        index=lambda launch, shape, b: (b[0] // 2, b[1]))
+    decls[key] = decls[key]._replace(
+        outputs={**decls[key].outputs, "carry": bad})
+    assert "write-race" in _fired(rows, decls)
 
 
 @pytest.mark.parametrize("n,block,offset", [
@@ -330,7 +388,8 @@ def test_profiled_launches_read_a_chrome_trace():
          "flash_fwd<float, 64>((anonymous namespace)::Params)",
          "args": {"grid": [8, 1, 1], "block": [256, 1, 1]}},
         {"cat": "kernel", "ts": 10, "name": "void (anonymous namespace)::"
-         "tile_reduce<unsigned char>(unsigned char const*, long, int*)",
+         "scan_lookback<unsigned char, true>(unsigned char const*, long, "
+         "long, unsigned long long*, unsigned int, int*, int*)",
          "args": {"grid": [2, 1, 1], "block": [256, 1, 1]}},
         {"cat": "gpu_memcpy", "ts": 20, "name": "Memcpy DtoD",
          "args": {}},
@@ -340,8 +399,8 @@ def test_profiled_launches_read_a_chrome_trace():
          "args": {"grid": [1, 1, 1], "block": [128, 1, 1]}},
     ]
     got = capture.profiled_launches({"traceEvents": ev},
-                                    {"flash_fwd", "tile_reduce"})
-    assert got == [("tile_reduce", (2, 1, 1), (256, 1, 1)),
+                                    {"flash_fwd", "scan_lookback"})
+    assert got == [("scan_lookback", (2, 1, 1), (256, 1, 1)),
                    ("flash_fwd", (8, 1, 1), (256, 1, 1))]
 
 
@@ -351,7 +410,7 @@ def test_scan_tile_is_one_constant():
     with."""
     src = (_build.CSRC / "frontier_compact.cu").read_text()
     assert f"-DTILE={_build.SCAN_TILE}" in _build._flags("frontier_compact")
-    assert "#error" in src and "4096" not in src
+    assert "#error" in src and str(_build.SCAN_TILE) not in src
     launches = _launch("prefix_positions", {"n": 10000, "dtype": "int32"})
     assert launches.grid == (_build.blocks(10000, _build.SCAN_TILE), 1, 1)
     # and the compaction's tile likewise, through -DCOMPACT_TILE

@@ -15,6 +15,7 @@ On the CPU the port's ``segment_sum`` is the kernel's plain version; the
 CUDA kernel itself is held against it in ``tests/test_torch_gpu.py``.
 """
 import dataclasses
+import sys
 
 import numpy as np
 import pytest
@@ -150,6 +151,71 @@ def test_gnn_loss_and_grads_match_reference(arch, schema):
     tgrads = torch.autograd.grad(tloss, list(port.parameters()))
     np.testing.assert_allclose(tloss.item(), float(loss), rtol=1e-5)
     _close_grads(tgrads, grads, port)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_gnn_forward_passes_one_index(arch, monkeypatch):
+    """A forward groups its edges by destination once (``segment_index``
+    of ``edge_dst``: numpy's stable argsort) and hands that index to every
+    aggregation; with it, the loss and gradients equal the reference's
+    (the plain segment sum on the CPU does not read it)."""
+    model, params, port = _ref_model(arch)
+    b = _graph(seed=1, energy=True)
+    made, passed = [], []
+
+    def index(ids, n):
+        made.append(ops.segment_index(ids, n))
+        return made[-1]
+    real = ops.segment_sum
+
+    def seg_sum(values, ids, n, index=None):
+        passed.append(index)
+        return real(values, ids, n, index)
+    monkeypatch.setattr(sys.modules[type(port).__module__], "segment_index",
+                        index)
+    monkeypatch.setattr(ops, "segment_sum", seg_sum)
+    tloss = port.loss(_t(b))
+    tgrads = torch.autograd.grad(tloss, list(port.parameters()))
+    assert len(made) == 1 and passed
+    assert all(i is made[0] for i in passed)
+    assert np.array_equal(made[0].order.numpy(),
+                          np.argsort(b["edge_dst"], kind="stable"))
+    loss, grads = jax.jit(jax.value_and_grad(model.loss))(params, _j(b))
+    np.testing.assert_allclose(tloss.item(), float(loss), rtol=1e-5)
+    _close_grads(tgrads, grads, port)
+
+
+def test_segment_ops_with_index_match_reference():
+    """segment_sum, segment_mean and segment_softmax with the caller's
+    index (dropped and negative ids, an empty segment) equal the
+    reference's, and so does segment_sum's gradient."""
+    rng = np.random.default_rng(8)
+    vals = rng.normal(size=(90, 3, 4)).astype(np.float32)
+    ids = rng.integers(-2, 11, 90).astype(np.int32)     # segment 11 empty
+    logits = rng.normal(size=(90, 2)).astype(np.float32)
+    n = 12
+    ti = torch.as_tensor(ids)
+    index = common.segment_index(ti, n)
+    jv, ji = jnp.asarray(vals), jnp.asarray(ids)
+    np.testing.assert_allclose(
+        common.segment_mean(torch.as_tensor(vals), ti, n, index).numpy(),
+        np.asarray(jcommon.segment_mean(jv, ji, n)), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(
+        common.segment_softmax(torch.as_tensor(logits), ti, n,
+                               index).numpy(),
+        np.asarray(jcommon.segment_softmax(jnp.asarray(logits), ji, n)),
+        atol=1e-6, rtol=1e-5)
+    w = rng.normal(size=(n, 3, 4)).astype(np.float32)
+    tv = torch.as_tensor(vals).requires_grad_(True)
+    got = common.segment_sum(tv, ti, n, index)
+    np.testing.assert_allclose(
+        got.detach().numpy(),
+        np.asarray(jax.ops.segment_sum(jv, ji, num_segments=n)), atol=1e-5,
+        rtol=1e-5)
+    (got * torch.as_tensor(w)).sum().backward()
+    jg = jax.grad(lambda v: jnp.sum(
+        jax.ops.segment_sum(v, ji, num_segments=n) * jnp.asarray(w)))(jv)
+    np.testing.assert_array_equal(tv.grad.numpy(), np.asarray(jg))
 
 
 @pytest.mark.parametrize("arch", ARCHS)

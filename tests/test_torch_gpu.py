@@ -1,8 +1,8 @@
 """Card-only tests of the PyTorch port: every Hopper kernel against its
 plain PyTorch version on the same CUDA tensors (bit for bit where the
 outputs are int32 or bool; the flash attention kernel to a stated float
-tolerance; the segment sum, whose float atomics add in another order, to
-1e-5 of each segment's sum of absolute values), the engines on the card
+tolerance; the segment sum, which adds in another order, to 1e-5 of each
+segment's sum of absolute values), the engines on the card
 against the engines on the CPU, the LM's prefill (through the flash
 kernel) against its decode, a GNN training step on the card against
 the same step on the CPU, the static checks' copy kernel against
@@ -21,6 +21,7 @@ import torch
 from repro_torch.core import plan, plan_peel, plan_reach, plan_stream
 from repro_torch.core.scc import scc_decompose
 from repro_torch.graphs import generators as G
+from repro_torch.kernels import _build
 from repro_torch.kernels import bucket_peel as bpl
 from repro_torch.kernels import counter_scatter as cs
 from repro_torch.kernels import ops, ref
@@ -31,6 +32,7 @@ from repro_torch.kernels import frontier_expand as fex
 from repro_torch.kernels import segment_sum as ss
 
 pytestmark = pytest.mark.gpu
+ST = _build.SCAN_TILE      # elements a tile of scan_lookback
 
 
 @pytest.fixture
@@ -74,6 +76,31 @@ def test_prefix_positions_kernel(cuda, n, dtype):
     torch.cuda.synchronize()
     assert _eq(pos, wpos) and int(total) == int(wtotal)
     assert pos.dtype == torch.int32 and total.dtype == torch.int32
+
+
+@pytest.mark.parametrize("n", [1, ST - 1, ST, ST + 1, 3 * ST + 7, 1_000_003])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.bool])
+def test_prefix_positions_lookback_edge_cases(cuda, n, dtype):
+    """The single-pass scan at one tile, a ragged tail and on an
+    unaligned x[1:], twice in a row (the second call meets the first's
+    status words) and interleaved with frontier_compact on one stream
+    (the two share one scratch buffer): bit for bit, one launch a call."""
+    rng = np.random.default_rng(n + 7)
+    base = (torch.as_tensor(rng.integers(-3, 1000, n + 1), device=cuda)
+            .to(torch.int32) if dtype == torch.int32 else
+            torch.as_tensor(rng.random(n + 1) < 0.4, device=cuda))
+    mask = torch.as_tensor(rng.random(n) < 0.3, device=cuda)
+    before = dict(ops.LAUNCHES)
+    for x in (base[:n], base[1:], base[:n], base[1:]):
+        pos, total = fc.prefix_positions(x)
+        ids, count = fc.frontier_compact(mask, 512)
+        wpos, wtotal = ref.prefix_positions_ref(x)
+        wids, wcount = ref.frontier_compact_ref(mask, 512)
+        torch.cuda.synchronize()
+        assert _eq(pos, wpos) and int(total) == int(wtotal)
+        assert _eq(ids, wids) and int(count) == int(wcount)
+    assert ops.LAUNCHES["prefix_positions"] == \
+        before["prefix_positions"] + 4
 
 
 T = 16384      # _build.COMPACT_TILE: bytes a tile of compact_lookback
@@ -458,8 +485,9 @@ def test_lm_prefill_decode_on_card(cuda, dtype):
 
 
 def _segment_close(got, values, ids, n):
-    """|kernel - plain| <= 1e-5 * (sum of |v| in the segment) + 1e-6: f32
-    atomics add in an order that changes from run to run."""
+    """|kernel - plain| <= 1e-5 * (sum of |v| in the segment) + 1e-6: the
+    kernel sums a segment's rows in sorted order plus its carries, the
+    plain version in index_add_'s order."""
     want = ref.segment_sum_ref(values, ids, n)
     absum = ref.segment_sum_ref(values.abs(), ids, n)
     torch.cuda.synchronize()
@@ -501,6 +529,90 @@ def test_segment_sum_kernel_views_and_3d(cuda):
     _segment_close(got, v3, ids, 90)
     with pytest.raises(TypeError):
         ss.segment_sum(wide.half(), ids, 90)
+
+
+@pytest.mark.parametrize("case", ["empty", "hub", "d3", "d1", "d300",
+                                  "bf16", "slice", "int64"])
+def test_segment_sum_sorted_edge_cases(cuda, case):
+    """The sorted kernel against its plain version where its split
+    matters: mostly empty segments, a hub holding most rows (carried
+    across many workers), d % 4 != 0, d = 1 (a thread a worker), d = 300
+    (three column chunks), bf16, a column slice and int64 ids.  Two calls,
+    and a call with the caller's index, give the same bits; building the
+    index and summing never sync with the host."""
+    rng = np.random.default_rng(len(case))
+    m, n, d = 20_000, 3_000, 128
+    ids = rng.integers(0, n, m)
+    if case == "empty":
+        ids = rng.integers(0, 40, m) * 71
+    elif case == "hub":
+        ids = np.where(rng.random(m) < 0.9, 5, ids)
+    d = {"d3": 3, "d1": 1, "d300": 300}.get(case, d)
+    wide = torch.as_tensor(rng.normal(size=(m, d + 5)), dtype=torch.float32,
+                           device=cuda)
+    vals = wide[:, 1:d + 1] if case == "slice" else wide[:, :d].contiguous()
+    if case == "bf16":
+        vals = vals.bfloat16()
+    ti = torch.as_tensor(ids, device=cuda,
+                         dtype=torch.int64 if case == "int64" else
+                         torch.int32)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        index = ops.segment_index(ti, n)
+        first = ss.segment_sum(vals, ti, n)
+        again = ss.segment_sum(vals, ti, n, index)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _segment_close(first, vals, ti, n)
+    assert _eq(first, again)
+
+
+def test_segment_sum_sass_has_no_atomics(cuda):
+    """segment_rows writes with plain stores: the only atomic in the
+    library's SASS is the integer increment that takes a CTA's ticket
+    from the scratch; no reduction, no atomic add."""
+    import re
+
+    from repro_torch.kernels import _build
+    _build.load("segment_sum")
+    sass = _build.sass("segment_sum")
+    assert "segment_rows" in sass
+    atomics = re.findall(r"\b(?:REDG?|ATOMG?)\.[\w.]*", sass)
+    assert atomics and all(a.startswith("ATOMG.") and ".INC" in a
+                           for a in atomics), atomics
+
+
+@pytest.mark.parametrize("m,n,d", [(8192, 3840, 128), (20_000, 3_000, 1),
+                                   (50_000, 7, 300)])
+def test_segment_sum_shares_the_lookback_scratch(cuda, m, n, d):
+    """segment_rows takes its tickets and status words from the scratch
+    that prefix_positions and frontier_compact use on the same stream:
+    interleaved with them, call after call, every result holds (the
+    scans bit for bit, the sums to their tolerance and bit-identical to
+    the first call), with segments cut across many CTAs (n = 7: each
+    segment spans thousands of rows)."""
+    rng = np.random.default_rng(m + d)
+    vals = torch.as_tensor(rng.normal(size=(m, d)), dtype=torch.float32,
+                           device=cuda)
+    ids = torch.as_tensor(rng.integers(0, n, m), dtype=torch.int32,
+                          device=cuda)
+    x = torch.as_tensor(rng.integers(0, 9, 3 * ST + 5), dtype=torch.int32,
+                        device=cuda)
+    mask = torch.as_tensor(rng.random(3 * T + 9) < 0.3, device=cuda)
+    index = ops.segment_index(ids, n)
+    first = ss.segment_sum(vals, ids, n, index)
+    _segment_close(first, vals, ids, n)
+    wpos, wtotal = ref.prefix_positions_ref(x)
+    wids, wcount = ref.frontier_compact_ref(mask, 4096)
+    for _ in range(3):
+        pos, total = fc.prefix_positions(x)
+        got = ss.segment_sum(vals, ids, n, index)
+        ids_, count = fc.frontier_compact(mask, 4096)
+        torch.cuda.synchronize()
+        assert _eq(got, first)
+        assert _eq(pos, wpos) and int(total) == int(wtotal)
+        assert _eq(ids_, wids) and int(count) == int(wcount)
 
 
 @pytest.mark.parametrize("arch", ["meshgraphnet", "schnet", "mace",

@@ -608,3 +608,204 @@ def test_segment_sum_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match=r"\(m, d\)"):
         tss.segment_sum(v[None], ids, 2)
     assert ops.LAUNCHES["segment_sum"] == 0
+
+
+# segment_index: (m, n, id range, id dtype) — in range with empty
+# segments, out of range and negative ids, one hub, no rows
+INDEX_CASES = [(200, 50, (0, 50), np.int32), (200, 300, (0, 300), np.int64),
+               (513, 37, (-3, 40), np.int32), (513, 37, (-3, 40), np.int64),
+               (300, 7, (4, 5), np.int32), (0, 9, (0, 9), np.int32)]
+
+
+@pytest.mark.parametrize("m,n,span,dt", INDEX_CASES)
+def test_segment_index_matches_numpy_argsort(m, n, span, dt):
+    """``order`` is numpy's stable argsort of the in-range ids, then the
+    dropped rows in row order; ``offsets`` each segment's first slot, so
+    segment s owns ``order[offsets[s]:offsets[s + 1]]``."""
+    rng = np.random.default_rng(m + n)
+    ids = rng.integers(*span, m).astype(dt)
+    index = ops.segment_index(torch.as_tensor(ids), n)
+    ok = (ids >= 0) & (ids < n)
+    keys = np.where(ok, ids, n)
+    assert index.order.dtype == index.offsets.dtype == torch.int32
+    assert np.array_equal(index.order.numpy(),
+                          np.argsort(keys, kind="stable"))
+    want = np.concatenate([[0], np.cumsum(np.bincount(keys[ok],
+                                                      minlength=n))])
+    assert np.array_equal(index.offsets.numpy(), want)
+    for s in range(n):
+        rows = index.order[index.offsets[s]:index.offsets[s + 1]].numpy()
+        assert np.array_equal(rows, np.flatnonzero(ids == s))
+
+
+@pytest.mark.parametrize("m,rest,n,be,bn,dt,oob", SEGMENT_CASES)
+def test_segment_sum_with_index_matches_pallas(m, rest, n, be, bn, dt,
+                                               oob):
+    """``ops.segment_sum`` with the caller's index equals the call without
+    one, and the Pallas segment sum (interpret mode) at that file's
+    1e-4."""
+    rng = np.random.default_rng(m * 5 + n)
+    vals = rng.normal(size=(m,) + rest).astype(np.float32)
+    ids = rng.integers(-2 if oob else 0, n + 2 if oob else n,
+                       m).astype(np.int32)
+    tdt = torch.float32 if dt == "f32" else torch.bfloat16
+    tv, ti = torch.as_tensor(vals).to(tdt), torch.as_tensor(ids)
+    got = ops.segment_sum(tv, ti, n, ops.segment_index(ti, n))
+    assert torch.equal(got, ops.segment_sum(tv, ti, n))
+    if m == 0:       # the Pallas kernel takes no empty input
+        return
+    d = int(np.prod(rest))
+    want = segment_sum_pallas(
+        jnp.asarray(vals.reshape(m, d),
+                    jnp.float32 if dt == "f32" else jnp.bfloat16),
+        jnp.asarray(ids), n, block_e=be, block_n=bn, interpret=True)
+    np.testing.assert_allclose(got.numpy().reshape(n, d), np.asarray(want),
+                               atol=1e-4, rtol=1e-4)
+
+
+def _merge_path_sum(vals, order, offsets, n, items, workers, groups):
+    """``csrc/segment_sum.cu`` ``segment_rows`` step for step in numpy, a
+    CTA of ``groups`` workers at a time in ticket order: the CTA's two
+    path coordinates by the 16-ary warp search, each worker's by a binary
+    search within them; each worker's rows in order, an output row at each
+    segment end but its head, its tail left for the CTA; the CTA's carry;
+    then each head with the tails before it and the carries of the CTAs
+    before it, nearest first.  Asserts that every output row is written
+    exactly once and that no CTA reads a carry that was never published."""
+    d = vals.shape[1]
+    rows = int(offsets[n])
+    path = rows + n
+    out = np.full((n, d), np.nan, np.float32)
+    carries = {}                    # ticket -> (carry, runs further back)
+
+    def below(diag, s):
+        return offsets[s + 1] + s + 1 <= diag
+
+    def check(diag, x):
+        assert (x == 0 or below(diag, x - 1)) and (
+            x == n or not below(diag, x)), "not the merge path"
+        return x
+
+    def search(diag, lo, hi):
+        while lo < hi:
+            mid = (lo + hi) // 2
+            lo, hi = (mid + 1, hi) if below(diag, mid) else (lo, mid)
+        return check(diag, lo)
+
+    def search_warp(diag):
+        lo, hi = max(0, diag - rows), min(diag, n)
+        while lo < hi:
+            span = hi - lo
+            c = sum(below(diag, lo + (k + 1) * span // 17) for k in range(16))
+            lo, hi = (lo + c * span // 17 + 1 if c else lo,
+                      lo + (c + 1) * span // 17 if c < 16 else hi)
+        return check(diag, lo)
+
+    def emit(x, acc):
+        assert np.isnan(out[x]).all(), f"row {x} written twice"
+        out[x] = acc
+
+    def through(flags):
+        return flags[0] and flags[1]          # head cut and no end
+
+    for t in range(-(-workers // groups)):
+        c0 = min(t * groups * items, path)
+        c1 = min(c0 + groups * items, path)
+        xs = [search_warp(c0)] + [0] * (groups - 1) + [search_warp(c1)]
+        for g in range(1, groups):
+            d0 = min(c0 + g * items, path)
+            xs[g] = search(d0, max(d0 - rows, xs[0]), min(d0, xs[groups]))
+        tails, flags, heads = [], [], {}
+        for g in range(groups):
+            d0 = min(c0 + g * items, path)
+            d1 = min(d0 + items, path)
+            x, x1 = xs[g], xs[g + 1]
+            head_cut = x < n and offsets[x] < d0 - x
+            acc, first, partial = np.zeros(d, np.float32), True, False
+            end = offsets[x + 1] if x < n else 0
+            for r in range(d0 - x, d1 - x1):
+                while end <= r:
+                    if first and head_cut:
+                        heads[g] = (x, acc)
+                    else:
+                        emit(x, acc)
+                    acc, first, partial = np.zeros(d, np.float32), False, \
+                        False
+                    x += 1
+                    end = offsets[x + 1]
+                acc = acc + vals[order[r]]
+                partial = True
+            for x in range(x, x1):
+                if first and head_cut:
+                    heads[g] = (x, acc)
+                else:
+                    emit(x, acc)
+                acc, first, partial = np.zeros(d, np.float32), False, False
+            tails.append(acc)
+            flags.append((head_cut, first, partial))
+        if flags[-1][2]:
+            j, acc = groups - 1, tails[-1]
+            while j > 0 and through(flags[j]):
+                j -= 1
+                acc = acc + tails[j]
+            carries[t] = (acc, through(flags[j]))
+        for g, (x, acc) in heads.items():
+            j, back = g, True
+            while back and j > 0:
+                j -= 1
+                acc = acc + tails[j]
+                back = through(flags[j])
+            u = t - 1
+            while back:
+                assert u in carries, f"ticket {t} reads {u}'s unpublished carry"
+                carry, back = carries[u]
+                acc, u = acc + carry, u - 1
+            emit(x, acc)
+    assert not np.isnan(out).any(), "an output row was never written"
+    return out
+
+
+@pytest.mark.parametrize("kind", ["uniform", "hub", "empty", "oob"])
+@pytest.mark.parametrize("items", [None, 1, 3, 7])
+@pytest.mark.parametrize("groups", [None, 3])
+def test_segment_sum_merge_path_walk(kind, items, groups):
+    """The kernel's merge-path split and carries, replayed on the CPU, sum
+    like ``np.add.at``: the wrapper's split (None) and short ranges that
+    cut segments across many workers; CTAs of the kernel's 128 workers at
+    d = 6 and of 3, so segments run across many CTAs; a hub over most
+    rows, mostly empty segments, out-of-range and negative ids."""
+    rng = np.random.default_rng(len(kind) * 11 + (items or 0))
+    m, n, d = 400, 60, 6
+    ids = {"uniform": rng.integers(0, n, m),
+           "hub": np.where(rng.random(m) < 0.8, 17, rng.integers(0, n, m)),
+           "empty": rng.integers(0, 4, m) * 15,
+           "oob": rng.integers(-3, n + 3, m)}[kind].astype(np.int32)
+    vals = rng.normal(size=(m, d)).astype(np.float32)
+    lanes, chunks, split_items, workers = tss.split(m, n, d, tss.META_SMS)
+    assert lanes == 2 and chunks == 1 and workers * split_items >= m + n
+    if items is not None:
+        workers = -(-(m + n) // items)
+    index = ops.segment_index(torch.as_tensor(ids), n)
+    got = _merge_path_sum(vals, index.order.numpy(), index.offsets.numpy(),
+                          n, items or split_items, workers,
+                          groups or tss.THREADS // lanes)
+    want = np.zeros((n, d))
+    ok = (ids >= 0) & (ids < n)
+    np.add.at(want, ids[ok], vals[ok].astype(np.float64))
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("m,n,d", [(168_960, 169_984, 128), (8192, 3840, 1),
+                                   (8192, 3840, 6272), (61_859_140,
+                                                        2_449_029, 128),
+                                   (1, 1, 3), (10, 5, 640)])
+@pytest.mark.parametrize("sms", [132, 114])          # H100 SXM, H100 PCIe
+def test_segment_sum_split_covers_the_path(m, n, d, sms):
+    """Every split covers the m + n items and the d columns, with a
+    power-of-two group of at most a warp, within the card's grid."""
+    lanes, chunks, items, workers = tss.split(m, n, d, sms)
+    assert lanes in (1, 2, 4, 8, 16, 32) and lanes >= min(32, -(-d // 4))
+    assert chunks * 4 * lanes >= d > (chunks - 1) * 4 * lanes
+    assert items >= tss.MIN_ITEMS and workers * items >= m + n
+    assert (workers - 1) * items < m + n and chunks <= 65_535
+    assert -(-workers // (tss.THREADS // lanes)) * chunks < 2 ** 31

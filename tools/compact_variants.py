@@ -148,7 +148,7 @@ def main() -> int:
         ids = torch.empty((CAP,), dtype=torch.int32, device=dev)
         count = torch.empty((), dtype=torch.int32, device=dev)
         stream = _build.stream_of(mask)
-        scratch, epoch = fc._lookback_scratch(mask.device, stream, tiles)
+        scratch, epoch = fc.lookback_scratch(mask.device, stream, tiles)
         spec = _build.Launch("frontier_compact", "compact_lookback",
                              (tiles, 1, 1), (fc.THREADS, 1, 1), 0,
                              {"ids": ids, "count": count}, scratch=True)
@@ -161,7 +161,7 @@ def main() -> int:
         ids = torch.empty((CAP,), dtype=torch.int32, device=dev)
         count = torch.empty((), dtype=torch.int32, device=dev)
         stream = _build.stream_of(mask)
-        scratch, epoch = fc._lookback_scratch(mask.device, stream, tiles)
+        scratch, epoch = fc.lookback_scratch(mask.device, stream, tiles)
         ok(lib.compact_lookback_launch(
             _build.c_ptr(mask), 1, N, CAP, tiles, _build.c_ptr(scratch),
             epoch, _build.c_ptr(ids), _build.c_ptr(count), stream,
