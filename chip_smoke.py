@@ -28,7 +28,20 @@ non-zero and prints no result line):
    and at the real shape with 1,024 and 0 members; prefix_positions, one
    launch of scan_lookback, in int32 and bool at one tile, a ragged tail
    and x[1:], twice in a row and interleaved with frontier_compact on one
-   stream, and timed at the real shape in both dtypes); the kernel's
+   stream, and timed at the real shape in both dtypes; sparse_expand, one
+   launch of expand_lookback, with a hub row over 9 slot tiles, sentinel
+   ids, zero-degree runs, total 0, total = ecap and total > ecap, twice
+   and interleaved with frontier_compact, prefix_positions and
+   segment_sum under torch's sync debug mode "error", and one device item
+   a profiled call at the real shape; first_live_probe, both its kernels,
+   at n in {0, 1, 333, 4097}, W in {4, 8, 16, 17, 32}, pointers past the
+   row's end, zero-degree rows, no scanning row and m = 0, and at the
+   real shape (Gᵀ's rows, W = 16, 25% scanning, half the vertices live),
+   where the whole windowed probe is timed before (the plain (n, W) gather
+   feeding first_live_scan) and after (one first_live_probe launch, the
+   engines' probe around it: one port kernel item, no tensor larger than
+   (n + 1,)); the probe's bound counted by 32-byte sectors; bucket_peel
+   also with L2 flushed before each call); the kernel's
    time (CUDA events over back-to-back calls, and its device time alone
    from the profiler), the plain version's, one library call's where one
    computes the same function (CUDA events, and its device time alone),
@@ -206,6 +219,10 @@ PEEL_KEYS = ("generations_base", "generations_trim2", "pivots_base",
 KERNELS = {   # name -> (CUDA source, the Pallas kernel it replaces)
     "first_live_scan": ("src/repro_torch/kernels/csrc/first_live_scan.cu",
                         "src/repro/kernels/first_live_scan.py:46"),
+    # the same Pallas kernel with the XLA gather that feeds it
+    # (src/repro/core/common.py:204-209) inside
+    "first_live_probe": ("src/repro_torch/kernels/csrc/first_live_scan.cu",
+                         "src/repro/kernels/first_live_scan.py:46"),
     "prefix_positions": ("src/repro_torch/kernels/csrc/frontier_compact.cu",
                          "src/repro/kernels/frontier_compact.py:62"),
     "frontier_compact": ("src/repro_torch/kernels/csrc/frontier_compact.cu",
@@ -225,14 +242,21 @@ KERNELS = {   # name -> (CUDA source, the Pallas kernel it replaces)
     "mutant_copy": ("src/repro_torch/kernels/csrc/mutant_copy.cu",
                     "src/repro/analysis/mutants.py:60"),
 }
-TRIM_PATH = ("first_live_scan", "prefix_positions", "frontier_compact",
-             "sparse_expand")
+TRIM_PATH = ("first_live_probe", "frontier_compact", "sparse_expand")
 SCC_PEEL_PATH = ("frontier_expand", "bucket_peel")
 STREAM_PATH = ("counter_scatter",)
 SERVE_PATH = ("flash_attention",)
 TRAIN_PATH = ("segment_sum",)
-# phase 13 launches every kernel; the copy kernel is this path's own
+# phase 13 launches every kernel; the copy kernel is this path's own, and
+# so are first_live_scan (the Pallas kernel's own contract, which the
+# engines' probe no longer takes) and prefix_positions (no path calls it
+# since sparse_expand scans its degrees itself)
 ANALYSIS_PATH = tuple(KERNELS)
+ANALYSIS_OWN = ("first_live_scan", "prefix_positions", "mutant_copy")
+SECTOR = 32                # bytes a DRAM sector
+# the failure of a profiled call that holds no device item at all, the one
+# failure a profile check retries (tools/kernel_ab.py reruns a turn on it)
+NO_ITEMS = "the profiler reported no device item"
 MUTANT_N = 4_194_304
 # benchmarks/bench_stream.py SIZES (the sizes BENCH_stream.json was made at)
 STREAM_SIZES = {
@@ -315,19 +339,23 @@ def device_ms(fn, reps: int = 20) -> float:
     copies it launches (torch.profiler, CUPTI), summed over ``reps`` calls,
     per call.  Unlike :func:`time_ms` it leaves out the host's gaps
     between launches, which bound a small kernel behind a Python
-    wrapper."""
+    wrapper.  A profile that holds no device item at all is taken again,
+    three times at most, as :func:`device_items` does."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    busy_us = sum(e.device_time for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    return busy_us / 1e3 / reps
+    for _attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.device_time for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if times:
+            return sum(times) / 1e3 / reps
+    check(False, f"device_ms: {NO_ITEMS} in 3 profiled runs")
 
 
 def cold_device_ms(fn, reps: int = 20) -> float:
@@ -344,11 +372,16 @@ def cold_device_ms(fn, reps: int = 20) -> float:
     flush = torch.empty((256 << 20,), dtype=torch.uint8, device="cuda")
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = {e.name for e in items(prof)}
+    names = set()
+    for _ in range(3):     # a profile has been seen to miss every item
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = {e.name for e in items(prof)}
+        if names:
+            break
+    check(bool(names), f"cold_device_ms: {NO_ITEMS} in 3 profiled calls")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
@@ -443,6 +476,8 @@ def kernel_phase(dev, g_t, cap, ecap):
         check(max_abs_err(fc.sparse_expand(small, small_idx, ids, e),
                           ref.sparse_expand_ref(small, small_idx, ids, e))
               == 0, f"sparse_expand cap={c} ecap={e}")
+    expand_edge_cases(dev, rng)
+    probe_edge_cases(dev, rng)
     for n, w in ((1, 16), (333, 16), (4097, 16), (4097, 4), (1000, 8),
                  (1000, 17), (513, 32)):
         for frac in (0.5, 0.0, 1.0):
@@ -488,7 +523,13 @@ def kernel_phase(dev, g_t, cap, ecap):
         "all-inactive, capacity/ecap overflow, zero-degree rows, W in "
         "{4, 8, 16, 17, 32}, non-contiguous and unaligned inputs, "
         "all-dead buckets, negative counters, sentinel and negative "
-        "sources, all updates on one source; frontier_compact at n = "
+        "sources, all updates on one source; sparse_expand with a hub over "
+        "9 slot tiles, sentinels, zero-degree runs, total 0, total = ecap "
+        "and total > ecap, twice and interleaved with frontier_compact, "
+        "prefix_positions and segment_sum, no host sync; first_live_probe "
+        "at n = 0, 1, 333, 4097, W in {4, 8, 16, 17, 32}, "
+        "start >= deg, zero-degree rows, no scanning row and m = 0, twice, "
+        "no host sync; frontier_compact at n = "
         f"{tile - 1}, {tile}, {tile + 1} and {37 * tile + 5} (38 tiles), "
         "all-true, empty and 20% masks, count > capacity, aligned and "
         "mask[1:], each twice; prefix_positions in int32 and bool at one "
@@ -587,6 +628,18 @@ def kernel_phase(dev, g_t, cap, ecap):
             # int32 counter, alive byte, frontier byte per vertex
             4 * n + n + n),
     }
+    # the windowed probe at the real shape: Gᵀ's rows, W = 16, 25% of the
+    # rows scanning from a pointer in [0, deg], half the vertices live
+    pdeg = g_t.indptr[1:] - g_t.indptr[:-1]
+    pstatus = t(rng.random(n) < 0.5)
+    pscan = t(rng.random(n) < 0.25)
+    pstart = (t(rng.random(n)) * (pdeg + 1).float()).floor().to(torch.int32)
+    pargs = (pstatus, g_t.indptr, g_t.indices, pstart, pscan, window)
+    pfirst, pfound = ref.first_live_probe_ref(*pargs)
+    cases["first_live_probe"] = (
+        lambda: fls.first_live_probe(*pargs),
+        lambda: ref.first_live_probe_ref(*pargs), None,
+        probe_bound_bytes(*pargs, pfirst, pfound))
     rows = {}
     for name, (kern, plain, lib, nbytes) in cases.items():
         err = max_abs_err(kern(), plain())
@@ -604,6 +657,19 @@ def kernel_phase(dev, g_t, cap, ecap):
             f"plain_ms={row['plain_ms']:.4f} "
             f"library_ms={row['library_ms'] if lib is None else round(row['library_ms'], 4)}"
             f"{lib_dev} bound_ms={row['bound_ms']:.4f}")
+
+    windowed_probe_phase(dev, pargs, flags.shape)
+    device_items(lambda: fc.sparse_expand(g_t.indptr, g_t.indices, ids,
+                                          ecap),
+                 lambda items: items == ["expand_lookback"],
+                 "sparse_expand as one launch of expand_lookback")
+    log("# phase 1: sparse_expand: one device item a call (expand_lookback) "
+        "at the real shape")
+    # bucket_peel's 25 MB of inputs sit in L2 across a warm timing loop
+    log(f"# phase 1: bucket_peel k=7: cold device_ms="
+        f"{cold_device_ms(lambda: bpl.bucket_peel(pcount, palive, k7)):.4f} "
+        f"(L2 flushed before each call; warm device_ms="
+        f"{device_ms(lambda: bpl.bucket_peel(pcount, palive, k7)):.4f})")
 
     # prefix_positions over a bool mask of the real size: 1 byte read and
     # 4 written an element
@@ -659,6 +725,230 @@ def kernel_phase(dev, g_t, cap, ecap):
             if b == 65_536 and label == "rmat":
                 rows["counter_scatter"] = row
     return rows
+
+
+def expand_edge_cases(dev, rng):
+    """sparse_expand (one launch of expand_lookback) bit for bit against
+    its plain version: a hub row over 9 slot tiles, half sentinel ids, a
+    run of zero-degree rows, total 0, total = ecap and total > ecap; each
+    twice, interleaved on one stream with frontier_compact,
+    prefix_positions and segment_sum (they share its scratch), with no
+    host sync and one launch a call."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import frontier_compact as fc
+    from repro_torch.kernels import segment_sum as ss
+    slot = _build.EXPAND_SLOT_TILE
+    x = torch.as_tensor(rng.integers(0, 9, 3 * _build.SCAN_TILE + 5),
+                        dtype=torch.int32, device=dev)
+    mask = torch.as_tensor(rng.random(3 * _build.COMPACT_TILE + 9) < 0.3,
+                           device=dev)
+    vals = torch.ones((5000, 4), device=dev)
+    seg = torch.as_tensor(rng.integers(0, 40, 5000), dtype=torch.int32,
+                          device=dev)
+    for kind in ("hub", "sentinels", "zero_run", "total0", "total_eq",
+                 "total_gt"):
+        n = 5000
+        deg = rng.integers(1, 12, n)
+        deg[rng.random(n) < 0.3] = 0
+        if kind == "hub":
+            deg[17] = 9 * slot + 11
+        if kind == "zero_run":
+            deg[100:3000] = 0
+        if kind == "total0":
+            deg[:] = 0
+        indptr = np.concatenate([[0], np.cumsum(deg)])
+        m = max(int(indptr[-1]), 1)
+        ids = np.sort(rng.choice(n, 3000, replace=False))
+        ids = np.concatenate([ids, np.full(4096 - ids.size, n)])
+        if kind == "sentinels":
+            ids = np.sort(np.where(rng.random(ids.size) < 0.5, n, ids))
+        total = int(deg[ids[ids < n]].sum())
+        ecap = max({"total_eq": total, "total_gt": total // 3}.get(
+            kind, total + 2 * slot + 5), 1)
+        ip, ix, it = (torch.as_tensor(a.astype(np.int32), device=dev)
+                      for a in (indptr, rng.integers(0, n, m), ids))
+        want = ref.sparse_expand_ref(ip, ix, it, ecap)
+        before = ops.LAUNCHES["sparse_expand"]
+        for _ in range(2):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = fc.sparse_expand(ip, ix, it, ecap)
+                pos, _ = fc.prefix_positions(x)
+                cids, _ = fc.frontier_compact(mask, 4096)
+                sums = ss.segment_sum(vals, seg, 40)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            check(max_abs_err(got, want) == 0,
+                  f"sparse_expand {kind} (total {total}, ecap {ecap})")
+            check(torch.equal(pos, ref.prefix_positions_ref(x)[0])
+                  and torch.equal(cids, ref.frontier_compact_ref(mask,
+                                                                 4096)[0])
+                  and torch.equal(sums, ref.segment_sum_ref(vals, seg, 40)),
+                  f"a kernel sharing sparse_expand's scratch ({kind})")
+        check(ops.LAUNCHES["sparse_expand"] == before + 2,
+              f"sparse_expand {kind}: not one launch a call")
+
+
+def probe_edge_cases(dev, rng):
+    """first_live_probe, bit for bit against the plain
+    gather + row scan: n in {0, 1, 333, 4097}, W in {4, 8, 16, 17, 32},
+    pointers at or past the row's end, mostly zero-degree rows, no
+    scanning row and no edge at all; each twice, with no host sync."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import first_live_scan as fls
+    from repro_torch.kernels import ref
+    for n in (0, 1, 333, 4097):
+        for kind in ("random", "start_ge_deg", "zero_degree", "no_scanning",
+                     "m0"):
+            deg = rng.integers(0, 40, n)
+            deg[rng.random(n) < (0.75 if kind == "zero_degree" else 0.2)] = 0
+            if kind == "m0":
+                deg[:] = 0
+            indptr = np.concatenate([[0], np.cumsum(deg)])
+            start = (deg + rng.integers(0, 3, n) if kind == "start_ge_deg"
+                     else rng.integers(0, 45, n))
+            args = [torch.as_tensor(a, device=dev) for a in (
+                rng.random(n) < 0.5, indptr.astype(np.int32),
+                rng.integers(0, max(n, 1), int(indptr[-1])).astype(np.int32),
+                start.astype(np.int32),
+                rng.random(n) < (0.0 if kind == "no_scanning" else 0.3))]
+            for w in (4, 8, 16, 17, 32):
+                want = ref.first_live_probe_ref(*args, w)
+                for call in range(2):
+                    torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        got = fls.first_live_probe(*args, w)
+                    finally:
+                        torch.cuda.set_sync_debug_mode("default")
+                    check(max_abs_err(got, want) == 0,
+                          f"first_live_probe call {call + 1} n={n} W={w} "
+                          f"{kind}")
+
+
+def probe_bound_bytes(status, indptr, indices, start, scanning, window,
+                      first, found) -> int:
+    """The bytes the windowed probe must move, by 32-byte sectors: every
+    row's scanning byte and its 5 output bytes; the sectors of start and
+    of indptr that the scanning rows touch; the sectors of indices that
+    their windows span up to the first live target (or the row's end);
+    and each sector of status that those targets touch, once."""
+    import torch
+    rows = torch.nonzero(scanning).squeeze(1)
+    deg = (indptr[1:] - indptr[:-1])[rows].long()
+    base = indptr[:-1][rows].long()
+    s = torch.minimum(start[rows].long(), deg)
+    need = torch.where(found[rows], first[rows].long() + 1,
+                       (deg - s).clamp(0, window))
+    keep = need > 0
+    lo, need = base[keep] + s[keep], need[keep]
+    lo = lo.clamp(0, max(indices.shape[0] - 1, 0))
+    span = -(-window * 4 // SECTOR) + 1
+    sec = [(lo * 4) // SECTOR + k for k in range(span)]
+    last = ((lo + need - 1) * 4) // SECTOR
+    idx_sectors = torch.cat([q[q <= last] for q in sec]).unique().numel()
+    targets = torch.cat([indices[(lo + j)[need > j]] for j in range(window)])
+    status_sectors = (targets.long() // SECTOR).unique().numel()
+    meta = (torch.cat([rows * 4 // SECTOR]).unique().numel()
+            + torch.cat([rows, rows + 1]).mul(4).div(
+                SECTOR, rounding_mode="floor").unique().numel())
+    n = scanning.shape[0]
+    return (6 * n + SECTOR * (meta + idx_sectors + status_sectors))
+
+
+def device_items(fn, ok=None, what: str = "") -> list:
+    """The names of the device items one profiled call of ``fn`` runs
+    (after one warm call), in order, kernel names cut at their template
+    arguments.  With ``ok``, the check fails at once if they do not pass
+    ``ok``.  A profile that holds no device item at all (the profiler has
+    been seen to miss every item of a call) is taken again, three times
+    at most; that and nothing else."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.analysis.capture import kernel_basename
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        items = [kernel_basename(e.name) for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if items:
+            check(ok is None or ok(items), f"{what}: the card ran {items}")
+            return items
+        log(f"# phase 1: {what}: profiled call {attempt + 1} of 3: "
+            f"{NO_ITEMS}")
+    check(False, f"{what}: {NO_ITEMS} in 3 profiled calls")
+
+
+def largest_tensor(fn) -> int:
+    """The most elements of any tensor an operation makes in ``fn`` (a
+    torch dispatch mode over every operator call)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class Largest(TorchDispatchMode):
+        numel = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for x in tree_leaves(out):
+                if isinstance(x, torch.Tensor):
+                    self.numel = max(self.numel, x.numel())
+            return out
+    with Largest() as mode:
+        fn()
+    torch.cuda.synchronize()
+    return mode.numel
+
+
+def windowed_probe_phase(dev, pargs, tile_shape):
+    """The whole windowed probe at the real shape, before and after the
+    fused kernel: the plain (n, W) gather on the card feeding the
+    first_live_scan kernel (the path the engines took until now) against
+    one first_live_probe launch, and the engines'
+    probe_first_live_windowed around it; the largest tensor each makes."""
+    import torch
+
+    from repro_torch.core.common import probe_first_live_windowed
+    from repro_torch.kernels import first_live_scan as fls
+    from repro_torch.kernels import ref
+    status, indptr, indices, start, scanning, window = pargs
+
+    def before():
+        return fls.first_live_scan(*ref.window_tiles(
+            status, indptr, indices, start, window), scanning)
+
+    def probe():
+        return fls.first_live_probe(*pargs)
+
+    def engine():
+        return probe_first_live_windowed(*pargs)
+    check(max_abs_err(before(), probe()) == 0,
+          "first_live_probe differs from the gather + first_live_scan path")
+    items = device_items(engine, lambda items:
+                         items.count("first_live_probe") == 1
+                         and "first_live_w16" not in items,
+                         "the windowed probe's one probe launch")
+    big_before, big_after = largest_tensor(before), largest_tensor(engine)
+    check(big_after <= tile_shape[0] + 1,
+          f"the windowed probe made a tensor of {big_after} elements")
+    log(f"# phase 1: windowed probe, n={tile_shape[0]} W={window} "
+        f"{float(scanning.float().mean()):.0%} scanning: gather + "
+        f"first_live_scan device_ms={device_ms(before):.4f} "
+        f"(largest tensor {big_before} elements); first_live_probe "
+        f"device_ms={device_ms(probe):.4f}; "
+        f"probe_first_live_windowed device_ms={device_ms(engine):.4f} "
+        f"wall_ms={time_ms(engine):.4f} (largest tensor {big_after} "
+        f"elements; items {len(items)}: {sorted(set(items))})")
 
 
 def counter_updates(rng, n: int, b: int, dev, pool=None):
@@ -937,15 +1227,9 @@ def segment_phase(dev):
     check(all(a.startswith("ATOMG.") and ".INC" in a for a in atomics),
           f"segment_sum's SASS holds an atomic other than the ticket's: "
           f"{sorted(set(atomics))}")
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        ss.segment_sum(v, hub, n, index)
-        torch.cuda.synchronize()
-    items = sorted({e.name for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA})
-    check(len(items) == 1 and "segment_rows" in items[0],
-          f"segment_sum with an index ran {items}")
+    items = device_items(lambda: ss.segment_sum(v, hub, n, index),
+                         lambda items: items == ["segment_rows"],
+                         "segment_sum with an index as one segment_rows")
     torch.cuda.synchronize()
     log(f"# phase 1: segment_sum edge cases within {SEG_TOL} of each "
         f"segment's sum of |v| (largest {worst:.3g}): m = 0, n = 1, d in "
@@ -1537,6 +1821,8 @@ def declarations_phase(dev, g_t, cap, ecap):
     # phase 1's real shapes, zero-filled (zeros are valid input to each)
     real = [
         (fls.first_live_scan, ((n, 16), (n, 16), n), ("bool",) * 3, {}),
+        (fls.first_live_probe, (n, n + 1, g_t.m, n, n, 16),
+         ("bool", "int32", "int32", "int32", "bool", None), {}),
         (fc.prefix_positions, (n,), ("int32",), {}),
         (fc.frontier_compact, (n, cap), ("bool", None), {}),
         (fc.sparse_expand, (n + 1, g_t.m, cap, ecap),
@@ -1577,8 +1863,13 @@ def declarations_phase(dev, g_t, cap, ecap):
                                **kw)
         args = args_on(shapes, dtypes, dev, *offset)
         calls.append(lambda fn=fn, args=args, kw=kw: fn(*args, **kw))
-    got = card_launches(calls)
     want = [(w.kernel, tuple(w.grid), tuple(w.block)) for w in want]
+    for attempt in range(3):   # a profile has been seen to miss every item
+        got = card_launches(calls)
+        if got:
+            break
+        log(f"# phase 13: profiled run {attempt + 1} of 3: {NO_ITEMS}")
+    check(bool(got), f"phase 13: {NO_ITEMS} in 3 profiled runs")
     for i, (w, g_) in enumerate(zip(want, got)):
         check(w == g_, f"launch {i}: captured {w}, the card ran {g_}")
     check(len(want) == len(got), f"{len(want)} launches captured, "
@@ -2078,16 +2369,27 @@ def train_phase(dev):
 
 # -- phase 7 (--profile): where the time goes ----------------------------------
 
-def profile_run(label, fn):
+# the port's kernels of the trimming path, whose device time each trim's
+# profile also lists
+TRIM_KERNELS = ("first_live_probe", "compact_lookback", "expand_lookback")
+
+
+def profile_run(label, fn, sparse=None):
     """One call of ``fn`` under torch.profiler: wall time, device-busy
     time (CUDA kernel and copy time summed over the one stream), the idle
     share, the host syncs (counted by torch's sync debug mode on a
-    separate call), and the device items that take the most time."""
+    separate call), and the device items that take the most time.  With
+    ``sparse`` = (n, ecap): also the device time of the trimming kernels
+    in the timed call, and of the ``index_add_`` calls that add an (ecap,)
+    source into (n,) counters (AC-4's sparse decrement over the whole
+    expanded buffer) in a third call, profiled with the operators' shapes
+    (their recording costs host time, so the timed call goes without)."""
     import warnings
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.analysis.capture import kernel_basename
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2113,6 +2415,27 @@ def profile_run(label, fn):
     syncs = sum(SYNC_WARNING in str(w.message) for w in rec)
     top = "; ".join(f"{name[:48]} {tot:.1f}ms x{cnt}"
                     for name, (tot, cnt) in kern[:6])
+    if sparse is not None:
+        n, ecap = sparse
+        ours = {}
+        for name, (tot, cnt) in by_name.items():
+            if kernel_basename(name) in TRIM_KERNELS:
+                ours[kernel_basename(name)] = (tot, cnt)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as shaped:
+            fn()
+            torch.cuda.synchronize()
+        adds = [e for e in shaped.events() if e.name == "aten::index_add_"
+                and (e.input_shapes or [])[:1] == [[n]]
+                and [ecap] in e.input_shapes[2:]]
+        add_ms = sum(getattr(e, "device_time_total", None)
+                     or e.cuda_time_total for e in adds) / 1e3
+        top += (" | port kernels: " + "; ".join(
+            f"{k} {tot:.4f}ms x{cnt}" for k, (tot, cnt) in ours.items())
+            + f"; index_add_ of an ({ecap},) source {add_ms:.4f}ms "
+            f"x{len(adds)}")
     log(f"# profile: {label}: wall_ms={wall:.1f} "
         f"device_busy_ms={busy:.1f} idle_share={1 - busy / wall:.3f} "
         f"{note} host_syncs={syncs} device_items={items} | {top}")
@@ -2150,6 +2473,7 @@ def profile_phase(dev, g, gt, stream, feed, lm, profiled):
     AdamW): see :func:`profile_run`.  Each engine and step runs once before
     it is profiled; each stream call takes the feed's next batch."""
     from repro_torch.core import plan, plan_peel
+    from repro_torch.core.common import frontier_plan
     from repro_torch.core.scc import scc_decompose
 
     for method, backend in (("ac3", "windowed"), ("ac3", "dense"),
@@ -2159,7 +2483,8 @@ def profile_phase(dev, g, gt, stream, feed, lm, profiled):
                    transpose=gt, device=dev)
         eng.run().materialize()
         profile_run(f"{method}/{backend}",
-                    lambda: f"rounds={eng.run().materialize().rounds}")
+                    lambda: f"rounds={eng.run().materialize().rounds}",
+                    sparse=(g.n, frontier_plan("auto", g.n, g.m).ecap))
 
     def scc():
         _, stats = scc_decompose(g, device=dev)
@@ -2318,7 +2643,7 @@ def main() -> int:
                      **{n: stream_launches for n in STREAM_PATH},
                      **{n: serve_launches for n in SERVE_PATH},
                      **{n: train_launches for n in TRAIN_PATH},
-                     "mutant_copy": analysis_launches}
+                     **{n: analysis_launches for n in ANALYSIS_OWN}}
     launches = {name: path_launches[name][name] for name in KERNELS}
     table = [dict(name=name, route="cuda", source=KERNELS[name][0],
                   replaces=KERNELS[name][1], launches=launches[name],

@@ -29,9 +29,11 @@ kernels have one.  The single-pass forms of the reference's sequential
 SMEM carry (``frontier_compact._scan_kernel``), ``scan_lookback``
 (``prefix_positions``) and ``compact_lookback`` (``frontier_compact``),
 order their blocks by tile tickets and pass the carry by decoupled
-look-back; ``segment_rows`` (``segment_sum``) takes tickets in the same
-way and passes a segment's partial sums from CTA to CTA.  All three use
-one scratch buffer.  The detector
+look-back; ``expand_lookback`` (``sparse_expand``) scans its degrees in
+the same way, and its slot CTAs read the rows its row CTAs published;
+``segment_rows`` (``segment_sum``) takes tickets in the same way and
+passes a segment's partial sums from CTA to CTA.  All four use one
+scratch buffer.  The detector
 trusts declarations only structurally, and a launched kernel without one
 is an error (``unregistered-kernel``).
 
@@ -149,6 +151,8 @@ LAUNCH_DECLARATIONS: dict[tuple[str, str], LaunchDecl] = {
         {"first": rows(), "found": rows()}),
     ("first_live_scan", "first_live_any"): LaunchDecl(
         {"first": rows(), "found": rows()}),
+    ("first_live_scan", "first_live_probe"): LaunchDecl(
+        {"first": rows(), "found": rows()}),
     ("frontier_expand", "frontier_expand_vec16"): LaunchDecl(
         {"hit": rows()}),
     ("frontier_expand", "frontier_expand_any"): LaunchDecl({"hit": rows()}),
@@ -196,11 +200,36 @@ LAUNCH_DECLARATIONS: dict[tuple[str, str], LaunchDecl] = {
                 "(st.relaxed.gpu) and reads its predecessors' words "
                 "(ld.relaxed.gpu); fill CTAs hold the tickets after the "
                 "last tile and wait for its prefix"),
-    ("frontier_compact", "expand_rows"): LaunchDecl(
-        {"row_base": rows(), "deg": rows()}),
-    # thread e writes slot e; only the values come from the scan
-    ("frontier_compact", "expand_slots"): LaunchDecl(
-        {"src": rows(), "tgt": rows(), "pos": rows(), "valid": rows()}),
+    # sound: tickets [0, R) are row tiles, each writing its own rows of
+    # the call's (C, 2) buffer; the slot CTAs after them take slot tiles of
+    # [0, ecap) from an atomic counter, each tile once
+    ("frontier_compact", "expand_lookback"): LaunchDecl(
+        {**{name: whole("data-dependent",
+                        guard="a slot tile k is handed out once, by an "
+                              "atomicInc counter (the ticket word's high "
+                              "half, clear again after the last grab), and "
+                              "only the CTA that takes it writes slots [k "
+                              "EXPAND_SLOT_TILE, (k + 1) EXPAND_SLOT_TILE), "
+                              "only below ecap; row tickets (< R = ceil(C "
+                              "/ EXPAND_ROW_TILE)) write none")
+            for name in ("src", "tgt", "pos", "valid")},
+         "rows": whole("data-dependent",
+                       guard="only the CTA with ticket t < R writes rows "
+                             "[t EXPAND_ROW_TILE, (t + 1) EXPAND_ROW_TILE) "
+                             "and only below C; slot tickets write none")},
+        scratch=True,
+        ordered="tickets from an atomic counter (atomicInc, clear again "
+                "after the last ticket); row tiles publish their aggregate "
+                "and inclusive prefix (st.relaxed.gpu) as scan_lookback "
+                "does, the last one the total, then write their rows, "
+                "fence, and publish a done word after a barrier (a "
+                "release); slot CTAs hold the tickets after every row "
+                "tile, poll the total, the prefixes and the done words "
+                "they need (ld.relaxed.gpu), fence (an acquire) and read "
+                "the rows through L2 (ld.global.cg); compact_lookback's "
+                "scratch "
+                "buffer: launches on one stream run in order and each call "
+                "has its own epoch"),
     ("flash_attention", "flash_fwd"): LaunchDecl(
         {"out": flash_out(FLASH_ROWS)}),
     ("flash_attention", "flash_fwd_wgmma"): LaunchDecl(
@@ -294,11 +323,22 @@ def _flash(p: dict, dev) -> tuple:
 
 
 def _first_live(p: dict, dev) -> tuple:
-    from ..kernels.first_live_scan import first_live_scan
+    from ..kernels.first_live_scan import first_live_probe, first_live_scan
     n, w = p["n"], p["w"]
-    return first_live_scan, (tensor((n, w), "bool", 0, dev),
-                             tensor((n, w), "bool", 0, dev),
-                             tensor(n, "bool", 0, dev)), {}
+    if "m" not in p:
+        return first_live_scan, (tensor((n, w), "bool", 0, dev),
+                                 tensor((n, w), "bool", 0, dev),
+                                 tensor(n, "bool", 0, dev)), {}
+    # first_live_probe: zero degrees on "meta", on a card m / n a row
+    indptr = tensor(n + 1, "int32", 0, dev)
+    if str(dev) != "meta":
+        import torch
+        indptr = (torch.arange(n + 1, dtype=torch.int32, device=dev)
+                  * (p["m"] // n))
+    return first_live_probe, (tensor(n, "bool", 0, dev), indptr,
+                              tensor(p["m"], "int32", 0, dev),
+                              tensor(n, "int32", 0, dev),
+                              tensor(n, "bool", 0, dev), w), {}
 
 
 def _frontier_expand(p: dict, dev) -> tuple:
@@ -330,11 +370,22 @@ def _frontier_compact(p: dict, dev) -> tuple:
 
 
 def _sparse_expand(p: dict, dev) -> tuple:
+    """On a card the degrees follow ``p["deg"]``: "zero" (total 0),
+    "even" (m / n a row: total > ecap where the point says so) or "hub"
+    (row 0 holds every edge, spread over many slot tiles); ids run over
+    the rows and the sentinel n."""
     from ..kernels.frontier_compact import sparse_expand
     n, m, c = p["n"], p["m"], p["c"]
-    return sparse_expand, (tensor(n + 1, "int32", 0, dev),
-                           tensor(m, "int32", 0, dev),
-                           tensor(c, "int32", 0, dev), p["ecap"]), {}
+    indptr = tensor(n + 1, "int32", 0, dev)
+    ids = tensor(c, "int32", 0, dev)
+    if str(dev) != "meta":
+        import torch
+        rows = torch.arange(n + 1, dtype=torch.int64, device=dev)
+        indptr = {"zero": rows * 0, "even": rows * (m // n),
+                  "hub": (rows > 0) * m}[p["deg"]].to(torch.int32)
+        ids = (torch.arange(c, dtype=torch.int32, device=dev) % (n + 1))
+    return sparse_expand, (indptr, tensor(m, "int32", 0, dev), ids,
+                           p["ecap"]), {}
 
 
 # The reference's nine entry names; the port's segment_sum stands in for
@@ -379,6 +430,10 @@ KERNEL_CATALOG: tuple[KernelEntry, ...] = (
         {"n": 512, "w": 16},                  # 2 blocks exactly
         {"n": 700, "w": 16},                  # padded
         {"n": 300, "w": 8},                   # first_live_any
+        # first_live_probe: a thread per row; W < 16, W > 16
+        {"n": 700, "w": 16, "m": 2800},
+        {"n": 256, "w": 4, "m": 1024},
+        {"n": 513, "w": 17, "m": 513 * 20},
     ), _first_live),
     KernelEntry("frontier_expand", (
         {"n": 200, "w": 16},
@@ -408,8 +463,16 @@ KERNEL_CATALOG: tuple[KernelEntry, ...] = (
         {"n": 5000, "cap": 64, "offset": 1},  # unaligned: byte loads
     ), _frontier_compact),
     KernelEntry("sparse_expand", (
-        {"n": 32, "m": 64, "c": 16, "ecap": 64},
-        {"n": 1000, "m": 4000, "c": 300, "ecap": 1000},
+        # one row tile, one slot tile; total 0
+        {"n": 32, "m": 64, "c": 16, "ecap": 64, "deg": "zero"},
+        # one row tile, 2 slot tiles, total > ecap
+        {"n": 1000, "m": 40_000, "c": 300, "ecap": 5000, "deg": "even"},
+        # 3 row tiles, ragged, 2 slot tiles
+        {"n": 9000, "m": 9000, "c": 5000, "ecap": 8000, "deg": "even"},
+        # a hub row over many slot tiles, a ragged last tile
+        {"n": 64, "m": 40_000, "c": 64, "ecap": 36_000, "deg": "hub"},
+        # more slot tiles than slot CTAs: each CTA takes several
+        {"n": 64, "m": 64, "c": 64, "ecap": 1_100_000, "deg": "even"},
     ), _sparse_expand),
 )
 

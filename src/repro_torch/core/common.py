@@ -112,26 +112,22 @@ def probe_first_live_ids(status, indices, row_base, deg, start, scanning):
 
 def probe_first_live_windowed(status, indptr, indices, start, scanning,
                               window: int = 16):
-    """Window-batched probe: gather each scanning vertex's next ``window``
-    adjacency entries into an (n, W) liveness tile, reduce it with the
-    ``first_live_scan`` kernel, and fall back to per-step probing only for
+    """Window-batched probe: find each scanning vertex's first live target
+    among its next ``window`` adjacency entries with the
+    ``first_live_probe`` kernel, and fall back to per-step probing only for
     vertices whose live target lies beyond the window.  Identical results
     to :func:`probe_first_live`, counters included.
 
-    The liveness gather stays outside the kernel, as in the reference
-    (``src/repro/core/common.py:204-209``).
+    The reference gathers an (n, W) liveness tile in XLA and scans it with
+    its Pallas kernel (``src/repro/core/common.py:204-209``), because
+    Pallas on the TPU has no dynamic gather; the Hopper kernel gathers
+    itself, so no (n, W) tensor is built on the card.
     """
-    m = indices.shape[0]
     deg = indptr[1:] - indptr[:-1]
     start = torch.minimum(start, deg)
 
-    offs = torch.arange(window, dtype=torch.int32, device=deg.device)
-    pos = start[:, None] + offs[None, :]                      # (n, W)
-    valid = pos < deg[:, None]
-    addr = (indptr[:-1, None] + pos).clamp_(0, max(m - 1, 0))
-    flags = status[indices[addr]]                             # (n, W)
-
-    first, found_w = kops.first_live_scan(flags, valid, scanning)
+    first, found_w = kops.first_live_probe(status, indptr, indices, start,
+                                           scanning, window)
     pos_w = start + first
     # exhausted within the window <=> no live found AND window covers deg
     resolved = found_w | ((start + window) >= deg)
@@ -155,7 +151,7 @@ def probe_first_live_windowed(status, indptr, indices, start, scanning,
 def resolve_probe(kind: str = "dense", window: int = 16):
     """Map an engine backend's probe kind to a probe function:
     "dense" -> :func:`probe_first_live`, "windowed" ->
-    :func:`probe_first_live_windowed` (the ``first_live_scan`` kernel).
+    :func:`probe_first_live_windowed` (the ``first_live_probe`` kernel).
     Both give identical results, counters included."""
     if kind == "dense":
         return probe_first_live

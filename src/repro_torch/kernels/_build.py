@@ -27,6 +27,7 @@ launch raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -47,14 +48,34 @@ SCAN_TILE = 8192
 #: mask bytes per tile of the single-pass compaction (``frontier_compact``),
 #: passed as ``-DCOMPACT_TILE=`` in the same way
 COMPACT_TILE = 16384
+#: ids per row CTA and slots per slot CTA of ``sparse_expand``'s one launch
+#: (``expand_lookback``), passed as ``-DEXPAND_ROW_TILE=`` and
+#: ``-DEXPAND_SLOT_TILE=``; timed by ``tools/kernel_ab.py --sweep``
+EXPAND_ROW_TILE = 256
+EXPAND_SLOT_TILE = 1024
+#: the scratch word where expand_lookback's row tiles' status words start
+#: (the ticket and the total come before them, each on a 128-byte line of
+#: its own; the done words follow), passed as ``-DEX_STATUS=``
+EXPAND_STATUS_AT = 32
 #: per-source preprocessor definitions, part of each library's hash
-DEFINES = {"frontier_compact": (f"-DTILE={SCAN_TILE}",
-                                f"-DCOMPACT_TILE={COMPACT_TILE}")}
+DEFINES: dict = {}
+
+
+def _frontier_defines() -> None:
+    DEFINES["frontier_compact"] = (
+        f"-DTILE={SCAN_TILE}", f"-DCOMPACT_TILE={COMPACT_TILE}",
+        f"-DEXPAND_ROW_TILE={EXPAND_ROW_TILE}",
+        f"-DEXPAND_SLOT_TILE={EXPAND_SLOT_TILE}",
+        f"-DEX_STATUS={EXPAND_STATUS_AT}")
+
+
+_frontier_defines()
 
 #: kernel launches per public wrapper (a plain int each), counted only where
 #: a wrapper actually launches its CUDA kernel — the plain CPU path never
 #: counts.  Re-exported as ``repro_torch.kernels.ops.LAUNCHES``.
-LAUNCHES = {"first_live_scan": 0, "prefix_positions": 0,
+LAUNCHES = {"first_live_scan": 0, "first_live_probe": 0,
+            "prefix_positions": 0,
             "frontier_compact": 0, "sparse_expand": 0,
             "frontier_expand": 0, "bucket_peel": 0, "counter_scatter": 0,
             "flash_attention": 0, "segment_sum": 0, "mutant_copy": 0}
@@ -185,8 +206,21 @@ def use_scan_tile(tile: int) -> None:
     declarations keep the tile they were made with."""
     global SCAN_TILE
     SCAN_TILE = tile
-    DEFINES["frontier_compact"] = (f"-DTILE={tile}",
-                                   f"-DCOMPACT_TILE={COMPACT_TILE}")
+    _reload_frontier()
+
+
+def use_expand_tiles(row_tile: int, slot_tile: int) -> None:
+    """Launch ``sparse_expand`` with ``row_tile`` ids a row CTA and
+    ``slot_tile`` slots a slot CTA from now on, as :func:`use_scan_tile`
+    does for the scan (``row_tile`` divides 2,048 and both are multiples
+    of 256)."""
+    global EXPAND_ROW_TILE, EXPAND_SLOT_TILE
+    EXPAND_ROW_TILE, EXPAND_SLOT_TILE = row_tile, slot_tile
+    _reload_frontier()
+
+
+def _reload_frontier() -> None:
+    _frontier_defines()
     _LIBS.pop("frontier_compact", None)
     for entry, (library, _) in SIGNATURES.items():
         if library == "frontier_compact":
@@ -226,6 +260,27 @@ def launch(spec, entry: str, *args) -> None:
         spec = spec[0]
     if code != 0:
         check(_LIBS[spec.library], spec.kernel, code)
+
+
+#: streaming multiprocessors of the H100 SXM, for launches recorded on
+#: meta tensors (the static checks); a CUDA launch reads its device's
+META_SMS = 132
+
+
+@functools.lru_cache(maxsize=None)
+def _multiprocessors(index: int) -> int:
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of ``device`` (:data:`META_SMS` for a meta
+    tensor's), read once per device."""
+    if device.type != "cuda":
+        return META_SMS
+    import torch
+    return _multiprocessors(torch.cuda.current_device() if device.index
+                            is None else device.index)
 
 
 def blocks(work: int, threads: int) -> int:

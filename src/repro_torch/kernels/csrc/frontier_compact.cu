@@ -98,15 +98,53 @@
 //        status words cleared inside the graph first.
 //     Traffic: the mask once, the ids and the count once; the status words
 //     (8 bytes a tile) stay in L2.
-//   sparse_expand — slot-parallel: after the degree gather and the scan
-//     over the C compacted rows, every edge slot e finds its owning row by
-//     a binary search over the exclusive degree sums (the last row whose
-//     start is <= e, which skips zero-degree rows exactly as the TPU
-//     kernel's boundary-marker scan does).  The search touches an (C,)
-//     array that stays in L2; the slot writes are coalesced and the load
-//     is even whatever the degree skew, which a row-parallel expansion
-//     over RMAT's hubs would not be.  Slots e >= total are written as
-//     src = tgt = pos = 0, valid = false.
+//   sparse_expand — expand_lookback, one launch: the degree gather, its
+//     scan and the slot expansion, with the same tickets, look-back and
+//     scratch as above (1, 3, 6).  A CTA is one of two kinds, by ticket:
+//     7. Row CTAs, tickets [0, R), R = ceil(C / EXPAND_ROW_TILE).  Each
+//        gathers (row_base, deg) of its tile of ids from indptr (an id
+//        outside [0, n), such as the sentinel n, has deg 0), scans the
+//        degrees (warp-shuffle scans, as scan_lookback), looks back for its
+//        exclusive edge base and publishes its inclusive prefix as the
+//        scans do (self-contained words); the last row tile also writes
+//        the total.  Then it writes (excl, row_base) of its rows to the
+//        call's (C,) int2 buffer `rows` and publishes a done word.
+//     8. Slot CTAs, tickets [R, R + W), W = min(S, the wrapper's
+//        EXPAND_SLOT_CTAS_PER_SM x SMs), S = ceil(ecap / EXPAND_SLOT_TILE)
+//        slot tiles.  Each waits once for the total (a word the last row
+//        tile writes right after its look-back), polling with a backoff,
+//        then takes slot tiles from a counter in order until none is left,
+//        so the tiles below total (real work) go out first and the zero
+//        padding after them spreads over whichever CTAs are free.  Slots
+//        at or past total are zero padding, written with 16-byte stores.
+//        For a tile below total, two warps find the row tiles that own its
+//        first and last slot by a 32-ary search over the row tiles'
+//        prefixes (one step at R <= 32, two at R <= 1,024); the CTA stages
+//        those row tiles' (excl, row_base), at most EXPAND_STAGE rows at a
+//        time, in shared memory, and each thread finds the owners of its
+//        slots e (the last staged row with excl <= e, which skips
+//        zero-degree rows) by binary searches there, then issues all its
+//        slots' gathers at once: src = ids[owner], pos = row_base + e -
+//        excl clamped to [0, m - 1], tgt = indices[pos], valid = 1, stored
+//        coalesced (consecutive lanes take consecutive slots, so the slots
+//        of one row gather a contiguous run of indices).  A hub row spreads
+//        over as many slot tiles as its edges fill.
+//     Deadlock: slot CTAs hold later tickets than every row tile and wait
+//     only on them, as the fill CTAs of compact_lookback do (5).
+//     Memory order.  Unlike the scans, a slot CTA reads data that other
+//     CTAs wrote before they published: `rows`.  The prefixes and the
+//     total are self-contained (relaxed, as in 3), but the done word is a
+//     release: every thread of a row tile fences (__threadfence) after its
+//     writes to `rows`, the CTA meets at a barrier, and thread 0 fences
+//     again and publishes the word (st.relaxed.gpu: fence + strong store
+//     is a release pattern).  A slot CTA's lanes poll the done words of the
+//     row tiles it stages (ld.relaxed.gpu) until they carry kPrefix, fence
+//     (an acquire pattern), meet the CTA at a barrier, and only then read
+//     `rows`, through L2 (ld.global.cg).  tools/kernel_ab.py --sweep times
+//     the row and slot tiles; PERF.md records them and the fences' cost.
+//     Traffic: ids, two indptr words per real id, the indices of the
+//     total slots, and the (ecap,) outputs once; `rows` (8 bytes a row)
+//     and the status words stay in L2.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -141,6 +179,44 @@ constexpr int LB_ROUND = LB_THREADS * 16;     // mask bytes a round
 static_assert(LB_ROUNDS * LB_ROUND == COMPACT_TILE,
               "COMPACT_TILE must be 4 rounds of 256 threads x 16 bytes");
 static_assert(LB_ROUNDS * 16 <= 64, "a round's counts are 16-bit lanes");
+
+// expand_lookback: EXPAND_ROW_TILE ids a row CTA and EXPAND_SLOT_TILE slots
+// a slot CTA come from the build (-DEXPAND_ROW_TILE=, -DEXPAND_SLOT_TILE=,
+// kernels/_build.py), as the wrapper sizes its grid with them
+#if !defined(EXPAND_ROW_TILE) || !defined(EXPAND_SLOT_TILE)
+#error "frontier_compact.cu is compiled with -DEXPAND_ROW_TILE=, -DEXPAND_SLOT_TILE="
+#endif
+constexpr int EX_THREADS = 256;
+constexpr int EX_WARPS = EX_THREADS / 32;
+// ids a lane gathers: round r of warp w covers tile rows
+// [w * EX_WARP_SPAN + 32 r, + 32), lane l the row at 32 r + l
+constexpr int EX_ROUNDS = EXPAND_ROW_TILE / EX_THREADS;
+constexpr int EX_WARP_SPAN = 32 * EX_ROUNDS;
+static_assert(EX_ROUNDS * EX_THREADS == EXPAND_ROW_TILE,
+              "EXPAND_ROW_TILE must be a multiple of 256");
+// rows a slot CTA stages at once: whole row tiles, 16 KB of shared memory
+constexpr int EXPAND_STAGE = 2048;
+constexpr int EX_STAGE_TILES = EXPAND_STAGE / EXPAND_ROW_TILE;
+static_assert(EX_STAGE_TILES >= 1 && EXPAND_STAGE % EXPAND_ROW_TILE == 0,
+              "EXPAND_ROW_TILE must divide 2048");
+// scratch words of expand_lookback: the ticket (word 0; its high half
+// counts the slot tiles handed out, which no other kernel touches), the
+// total (word EX_TOTAL) and the row tiles' status words from EX_STATUS,
+// then their done words; the total and the status words each on a
+// 128-byte line of their own, so the CTAs that wait for the total do not
+// poll the line that the look-back reads.  EX_STATUS comes from the build
+// (-DEX_STATUS=, kernels/_build.py EXPAND_STATUS_AT), as the wrapper sizes
+// the scratch with it
+#ifndef EX_STATUS
+#error "frontier_compact.cu is compiled with -DEX_STATUS=<first status word>"
+#endif
+constexpr int EX_TOTAL = 16;
+static_assert(EX_STATUS % 16 == 0 && EX_STATUS >= EX_TOTAL + 16,
+              "the status words start on a 128-byte line after the total's");
+static_assert(EXPAND_SLOT_TILE % EX_THREADS == 0,
+              "EXPAND_SLOT_TILE must be a multiple of 256");
+// slots of a slot tile a thread takes: e0 + threadIdx.x + EX_THREADS r
+constexpr int EX_SLOTS = EXPAND_SLOT_TILE / EX_THREADS;
 
 // -- single-pass scan with decoupled look-back ---------------------------
 //
@@ -457,52 +533,282 @@ compact_lookback(const uint8_t* __restrict__ mask, int64_t n,
     fill_sentinels(ids, excl + agg, capacity, n, threadIdx.x, LB_THREADS);
 }
 
-__global__ void expand_rows(const int32_t* __restrict__ indptr,
-                            const int32_t* __restrict__ ids,
-                            int32_t* __restrict__ row_base,
-                            int32_t* __restrict__ deg, int64_t C, int64_t n) {
-  const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  const int32_t id = ids[c];
-  const bool ok = id >= 0 && id < n;
-  const int32_t rb = ok ? indptr[id] : 0;
-  row_base[c] = rb;
-  deg[c] = ok ? indptr[id + 1] - rb : 0;
+// the inclusive prefix of row tile `idx` once it is published: polls with
+// a backoff that doubles from 32 ns to 1 us, so that hundreds of slot CTAs
+// waiting on one word leave its L2 slice to the row tiles' look-back
+__device__ __forceinline__ int64_t wait_prefix(const uint64_t* status,
+                                               int64_t idx, uint32_t epoch) {
+  uint64_t w = peek(status + idx);
+  for (unsigned ns = 32; flag_of(w, epoch) != kPrefix;
+       ns = min(2 * ns, 1024u)) {
+    __nanosleep(ns);
+    w = peek(status + idx);
+  }
+  return static_cast<int64_t>(static_cast<uint32_t>(w));
 }
 
-__global__ void expand_slots(const int32_t* __restrict__ ids,
-                             const int32_t* __restrict__ row_base,
-                             const int32_t* __restrict__ excl,
-                             const int32_t* __restrict__ total,
-                             const int32_t* __restrict__ indices,
+// The least row tile k in [0, R] whose inclusive prefix exceeds e (R when
+// none): a 32-ary search over the published prefixes, by all 32 lanes of
+// one warp.  Each step waits only for the words it probes.
+__device__ int64_t tile_of(const uint64_t* status, int64_t R, uint32_t epoch,
+                           int64_t e) {
+  const int lane = threadIdx.x & 31;
+  int64_t lo = 0, hi = R;
+  while (lo < hi) {
+    const int64_t stride = (hi - lo + 31) / 32;
+    const int64_t p = lo + (lane + 1) * stride - 1;
+    const bool above = p < hi && wait_prefix(status, p, epoch) > e;
+    const unsigned b = __ballot_sync(0xffffffffu, above);
+    if (b) {
+      const int l = __ffs(b) - 1;
+      hi = lo + (l + 1) * stride - 1;
+      lo += l * stride;
+    } else {
+      const int64_t probed = (hi - lo) / stride;
+      lo += (probed < 32 ? probed : 32) * stride;
+    }
+  }
+  return lo;
+}
+
+// src, tgt, pos, valid = 0 on the slots [a, b): 16-byte stores between
+// scalar heads and tails (the four outputs are 16-byte aligned)
+__device__ void zero_slots(int32_t* __restrict__ src, int32_t* __restrict__ tgt,
+                           int32_t* __restrict__ pos,
+                           uint8_t* __restrict__ valid, int64_t a, int64_t b) {
+  if (a >= b) return;
+  const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+  int64_t lo = (a + 3) & ~int64_t(3), hi = b & ~int64_t(3);
+  if (lo > hi) lo = hi = b;
+  for (int64_t e = a + threadIdx.x; e < lo; e += blockDim.x)
+    src[e] = tgt[e] = pos[e] = 0;
+  for (int64_t e = hi + threadIdx.x; e < b; e += blockDim.x)
+    src[e] = tgt[e] = pos[e] = 0;
+  for (int64_t q = lo / 4 + threadIdx.x; q < hi / 4; q += blockDim.x) {
+    reinterpret_cast<uint4*>(src)[q] = z;
+    reinterpret_cast<uint4*>(tgt)[q] = z;
+    reinterpret_cast<uint4*>(pos)[q] = z;
+  }
+  lo = (a + 15) & ~int64_t(15);
+  hi = b & ~int64_t(15);
+  if (lo > hi) lo = hi = b;
+  for (int64_t e = a + threadIdx.x; e < lo; e += blockDim.x) valid[e] = 0;
+  for (int64_t e = hi + threadIdx.x; e < b; e += blockDim.x) valid[e] = 0;
+  for (int64_t q = lo / 16 + threadIdx.x; q < hi / 16; q += blockDim.x)
+    reinterpret_cast<uint4*>(valid)[q] = z;
+}
+
+// The slots [e0, real_end) of one slot tile, all below total: the owning
+// row tiles by tile_of(), then chunks of at most EX_STAGE_TILES row tiles
+// staged in shared memory, the owner of each slot by a binary search
+// there.  Called by the whole CTA.
+__device__ void expand_slots(const uint64_t* status, const uint64_t* done,
+                             int64_t R, uint32_t epoch,
+                             const int32_t* __restrict__ ids,
+                             const int32_t* __restrict__ indices, int64_t m,
+                             int64_t C, const int2* __restrict__ rows,
                              int32_t* __restrict__ src,
                              int32_t* __restrict__ tgt,
                              int32_t* __restrict__ pos,
-                             uint8_t* __restrict__ valid, int64_t C,
-                             int64_t ecap, int64_t m) {
-  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= ecap) return;
-  if (e >= total[0]) {
-    src[e] = 0;
-    tgt[e] = 0;
-    pos[e] = 0;
-    valid[e] = 0;
+                             uint8_t* __restrict__ valid, int64_t e0,
+                             int64_t real_end, int32_t* s_excl,
+                             int32_t* s_base, int64_t* s_tile, int64_t& s_lo,
+                             int64_t& s_hi) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  __syncthreads();  // the CTA's last tile is done with the shared words
+  if (warp < 2) {     // warp 0 the first slot's row tile, warp 1 the last's
+    const int64_t k = tile_of(status, R, epoch, warp ? real_end - 1 : e0);
+    if (lane == 0) s_tile[warp] = k;
+  }
+  __syncthreads();
+  const int64_t t_first = s_tile[0], t_last = s_tile[1];
+  for (int64_t k = t_first; k <= t_last; k += EX_STAGE_TILES) {
+    const int64_t k_end = min(k + EX_STAGE_TILES, t_last + 1);
+    if (warp == 0) {
+      // acquire: the staged tiles' done words and the one before them
+      const int64_t w = k - 1 + lane;
+      int64_t v = 0;
+      if (w >= 0 && w < k_end) v = wait_prefix(done, w, epoch);
+      __threadfence();
+      const int64_t lo = __shfl_sync(0xffffffffu, v, 0);
+      const int64_t hi = __shfl_sync(0xffffffffu, v,
+                                     static_cast<int>(k_end - k));
+      if (lane == 0) {
+        s_lo = lo;  // excl of the first staged row (0 before tile 0)
+        s_hi = hi;  // excl of the row after the staged ones
+      }
+    }
+    __syncthreads();
+    const int64_t r_lo = k * EXPAND_ROW_TILE;
+    const int64_t cnt = min(k_end * EXPAND_ROW_TILE, C) - r_lo;
+    for (int64_t q = threadIdx.x; q < cnt; q += EX_THREADS) {
+      const int2 v = __ldcg(rows + r_lo + q);
+      s_excl[q] = v.x;
+      s_base[q] = v.y;
+    }
+    __syncthreads();
+    // the thread's slots e0 + threadIdx.x + EX_THREADS r of this chunk:
+    // every owner first (shared memory only), then all their gathers at
+    // once, then the stores
+    const int64_t lo = max(s_lo, e0), hi = min(s_hi, real_end);
+    int32_t own[EX_SLOTS];
+    int64_t at[EX_SLOTS];
+#pragma unroll
+    for (int r = 0; r < EX_SLOTS; ++r) {
+      const int64_t e = e0 + threadIdx.x + EX_THREADS * r;
+      own[r] = -1;
+      if (e >= lo && e < hi) {
+        // the last staged row whose excl <= e
+        int32_t a = 0, b = static_cast<int32_t>(cnt);
+        while (b - a > 1) {
+          const int32_t mid = (a + b) >> 1;
+          if (s_excl[mid] <= e) a = mid;
+          else b = mid;
+        }
+        const int64_t p = s_base[a] + (e - s_excl[a]);
+        at[r] = p < 0 ? 0 : (p > m - 1 ? m - 1 : p);
+        own[r] = a;
+      }
+    }
+    int32_t who[EX_SLOTS], to[EX_SLOTS];
+#pragma unroll
+    for (int r = 0; r < EX_SLOTS; ++r)
+      if (own[r] >= 0) {
+        who[r] = ids[r_lo + own[r]];
+        to[r] = indices[at[r]];
+      }
+#pragma unroll
+    for (int r = 0; r < EX_SLOTS; ++r)
+      if (own[r] >= 0) {
+        const int64_t e = e0 + threadIdx.x + EX_THREADS * r;
+        src[e] = who[r];
+        pos[e] = static_cast<int32_t>(at[r]);
+        tgt[e] = to[r];
+        valid[e] = 1;
+      }
+    __syncthreads();
+  }
+}
+
+// sparse_expand in one launch (steps 7 and 8 of the note at the top).  One
+// CTA per ticket: tickets [0, R) are row tiles, [R, gridDim.x) slot tiles.
+// scratch: compact_lookback's buffer (word 0 the ticket, words 1.. the row
+// tiles' status words); rows: the call's (C,) (excl, row_base) buffer.
+__global__ void __launch_bounds__(EX_THREADS)
+expand_lookback(const int32_t* __restrict__ indptr,
+                const int32_t* __restrict__ indices,
+                const int32_t* __restrict__ ids, int64_t n, int64_t m,
+                int64_t C, int64_t ecap, int64_t R,
+                unsigned long long* __restrict__ scratch, uint32_t epoch,
+                int2* __restrict__ rows, int32_t* __restrict__ src,
+                int32_t* __restrict__ tgt, int32_t* __restrict__ pos,
+                uint8_t* __restrict__ valid) {
+  __shared__ int32_t s_excl[EXPAND_STAGE];
+  __shared__ int32_t s_base[EXPAND_STAGE];
+  __shared__ int32_t warp_excl[EX_WARPS];
+  __shared__ int64_t s_ticket, s_total, s_lo, s_hi, s_tile[2];
+  __shared__ int32_t s_excl0;
+  unsigned* ticket = reinterpret_cast<unsigned*>(scratch);
+  uint64_t* total_word = reinterpret_cast<uint64_t*>(scratch) + EX_TOTAL;
+  uint64_t* status = reinterpret_cast<uint64_t*>(scratch) + EX_STATUS;
+  uint64_t* done = status + R;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) s_ticket = atomicInc(ticket, gridDim.x - 1);
+  __syncthreads();
+  const int64_t t = s_ticket;
+
+  if (t < R) {  // a row tile
+    const int64_t row0 = t * EXPAND_ROW_TILE + warp * EX_WARP_SPAN + lane;
+    int32_t id[EX_ROUNDS], rb[EX_ROUNDS], dg[EX_ROUNDS];
+#pragma unroll
+    for (int r = 0; r < EX_ROUNDS; ++r) {
+      const int64_t c = row0 + 32 * r;
+      id[r] = c < C ? ids[c] : -1;
+    }
+#pragma unroll
+    for (int r = 0; r < EX_ROUNDS; ++r) {
+      const bool ok = id[r] >= 0 && id[r] < n;
+      rb[r] = ok ? indptr[id[r]] : 0;
+      dg[r] = ok ? indptr[id[r] + 1] - rb[r] : 0;
+    }
+    int32_t lane_excl[EX_ROUNDS];
+    int32_t warp_sum = 0;
+#pragma unroll
+    for (int r = 0; r < EX_ROUNDS; ++r) {
+      int32_t incl = dg[r];
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int32_t o = __shfl_up_sync(0xffffffffu, incl, d);
+        if (lane >= d) incl += o;
+      }
+      lane_excl[r] = warp_sum + incl - dg[r];
+      warp_sum += __shfl_sync(0xffffffffu, incl, 31);
+    }
+    if (lane == 0) warp_excl[warp] = warp_sum;
+    __syncthreads();
+    if (warp == 0) {
+      const int32_t v = lane < EX_WARPS ? warp_excl[lane] : 0;
+      int32_t incl = v;
+#pragma unroll
+      for (int d = 1; d < EX_WARPS; d <<= 1) {
+        const int32_t o = __shfl_up_sync(0xffffffffu, incl, d);
+        if (lane >= d) incl += o;
+      }
+      const int32_t agg = __shfl_sync(0xffffffffu, incl, EX_WARPS - 1);
+      if (lane < EX_WARPS) warp_excl[lane] = incl - v;
+      int32_t excl = 0;
+      if (t > 0) {
+        if (lane == 0) publish(status + t, epoch, kAggregate, agg);
+        excl = lookback(status, t, epoch);
+      }
+      if (lane == 0) {
+        publish(status + t, epoch, kPrefix, excl + agg);
+        if (t == R - 1) publish(total_word, epoch, kPrefix, excl + agg);
+        s_excl0 = excl;
+        s_lo = excl + agg;
+      }
+    }
+    __syncthreads();
+    const int32_t off = s_excl0 + warp_excl[warp];
+#pragma unroll
+    for (int r = 0; r < EX_ROUNDS; ++r) {
+      const int64_t c = row0 + 32 * r;
+      if (c < C) rows[c] = make_int2(off + lane_excl[r], rb[r]);
+    }
+    // release: the rows before the done word (see the note at the top)
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      __threadfence();
+      publish(done + t, epoch, kPrefix, static_cast<int32_t>(s_lo));
+    }
     return;
   }
-  // first row whose exclusive start exceeds e; the owner is the one before
-  int64_t lo = 0, hi = C;
-  while (lo < hi) {
-    const int64_t mid = (lo + hi) >> 1;
-    if (excl[mid] <= e) lo = mid + 1;
-    else hi = mid;
+
+  // a slot CTA: slot tiles from the counter, in order, until none is left
+  if (threadIdx.x == 0) s_total = wait_prefix(total_word, 0, epoch);
+  const int64_t tiles = (ecap + EXPAND_SLOT_TILE - 1) / EXPAND_SLOT_TILE;
+  unsigned* next = ticket + 1;  // the ticket word's high half
+  for (;;) {
+    __syncthreads();  // s_total set; s_ticket free again
+    if (threadIdx.x == 0)
+      s_ticket = atomicInc(next, static_cast<unsigned>(tiles + gridDim.x - R
+                                                       - 1));
+    __syncthreads();
+    const int64_t st = s_ticket;
+    if (st >= tiles) break;
+    const int64_t total = s_total;
+    const int64_t e0 = st * EXPAND_SLOT_TILE;
+    const int64_t e_end = min(e0 + EXPAND_SLOT_TILE, ecap);
+    const int64_t real_end = min(e_end, total);
+    if (e0 < real_end)
+      expand_slots(status, done, R, epoch, ids, indices, m, C, rows, src,
+                   tgt, pos, valid, e0, real_end, s_excl, s_base, s_tile,
+                   s_lo, s_hi);
+    zero_slots(src, tgt, pos, valid, max(e0, total), e_end);
   }
-  const int64_t owner = lo - 1;
-  int64_t p = row_base[owner] + (e - excl[owner]);
-  p = p < 0 ? 0 : (p > m - 1 ? m - 1 : p);
-  src[e] = ids[owner];
-  pos[e] = static_cast<int32_t>(p);
-  tgt[e] = indices[p];
-  valid[e] = 1;
 }
 
 template <typename T>
@@ -578,32 +884,39 @@ int compact_lookback_launch(const void* mask, int aligned, int64_t n,
   return repro_last_error();
 }
 
-// ids: (C,) compacted rows (sentinel n); row_base, deg: (C,) int32 out.
-// One thread per row.
-int expand_rows_launch(const void* indptr, const void* ids, void* row_base,
-                       void* deg, int64_t C, int64_t n, void* stream,
-                       REPRO_GEOMETRY) {
-  expand_rows<<<REPRO_GRID, REPRO_BLOCK, smem,
-                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(indptr), static_cast<const int32_t*>(ids),
-      static_cast<int32_t*>(row_base), static_cast<int32_t*>(deg), C, n);
-  return repro_last_error();
-}
-
-// excl, total: prefix_positions of deg; src/tgt/pos: (ecap,) int32 out,
-// valid: (ecap,) bool out; m >= 1.  One thread per edge slot.
-int expand_slots_launch(const void* ids, const void* row_base,
-                        const void* excl, const void* total,
-                        const void* indices, void* src, void* tgt, void* pos,
-                        void* valid, int64_t C, int64_t ecap, int64_t m,
-                        void* stream, REPRO_GEOMETRY) {
-  expand_slots<<<REPRO_GRID, REPRO_BLOCK, smem,
-                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(ids), static_cast<const int32_t*>(row_base),
-      static_cast<const int32_t*>(excl), static_cast<const int32_t*>(total),
-      static_cast<const int32_t*>(indices), static_cast<int32_t*>(src),
+// indptr: (n + 1,) int32, n >= 1; indices: (m,) int32, m >= 1; ids: (C,)
+// int32 compacted rows (sentinel n), C >= 1; R = ceil(C / EXPAND_ROW_TILE)
+// row tiles; scratch: the wrapper's persistent buffer of EX_STATUS + 2 R
+// words,
+// ticket clear, no status word of `epoch` (1 <= epoch < 2^30); rows: (C,)
+// int2 scratch of the call; src, tgt, pos: (ecap,) int32 and valid:
+// (ecap,) bool out, each 16-byte aligned, ecap >= 1.  One EX_THREADS-thread
+// CTA per row tile, then grid x - R slot CTAs (at most one per slot tile of
+// EXPAND_SLOT_TILE), each taking every (grid x - R)-th slot tile.
+int expand_lookback_launch(const void* indptr, const void* indices,
+                           const void* ids, int64_t n, int64_t m, int64_t C,
+                           int64_t ecap, int64_t R, void* scratch,
+                           unsigned epoch, void* rows, void* src, void* tgt,
+                           void* pos, void* valid, void* stream,
+                           REPRO_GEOMETRY) {
+  const int64_t slots = (ecap + EXPAND_SLOT_TILE - 1) / EXPAND_SLOT_TILE;
+  const bool aligned = ((reinterpret_cast<uintptr_t>(src) |
+                         reinterpret_cast<uintptr_t>(tgt) |
+                         reinterpret_cast<uintptr_t>(pos) |
+                         reinterpret_cast<uintptr_t>(valid)) & 15) == 0;
+  if (block_x != EX_THREADS || block_y != 1 || block_z != 1 ||
+      grid_y != 1 || grid_z != 1 || n < 1 || m < 1 || C < 1 || ecap < 1 ||
+      R != (C + EXPAND_ROW_TILE - 1) / EXPAND_ROW_TILE || grid_x <= R ||
+      grid_x > R + slots || !aligned || epoch == 0 || epoch >= (1u << 30))
+    return repro_invalid();
+  expand_lookback<<<REPRO_GRID, REPRO_BLOCK, smem,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(indptr),
+      static_cast<const int32_t*>(indices), static_cast<const int32_t*>(ids),
+      n, m, C, ecap, R, static_cast<unsigned long long*>(scratch), epoch,
+      static_cast<int2*>(rows), static_cast<int32_t*>(src),
       static_cast<int32_t*>(tgt), static_cast<int32_t*>(pos),
-      static_cast<uint8_t*>(valid), C, ecap, m);
+      static_cast<uint8_t*>(valid));
   return repro_last_error();
 }
 

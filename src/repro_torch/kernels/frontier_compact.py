@@ -5,8 +5,10 @@ The CUDA kernels are ``csrc/frontier_compact.cu``: a single-pass
 exclusive prefix sum (``scan_lookback``) and a single-pass compaction
 (``compact_lookback``), each one launch and one read of its input with
 decoupled look-back (the GPU form of the TPU's sequential grid with an
-SMEM carry), and a slot-parallel CSR expansion.  The two single-pass
-kernels share one scratch buffer per (device, stream).  They compute what
+SMEM carry), and a one-launch CSR expansion (``expand_lookback``: row
+CTAs scan the degrees by the same look-back, slot CTAs after them find
+their owners in shared memory).  The three share one scratch buffer per
+(device, stream).  They compute what
 ``src/repro/kernels/frontier_compact.py`` computes; every total stays on
 the device, so no wrapper syncs with the host.
 
@@ -28,10 +30,13 @@ _build.declare("frontier_compact", {
                              _VP, ctypes.c_uint, _VP, _VP, _VP],
     "compact_lookback_launch": [_VP, ctypes.c_int, _I64, _I64, _I64, _VP,
                                 ctypes.c_uint, _VP, _VP, _VP],
-    "expand_rows_launch": [_VP] * 4 + [_I64, _I64, _VP],
-    "expand_slots_launch": [_VP] * 9 + [_I64, _I64, _I64, _VP]})
+    "expand_lookback_launch": [_VP] * 3 + [_I64] * 5 + [_VP, ctypes.c_uint]
+                              + [_VP] * 6})
 SCAN_THREADS = 256      # scan_lookback: a CTA per tile of _build.SCAN_TILE
-THREADS = 256           # compact_lookback, expand_rows, expand_slots
+THREADS = 256           # compact_lookback, expand_lookback
+#: expand_lookback's slot CTAs a multiprocessor (they take the slot tiles
+#: from a counter)
+EXPAND_SLOT_CTAS_PER_SM = 4
 #: sentinel slots per fill CTA of compact_lookback: a capacity of up to
 #: FILL_SLOTS is filled by the last tile's CTA, a larger one by
 #: ceil(capacity / FILL_SLOTS) - 1 CTAs after the tiles
@@ -76,10 +81,10 @@ def lookback_scratch(device, stream, tiles: int):
     ``stream`` and the epoch of this call: one int64 buffer of the ticket
     word and a status word per tile (ticket), kept from call to call and
     never cleared between them (the ticket clears itself and the status
-    words carry the epoch).  ``scan_lookback``, ``compact_lookback`` and
-    ``segment_sum``'s ``segment_rows`` share it: launches on one stream
-    run in order.  It is zeroed only when it is made, grown, or when the
-    epoch wraps.  A CUDA graph that captures any of them replays one
+    words carry the epoch).  ``scan_lookback``, ``compact_lookback``,
+    ``expand_lookback`` and ``segment_sum``'s ``segment_rows`` share it:
+    launches on one stream run in order.  It is zeroed only when it is
+    made, grown, or when the epoch wraps.  A CUDA graph that captures any of them replays one
     epoch, so it must clear the buffer inside the graph first."""
     key = (str(device), stream.value)
     buf, epoch = _SCRATCH.get(key, (None, 0))
@@ -125,7 +130,9 @@ def frontier_compact(mask, capacity: int):
 def sparse_expand(indptr, indices, ids, ecap: int):
     """CSR rows of the compacted ``ids`` (int32, sentinel n) expanded into
     a static (ecap,) buffer ``(src, tgt, pos, valid)`` on the CUDA device —
-    see ``ref.sparse_expand_ref``."""
+    see ``ref.sparse_expand_ref``.  One launch of expand_lookback: a CTA
+    per ``_build.EXPAND_ROW_TILE`` ids, then slot CTAs that take the slot
+    tiles of ``_build.EXPAND_SLOT_TILE`` from a counter."""
     _build.require_cuda("sparse_expand", indptr, indices, ids)
     for t in (indptr, indices, ids):
         if t.dtype != torch.int32 or t.dim() != 1:
@@ -142,26 +149,23 @@ def sparse_expand(indptr, indices, ids, ecap: int):
     src, tgt, pos = (torch.empty((ecap,), dtype=torch.int32, device=dev)
                      for _ in range(3))
     valid = torch.empty((ecap,), dtype=torch.bool, device=dev)
+    rows = torch.empty((C, 2), dtype=torch.int32, device=dev)
+    row_tiles = _build.blocks(C, _build.EXPAND_ROW_TILE)
     stream = _build.stream_of(indptr)
-    row_base = torch.empty((C,), dtype=torch.int32, device=dev)
-    deg = torch.empty((C,), dtype=torch.int32, device=dev)
-    _build.launch(_build.Launch("frontier_compact", "expand_rows",
-                                (_build.blocks(C, THREADS), 1, 1),
-                                (THREADS, 1, 1), 0,
-                                {"row_base": row_base, "deg": deg}),
-                  "expand_rows_launch", _build.c_ptr(indptr),
-                  _build.c_ptr(ids), _build.c_ptr(row_base),
-                  _build.c_ptr(deg), C, n, stream)
-    excl, total = prefix_positions(deg)
-    _build.launch(_build.Launch("frontier_compact", "expand_slots",
-                                (_build.blocks(ecap, THREADS), 1, 1),
-                                (THREADS, 1, 1), 0,
-                                {"src": src, "tgt": tgt, "pos": pos,
-                                 "valid": valid}),
-                  "expand_slots_launch", _build.c_ptr(ids),
-                  _build.c_ptr(row_base), _build.c_ptr(excl),
-                  _build.c_ptr(total), _build.c_ptr(indices),
+    scratch, epoch = lookback_scratch(dev, stream,
+                                      _build.EXPAND_STATUS_AT - 1
+                                      + 2 * row_tiles)
+    slot_ctas = min(_build.blocks(ecap, _build.EXPAND_SLOT_TILE),
+                    EXPAND_SLOT_CTAS_PER_SM * _build.sm_count(dev))
+    spec = _build.Launch(
+        "frontier_compact", "expand_lookback", (row_tiles + slot_ctas, 1, 1),
+        (THREADS, 1, 1), 0,
+        {"src": src, "tgt": tgt, "pos": pos, "valid": valid, "rows": rows},
+        scratch=True)
+    _build.launch(spec, "expand_lookback_launch", _build.c_ptr(indptr),
+                  _build.c_ptr(indices), _build.c_ptr(ids), n, m, C, ecap,
+                  row_tiles, _build.c_ptr(scratch), epoch, _build.c_ptr(rows),
                   _build.c_ptr(src), _build.c_ptr(tgt), _build.c_ptr(pos),
-                  _build.c_ptr(valid), C, ecap, m, stream)
+                  _build.c_ptr(valid), stream)
     _build.LAUNCHES["sparse_expand"] += 1
     return src, tgt, pos, valid

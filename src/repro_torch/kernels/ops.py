@@ -28,6 +28,7 @@ from . import mutant_copy as _mc
 from . import segment_sum as _ss
 
 __all__ = ["LAUNCHES", "reset_launches", "first_live_scan",
+           "first_live_probe",
            "prefix_positions", "frontier_compact", "sparse_expand",
            "frontier_expand", "bucket_peel", "counter_scatter",
            "flash_attention", "segment_index", "segment_sum", "mutant_copy"]
@@ -42,6 +43,18 @@ def first_live_scan(flags, valid, active):
     if _on_cpu(flags):
         return ref.first_live_ref(flags, valid, active)
     return _fls.first_live_scan(flags, valid, active)
+
+
+def first_live_probe(status, indptr, indices, start, scanning,
+                     window: int = 16):
+    """(n,) bool status, CSR (indptr, indices), (n,) int32 start and (n,)
+    bool scanning -> (first (n,) int32, found (n,) bool) of each scanning
+    row's window: the windowed probe with its liveness gather."""
+    if _on_cpu(status):
+        return ref.first_live_probe_ref(status, indptr, indices, start,
+                                        scanning, window)
+    return _fls.first_live_probe(status, indptr, indices, start, scanning,
+                                 window)
 
 
 def prefix_positions(x):

@@ -6,8 +6,10 @@ contract).
 They mirror ``src/repro/kernels/ref.py`` (``first_live_ref``,
 ``frontier_compact_ref``, ``sparse_expand_ref``, ``frontier_expand_ref``,
 ``bucket_peel_ref``, ``counter_scatter_ref``) plus the plain scan that
-stands beside ``prefix_positions``.  Those outputs are int32 or bool, so a
-kernel and its plain version agree bit for bit.  ``segment_sum_ref`` is a
+stands beside ``prefix_positions`` and ``first_live_probe_ref``, the
+windowed probe with its liveness gather (``window_tiles``).  Those
+outputs are int32 or bool, so a kernel and its plain version agree bit
+for bit.  ``segment_sum_ref`` is a
 float sum: the kernel's atomics add in another order, so the two agree to
 a tolerance stated relative to each segment's sum of absolute values.  ``flash_attention_ref``
 repeats the flash kernel's float arithmetic (its blocks, its masking and
@@ -36,6 +38,32 @@ def first_live_ref(flags, valid, active):
     first = torch.where(flags & valid, offs, window).amin(dim=1)
     first = torch.where(active, first, window).to(torch.int32)
     return first, active & (first < window)
+
+
+def window_tiles(status, indptr, indices, start, window: int):
+    """The windowed probe's (n, W) tiles, as ``src/repro/core/common.py``
+    gathers them: ``valid[i, j] = s + j < deg`` with ``s = min(start,
+    deg)``, and ``flags[i, j]`` the liveness of the target at position
+    ``indptr[i] + s + j`` clamped to ``[0, m - 1]`` (all False when m =
+    0: there is no target to read)."""
+    m = indices.shape[0]
+    deg = indptr[1:] - indptr[:-1]
+    start = torch.minimum(start, deg)
+    offs = torch.arange(window, dtype=torch.int32, device=deg.device)
+    pos = start[:, None] + offs[None, :]                      # (n, W)
+    valid = pos < deg[:, None]
+    if m == 0:
+        return torch.zeros_like(valid), valid
+    addr = (indptr[:-1, None] + pos).clamp_(0, m - 1)
+    return status[indices[addr]], valid
+
+
+def first_live_probe_ref(status, indptr, indices, start, scanning,
+                         window: int = 16):
+    """The windowed probe's (first, found) from the graph: the gather of
+    :func:`window_tiles` followed by :func:`first_live_ref`."""
+    return first_live_ref(*window_tiles(status, indptr, indices, start,
+                                        window), scanning)
 
 
 def prefix_positions_ref(x):

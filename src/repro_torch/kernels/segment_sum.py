@@ -24,7 +24,6 @@ trailing dimensions.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import NamedTuple
 
 import torch
@@ -47,9 +46,9 @@ THREADS = 256           # segment_rows
 #: MeshGraphNet's minibatch_lg shape, where the split gives 41 items
 SM_THREADS = 2048
 MIN_ITEMS = 16
-#: streaming multiprocessors of the H100 SXM, for launches recorded on
-#: meta tensors (the static checks); a CUDA launch reads its device's
-META_SMS = 132
+#: the SM count a launch recorded on meta tensors assumes (``_build``)
+META_SMS = _build.META_SMS
+sm_count = _build.sm_count
 
 
 class SegmentIndex(NamedTuple):
@@ -80,20 +79,6 @@ def lanes_for(d: int) -> int:
     """Threads of one worker at row width ``d``: the power of two that
     covers ``d`` in groups of 4 columns, at most a warp."""
     return min(32, 1 << max(0, (-(-d // 4) - 1).bit_length()))
-
-
-@functools.lru_cache(maxsize=None)
-def _multiprocessors(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def sm_count(device) -> int:
-    """Streaming multiprocessors of ``device`` (:data:`META_SMS` for a meta
-    tensor's), read once per device."""
-    if device.type != "cuda":
-        return META_SMS
-    return _multiprocessors(torch.cuda.current_device() if device.index
-                            is None else device.index)
 
 
 def split(m: int, n: int, d: int, sms: int) -> tuple:

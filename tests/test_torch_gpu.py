@@ -150,6 +150,173 @@ def test_sparse_expand_kernel(cuda, n, m, cap, ecap, p):
     assert all(_eq(a, b) for a, b in zip(got, want))
 
 
+def _expand_case(kind, dev, slot_tile):
+    """(indptr, indices, ids, ecap) on ``dev``: a hub over 9 slot tiles,
+    half sentinel ids, a run of zero-degree rows, total 0, total = ecap,
+    or total > ecap."""
+    rng = np.random.default_rng(len(kind))
+    n = 5000
+    deg = rng.integers(1, 12, n)
+    deg[rng.random(n) < 0.3] = 0
+    if kind == "hub":
+        deg[17] = 9 * slot_tile + 11
+    if kind == "zero_run":
+        deg[100:3000] = 0
+    if kind == "total0":
+        deg[:] = 0
+    indptr = np.concatenate([[0], np.cumsum(deg)])
+    m = max(int(indptr[-1]), 1)
+    ids = np.sort(rng.choice(n, 3000, replace=False))
+    C = 4096 if kind != "hub" else 3000
+    ids = np.concatenate([ids, np.full(C - ids.size, n)])
+    if kind == "sentinels":
+        ids = np.sort(np.where(rng.random(C) < 0.5, n, ids))
+    total = int(deg[ids[ids < n]].sum())
+    ecap = {"total_eq": total, "total_gt": total // 3}.get(
+        kind, total + 2 * slot_tile + 5)
+    t = [torch.as_tensor(a.astype(np.int32), device=dev)
+         for a in (indptr, rng.integers(0, n, m), ids)]
+    return (*t, max(ecap, 1))
+
+
+@pytest.mark.parametrize("kind", ["hub", "sentinels", "zero_run", "total0",
+                                  "total_eq", "total_gt"])
+def test_sparse_expand_lookback_edge_cases(cuda, kind):
+    """The one-launch expansion at its edge cases, bit for bit, twice and
+    interleaved on one stream with frontier_compact, prefix_positions and
+    segment_sum, which share its scratch: one launch a call, no host
+    sync."""
+    indptr, indices, ids, ecap = _expand_case(kind, cuda,
+                                              _build.EXPAND_SLOT_TILE)
+    want = ref.sparse_expand_ref(indptr, indices, ids, ecap)
+    rng = np.random.default_rng(3)
+    x = torch.as_tensor(rng.integers(0, 9, 3 * ST + 5), dtype=torch.int32,
+                        device=cuda)
+    mask = torch.as_tensor(rng.random(3 * T + 9) < 0.3, device=cuda)
+    vals = torch.ones((5000, 4), device=cuda)
+    seg = torch.as_tensor(rng.integers(0, 40, 5000), dtype=torch.int32,
+                          device=cuda)
+    before = ops.LAUNCHES["sparse_expand"]
+    for _ in range(2):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = fc.sparse_expand(indptr, indices, ids, ecap)
+            pos, _ = fc.prefix_positions(x)
+            cids, _ = fc.frontier_compact(mask, 4096)
+            sums = ss.segment_sum(vals, seg, 40)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        assert all(_eq(a, b) for a, b in zip(got, want))
+        assert _eq(pos, ref.prefix_positions_ref(x)[0])
+        assert _eq(cids, ref.frontier_compact_ref(mask, 4096)[0])
+        assert _eq(sums, ref.segment_sum_ref(vals, seg, 40))
+    assert ops.LAUNCHES["sparse_expand"] == before + 2
+
+
+def _kernel_items(fn):
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def test_sparse_expand_is_one_launch(cuda):
+    """A profiled call holds one device item, expand_lookback."""
+    indptr, indices, ids, ecap = _expand_case("hub", cuda,
+                                              _build.EXPAND_SLOT_TILE)
+    items = _kernel_items(lambda: fc.sparse_expand(indptr, indices, ids,
+                                                   ecap))
+    assert len(items) == 1 and "expand_lookback" in items[0], items
+
+
+def _probe_case(kind, n, dev):
+    """(status, indptr, indices, start, scanning) on ``dev``: random
+    degrees with zero-degree rows; "start_ge_deg" every pointer at or past
+    its row's end, "zero_degree" most rows empty, "no_scanning" none
+    scanning, "m0" no edges."""
+    rng = np.random.default_rng(n + len(kind))
+    deg = rng.integers(0, 40, n)
+    deg[rng.random(n) < 0.2] = 0
+    if kind == "zero_degree":
+        deg[rng.random(n) < 0.75] = 0
+    if kind == "m0":
+        deg[:] = 0
+    indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    indices = rng.integers(0, max(n, 1), int(indptr[-1])).astype(np.int32)
+    start = (deg + rng.integers(0, 3, n) if kind == "start_ge_deg"
+             else rng.integers(0, 45, n)).astype(np.int32)
+    scanning = rng.random(n) < (0.0 if kind == "no_scanning" else 0.3)
+    status = rng.random(n) < 0.5
+    return [torch.as_tensor(a, device=dev)
+            for a in (status, indptr, indices, start, scanning)]
+
+
+@pytest.mark.parametrize("n", [0, 1, 333, 4097])
+@pytest.mark.parametrize("window", [4, 8, 16, 17, 32])
+@pytest.mark.parametrize("kind", ["random", "start_ge_deg", "zero_degree",
+                                  "no_scanning", "m0"])
+def test_first_live_probe_kernel(cuda, n, window, kind):
+    """The probe kernel equals the plain gather + row scan bit for bit,
+    call after call, with no host sync."""
+    args = _probe_case(kind, n, cuda)
+    want = ref.first_live_probe_ref(*args, window)
+    before = ops.LAUNCHES["first_live_probe"]
+    for _ in range(2):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = fls.first_live_probe(*args, window)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        assert all(_eq(a, b) for a, b in zip(got, want))
+    assert ops.LAUNCHES["first_live_probe"] == before + 2 * (n > 0)
+
+
+def test_windowed_probe_builds_no_tile(cuda):
+    """The engines' windowed probe launches first_live_probe once and
+    never first_live_scan, its one port kernel item is the probe, no
+    operation in it makes a tensor larger than (n + 1,), and it equals the
+    probe on the CPU."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.core.common import probe_first_live_windowed
+    n, window = 1 << 20, 16
+    args = _probe_case("random", n, cuda)
+
+    class Largest(TorchDispatchMode):
+        numel = 0
+
+        def __torch_dispatch__(self, func, types, a=(), kw=None):
+            out = func(*a, **(kw or {}))
+            for t in tree_leaves(out):
+                if isinstance(t, torch.Tensor):
+                    self.numel = max(self.numel, t.numel())
+            return out
+
+    def probe():
+        return probe_first_live_windowed(*args, window)
+    items = _kernel_items(probe)
+    assert sum("first_live_probe" in k for k in items) == 1, items
+    assert not any("first_live_w16" in k or "first_live_any" in k
+                   for k in items)
+    before = dict(ops.LAUNCHES)
+    with Largest() as mode:
+        got = probe()
+    torch.cuda.synchronize()
+    assert mode.numel <= n + 1, mode.numel
+    assert ops.LAUNCHES["first_live_probe"] == before["first_live_probe"] + 1
+    assert ops.LAUNCHES["first_live_scan"] == before["first_live_scan"]
+    cpu = probe_first_live_windowed(*(a.cpu() for a in args), window)
+    assert all(_eq(a, b) for a, b in zip(got, cpu))
+
+
 @pytest.mark.parametrize("n,W", [(1, 16), (333, 16), (4097, 16), (64, 8),
                                  (1000, 17), (513, 32), (77, 4)])
 @pytest.mark.parametrize("fill", ["some", "none_pending", "all_pending"])
@@ -227,9 +394,11 @@ def test_engine_on_card_matches_cpu(cuda, family):
                 assert (a.rounds, a.max_frontier) == (b.rounds,
                                                       b.max_frontier)
                 assert np.array_equal(a.per_worker_edges, b.per_worker_edges)
-    for name in ("first_live_scan", "frontier_compact", "sparse_expand",
-                 "prefix_positions"):
+    for name in ("first_live_probe", "frontier_compact", "sparse_expand"):
         assert ops.LAUNCHES[name] > before[name], name
+    # the probe gathers itself and sparse_expand scans its own degrees
+    for name in ("first_live_scan", "prefix_positions"):
+        assert ops.LAUNCHES[name] == before[name], name
 
 
 @pytest.mark.parametrize("family", ["ER", "RMAT", "chain", "sink_heavy"])

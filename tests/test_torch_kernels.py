@@ -80,6 +80,71 @@ def test_first_live_ref_empty():
     assert _same(first, want[0]) and _same(found, want[1])
 
 
+def _probe_case(kind, seed):
+    """(status, indptr, indices, start, scanning) as numpy arrays of one
+    windowed-probe case: random degrees (with zero-degree runs) and
+    pointers; "m0" has no edges, "n0" and "n1" no and one vertex,
+    "start_ge_deg" every pointer at or past its row's end, "zero_degree"
+    three rows in four without edges, "no_scanning" no scanning row, and
+    "hub" one row of 300 edges with the rest."""
+    rng = np.random.default_rng(seed)
+    n = {"n0": 0, "n1": 1}.get(kind, 300)
+    deg = rng.integers(0, 40, n)
+    deg[rng.random(n) < 0.2] = 0
+    if kind == "m0":
+        deg[:] = 0
+    if kind == "zero_degree":
+        deg[rng.random(n) < 0.75] = 0
+    if kind == "hub":
+        deg[7] = 300
+    indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    m = int(indptr[-1])
+    indices = rng.integers(0, max(n, 1), m).astype(np.int32)
+    start = (rng.integers(0, 45, n) if kind != "start_ge_deg"
+             else deg + rng.integers(0, 3, n)).astype(np.int32)
+    scanning = rng.random(n) < (0.0 if kind == "no_scanning" else 0.6)
+    status = rng.random(n) < 0.3
+    return status, indptr, indices, start, scanning
+
+
+@pytest.mark.parametrize("window", [4, 16, 17])
+@pytest.mark.parametrize("kind", ["random", "m0", "n0", "n1", "start_ge_deg",
+                                  "zero_degree", "no_scanning", "hub"])
+def test_first_live_probe_ref_matches_reference(kind, window):
+    """The windowed probe's plain version (gather + row scan) equals the
+    reference's: its XLA gather (``src/repro/core/common.py:204-209``)
+    feeding the Pallas kernel in interpret mode, bit for bit.  With m = 0
+    the reference's gather cannot run (JAX refuses to gather from an empty
+    array): no window position is valid there, so the Pallas kernel gets
+    all-False flags; with n = 0 the Pallas kernel takes no input, and the
+    JAX ref twin stands in."""
+    status, indptr, indices, start, scanning = _probe_case(
+        kind, window * 13 + len(kind))
+    n, m = indptr.shape[0] - 1, indices.shape[0]
+    got = ref.first_live_probe_ref(
+        *(torch.as_tensor(a) for a in (status, indptr, indices, start,
+                                       scanning)), window)
+    jstatus, jindptr, jindices = (jnp.asarray(a) for a in (status, indptr,
+                                                           indices))
+    deg = jindptr[1:] - jindptr[:-1]
+    jstart = jnp.minimum(jnp.asarray(start), deg)
+    pos = jstart[:, None] + jnp.arange(window, dtype=jnp.int32)[None, :]
+    valid = pos < deg[:, None]
+    if m:
+        addr = jnp.clip(jindptr[:-1, None] + pos, 0, max(m - 1, 0))
+        flags = jstatus[jindices[addr]]
+    else:
+        flags = jnp.zeros_like(valid)
+    if n:
+        want = pallas_first_live(flags, valid, jnp.asarray(scanning),
+                                 interpret=True)
+    else:
+        want = jref.first_live_ref(flags, valid, jnp.asarray(scanning))
+    assert _same(got[0], want[0]) and _same(got[1], want[1])
+    assert got[0].dtype == torch.int32 and got[1].dtype == torch.bool
+    assert got[0].shape == (n,)
+
+
 @pytest.mark.parametrize("n,block", [(0, 512), (1, 512), (333, 64),
                                      (1024, 512), (1500, 128)])
 def test_prefix_positions_ref_matches_pallas(n, block):
@@ -151,6 +216,148 @@ def test_sparse_expand_ref_matches_pallas(n, m, cap, ecap, p):
     rows = ids[ids < n]
     total = int((indptr[rows + 1] - indptr[rows]).sum()) if n else 0
     assert int(valid.sum()) == min(total, ecap)
+
+
+def _lookback(status, t, rng):
+    """``lookback()`` of ``csrc/frontier_compact.cu``: tile t's exclusive
+    prefix from the words of tiles t - 1, t - 2, ... 32 at a time, summed
+    back to the nearest inclusive prefix (before tile 0: an empty one).
+    ``status[u]`` is (aggregate, inclusive); a tile before t shows its
+    inclusive prefix only where ``rng`` says it has published it yet."""
+    excl = 0
+    for end in range(t, -32, -32):
+        words = []
+        for lane in range(32):
+            idx = end - 1 - lane
+            if idx < 0:
+                words.append(("prefix", 0))
+            else:
+                agg, incl = status[idx]
+                shown = incl is not None and rng.random() < 0.5
+                words.append(("prefix", incl) if shown else ("agg", agg))
+        prefix = [f == "prefix" for f, _ in words]
+        stop = prefix.index(True) if any(prefix) else 31
+        excl += sum(v for _, v in words[:stop + 1])
+        if any(prefix):
+            return excl
+    raise AssertionError("the look-back ran past tile 0")
+
+
+def _tile_of(incl, e):
+    """``tile_of()``: the least row tile whose inclusive prefix exceeds e,
+    by the 32-ary search of one warp (lane l probes lo + (l + 1) stride -
+    1)."""
+    lo, hi = 0, len(incl)
+    while lo < hi:
+        stride = -(-(hi - lo) // 32)
+        above = [lo + (lane + 1) * stride - 1 < hi
+                 and incl[lo + (lane + 1) * stride - 1] > e
+                 for lane in range(32)]
+        if any(above):
+            lane = above.index(True)
+            lo, hi = lo + lane * stride, lo + (lane + 1) * stride - 1
+        else:
+            lo += min((hi - lo) // stride, 32) * stride
+    return lo
+
+
+def _expand_lookback(indptr, indices, ids, ecap, row_tile, slot_tile,
+                     stage, seed=0):
+    """``csrc/frontier_compact.cu`` ``expand_lookback`` step for step in
+    numpy, a CTA at a time in ticket order: the row tiles (degree gather,
+    scan, look-back, inclusive prefix, rows), then the slot tiles in the
+    order the counter hands them out (total, the owning row tiles by the
+    32-ary search, staged chunks of at most ``stage`` rows, one binary
+    search a slot in the chunk, zero padding)."""
+    rng = np.random.default_rng(seed)
+    n, m, C = indptr.shape[0] - 1, indices.shape[0], ids.shape[0]
+    R = -(-C // row_tile)
+    status = [None] * R
+    rows = np.full((C, 2), -7, np.int64)      # unwritten rows show as -7
+    for t in range(R):
+        c = np.arange(t * row_tile, min((t + 1) * row_tile, C))
+        ok = (ids[c] >= 0) & (ids[c] < n)
+        row = np.where(ok, ids[c], 0)
+        rb = np.where(ok, indptr[row], 0)
+        deg = np.where(ok, indptr[np.minimum(row + 1, n)] - rb, 0)
+        agg = int(deg.sum())
+        status[t] = (agg, None)
+        excl = 0 if t == 0 else _lookback(status, t, rng)
+        rows[c, 0] = excl + np.cumsum(deg) - deg
+        rows[c, 1] = rb
+        status[t] = (agg, excl + agg)
+    incl = [w[1] for w in status]
+    total = incl[R - 1]
+    out = np.full((4, ecap), -9, np.int64)    # unwritten slots show as -9
+    for k in range(-(-ecap // slot_tile)):
+        e0, e_end = k * slot_tile, min((k + 1) * slot_tile, ecap)
+        real_end = min(e_end, total)
+        if e0 < real_end:
+            first, last = _tile_of(incl, e0), _tile_of(incl, real_end - 1)
+            for tk in range(first, last + 1, stage // row_tile):
+                tk_end = min(tk + stage // row_tile, last + 1)
+                lo = incl[tk - 1] if tk else 0
+                r_lo = tk * row_tile
+                staged = rows[r_lo:min(tk_end * row_tile, C)]
+                assert (staged >= 0).all() and len(staged) <= stage
+                for e in range(max(lo, e0), min(incl[tk_end - 1], real_end)):
+                    a, b = 0, len(staged)
+                    while b - a > 1:
+                        mid = (a + b) // 2
+                        a, b = (mid, b) if staged[mid, 0] <= e else (a, mid)
+                    p = min(max(staged[a, 1] + e - staged[a, 0], 0), m - 1)
+                    assert (out[:, e] == -9).all(), "slot written twice"
+                    out[:, e] = ids[r_lo + a], indices[p], p, 1
+        pad = np.arange(max(e0, total), e_end)
+        assert (out[:, pad] == -9).all(), "padding over a written slot"
+        out[:, pad] = 0
+    assert (out != -9).all(), "a slot was never written"
+    return out
+
+
+@pytest.mark.parametrize("kind", ["hub", "sentinels", "zero_runs", "total0",
+                                  "total_eq_ecap", "total_gt_ecap", "many"])
+@pytest.mark.parametrize("tiles", [(4, 8, 8), (8, 16, 8), (2, 32, 16)])
+def test_expand_lookback_walk(kind, tiles):
+    """The one-launch sparse_expand's walk, replayed in numpy at small
+    tiles (row tiles of 2-8 ids, slot tiles of 8-32, stages of 1-8 row
+    tiles), equals ``ref.sparse_expand_ref``: a hub that spans many slot
+    tiles, sentinel ids, runs of zero-degree rows, total 0, total = ecap,
+    total > ecap (rows past ecap lose their tail), and over 32 row tiles
+    (a look-back past one window, a search of several steps); the
+    look-back sees a random mix of published aggregates and prefixes."""
+    row_tile, slot_tile, stage = tiles
+    rng = np.random.default_rng(len(kind) * 7 + row_tile)
+    n = 120
+    deg = rng.integers(1, 6, n)
+    deg[rng.random(n) < 0.3] = 0
+    if kind == "hub":
+        deg[5] = 7 * slot_tile + 3
+    if kind == "zero_runs":
+        deg[10:60] = 0
+    if kind == "total0":
+        deg[:] = 0
+    indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int64)
+    m = max(int(indptr[-1]), 1)
+    indices = rng.integers(0, n, m)
+    C = {"many": 40 * row_tile}.get(kind, 48)
+    ids = np.sort(rng.choice(n, min(C, n), replace=False))
+    ids = np.concatenate([ids, np.full(C - ids.size, n)])   # sentinels
+    if kind == "sentinels":
+        ids[rng.random(C) < 0.5] = n
+        ids = np.sort(ids)
+    total = int((deg[ids[ids < n]]).sum())
+    ecap = {"total_eq_ecap": total, "total_gt_ecap": max(total // 2, 1),
+            "hub": 8 * slot_tile + 5}.get(kind, total + 2 * slot_tile + 3)
+    ecap = max(ecap, 1)
+    got = _expand_lookback(indptr, indices, ids, ecap, row_tile, slot_tile,
+                           stage, seed=row_tile)
+    want = ref.sparse_expand_ref(*(torch.as_tensor(a.astype(np.int32))
+                                   for a in (indptr, indices, ids)), ecap)
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w.numpy().astype(np.int64))
+    if kind == "many":
+        assert -(-C // row_tile) > 32
 
 
 @pytest.mark.parametrize("n,W,bv", [(0, 16, 256), (1, 16, 256),
@@ -282,6 +489,11 @@ def test_ops_take_the_plain_path_on_cpu():
         assert _same(g, w)
     assert _same(ops.frontier_expand(flags, flags, active),
                  ref.frontier_expand_ref(flags, flags, active))
+    start = torch.as_tensor(rng.integers(0, 5, 100).astype(np.int32))
+    for g, w in zip(ops.first_live_probe(active, ip, ix, start, active, 16),
+                    ref.first_live_probe_ref(active, ip, ix, start, active,
+                                             16)):
+        assert _same(g, w)
     k = torch.tensor([2], dtype=torch.int32)
     assert _same(ops.bucket_peel(x, active, k),
                  ref.bucket_peel_ref(x, active, k))
@@ -308,6 +520,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         tfc.sparse_expand(z, z, z, 8)
     with pytest.raises(ValueError, match="CUDA"):
         tfex.frontier_expand(b, b, torch.zeros(4, dtype=torch.bool))
+    with pytest.raises(ValueError, match="CUDA"):
+        tfls.first_live_probe(b[:, 0], torch.zeros(5, dtype=torch.int32), z,
+                              z, b[:, 0])
     with pytest.raises(ValueError, match="CUDA"):
         tbpl.bucket_peel(z, torch.zeros(4, dtype=torch.bool), z[:1])
     with pytest.raises(TypeError, match="host value"):
