@@ -75,7 +75,10 @@ non-zero and prints no result line):
    bound is bytes, its library call ``index_add_``.
 2. the deterministic counters of ``BENCH_trim.json`` (rounds, edges_total,
    max_per_worker, trimmed, max_qp) for 6 families x 4 methods x
-   {dense, windowed} at the benchmark's own sizes.
+   {dense, windowed} at the benchmark's own sizes; beside them one
+   instrumented dense run a method must equal the plain dense run
+   (status, rounds, per-worker counters, max frontier), its round totals
+   equal its counters, and it gives phase 14 (a) its method keys.
 3. the trimming main path at the real size: RMAT scale 22 (4.19M
    vertices, 33.5M edges, the benchmark's RMAT parameters at the paper's
    average degree 8), 4 methods x 2 backends: all eight status masks
@@ -84,9 +87,12 @@ non-zero and prints no result line):
 4. the launch counts of phases 2 and 3: every trimming kernel ran on the
    real-size trimming path (phase 3).
 5. the committed SCC and peel counts at their benchmarks' sizes:
-   ``BENCH_scc.json`` ``sccs`` and AC-6 ``rounds`` (labels partition like
-   Tarjan's), and the eight integer keys of ``BENCH_peel.json`` on the
-   size-≤2 SCC fringe graphs; ``peel(k=1)`` equals AC-4.
+   ``BENCH_scc.json`` ``sccs``, AC-6 ``rounds`` and
+   ``frontier_path_taken`` (``rounds`` from the plain AC-6 run; the path
+   from an instrumented one that must equal it, its ``r_sparse`` total by
+   ``bench_scc.py``'s rule; labels partition like Tarjan's), and
+   the eight integer keys of ``BENCH_peel.json`` on the size-≤2 SCC
+   fringe graphs; ``peel(k=1)`` equals AC-4.
 6. the SCC / reach / peel path at the real size (the same RMAT and Gᵀ),
    with the launch counts set to 0 just before it and read just after:
    reach on both backends and the auto and dense frontiers against scipy's
@@ -147,8 +153,7 @@ non-zero and prints no result line):
    with the launch counts set to 0 just before and read just after: (a)
    ``python -m repro_torch.analysis.check --strict`` (0 errors, 0
    warnings; subject counts per checker) and ``--mutants`` (every mutant
-   run caught, the A7 ones waiting), also through ``launch.trim --app
-   check``; (b) the declarations held against the card: every
+   caught), also through ``launch.trim --app check``; (b) the declarations held against the card: every
    ``KERNEL_CATALOG`` point, the copy kernel's and one real-size call of
    each kernel (phase 1's shapes) run on zero-filled CUDA tensors under
    torch.profiler, and the kernels' grid and block read from the chrome
@@ -163,6 +168,29 @@ non-zero and prints no result line):
    counted by ``torch.cuda.set_sync_debug_mode("warn")`` and by the CPU
    lint's counter, must both equal the lint's budget for the rounds and
    probe steps the card ran.
+14. (after phase 9) observability: (a) ``BENCH_obs.json`` at its own
+   sizes (16 workers, chunk 1, as ``BENCH_trim.json``'s): every method's
+   ``edges_total``, ``max_per_worker``, ``imbalance``, ``rounds`` and
+   ``trimmed`` (phase 2's instrumented runs), the eight ``scc`` keys of an
+   instrumented ``scc_decompose`` under a recorder, and ``ordering_ok``;
+   then, with the launch counts set to 0 just
+   before and read just after, at RMAT scale 22: (b) the 8 trims, reach
+   on both backends (against a plain twin), the full peel, phase 9's
+   first ``OBS_TICKS`` stream ticks and ``scc_decompose`` with
+   ``instrument=True`` equal phases 3, 6 and 9 bit for bit, round totals
+   equal the counters; the wall-time overhead of the ``OVERHEAD_TRIMS``
+   and the peel, device items added by the dense trims (at most
+   ``INSTRUMENT_ITEMS`` a round + ``INSTRUMENT_FOLD_ITEMS``; each run's
+   count is the largest of three profiles in turns), the host
+   syncs of AC-4 and AC-6 equal to the plain runs'; (c) the recorder
+   around the SCC run: dispatch spans equal the engines' dispatches,
+   generation spans the generations, exported to JSONL and a chrome trace
+   and read back; (d) ``nbytes_breakdown()`` of an AC-4 engine's cached
+   resources against the growth of ``torch.cuda.memory_allocated()``
+   (bound ``ALLOC_SLACK`` a tensor), and ``device_memory_stats()``; (e)
+   ``repro_torch.launch.trim``'s ``main`` (as phase 10 calls it) with
+   ``--app scc --graph RMAT --metrics-json``: the snapshot reads back with
+   the dispatch, round and live-bytes families.
 
 The last two lines are the kernel table and the result, as JSON.  Needs
 one CUDA device; imports nothing of JAX or of the JAX package.
@@ -179,7 +207,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 
 # benchmarks/bench_trim.py JSON_SIZES (the sizes BENCH_trim.json was made at)
 JSON_SIZES = {
@@ -253,10 +280,11 @@ TRAIN_PATH = ("segment_sum",)
 # since sparse_expand scans its degrees itself)
 ANALYSIS_PATH = tuple(KERNELS)
 ANALYSIS_OWN = ("first_live_scan", "prefix_positions", "mutant_copy")
-SECTOR = 32                # bytes a DRAM sector
 # the failure of a profiled call that holds no device item at all, the one
 # failure a profile check retries (tools/kernel_ab.py reruns a turn on it)
 NO_ITEMS = "the profiler reported no device item"
+PROFILE_SETTLE_S = 0.02
+PROFILE_WARMUP = 64
 MUTANT_N = 4_194_304
 # benchmarks/bench_stream.py SIZES (the sizes BENCH_stream.json was made at)
 STREAM_SIZES = {
@@ -269,11 +297,28 @@ STREAM_SIZES = {
 }
 STREAM_KEYS = ("n", "m", "batch_edges", "median_incr_rounds", "trimmed")
 STREAM_TICKS = 8          # real-size ticks of the trim-stream feed
+# phase 14: benchmarks/bench_obs.py WORKERS and CHUNK (its sizes are
+# JSON_SIZES); the device items instrument=True may add a round on the
+# auto frontier (a reduction is a memset and a reduce, plus a cast for a
+# bool input: AC-3 counts its deaths in the loop test, a cast more than
+# any(), and sums its probes; AC-4 multiplies and sums its decrements;
+# AC-6 sums its deaths and its probes) and a run to fold its buffers (one
+# stack, one zero buffer, a slice add a stat; AC-4's degree scan a sum)
+OBS_WORKERS, OBS_CHUNK = 16, 1
+INSTRUMENT_ITEMS = {"ac3": 3, "ac4": 3, "ac4*": 3, "ac6": 5}
+INSTRUMENT_FOLD_ITEMS = 6
+# phase 14 (b) times the overhead of instrument=True on these trims (and
+# the peel), and replays this many of phase 9's ticks instrumented (the
+# feed's first insertions come at tick 3)
+OVERHEAD_TRIMS = (("ac4", "dense"), ("ac6", "windowed"))
+OBS_TICKS = 4
+# PyTorch's caching allocator: 511 bytes of rounding and at most 1 MiB of
+# an unsplit segment remainder a tensor
+ALLOC_SLACK = 511 + (1 << 20)
 # phase 11: qwen3-1.7b at its published config, 8 requests of 2048 prompt
 # tokens and 32 generated tokens; the flash kernel's real shape follows
 SERVE = dict(arch="qwen3-1.7b", batch=8, prompt_len=2048, gen_len=32, seed=0)
 FLASH_REAL = dict(b=8, hq=16, hkv=8, s=2048, d=128)
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM data sheet
 # bf16 outputs of size ~1 round by up to 2^-8; the f32 kernel and its plain
 # version sum in f32 in other orders
 FLASH_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
@@ -334,6 +379,40 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def profiled(**kw):
+    """``torch.profiler.profile`` of the CPU and the card, entered only
+    once it records the card's items.  The profiler has been seen to lose
+    the first device items after it starts (up to 23 of a trim's first
+    items in a profile, still after a 20 ms pause), so the card first runs
+    ``PROFILE_WARMUP`` spin kernels (``torch.cuda._sleep``) and idles
+    ``PROFILE_SETTLE_S``; :func:`device_events` leaves them out."""
+    import contextlib
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    @contextlib.contextmanager
+    def run():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA], **kw) as prof:
+            for _ in range(PROFILE_WARMUP):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_SETTLE_S)
+            yield prof
+    return run()
+
+
+def device_events(prof) -> list:
+    """The device items (kernels and copies) of a :func:`profiled` block
+    in launch order, without its spin kernels."""
+    import torch
+    return sorted((e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and "spin_kernel" not in e.name),
+                  key=lambda e: e.time_range.start)
+
+
 def device_ms(fn, reps: int = 20) -> float:
     """Device time of one call: the durations of the CUDA kernels and
     copies it launches (torch.profiler, CUPTI), summed over ``reps`` calls,
@@ -342,17 +421,14 @@ def device_ms(fn, reps: int = 20) -> float:
     wrapper.  A profile that holds no device item at all is taken again,
     three times at most, as :func:`device_items` does."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     for _attempt in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profiled() as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        times = [e.device_time for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        times = [e.device_time for e in device_events(prof)]
         if times:
             return sum(times) / 1e3 / reps
     check(False, f"device_ms: {NO_ITEMS} in 3 profiled runs")
@@ -364,31 +440,26 @@ def cold_device_ms(fn, reps: int = 20) -> float:
     and only the device items that ``fn`` launches (by name) are
     counted."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    def items(prof):
-        return [e for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
     flush = torch.empty((256 << 20,), dtype=torch.uint8, device="cuda")
     fn()
     torch.cuda.synchronize()
     names = set()
     for _ in range(3):     # a profile has been seen to miss every item
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profiled() as prof:
             fn()
             torch.cuda.synchronize()
-        names = {e.name for e in items(prof)}
+        names = {e.name for e in device_events(prof)}
         if names:
             break
     check(bool(names), f"cold_device_ms: {NO_ITEMS} in 3 profiled calls")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         for _ in range(reps):
             flush.zero_()
             fn()
         torch.cuda.synchronize()
-    busy_us = sum(e.device_time for e in items(prof) if e.name in names)
+    busy_us = sum(e.device_time for e in device_events(prof)
+                  if e.name in names)
     return busy_us / 1e3 / reps
 
 
@@ -410,6 +481,7 @@ def kernel_phase(dev, g_t, cap, ecap):
     """Hold each kernel against its plain version at edge cases and at the
     real shapes (``g_t``: Gᵀ of the real graph, as AC-4's sparse rounds
     expand it); time kernel, plain version and library call there."""
+    from repro_torch.obs.profile import bound_ms, kernel_cost
     import numpy as np
     import torch
 
@@ -545,7 +617,7 @@ def kernel_phase(dev, g_t, cap, ecap):
     x = t(rng.integers(0, 64, n), torch.int32)
     members = torch.zeros(n, dtype=torch.bool, device=dev)
     members[t(rng.choice(n, cap - 7, replace=False))] = True
-    ids, count = ref.frontier_compact_ref(members, cap)
+    ids, _ = ref.frontier_compact_ref(members, cap)
     deg_t = (g_t.indptr[1:] - g_t.indptr[:-1])
     total_edges = int(deg_t[members].sum())
     check(total_edges <= ecap, "phase 1 frontier fits ecap")
@@ -569,7 +641,7 @@ def kernel_phase(dev, g_t, cap, ecap):
             f"kernel_ms={time_ms(kern):.4f} "
             f"device_ms={device_ms(kern):.4f} plain_ms="
             f"{time_ms(lambda: ref.frontier_expand_ref(xflags, valid, pend)):.4f} "
-            f"bound_ms={(2 * n + 2 * window * rows) / HBM_BYTES_PER_S * 1e3:.4f}")
+            f"bound_ms={bound_ms(*kernel_cost('frontier_expand', (xflags, valid, pend))):.4f}")
     # frontier_compact where few members leave most slots to the sentinel
     # fill (the sparse rounds), and the empty frontier
     for members_n in (1024, 0):
@@ -585,7 +657,7 @@ def kernel_phase(dev, g_t, cap, ecap):
             f"{cap}: kernel_ms={time_ms(kern):.4f} "
             f"device_ms={device_ms(kern):.4f} library device_ms="
             f"{device_ms(lambda: torch.nonzero(few)):.4f} bound_ms="
-            f"{(n + 4 * cap + 4) / HBM_BYTES_PER_S * 1e3:.4f}")
+            f"{bound_ms(*kernel_cost('frontier_compact', (few, cap))):.4f}")
     for k in (0, 1):
         kt = t([k], torch.int32)
         check(max_abs_err((bpl.bucket_peel(pcount, palive, kt),),
@@ -596,37 +668,33 @@ def kernel_phase(dev, g_t, cap, ecap):
         "first_live_scan": (
             lambda: fls.first_live_scan(flags, valid, active),
             lambda: ref.first_live_ref(flags, valid, active), None,
-            # active byte of every row, both tiles of active rows, outputs
-            n + 2 * window * int(active.sum()) + 5 * n),
+            kernel_cost("first_live_scan", (flags, valid, active))),
         "prefix_positions": (
             lambda: fc.prefix_positions(x),
             lambda: ref.prefix_positions_ref(x),
             lambda: torch.cumsum(x, 0, dtype=torch.int32),
-            4 * n + 4 * n + 4),
+            kernel_cost("prefix_positions", (x,))),
         "frontier_compact": (
             lambda: fc.frontier_compact(members, cap),
             lambda: ref.frontier_compact_ref(members, cap),
             lambda: torch.nonzero(members),
-            n + 4 * cap + 4),
+            kernel_cost("frontier_compact", (members, cap))),
         "sparse_expand": (
             lambda: fc.sparse_expand(g_t.indptr, g_t.indices, ids, ecap),
             lambda: ref.sparse_expand_ref(g_t.indptr, g_t.indices, ids, ecap),
             None,
-            # ids, two indptr entries per real id, one index per edge; the
-            # (ecap,) src/tgt/pos int32 + valid bool outputs
-            4 * cap + 8 * int(count) + 4 * total_edges + 13 * ecap),
+            kernel_cost("sparse_expand", (g_t.indptr, g_t.indices, ids,
+                                          ecap))),
         "frontier_expand": (
             lambda: (fex.frontier_expand(xflags, valid, pending_all),),
             lambda: (ref.frontier_expand_ref(xflags, valid, pending_all),),
             None,
-            # every row pending: pending byte, both tiles, the hit byte
-            n + 2 * window * n + n),
+            kernel_cost("frontier_expand", (xflags, valid, pending_all))),
         "bucket_peel": (
             lambda: (bpl.bucket_peel(pcount, palive, k7),),
             lambda: (ref.bucket_peel_ref(pcount, palive, k7),),
             None,
-            # int32 counter, alive byte, frontier byte per vertex
-            4 * n + n + n),
+            kernel_cost("bucket_peel", (pcount, palive, k7))),
     }
     # the windowed probe at the real shape: Gᵀ's rows, W = 16, 25% of the
     # rows scanning from a pointer in [0, deg], half the vertices live
@@ -639,16 +707,15 @@ def kernel_phase(dev, g_t, cap, ecap):
     cases["first_live_probe"] = (
         lambda: fls.first_live_probe(*pargs),
         lambda: ref.first_live_probe_ref(*pargs), None,
-        probe_bound_bytes(*pargs, pfirst, pfound))
+        kernel_cost("first_live_probe", pargs, (pfirst, pfound)))
     rows = {}
-    for name, (kern, plain, lib, nbytes) in cases.items():
+    for name, (kern, plain, lib, cost) in cases.items():
         err = max_abs_err(kern(), plain())
         check(err == 0, f"{name}: kernel differs from its plain version at "
                         f"the real shapes (max |err| {err})")
         row = dict(max_abs_err=err, ms=time_ms(kern), plain_ms=time_ms(plain),
                    library_ms=time_ms(lib) if lib else None,
-                   bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-                   bound_by="bytes")
+                   bound_ms=bound_ms(*cost), bound_by="bytes")
         rows[name] = row
         lib_dev = "" if lib is None else \
             f" (library device_ms={device_ms(lib):.4f})"
@@ -686,7 +753,7 @@ def kernel_phase(dev, g_t, cap, ecap):
         f"kernel_ms={time_ms(kern):.4f} device_ms={device_ms(kern):.4f} "
         f"library_ms={time_ms(lib):.4f} (torch.cumsum; device_ms="
         f"{device_ms(lib):.4f}) bound_ms="
-        f"{(n + 4 * n + 4) / HBM_BYTES_PER_S * 1e3:.4f}")
+        f"{bound_ms(*kernel_cost('prefix_positions', (xb,))):.4f}")
 
     # counter_scatter: RMAT-skewed sources (the sources of random edges of
     # the real graph, so hubs repeat), plus the sentinel n and negatives;
@@ -713,8 +780,8 @@ def kernel_phase(dev, g_t, cap, ecap):
                        plain_ms=time_ms(
                            lambda: ref.counter_scatter_ref(*args)),
                        library_ms=time_ms(lib),
-                       bound_ms=(10 * n + 8 * b) / HBM_BYTES_PER_S * 1e3,
-                       bound_by="bytes")
+                       bound_ms=bound_ms(*kernel_cost(
+                           "counter_scatter", args)), bound_by="bytes")
             log(f"# phase 1: counter_scatter B={b} ({label}): "
                 f"bit-identical; kernel_ms={row['ms']:.4f} device_ms="
                 f"{device_ms(lambda: cs.counter_scatter(*args)):.4f} "
@@ -830,36 +897,6 @@ def probe_edge_cases(dev, rng):
                           f"{kind}")
 
 
-def probe_bound_bytes(status, indptr, indices, start, scanning, window,
-                      first, found) -> int:
-    """The bytes the windowed probe must move, by 32-byte sectors: every
-    row's scanning byte and its 5 output bytes; the sectors of start and
-    of indptr that the scanning rows touch; the sectors of indices that
-    their windows span up to the first live target (or the row's end);
-    and each sector of status that those targets touch, once."""
-    import torch
-    rows = torch.nonzero(scanning).squeeze(1)
-    deg = (indptr[1:] - indptr[:-1])[rows].long()
-    base = indptr[:-1][rows].long()
-    s = torch.minimum(start[rows].long(), deg)
-    need = torch.where(found[rows], first[rows].long() + 1,
-                       (deg - s).clamp(0, window))
-    keep = need > 0
-    lo, need = base[keep] + s[keep], need[keep]
-    lo = lo.clamp(0, max(indices.shape[0] - 1, 0))
-    span = -(-window * 4 // SECTOR) + 1
-    sec = [(lo * 4) // SECTOR + k for k in range(span)]
-    last = ((lo + need - 1) * 4) // SECTOR
-    idx_sectors = torch.cat([q[q <= last] for q in sec]).unique().numel()
-    targets = torch.cat([indices[(lo + j)[need > j]] for j in range(window)])
-    status_sectors = (targets.long() // SECTOR).unique().numel()
-    meta = (torch.cat([rows * 4 // SECTOR]).unique().numel()
-            + torch.cat([rows, rows + 1]).mul(4).div(
-                SECTOR, rounding_mode="floor").unique().numel())
-    n = scanning.shape[0]
-    return (6 * n + SECTOR * (meta + idx_sectors + status_sectors))
-
-
 def device_items(fn, ok=None, what: str = "") -> list:
     """The names of the device items one profiled call of ``fn`` runs
     (after one warm call), in order, kernel names cut at their template
@@ -868,24 +905,66 @@ def device_items(fn, ok=None, what: str = "") -> list:
     been seen to miss every item of a call) is taken again, three times
     at most; that and nothing else."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.analysis.capture import kernel_basename
     fn()
     torch.cuda.synchronize()
     for attempt in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profiled() as prof:
             fn()
             torch.cuda.synchronize()
-        items = [kernel_basename(e.name) for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        items = [kernel_basename(e.name) for e in device_events(prof)]
         if items:
             check(ok is None or ok(items), f"{what}: the card ran {items}")
             return items
         log(f"# phase 1: {what}: profiled call {attempt + 1} of 3: "
             f"{NO_ITEMS}")
     check(False, f"{what}: {NO_ITEMS} in 3 profiled calls")
+
+
+def item_counts(fns, reps: int = 3) -> list:
+    """The device items (kernels and copies) of one call of each of
+    ``fns``, profiled ``reps`` times in turns after one warm call each:
+    for each, the largest count and the counts of every profile.  The
+    profiler has been seen to lose items (see :func:`profiled`) and never
+    to report one that did not run, so the largest count is the call's.
+    Where a profile holds fewer, the log says where in the call they
+    were missing."""
+    import torch
+
+    from repro_torch.analysis.capture import kernel_basename
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    seqs = [[] for _ in fns]
+    for _ in range(reps):
+        for i, fn in enumerate(fns):
+            with profiled() as prof:
+                fn()
+                torch.cuda.synchronize()
+            seqs[i].append([kernel_basename(e.name)
+                            for e in device_events(prof)])
+            spins = sum("spin_kernel" in e.name for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA)
+            if spins < PROFILE_WARMUP:
+                log(f"# the profiler lost {PROFILE_WARMUP - spins} of its "
+                    f"{PROFILE_WARMUP} warm-up items")
+    out = []
+    for got in seqs:
+        full = max(got, key=len)
+        check(len(full) > 0, f"{NO_ITEMS}: {[len(x) for x in got]}")
+        for x in got:
+            if len(x) < len(full):
+                p = next((j for j, (a, b) in enumerate(zip(x, full))
+                          if a != b), len(x))
+                k = len(full) - len(x)
+                lost = (f"items {p} to {p + k - 1} missing"
+                        if x[p:] == full[p + k:] else
+                        f"items in order up to {p}, then others missing")
+                log(f"# a profile of {len(x)} of {len(full)} device items: "
+                    f"{lost}")
+        out.append((len(full), [len(x) for x in got]))
+    return out
 
 
 def largest_tensor(fn) -> int:
@@ -1078,7 +1157,7 @@ def flash_phase(dev):
 
     b, hq, hkv, s, d = (FLASH_REAL[k_] for k_ in ("b", "hq", "hkv", "s",
                                                     "d"))
-    flops = 2 * b * hq * s * (s + 1) * d       # QK^T and PV, causal
+    from repro_torch.obs.profile import PEAK_FLOPS, bound_ms, kernel_cost
     row = None
     for dtype in (torch.float32, torch.bfloat16):
         args = qkv(b, hq, hkv, s, s, d, dtype)
@@ -1091,9 +1170,9 @@ def flash_phase(dev):
         e32 = float((fa.flash_attention(*args).float()
                      - ref.flash_attention_ref(*(t.float() for t in args)))
                     .abs().max())
-        nbytes = (2 * b * hq * s * d + 2 * b * hkv * s * d) \
-            * args[0].element_size()
-        bound = max(flops / PEAK_FLOPS[name], nbytes / HBM_BYTES_PER_S) * 1e3
+        # QK^T and PV, causal: 2 B Hq S (S + 1) D
+        flops, nbytes = kernel_cost("flash_attention", (*args, True, None))
+        bound = bound_ms(flops, nbytes, name)
 
         def kern():
             return fa.flash_attention(*args)
@@ -1300,7 +1379,8 @@ def segment_time(label, v, ids, n: int, reps: int = 20):
     m, d = v.shape
     index = ss.segment_index(ids, n)
     rel = segment_check(ss.segment_sum(v, ids, n, index), v, ids, n, label)
-    nbytes = m * d * v.element_size() + m * ids.element_size() + 4 * n * d
+    from repro_torch.obs.profile import bound_ms, kernel_cost
+    _, nbytes = kernel_cost("segment_sum", (v, ids, n))
 
     def kern():
         return ss.segment_sum(v, ids, n, index)
@@ -1319,7 +1399,7 @@ def segment_time(label, v, ids, n: int, reps: int = 20):
                plain_ms=time_ms(lambda: ref.segment_sum_ref(v, ids, n),
                                 reps=reps),
                library_ms=time_ms(lib, reps=reps),
-               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+               bound_ms=bound_ms(0, nbytes), bound_by="bytes")
     del got
     log(f"# phase 1: segment_sum {label} ({m:,}, {d}) -> {n:,}: max |err| "
         f"{row['max_abs_err']:.3g} ({rel:.3g} of the segment's sum of |v|); "
@@ -1337,29 +1417,65 @@ def segment_time(label, v, ids, n: int, reps: int = 20):
 # -- phase 2: the committed reference counters ---------------------------------
 
 def reference_phase(dev):
+    """BENCH_trim.json's keys on both backends, as before.  Beside each
+    method's plain runs, an instrumented dense run must equal the plain
+    dense run (status, rounds, the per-worker counters, max frontier),
+    its round totals must equal its counters, and it gives phase 14 (a)
+    the method keys of ``BENCH_obs.json``, whose sizes, workers and chunk
+    are the same.  Returns those keys by family."""
     import numpy as np
+    import torch
 
     from repro_torch.core import plan
     from repro_torch.graphs import generators as G
 
     bench = json.loads((ROOT / "BENCH_trim.json").read_text())["families"]
+    obs_keys = {}
     for family, kw in JSON_SIZES.items():
         g = G.BENCHMARK_GRAPHS[family][0](**kw, device=dev)
         gt = g.transpose()
         t0 = time.perf_counter()
+        obs_keys[family] = {}
         for method in METHODS:
             want = {k: bench[family]["methods"][method][k] for k in JSON_KEYS}
+            plain = {}
             for backend in BACKENDS:
-                res = plan(g, method=method, backend=backend, workers=16,
-                           chunk=1, transpose=gt, device=dev).run()
+                res = plain[backend] = plan(
+                    g, method=method, backend=backend, workers=OBS_WORKERS,
+                    chunk=OBS_CHUNK, transpose=gt, device=dev).run()
                 pw = np.asarray(res.per_worker_edges)
                 got = dict(rounds=res.rounds, edges_total=int(pw.sum()),
                            max_per_worker=int(pw.max()),
                            trimmed=res.n_trimmed, max_qp=res.max_frontier)
                 check(got == want, f"{family}/{method}/{backend}: {got} != "
                                    f"BENCH_trim.json {want}")
+            res = plan(g, method=method, workers=OBS_WORKERS,
+                       chunk=OBS_CHUNK, transpose=gt, instrument=True,
+                       device=dev).run()
+            ref = plain["dense"]
+            pw = np.asarray(res.per_worker_edges).astype(np.int64)
+            check(torch.equal(res.status, ref.status)
+                  and (res.rounds, res.max_frontier) == (ref.rounds,
+                                                         ref.max_frontier)
+                  and np.array_equal(pw, ref.per_worker_edges),
+                  f"{family}/{method}: the instrumented dense run differs "
+                  "from the plain one")
+            check(int(res.round_stats.total("r_edges")) == int(pw.sum())
+                  and int(res.round_stats.total("r_frontier"))
+                  == res.n_trimmed,
+                  f"{family}/{method}: round stats disagree with the "
+                  "counters")
+            obs_keys[family][method] = {
+                "edges_total": int(pw.sum()),
+                "max_per_worker": int(pw.max()),
+                "imbalance": round(float(pw.max() / max(pw.mean(), 1e-9)),
+                                   3),
+                "rounds": res.rounds, "trimmed": res.n_trimmed}
         log(f"# phase 2: {family} n={g.n} m={g.m}: 4 methods x 2 backends "
-            f"match BENCH_trim.json ({time.perf_counter() - t0:.2f} s)")
+            f"match BENCH_trim.json; each method's instrumented dense run "
+            f"equals the plain one and its round totals its counters "
+            f"({time.perf_counter() - t0:.2f} s)")
+    return obs_keys
 
 
 # -- phase 3: the real size ----------------------------------------------------
@@ -1407,12 +1523,14 @@ def real_phase(dev, g, gt):
               "AC-6 traversed more than m edges")
     log("# phase 3: 8 status masks equal each other and the oracle; "
         "windowed counters equal dense; AC-6 edges <= m")
+    return runs
 
 
 # -- phase 5: the committed SCC and peel counts --------------------------------
 
 def scc_peel_reference_phase(dev):
     import numpy as np
+    import torch
 
     from repro_torch.core import plan, plan_peel
     from repro_torch.core.scc import same_partition, scc_decompose, \
@@ -1424,14 +1542,29 @@ def scc_peel_reference_phase(dev):
         g = G.BENCHMARK_GRAPHS[family][0](**kw, device=dev)
         t0 = time.perf_counter()
         labels, _ = scc_decompose(g, device=dev)
-        rounds = plan(g, method="ac6", device=dev).run(counters=False).rounds
-        got = dict(sccs=len(np.unique(labels)), rounds=rounds)
+        plain = plan(g, method="ac6", device=dev).run(counters=False)
+        rounds = plain.rounds
+        # bench_scc.py's rule: an instrumented AC-6 run's r_sparse total
+        # decides dense, sparse or mixed; that run equals the plain one
+        res = plan(g, method="ac6", instrument=True,
+                   device=dev).run(counters=False)
+        check(res.rounds == rounds and torch.equal(res.status, plain.status),
+              f"{family}: the instrumented AC-6 run differs from the plain "
+              "one")
+        rs = res.round_stats
+        sparse = int(rs.total("r_sparse")) if "r_sparse" in rs.names else 0
+        path = ("dense" if sparse == 0 else "sparse" if sparse >= rounds
+                else "mixed")
+        got = dict(sccs=len(np.unique(labels)), rounds=rounds,
+                   frontier_path_taken=path)
         want = {k: bench[family][k] for k in got}
         check(got == want, f"{family}: {got} != BENCH_scc.json {want}")
         check(same_partition(labels, tarjan_oracle(*g.to_numpy())),
               f"{family}: SCC labels differ from Tarjan's partition")
         log(f"# phase 5: BENCH_scc {family} n={g.n} m={g.m}: sccs="
-            f"{got['sccs']} rounds={rounds} match; labels partition like "
+            f"{got['sccs']} rounds={rounds} frontier_path_taken={path} "
+            f"({sparse} sparse rounds of the instrumented run, which equals "
+            f"the plain one) match; labels partition like "
             f"Tarjan ({time.perf_counter() - t0:.2f} s)")
     bench = json.loads((ROOT / "BENCH_peel.json").read_text())["families"]
     for family, kw in PEEL_SIZES.items():
@@ -1566,6 +1699,7 @@ def scc_peel_real_phase(dev, g, gt):
         f"alone takes {transpose_ms:.1f}); partition equals scipy's "
         f"on the canonical CSR ({time.perf_counter() - t0:.1f} s on the "
         "host)")
+    return dict(peel=res, peel_engine=peel, scc=(labels, stats))
 
 
 # -- phases 8 and 9: the stream engine ----------------------------------------
@@ -1681,7 +1815,9 @@ def stream_reference_phase(dev):
 def stream_real_phase(dev, g):
     """The trim-stream feed at the real size; every tick checked against
     AC-4 on the snapshot, the last one against the numpy oracle too.
-    Returns the engine and its feed (``--profile`` continues them)."""
+    Returns the engine and its feed (``--profile`` continues them) and the
+    first ``OBS_TICKS`` ticks' status, rounds and dirty flag (phase 14
+    replays them instrumented)."""
     import numpy as np
     import torch
 
@@ -1701,6 +1837,7 @@ def stream_real_phase(dev, g):
         f"ms; capacity={delta.capacity} plan={engine.plan_signature()}; "
         f"feed arrays {(time.perf_counter() - t2) * 1e3:.1f} ms")
     walls = {False: [], True: []}       # apply ms, by "with insertions"
+    ticks = []
     for tick in range(STREAM_TICKS):
         batch = feed.next()
         n_upd = len(batch["deletions"][0]) + (
@@ -1711,6 +1848,8 @@ def stream_real_phase(dev, g):
         torch.cuda.synchronize()
         apply_ms = (time.perf_counter() - t0) * 1e3
         walls[batch["insertions"] is not None].append(apply_ms)
+        if tick < OBS_TICKS:
+            ticks.append((res.status.clone(), res.rounds, res.dirty))
         t0 = time.perf_counter()
         snap = engine.snapshot()
         t1 = time.perf_counter()
@@ -1742,7 +1881,7 @@ def stream_real_phase(dev, g):
     check(torch.equal(full.status, before), "retrim(full=True) differs")
     log(f"# phase 9: retrim(full=True): "
         f"{(time.perf_counter() - t0) * 1e3:.1f} ms, rounds={full.rounds}")
-    return engine, feed
+    return engine, feed, ticks
 
 
 # -- phase 13: the static checks ----------------------------------------------
@@ -1766,13 +1905,12 @@ def static_checks_phase():
     check(ok, "a mutant survived its checker, or the copy kernel's own "
               "geometry was flagged")
     caught = sum(f.checker == "mutant-caught" for f in mutants.findings)
-    waiting = sum(f.checker == "mutant-waiting" for f in mutants.findings)
     check(cli.main(["--app", "check", "--mutants"]) == 0,
           "launch.trim --app check --mutants failed")
     log(f"# phase 13: static checks --strict: 0 errors, 0 warnings; "
         f"subjects per checker {report['subjects_checked']} "
         f"({t_strict:.1f} s on the host CPU); --mutants: {caught} caught, "
-        f"{waiting} waiting (A7), copy kernel clean "
+        f"copy kernel clean "
         f"({time.perf_counter() - t0:.2f} s for both entry points)")
 
 
@@ -1781,15 +1919,13 @@ def card_launches(calls):
     kernels that ran, in order, as ``(kernel, grid, block)`` from the
     chrome trace."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.analysis.capture import profiled_launches
     from repro_torch.analysis.catalog import LAUNCH_DECLARATIONS
     from repro_torch.analysis.mutants import MUTANT_DECLARATIONS
     names = {k for _, k in (*LAUNCH_DECLARATIONS, *MUTANT_DECLARATIONS)}
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         for fn in calls:
             fn()
         torch.cuda.synchronize()
@@ -1889,6 +2025,7 @@ def mutant_copy_phase(dev):
 
     from repro_torch.kernels import mutant_copy as mc
     from repro_torch.kernels import ref
+    from repro_torch.obs.profile import bound_ms, kernel_cost
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -1922,7 +2059,7 @@ def mutant_copy_phase(dev):
     row = dict(max_abs_err=err, ms=time_ms(kern),
                plain_ms=time_ms(lambda: ref.mutant_copy_ref(x)),
                library_ms=time_ms(x.clone),
-               bound_ms=8 * MUTANT_N / HBM_BYTES_PER_S * 1e3,
+               bound_ms=bound_ms(*kernel_cost("mutant_copy", (x, None))),
                bound_by="bytes")
     log(f"# phase 13: mutant_copy bit-identical to x.clone() (n = 0-7, "
         f"255, 1000, 4097-4099 and {MUTANT_N:,}, aligned and x[1:]; blocks "
@@ -1979,6 +2116,285 @@ def sync_budget_phase(dev, g, gt):
               f"{method}: {card} syncs on the card ({sites}), "
               f"{counter.syncs} by the lint ({counter.events}), budget "
               f"{want}")
+
+
+# -- phase 14: observability on the card --------------------------------------
+
+def obs_reference_phase(dev, methods_by_family):
+    """(a): ``BENCH_obs.json`` at its own sizes (``bench_obs.py``: 16
+    workers, chunk 1): every method's five keys (from phase 2's
+    instrumented dense runs, whose ``r_edges`` totals equal their
+    per-worker sums), the eight ``scc`` keys (its span counts included)
+    and ``ordering_ok``."""
+    from repro_torch import obs
+    from repro_torch.core.scc import scc_decompose
+    from repro_torch.graphs import generators as G
+
+    doc = json.loads((ROOT / "BENCH_obs.json").read_text())
+    check(doc["workers"] == OBS_WORKERS, "BENCH_obs.json workers")
+    orders = []
+    for family, kw in JSON_SIZES.items():
+        bench = doc["families"][family]
+        g = G.BENCHMARK_GRAPHS[family][0](**kw, device=dev)
+        check((g.n, g.m) == (bench["n"], bench["m"]), f"{family}: n, m")
+        t0 = time.perf_counter()
+        methods = methods_by_family[family]
+        with obs.recording() as rec:
+            _, stats = scc_decompose(g, counters=True, workers=OBS_WORKERS,
+                                     chunk=OBS_CHUNK, instrument=True,
+                                     device=dev)
+        pw = stats["per_worker_edges"]
+        scc = {"generations": stats["generations"],
+               "trim_rounds": stats["trim_rounds"],
+               "reach_rounds": stats["reach_rounds"],
+               "trim_edges_total": int(pw.sum()),
+               "trim_max_per_worker": int(pw.max()),
+               "trim_imbalance": round(float(pw.max() / max(pw.mean(),
+                                                             1e-9)), 3),
+               "dispatch_spans": len(rec.select("dispatch", cat="engine")),
+               "generation_spans": len(rec.select("generation",
+                                                  cat="scc"))}
+        mx = {m: methods[m]["max_per_worker"] for m in METHODS}
+        ordering = bool(mx["ac3"] > mx["ac4"] >= mx["ac6"])
+        check(methods == bench["methods"],
+              f"{family}: {methods} != BENCH_obs.json {bench['methods']}")
+        check(scc == bench["scc"],
+              f"{family}: scc {scc} != BENCH_obs.json {bench['scc']}")
+        check(ordering == bench["ordering_ok"], f"{family}: ordering_ok")
+        orders.append(ordering)
+        log(f"# phase 14: BENCH_obs {family} n={g.n} m={g.m}: 4 x 5 method "
+            f"keys, 8 scc keys and ordering_ok={ordering} match; max per "
+            f"worker ac3 {mx['ac3']} ac4 {mx['ac4']} ac4* {mx['ac4*']} ac6 "
+            f"{mx['ac6']} ({time.perf_counter() - t0:.2f} s)")
+    check(all(orders) == doc["ordering_ok"], "BENCH_obs.json ordering_ok")
+
+
+def card_syncs(fn) -> int:
+    """Host syncs of one call of ``fn``, counted by torch's sync debug
+    mode."""
+    import warnings
+
+    import torch
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum(SYNC_WARNING in str(w.message) for w in rec)
+
+
+def median_wall_ms(fns, reps: int = 3) -> list:
+    """Median wall ms of each of ``fns``, called in turns."""
+    import numpy as np
+    import torch
+    walls = [[] for _ in fns]
+    for _ in range(reps):
+        for i, fn in enumerate(fns):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[i].append((time.perf_counter() - t0) * 1e3)
+    return [float(np.median(w)) for w in walls]
+
+
+def obs_real_phase(dev, g, gt, trims, real6, ticks):
+    """(b)-(e) at RMAT scale 22: the instrumented trims, reach, full peel,
+    four stream ticks and ``scc_decompose`` against the plain runs of
+    phases 3, 6 and 9 (reach against a plain twin), bit for bit; the
+    recorder around the
+    SCC run, exported and read back; memory; the command line's
+    snapshot."""
+    import numpy as np
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.core import plan, plan_peel, plan_reach, plan_stream
+    from repro_torch.core.scc import same_partition, scc_decompose
+
+    # (b) the trims: equal to phase 3's, totals equal the counters; the
+    # device items of the dense ones and the syncs of AC-4 and AC-6; the
+    # wall overhead of one AC-4 and one AC-6 trim, in turns
+    t_b = time.perf_counter()
+    for (method, backend), want in trims.items():
+        kw = dict(method=method, backend=backend, workers=16, transpose=gt,
+                  device=dev)
+        plain, inst = plan(g, **kw), plan(g, instrument=True, **kw)
+        res = inst.run()
+        rs = res.round_stats
+        check(torch.equal(res.status, want.status)
+              and (res.rounds, res.max_frontier) == (want.rounds,
+                                                     want.max_frontier)
+              and np.array_equal(res.per_worker_edges, want.per_worker_edges),
+              f"{method}/{backend}: instrumented run differs from phase 3")
+        check(int(rs.total("r_edges")) == res.edges_traversed
+              and int(rs.total("r_frontier")) == res.n_trimmed,
+              f"{method}/{backend}: round totals differ from the counters")
+        note = ""
+        if (method, backend) in OVERHEAD_TRIMS:
+            p_ms, i_ms = median_wall_ms([plain.run, inst.run])
+            note = (f"; wall_ms plain {p_ms:.1f} instrumented {i_ms:.1f} "
+                    f"({i_ms - p_ms:+.2f})")
+        if backend == "dense":
+            (n0, c0), (n1, c1) = item_counts([plain.run, inst.run])
+            extra = n1 - n0
+            check(0 <= extra <= INSTRUMENT_ITEMS[method] * res.rounds
+                  + INSTRUMENT_FOLD_ITEMS,
+                  f"{method}: instrument=True added {extra} device items in "
+                  f"{res.rounds} rounds (profiled plain {c0}, instrumented "
+                  f"{c1})")
+            note += (f"; device items +{extra} (bound "
+                     f"{INSTRUMENT_ITEMS[method]} a round + "
+                     f"{INSTRUMENT_FOLD_ITEMS}; profiled plain {c0}, "
+                     f"instrumented {c1})")
+            if method in ("ac4", "ac6"):
+                s0, s1 = card_syncs(plain.run), card_syncs(inst.run)
+                check(s0 == s1, f"{method}: {s1} host syncs instrumented, "
+                                f"{s0} plain")
+                note += f"; host syncs {s1} = plain {s0}"
+        log(f"# phase 14: {method}/{backend} instrumented: rounds="
+            f"{res.rounds} r_frontier {rs.per_round('r_frontier')[:res.rounds].tolist()}"
+            f" r_edges {rs.per_round('r_edges')[:res.rounds].tolist()} equal "
+            f"phase 3 bit for bit{note}")
+
+    # reach, from vertex 0 on both backends
+    for backend in ("windowed", "dense"):
+        kw = dict(backend=backend, transpose=gt, device=dev)
+        plain, inst = plan_reach(g, **kw), plan_reach(g, instrument=True, **kw)
+        a, b = plain.run(0), inst.run(0)
+        check(torch.equal(a.mask, b.mask) and a.rounds == b.rounds
+              and int(b.round_stats.total("r_frontier")) == b.n_reached,
+              f"reach {backend}: instrumented sweep differs")
+        log(f"# phase 14: reach {backend} instrumented: rounds={b.rounds} "
+            "equal the plain sweep")
+
+    # the full peel: equal to phase 6's; then phase 6's warm engine and
+    # the instrumented one once each, in turns
+    ipeel = plan_peel(g, transpose=gt, instrument=True, device=dev)
+    res = ipeel.run()
+    rs = res.round_stats
+    res = res.materialize()
+    want = real6["peel"]
+    check(np.array_equal(res.coreness, want.coreness)
+          and np.array_equal(res.peel_round, want.peel_round)
+          and res.rounds == want.rounds, "instrumented peel differs")
+    check(int(rs.total("r_frontier")) == g.n, "peel: r_frontier total")
+    p_ms, i_ms = median_wall_ms([real6["peel_engine"].run, ipeel.run],
+                                reps=1)
+    log(f"# phase 14: peel instrumented: rounds={res.rounds} (capacity "
+        f"{rs.max_rounds}, overflowed={rs.overflowed}) equal phase 6; "
+        f"wall_ms plain {p_ms:.1f} instrumented {i_ms:.1f} "
+        f"({i_ms - p_ms:+.2f}, {(i_ms - p_ms) / res.rounds * 1e3:.1f} us a "
+        "round)")
+    del ipeel
+
+    # the first ticks of phase 9's feed again, on an instrumented engine,
+    # against what phase 9's plain engine gave
+    k = g.m // 1000
+    engine = plan_stream(g, capacity=max(4096, 16 * k), instrument=True)
+    feed = StreamFeed(g, k)
+    for tick, (status, rounds, dirty) in enumerate(ticks):
+        b = engine.apply(**feed.next())
+        check(torch.equal(b.status, status) and (b.rounds, b.dirty)
+              == (rounds, dirty) and b.round_stats is not None,
+              f"stream tick {tick}: instrumented apply differs")
+        log(f"# phase 14: stream tick {tick} instrumented: rounds="
+            f"{b.rounds} dirty={dirty} r_frontier "
+            f"{b.round_stats.per_round('r_frontier')[:b.rounds].tolist()} "
+            "equal phase 9's plain engine")
+    del engine, feed
+    log(f"# phase 14: (b) without scc_decompose done in "
+        f"{time.perf_counter() - t_b:.1f} s")
+
+    # (b)+(c) scc_decompose under a recorder, against phase 6's run
+    with obs.recording() as rec:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        labels, stats = scc_decompose(g, instrument=True, device=dev)
+        wall = (time.perf_counter() - t0) * 1e3
+    labels0, stats0 = real6["scc"]
+    check(same_partition(labels, labels0)
+          and all(stats[k] == stats0[k] for k in (
+              "generations", "pivots", "trimmed_total", "trim2_removed",
+              "trim_dispatches", "reach_dispatches")),
+          "instrumented scc_decompose differs from phase 6")
+    check(stats["trim_rounds"] > 0 and stats["reach_rounds"] > 0,
+          f"scc round totals {stats['trim_rounds']} {stats['reach_rounds']}")
+    spans = rec.select("dispatch", cat="engine")
+    gens = rec.select("generation", cat="scc")
+    check(len(spans) == stats["trim_dispatches"] + stats["reach_dispatches"]
+          and len(gens) == stats["generations"],
+          f"{len(spans)} dispatch and {len(gens)} generation spans for "
+          f"{stats}")
+    out = ROOT / "build" / "obs"
+    out.mkdir(parents=True, exist_ok=True)
+    want_spans = [sp.to_dict() for sp in rec.spans]
+    back = obs.read_jsonl(rec.to_jsonl(str(out / "scc_spans.jsonl")))
+    chrome = obs.read_chrome_trace(rec.to_chrome_trace(
+        str(out / "scc_trace.json")))
+    check(back == json.loads(json.dumps(want_spans, default=str)),
+          "the JSONL spans differ when read back")
+    check([(d["name"], d["cat"], d["ph"]) for d in chrome]
+          == [(d["name"], d["cat"], d["ph"]) for d in want_spans]
+          and sum(d["name"] == "dispatch" for d in chrome) == len(spans),
+          "the chrome trace differs when read back")
+    kernels = rec.select(cat="kernel")
+    log(f"# phase 14: scc_decompose instrumented: wall_ms={wall:.1f}; "
+        f"trim_rounds={stats['trim_rounds']} reach_rounds="
+        f"{stats['reach_rounds']}; {len(spans)} dispatch spans = "
+        f"{stats['trim_dispatches']} trim + {stats['reach_dispatches']} "
+        f"reach dispatches, {len(gens)} generation spans, {len(kernels)} "
+        f"kernel calls ({', '.join(sorted({sp.name for sp in kernels}))}); "
+        f"{len(want_spans)} events through JSONL and a chrome trace and back")
+
+    # (d) memory: what caching a trim engine's resources (Gᵀ, its row ids,
+    # the worker map: 4 tensors) added to the allocator against its
+    # nbytes_breakdown().  The caching allocator rounds a tensor up to a
+    # multiple of 512 bytes, and a block of its large pool keeps its
+    # segment's remainder when no more than 1 MiB is left: at most
+    # ALLOC_SLACK bytes a tensor (the cache is emptied first, so each
+    # tensor gets a fresh segment)
+    eng = plan(g, method="ac4", workers=16, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    eng._transpose_arrays()
+    eng._ids()
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
+    bd = eng.nbytes_breakdown()
+    cached = sum(v for c, v in bd.items() if c != "graph")
+    check(0 <= grown - cached <= 4 * ALLOC_SLACK,
+          f"allocator grew {grown} bytes caching {cached} bytes ({bd})")
+    stats = obs.device_memory_stats()["cuda:0"]
+    log(f"# phase 14: memory: ac4 engine {bd}: cached {cached} bytes, the "
+        f"allocator grew {grown} (+{grown - cached}, bound 4 x "
+        f"{ALLOC_SLACK}); "
+        f"device_memory_stats: " + ", ".join(
+            f"{k}={v}" for k, v in sorted(stats.items())
+            if k.endswith((".current", ".peak"))))
+    del eng
+
+    # (e) the command line's metrics snapshot, through its main() as
+    # phase 10 runs it
+    from repro_torch.launch import trim as cli
+    path = out / "metrics.json"
+    t0 = time.perf_counter()
+    cli.main(["--app", "scc", "--graph", "RMAT", "--metrics-json",
+              str(path)])
+    plane = obs.load_snapshot(json.loads(path.read_text()))
+    need = {"repro_dispatches", "repro_fixpoint_rounds",
+            "repro_engine_live_bytes"}
+    check(need <= set(plane.families),
+          f"the snapshot holds {sorted(plane.families)}")
+    disp = {dict(k)["family"]: c.value
+            for k, c in plane.families["repro_dispatches"].children.items()}
+    log(f"# phase 14: launch.trim --app scc --graph RMAT --metrics-json: "
+        f"{len(plane.families)} families "
+        f"({', '.join(sorted(plane.families))}); dispatches {disp} "
+        f"({time.perf_counter() - t0:.1f} s)")
 
 
 # -- phase 10: the command line ------------------------------------------------
@@ -2380,28 +2796,26 @@ def profile_run(label, fn, sparse=None):
     share, the host syncs (counted by torch's sync debug mode on a
     separate call), and the device items that take the most time.  With
     ``sparse`` = (n, ecap): also the device time of the trimming kernels
-    in the timed call, and of the ``index_add_`` calls that add an (ecap,)
-    source into (n,) counters (AC-4's sparse decrement over the whole
-    expanded buffer) in a third call, profiled with the operators' shapes
-    (their recording costs host time, so the timed call goes without)."""
+    in the timed call, and of the ``index_add_`` calls that add a source
+    of at most ecap into (n,) counters (AC-4's sparse decrement over the
+    expanded buffer's real edges) in a third call, profiled with the
+    operators' shapes (their recording costs host time, so the timed call
+    goes without)."""
     import warnings
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.analysis.capture import kernel_basename
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         t0 = time.perf_counter()
         note = fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            tot, cnt = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (tot + e.device_time / 1e3, cnt + 1)
+    for e in device_events(prof):
+        tot, cnt = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (tot + e.device_time / 1e3, cnt + 1)
     busy = sum(tot for tot, _ in by_name.values())
     items = sum(cnt for _, cnt in by_name.values())
     kern = sorted(by_name.items(), key=lambda kv: -kv[1][0])
@@ -2422,19 +2836,18 @@ def profile_run(label, fn, sparse=None):
             if kernel_basename(name) in TRIM_KERNELS:
                 ours[kernel_basename(name)] = (tot, cnt)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
-                     record_shapes=True) as shaped:
+        with profiled(record_shapes=True) as shaped:
             fn()
             torch.cuda.synchronize()
         adds = [e for e in shaped.events() if e.name == "aten::index_add_"
                 and (e.input_shapes or [])[:1] == [[n]]
-                and [ecap] in e.input_shapes[2:]]
+                and any(len(sh) == 1 and sh[0] <= ecap
+                        for sh in e.input_shapes[2:3])]
         add_ms = sum(getattr(e, "device_time_total", None)
                      or e.cuda_time_total for e in adds) / 1e3
         top += (" | port kernels: " + "; ".join(
             f"{k} {tot:.4f}ms x{cnt}" for k, (tot, cnt) in ours.items())
-            + f"; index_add_ of an ({ecap},) source {add_ms:.4f}ms "
+            + f"; index_add_ of a source of at most {ecap} {add_ms:.4f}ms "
             f"x{len(adds)}")
     log(f"# profile: {label}: wall_ms={wall:.1f} "
         f"device_busy_ms={busy:.1f} idle_share={1 - busy / wall:.3f} "
@@ -2595,11 +3008,11 @@ def main() -> int:
     sync_budget_phase(dev, g, gt)
     log(f"# phase 13: done in {time.perf_counter() - t0:.1f} s")
     ops.reset_launches()
-    reference_phase(dev)
+    obs_methods = reference_phase(dev)
     log(f"# phase 4: launches in phase 2 (BENCH_trim.json sizes): "
         f"{dict(ops.LAUNCHES)}")
     ops.reset_launches()
-    real_phase(dev, g, gt)
+    trims = real_phase(dev, g, gt)
     trim_launches = dict(ops.LAUNCHES)
     log(f"# phase 4: launches in phase 3 (the real-size trimming path): "
         f"{trim_launches}")
@@ -2608,7 +3021,7 @@ def main() -> int:
               f"{name} was never launched on the trimming path")
     scc_peel_reference_phase(dev)
     ops.reset_launches()
-    scc_peel_real_phase(dev, g, gt)
+    real6 = scc_peel_real_phase(dev, g, gt)
     scc_launches = dict(ops.LAUNCHES)
     log(f"# phase 6: launches in phase 6 (the real-size SCC / reach / peel "
         f"path): {scc_launches}")
@@ -2617,13 +3030,24 @@ def main() -> int:
               f"{name} was never launched on the SCC / reach / peel path")
     stream_reference_phase(dev)
     ops.reset_launches()
-    stream, feed = stream_real_phase(dev, g)
+    stream, feed, ticks = stream_real_phase(dev, g)
     stream_launches = dict(ops.LAUNCHES)
     log(f"# phase 9: launches in phase 9 (the real-size stream path): "
         f"{stream_launches}")
     for name in STREAM_PATH:
         check(stream_launches[name] > 0,
               f"{name} was never launched on the stream path")
+    t0 = time.perf_counter()
+    obs_reference_phase(dev, obs_methods)
+    ops.reset_launches()
+    obs_real_phase(dev, g, gt, trims, real6, ticks)
+    obs_launches = dict(ops.LAUNCHES)
+    log(f"# phase 14: launches in (b)-(e) (instrumented real-size paths): "
+        f"{obs_launches}; done in {time.perf_counter() - t0:.1f} s")
+    for name in TRIM_PATH + SCC_PEEL_PATH + STREAM_PATH:
+        check(obs_launches[name] > 0,
+              f"{name} was never launched on an instrumented path")
+    del trims, real6, obs_methods, ticks
     cli_phase()
     lm, serve_launches = serve_phase(dev)
     for name in SERVE_PATH:

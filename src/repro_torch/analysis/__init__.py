@@ -10,7 +10,8 @@ the counterpart of ``src/repro/analysis/``.
 * **host-sync discipline** (``analysis.syncs``): every fixpoint plan
   syncs with the host no more than its declared budget (rounds + probe
   micro-steps + a constant), copies nothing to the card inside its round
-  loop, and takes no 64-bit arrays;
+  loop, takes no 64-bit arrays, and is inert to ``max_rounds`` unless
+  instrumented (then it attaches stats);
 * **stable plans** (``analysis.retrace``): canonical, hashable plan
   kwargs and signatures, one library per kernel source, int32 generator
   edges.
@@ -23,19 +24,20 @@ from .capture import capture_kernel, captured_launches
 from .catalog import (KERNEL_CATALOG, LAUNCH_DECLARATIONS, PLAN_CATALOG,
                       KernelEntry, LaunchDecl, OutputDecl, PlanEntry)
 from .findings import Finding, Report
-from .mutants import MUTANT_KERNELS, MUTANT_PLANS, MUTANTS_WAITING
+from .mutants import MUTANT_KERNELS, MUTANT_PLANS
 from .races import check_races
 from .retrace import (check_generator_dtypes, check_rebuilds,
                       check_retrace_risk)
-from .syncs import check_host_dtypes, check_plan_syncs
+from .syncs import (check_host_dtypes, check_instrument_diff,
+                    check_plan_syncs)
 
 __all__ = [
     "capture_kernel", "captured_launches",
     "KERNEL_CATALOG", "LAUNCH_DECLARATIONS", "PLAN_CATALOG",
     "KernelEntry", "LaunchDecl", "OutputDecl", "PlanEntry",
     "Finding", "Report",
-    "MUTANT_KERNELS", "MUTANT_PLANS", "MUTANTS_WAITING",
+    "MUTANT_KERNELS", "MUTANT_PLANS",
     "check_races",
     "check_generator_dtypes", "check_rebuilds", "check_retrace_risk",
-    "check_host_dtypes", "check_plan_syncs",
+    "check_host_dtypes", "check_instrument_diff", "check_plan_syncs",
 ]

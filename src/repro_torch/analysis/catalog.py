@@ -39,10 +39,10 @@ is an error (``unregistered-kernel``).
 
 **Plans.**  ``PLAN_CATALOG`` holds the reference's 23 ``family/variant``
 runner configurations (``src/repro/analysis/catalog.py``).  Each
-``build()`` plans the port's engine on a tiny CPU graph, warms it (its
-caches built), and returns ``(thunk, arrays)``: one call of the thunk is
-one run to the fixpoint, and ``arrays`` are the graph arrays handed to the
-plan.  Each entry states its host-sync budget: ``per_round`` syncs a
+``build(instrument=False, max_rounds=None)`` plans the port's engine on a
+tiny CPU graph, warms it (its caches built), and returns ``(thunk,
+arrays)``: one call of the thunk is one run to the fixpoint, and
+``arrays`` are the graph arrays handed to the plan.  Each entry states its host-sync budget: ``per_round`` syncs a
 round plus the probe loops' tests plus ``constant`` (``analysis.syncs``).
 """
 from __future__ import annotations
@@ -56,13 +56,15 @@ from .capture import capture_kernel
 
 # Pinned plan shapes: small enough to run every variant in well under a
 # second, large enough that the sparse rounds, the window overflow and
-# several peel buckets occur.
+# several peel buckets occur.  PLAN_MAX_ROUNDS: the round capacity the
+# instrument checks plan with (the reference's).
 PLAN_N = 64
 PLAN_M = 256
 PLAN_WORKERS = 4
 PLAN_WINDOW = 16
 PLAN_UPDATE_W = 8
 PLAN_INS_CAP = 64
+PLAN_MAX_ROUNDS = 64
 
 #: csrc/flash_attention.cu: q rows per block of flash_fwd (TQ) and of
 #: flash_fwd_wgmma (WG_ROWS)
@@ -483,8 +485,9 @@ KERNEL_CATALOG: tuple[KernelEntry, ...] = (
 class PlanEntry:
     """One (family x method x probe x frontier) runner configuration.
 
-    build() returns ``(thunk, arrays)``: the warmed engine's run to the
-    fixpoint (its result has ``rounds``) and the arrays handed to it.
+    build(instrument=False, max_rounds=None) returns ``(thunk, arrays)``:
+    the warmed engine's run to the fixpoint (its result has ``rounds``,
+    and ``round_stats`` when instrumented) and the arrays handed to it.
     Host-sync budget of one thunk call: ``per_round * rounds`` + the probe
     loops' tests + ``constant``.
     """
@@ -535,22 +538,24 @@ def _arrays(engine):
 
 
 def _build_trim(method: str, probe: str, fmode: str):
-    def build():
+    def build(instrument=False, max_rounds=None):
         from ..core.engine import plan
         eng = plan(plan_graph(), method=method, backend=probe,
                    workers=PLAN_WORKERS, window=PLAN_WINDOW,
-                   frontier=fmode, device="cpu")
+                   frontier=fmode, instrument=instrument,
+                   max_rounds=max_rounds, device="cpu")
         eng.run()
         return eng.run, _arrays(eng)
     return build
 
 
 def _build_reach(method: str, fmode: str, overflow: bool):
-    def build():
+    def build(instrument=False, max_rounds=None):
         from ..core.reach import plan_reach
         g = plan_graph("rmat" if overflow or method == "push" else "er")
         eng = plan_reach(g, backend="windowed" if method == "pull"
                          else "dense", window=PLAN_WINDOW, frontier=fmode,
+                         instrument=instrument, max_rounds=max_rounds,
                          device="cpu")
         eng.run(seeds=0)
         if method == "pull" and eng._overflow != overflow:
@@ -561,21 +566,23 @@ def _build_reach(method: str, fmode: str, overflow: bool):
 
 
 def _build_peel(k_stop, fmode: str):
-    def build():
+    def build(instrument=False, max_rounds=None):
         from ..core.peel import plan_peel
-        eng = plan_peel(plan_graph(), frontier=fmode, device="cpu")
+        eng = plan_peel(plan_graph(), frontier=fmode, instrument=instrument,
+                        max_rounds=max_rounds, device="cpu")
         eng.run(k=k_stop)
         return (lambda: eng.run(k=k_stop)), _arrays(eng)
     return build
 
 
 def _build_stream(full: bool, revivable: bool, fmode: str):
-    def build():
+    def build(instrument=False, max_rounds=None):
         import numpy as np
 
         from ..core.stream import plan_stream
         g = plan_graph()
-        eng = plan_stream(g, capacity=PLAN_INS_CAP, frontier=fmode)
+        eng = plan_stream(g, capacity=PLAN_INS_CAP, frontier=fmode,
+                          instrument=instrument, max_rounds=max_rounds)
         if full:
             return (lambda: eng.retrim(full=True)), _arrays(eng)
         src, dst = eng.delta._src_np, eng.delta._dst_np

@@ -23,9 +23,11 @@ card).  The well-formed geometry is the real kernel, whose block owns
 aligned), and its capture must come out clean (``MUTANT_CONTROLS``).
 
 **The rest of the corpus, mapped:** the reference's jaxpr mutants become
-plans whose host syncs break the budget (``analysis.syncs``); the probe
-and generator mutants are the reference's.  ``max-rounds-leak`` and
-``instrument-without-stats`` wait for ROADMAP A7 (``MUTANTS_WAITING``).
+plans whose host syncs break the budget (``analysis.syncs``), and its
+two instrument mutants plans whose un-instrumented run depends on
+``max_rounds`` (``max-rounds-leak``) or whose instrumented result has no
+stats (``instrument-without-stats``); the probe and generator mutants
+are the reference's.
 """
 from __future__ import annotations
 
@@ -133,12 +135,13 @@ MUTANT_CONTROLS: tuple[tuple[str, Callable], ...] = (
 @dataclass
 class MutantPlan:
     """A plan in ``PlanEntry``'s shape whose budget is one sync a round
-    plus the final loop test."""
+    plus the final loop test.  ``build(instrument=False,
+    max_rounds=None)``."""
 
     name: str
     expect: str
-    build: Callable[[], tuple]
-    check: str = "syncs"  # syncs | host_dtypes
+    build: Callable[..., tuple]
+    check: str = "syncs"  # syncs | host_dtypes | instrument
     constant: int = 1
     per_round: int = 1
 
@@ -163,29 +166,52 @@ def _countdown(body):
     return thunk, ()
 
 
-def _build_extra_read_plan():
+def _build_extra_read_plan(instrument=False, max_rounds=None):
     def body(c):
         int(c.sum())            # BUG under test: a second read a round
         return c - 1
     return _countdown(body)
 
 
-def _build_transfer_plan():
+def _build_transfer_plan(instrument=False, max_rounds=None):
     def body(c):
         return c - torch.tensor(1, dtype=torch.int32)  # a per-round copy
     return _countdown(body)
 
 
-def _build_raising_plan():
+def _build_raising_plan(instrument=False, max_rounds=None):
     def body(c):
         return c - int(c)       # a multi-element tensor has no int: raises
     return _countdown(body)
 
 
-def _build_int64_plan():
+def _build_int64_plan(instrument=False, max_rounds=None):
     thunk, _ = _countdown(lambda c: c - 1)
     # a 64-bit array handed to a plan whose graph fits int32
     return thunk, (torch.zeros(8, dtype=torch.int64),)
+
+
+class _Stats:
+    """A result whose ``round_stats`` says whether stats were recorded."""
+
+    def __init__(self, rounds, round_stats):
+        self.rounds = rounds
+        self.round_stats = round_stats
+
+
+def _build_leaky_instrument_plan(instrument=False, max_rounds=None):
+    def body(c):
+        if max_rounds:          # BUG under test: max_rounds leaks into
+            int(c.max())        # the un-instrumented run
+        return c - 1
+    thunk, arrays = _countdown(body)
+    return (lambda: _Stats(thunk(), {} if instrument else None)), arrays
+
+
+def _build_statless_instrument_plan(instrument=False, max_rounds=None):
+    thunk, arrays = _countdown(lambda c: c - 1)
+    # BUG under test: instrument=True records no stats
+    return (lambda: _Stats(thunk(), None)), arrays
 
 
 MUTANT_PLANS: tuple[MutantPlan, ...] = (
@@ -196,12 +222,11 @@ MUTANT_PLANS: tuple[MutantPlan, ...] = (
     MutantPlan("device-get-in-body", "plan-failure", _build_raising_plan),
     MutantPlan("int64-host-arg", "host-wide-dtype", _build_int64_plan,
                check="host_dtypes"),
+    MutantPlan("max-rounds-leak", "instrument-not-inert",
+               _build_leaky_instrument_plan, check="instrument"),
+    MutantPlan("instrument-without-stats", "instrument-missing-stats",
+               _build_statless_instrument_plan, check="instrument"),
 )
-
-#: reference mutants that wait for a ROADMAP item: instrument=True raises
-#: until the stats plane is ported
-MUTANTS_WAITING = {"max-rounds-leak": "A7",
-                   "instrument-without-stats": "A7"}
 
 
 # -- mutant retrace probes & generators --------------------------------------
@@ -290,7 +315,7 @@ def verify_mutants() -> list[dict]:
     Returns one record per mutant run: ``{name, expect, caught,
     findings}``.  ``caught`` is True iff a finding with the expected
     checker name fired for that mutant — any mutant surviving its checker
-    is a hole in the analysis plane.  ``MUTANTS_WAITING`` are not run.
+    is a hole in the analysis plane.
     """
     from . import races, retrace, syncs
     from .catalog import LAUNCH_DECLARATIONS
@@ -313,10 +338,11 @@ def verify_mutants() -> list[dict]:
                                     str(e)))
         record(mk.name, mk.expect, findings)
 
+    checks = {"syncs": syncs.check_plan_syncs,
+              "host_dtypes": syncs.check_host_dtypes,
+              "instrument": syncs.check_instrument_diff}
     for mp in MUTANT_PLANS:
-        check = (syncs.check_plan_syncs if mp.check == "syncs"
-                 else syncs.check_host_dtypes)
-        findings, _ = check([mp])
+        findings, _ = checks[mp.check]([mp])
         record(mp.name, mp.expect, findings)
 
     for pr in MUTANT_PROBES:

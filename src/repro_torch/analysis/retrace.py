@@ -3,7 +3,7 @@ counterpart of ``src/repro/analysis/retrace.py``.
 
 Every engine's ``_plan_kwargs()`` and ``plan_signature()`` are the static
 configuration a checkpoint rebuilds an engine from (ROADMAP A8) and a
-metrics label keys on (A7).  A kwarg that is unhashable, non-canonical (a
+metrics label keys on (``obs.metrics``).  A kwarg that is unhashable, non-canonical (a
 numpy scalar instead of a Python int) or ``NaN`` (``NaN != NaN``, so no
 two plans ever compare equal) makes every replan a new configuration.
 Under jit that is a retrace storm; PyTorch traces nothing, so the lint
@@ -23,13 +23,10 @@ import math
 
 import numpy as np
 
+from ..obs.metrics import RETRACE_STORM_THRESHOLD
 from .findings import Finding
 
 CANONICAL_KWARG_TYPES = (bool, int, float, str, type(None))
-#: compiles of one plan signature that the reference's MetricsPlane calls
-#: a retrace storm (``src/repro/obs/metrics.py``); the port's copy until
-#: its own metrics plane (ROADMAP A7)
-RETRACE_STORM_THRESHOLD = 8
 
 # Tiny parameterizations per benchmark family — structure-preserving,
 # milliseconds to build.  A family present in BENCHMARK_GRAPHS but not
@@ -80,9 +77,7 @@ def _tiny_graph():
 
 
 def _engine_probes():
-    """(family, factory) pairs building one engine each on a tiny graph.
-    The reference's ``trim-instrumented`` probe waits for ROADMAP A7
-    (``instrument=True`` raises)."""
+    """(family, factory) pairs building one engine each on a tiny graph."""
     from ..core.engine import plan
     from ..core.peel import plan_peel
     from ..core.reach import plan_reach
@@ -91,6 +86,9 @@ def _engine_probes():
     return (
         ("trim", lambda: plan(g, method="ac6", backend="dense", workers=2,
                               device="cpu")),
+        ("trim-instrumented",
+         lambda: plan(g, method="ac4", backend="dense", instrument=True,
+                      device="cpu")),
         ("reach", lambda: plan_reach(g, device="cpu")),
         ("peel", lambda: plan_peel(g, device="cpu")),
         ("stream", lambda: plan_stream(g)),

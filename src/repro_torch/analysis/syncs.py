@@ -34,12 +34,14 @@ no fixpoint has one.
   began (after the first host read, before the last);
 * ``host-wide-dtype``: a graph array handed to a plan is 64-bit (the
   plans' graphs fit int32; the counterpart of ``check_host_dtypes``);
-* ``plan-failure``: a plan that raises.
-
-**Not ported yet:** the reference's ``check_instrument_diff`` and its two
-mutants (``max-rounds-leak``, ``instrument-without-stats``) wait for
-ROADMAP A7, because ``instrument=True`` raises today
-(``core/engine.py``).
+* ``plan-failure``: a plan that raises;
+* ``instrument-not-inert`` (:func:`check_instrument_diff`, the twin of
+  the reference's jaxpr diff): with ``instrument=False`` a plan's run at
+  ``max_rounds`` 0 and at ``PLAN_MAX_ROUNDS`` must make the same host
+  syncs in the same order and the same kernel wrapper calls (each a
+  launch record on a card) with the same argument shapes and dtypes;
+* ``instrument-missing-stats``: with ``instrument=True`` a plan's result
+  must carry ``round_stats``.
 """
 from __future__ import annotations
 
@@ -170,6 +172,62 @@ def check_plan_syncs(entries) -> tuple[list, int]:
                 "host-transfer-in-loop", "error", subject,
                 f"{moved} host-to-device copies inside the round loop: "
                 f"each one waits for the card"))
+    return findings, subjects
+
+
+def _call_record(calls) -> list:
+    """Kernel wrapper calls as ``(kernel, args)`` with each tensor
+    argument reduced to its shape and dtype."""
+    def arg(a):
+        if isinstance(a, torch.Tensor):
+            return ("tensor", tuple(a.shape), str(a.dtype))
+        return a
+    return [(k, tuple(arg(a) for a in args)) for k, args, _ in calls]
+
+
+def instrument_trace(entry, instrument: bool, max_rounds):
+    """One warmed run of ``entry`` planned with ``instrument`` and
+    ``max_rounds``: ``(result, sync events, kernel calls)``."""
+    from ..obs.profile import capturing
+    thunk, _ = entry.build(instrument=instrument, max_rounds=max_rounds)
+    with capturing() as calls:
+        with SyncCounter() as counter:
+            result = thunk()
+    return result, counter.events, _call_record(calls)
+
+
+def check_instrument_diff(entries) -> tuple[list, int]:
+    """``instrument=False`` must be inert to ``max_rounds``: the same
+    syncs and the same kernel calls at 0 and ``PLAN_MAX_ROUNDS``;
+    ``instrument=True`` must attach stats to the result."""
+    from .catalog import PLAN_MAX_ROUNDS
+    findings: list[Finding] = []
+    subjects = 0
+    for entry in entries:
+        subject = f"plan:{entry.name}"
+        subjects += 1
+        try:
+            _, ev0, calls0 = instrument_trace(entry, False, 0)
+            _, ev1, calls1 = instrument_trace(entry, False, PLAN_MAX_ROUNDS)
+            inst, _, _ = instrument_trace(entry, True, PLAN_MAX_ROUNDS)
+        except Exception as e:
+            findings.append(Finding(
+                "plan-failure", "error", subject,
+                f"the instrument diff's runs raised {type(e).__name__}: "
+                f"{str(e).splitlines()[0][:200] if str(e) else ''}"))
+            continue
+        if ev0 != ev1 or calls0 != calls1:
+            findings.append(Finding(
+                "instrument-not-inert", "error", subject,
+                f"instrument=False differs between max_rounds=0 and "
+                f"max_rounds={PLAN_MAX_ROUNDS}: {len(ev0)} vs {len(ev1)} "
+                f"host syncs, {len(calls0)} vs {len(calls1)} kernel calls "
+                f"— the stat capacity leaks into the un-instrumented plan"))
+        if getattr(inst, "round_stats", None) is None:
+            findings.append(Finding(
+                "instrument-missing-stats", "error", subject,
+                "instrument=True returned no round_stats — the plan "
+                "records no per-round stats"))
     return findings, subjects
 
 

@@ -9,7 +9,10 @@ fixpoint), work O(α(n+m)), space O(n).
 
 The round loop is driven from the host: one sync per round (the
 ``change`` test, after the round's work and counters are enqueued) plus
-the probe's syncs (one per micro-step, see ``common.py``).
+the probe's syncs (one per micro-step, see ``common.py``).  An
+instrumented run reads the round's death count instead of ``any()`` for
+that test, so ``r_frontier`` comes to the host with it; ``r_edges`` (the
+probe sum) stays on the card until the run ends.
 """
 from __future__ import annotations
 
@@ -21,9 +24,13 @@ from .registry import KernelSpec, register_kernel
 
 def ac3_kernel(indptr, indices, worker_ids, workers: int, active=None, *,
                probe: str = "dense", window: int = 16,
-               counters: bool = True):
+               counters: bool = True, stats=None):
     """``active``: optional (n,) bool — trim the induced subgraph (vertices
     outside are treated as already DEAD).
+
+    ``stats``: a :class:`~repro_torch.obs.RoundBuffers` over
+    ``("r_frontier", "r_edges")`` that each round records into (deaths and
+    probed edges), or ``None``.
 
     Returns ``(status, rounds, per_worker, max_qp)``: rounds and max_qp
     0-d int32, per_worker (workers,) int32; the counter slots are ``None``
@@ -50,18 +57,25 @@ def ac3_kernel(indptr, indices, worker_ids, workers: int, active=None, *,
             max_qp = torch.maximum(
                 max_qp, worker_counts(frontier, worker_ids, workers).max())
         status = status & found
-        change = bool(frontier.any())                # host sync: loop test
+        if stats is None:
+            change = bool(frontier.any())            # host sync: loop test
+        else:
+            dead = int(frontier.sum())               # host sync: loop test
+            stats.record(rounds, r_frontier=dead,
+                         r_edges=probes.sum(dtype=torch.int32))
+            change = dead > 0
         rounds += 1
     return (status, torch.tensor(rounds, dtype=torch.int32, device=dev),
             pw if counters else None, max_qp if counters else None)
 
 
 def _run_ac3(graph_arrays, transpose_arrays, worker_ids, workers, active, *,
-             probe, window, counters, frontier=None):
+             probe, window, counters, frontier=None, stats=None):
     del transpose_arrays, frontier  # AC-3 re-checks every live vertex
     indptr, indices = graph_arrays
     return ac3_kernel(indptr, indices, worker_ids, workers, active=active,
-                      probe=probe, window=window, counters=counters)
+                      probe=probe, window=window, counters=counters,
+                      stats=stats)
 
 
 register_kernel(KernelSpec(

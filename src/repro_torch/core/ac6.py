@@ -20,7 +20,9 @@ dense round, counters included.
 The round loop is driven from the host: one sync per round (the number
 of affected chunks, which is both the loop test and the dense/sparse
 choice; the plain ``affected.any()`` when dense) plus the probe's syncs.
-``ptr`` and the carried support are updated in place.
+``ptr`` and the carried support are updated in place.  An instrumented
+run keeps each round's death count and probe sum on the card
+(``r_sparse`` is the host's own choice).
 """
 from __future__ import annotations
 
@@ -36,12 +38,16 @@ CHUNK = 64  # chunked-frontier granularity
 
 def ac6_kernel(indptr, indices, worker_ids, workers: int, active=None, *,
                probe: str = "dense", window: int = 16, counters: bool = True,
-               frontier: FrontierPlan = FrontierPlan()):
+               frontier: FrontierPlan = FrontierPlan(), stats=None):
     """``active``: optional (n,) bool — trim the induced subgraph.
 
     ``probe``/``window`` select the scan (``common.resolve_probe``);
     ``counters=False`` skips the per-worker counters and returns ``None``
-    in their slots.  Returns ``(status, rounds, per_worker, max_qp)``.
+    in their slots.  ``stats``: a :class:`~repro_torch.obs.RoundBuffers`
+    over ``r_frontier``, ``r_edges`` (and ``r_sparse`` with a non-dense
+    plan) that each round records into, or ``None``; ``r_edges`` is the
+    round's probe sum whether or not ``counters`` is on.  Returns
+    ``(status, rounds, per_worker, max_qp)``.
     """
     n = indptr.shape[0] - 1
     m = indices.shape[0]
@@ -93,7 +99,7 @@ def ac6_kernel(indptr, indices, worker_ids, workers: int, active=None, *,
         supp[:] = indices[(row_base + ptr).clamp_(0, last)]
         pw_delta = (per_worker_add(zero_pw, probes, worker_ids, workers)
                     if counters else zero_pw)
-        return new_status, pw_delta
+        return new_status, pw_delta, probes
 
     def sparse_round(aff, chmask, nch):
         # compact the chunk set (rank search over the (K,) chunk mask),
@@ -128,7 +134,7 @@ def ac6_kernel(indptr, indices, worker_ids, workers: int, active=None, *,
         new_status[sel] = (st2[rowc] & ~(scan2 & ~found2))[:nch]
         pw_delta = (segment_sum(probes, wk2[rowc].reshape(-1), workers)
                     if counters else zero_pw)
-        return new_status.view(-1), pw_delta
+        return new_status.view(-1), pw_delta, probes
 
     while True:
         if sparse:
@@ -137,14 +143,21 @@ def ac6_kernel(indptr, indices, worker_ids, workers: int, active=None, *,
             if nch == 0:
                 break
             if nch <= Cc:
-                new_status, pw_delta = sparse_round(affected, chmask, nch)
+                new_status, pw_delta, probes = sparse_round(affected, chmask,
+                                                            nch)
             else:
-                new_status, pw_delta = dense_round(affected)
+                new_status, pw_delta, probes = dense_round(affected)
         else:
             if not bool(affected.any()):      # host sync: loop test
                 break
-            new_status, pw_delta = dense_round(affected)
+            new_status, pw_delta, probes = dense_round(affected)
         frontier_ = status & ~new_status      # newly dead this round
+        if stats is not None:
+            vals = dict(r_frontier=frontier_.sum(dtype=torch.int32),
+                        r_edges=probes.sum(dtype=torch.int32))
+            if sparse:
+                vals["r_sparse"] = int(nch <= Cc)
+            stats.record(rounds, **vals)
         # lazy supporting-set inversion: whose support died?
         affected = new_status & ~new_status[supp] & has_deg
         rounds += 1
@@ -158,12 +171,12 @@ def ac6_kernel(indptr, indices, worker_ids, workers: int, active=None, *,
 
 
 def _run_ac6(graph_arrays, transpose_arrays, worker_ids, workers, active, *,
-             probe, window, counters, frontier=FrontierPlan()):
+             probe, window, counters, frontier=FrontierPlan(), stats=None):
     del transpose_arrays
     indptr, indices = graph_arrays
     return ac6_kernel(indptr, indices, worker_ids, workers, active=active,
                       probe=probe, window=window, counters=counters,
-                      frontier=frontier)
+                      frontier=frontier, stats=stats)
 
 
 register_kernel(KernelSpec(

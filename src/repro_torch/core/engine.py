@@ -29,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import obs
 from . import ac3 as _ac3  # noqa: F401  (imports register the kernels)
 from . import ac4 as _ac4  # noqa: F401
 from . import ac6 as _ac6  # noqa: F401
@@ -44,7 +45,7 @@ def plan(graph: CSRGraph, method: str = "ac6", backend: str = "dense", *,
          workers: int = 1, chunk: int = 4096, window: int = 16,
          transpose: CSRGraph | None = None, unmasked: bool = False,
          frontier: str = "auto", instrument: bool = False,
-         device="cuda") -> "TrimEngine":
+         max_rounds: int | None = None, device="cuda") -> "TrimEngine":
     """Build a :class:`TrimEngine` for ``graph`` on ``device`` (the graph
     and a pre-seeded ``transpose`` are moved there if they lie elsewhere;
     a missing CUDA device raises).
@@ -57,13 +58,20 @@ def plan(graph: CSRGraph, method: str = "ac6", backend: str = "dense", *,
     to dense and rejects ``"sparse"``.
 
     ``unmasked=True`` declares that ``run`` is never given an ``active``
-    mask.  ``instrument=True`` (per-round stats) and ``backend="sharded"``
-    are not ported yet and raise :class:`NotImplementedError`.
+    mask.  ``instrument=True`` (DESIGN.md §11) attaches a
+    :class:`~repro_torch.obs.RoundStats` to every result
+    (``result.round_stats``): per-round buffers of ``max_rounds`` slots
+    (pow2-padded; default ``obs.round_capacity(n)``), the tail of a longer
+    run folded into the last slot.  It adds no host sync.
+    ``instrument=False`` ignores ``max_rounds`` and records nothing.
+    ``backend="sharded"`` is not ported yet and raises
+    :class:`NotImplementedError`.
     """
     return TrimEngine(graph, method=method, backend=backend, workers=workers,
                       chunk=chunk, window=window, transpose=transpose,
                       unmasked=unmasked, frontier=frontier,
-                      instrument=instrument, device=device)
+                      instrument=instrument, max_rounds=max_rounds,
+                      device=device)
 
 
 def _to(graph: CSRGraph | None, dev: torch.device):
@@ -77,7 +85,7 @@ class TrimEngine(EngineBase):
 
     def __init__(self, graph, *, method, backend, workers, chunk, window,
                  transpose, unmasked=False, frontier="auto",
-                 instrument=False, device="cuda"):
+                 instrument=False, max_rounds=None, device="cuda"):
         self.spec = get_kernel(method)   # raises on unknown method
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; expected one of "
@@ -86,10 +94,6 @@ class TrimEngine(EngineBase):
             raise NotImplementedError(
                 "backend='sharded' (torch.distributed) is not ported yet: "
                 "ROADMAP A6")
-        if instrument:
-            raise NotImplementedError(
-                "instrument=True (per-round stats) is not ported yet: "
-                "ROADMAP A7")
         if frontier == "sparse" and not self.spec.supports_frontier:
             raise ValueError(
                 f"method {method!r} has no sparse-frontier formulation "
@@ -107,6 +111,7 @@ class TrimEngine(EngineBase):
         self.window = window
         self.unmasked = unmasked
         self.fplan = frontier_plan(frontier, graph.n, graph.m)
+        self._plan_stats(instrument, max_rounds, graph.n)
         self._tarrs = None
         self._worker_ids = None
 
@@ -116,18 +121,28 @@ class TrimEngine(EngineBase):
                f"(n={self.graph.n},m={self.graph.m},w={self.workers})")
         if self.fplan.mode != "dense":
             sig += f"+frontier[{self.fplan.mode}]"
-        return sig
+        return sig + "+stats" if self.instrument else sig
 
     def _plan_kwargs(self):
         """The reference's plan kwargs without ``use_kernel`` (the device
         is the port's only switch); ``packed`` is the sharded backend's
-        (ROADMAP A6) and ``instrument`` / ``max_rounds`` the stats' (A7),
-        so they keep their defaults."""
+        (ROADMAP A6), so it keeps its default."""
         return {"method": self.method, "backend": self.backend,
                 "workers": self.workers, "chunk": self.chunk,
                 "window": self.window, "packed": False,
                 "unmasked": self.unmasked, "frontier": self.fplan.mode,
-                "instrument": False, "max_rounds": None}
+                "instrument": self.instrument,
+                "max_rounds": self.max_rounds if self.instrument else None}
+
+    def nbytes_breakdown(self):
+        # _tarrs[0:2] alias the cached transpose (already accounted by the
+        # base); the row ids and the worker map are new bytes
+        out = super().nbytes_breakdown()
+        if self._tarrs is not None:
+            out["row_ids"] = obs.array_nbytes(self._tarrs[2])
+        if self._worker_ids is not None:
+            out["worker_ids"] = obs.array_nbytes(self._worker_ids)
+        return out
 
     # -- cached resources --------------------------------------------------
     def _transpose_arrays(self):
@@ -160,11 +175,23 @@ class TrimEngine(EngineBase):
         return ("windowed" if self.backend == "windowed"
                 and self.spec.supports_windowed else "dense")
 
-    def _fixpoint(self, active, counters):
+    def _stat_names(self):
+        """The stat buffers this plan's fixpoint records: counter methods
+        also track decrements; non-dense frontier plans record which
+        rounds took the compacted body."""
+        names = (("r_frontier", "r_edges", "r_decrements")
+                 if self.method.startswith("ac4")
+                 else ("r_frontier", "r_edges"))
+        if self.fplan.mode != "dense":
+            names = names + ("r_sparse",)
+        return names
+
+    def _fixpoint(self, active, counters, stats=None):
         return self.spec.run(
             (self.graph.indptr, self.graph.indices), self._transpose_arrays(),
             self._ids(), self.workers, active, probe=self._probe_kind(),
-            window=self.window, counters=counters, frontier=self.fplan)
+            window=self.window, counters=counters, frontier=self.fplan,
+            stats=stats)
 
     # -- execution ---------------------------------------------------------
     def run(self, active=None, counters: bool = True) -> TrimResult:
@@ -183,22 +210,28 @@ class TrimEngine(EngineBase):
             return self._degenerate(act, counters)
         if act is None:
             act = torch.ones((n,), dtype=torch.bool, device=self.device)
+        bufs = self._buffers()
         status, rounds, pw, max_qp = self._dispatch(
-            self._fixpoint, act, counters)
+            self._fixpoint, act, counters, bufs)
+        rs = self._wrap_stats(rounds, bufs and bufs.finish(), per_worker=pw)
         return TrimResult(status=status.to(torch.int32), rounds=rounds,
-                          max_frontier=max_qp, per_worker_edges=pw)
+                          max_frontier=max_qp, per_worker_edges=pw,
+                          round_stats=rs)
 
     def run_batch_stacked(self, active_masks, counters: bool = True):
         """Trim B induced subgraphs in one counted dispatch, returning the
         stacked device arrays ``(status, per_worker_edges, rounds,
         max_frontier, round_stats)``: (B, n) int32, (B, P) int32, (B,)
         int32, (B,) int32 — the counter entries ``None`` with
-        ``counters=False`` — and ``round_stats`` always ``None`` (per-round
-        stats are ROADMAP A7).
+        ``counters=False`` — and ``round_stats`` ``None`` unless the plan
+        is instrumented, then one :class:`~repro_torch.obs.RoundStats` of
+        (B, R) buffers (the reference returns the raw buffer dict).
 
         The B rows run one after another inside the dispatch, each with
         the plan's frontier (the reference vmaps them and pins the dense
-        rounds; the results are identical either way).
+        rounds; the results are identical either way, and so are the
+        stats but for ``r_sparse``, which records the rounds these rows
+        compacted).
         """
         n, m = self.graph.n, self.graph.m
         masks = self._mask(active_masks)
@@ -210,18 +243,23 @@ class TrimEngine(EngineBase):
         if n == 0 or m == 0:
             # rows follow _degenerate's conventions: no dispatch, rounds =
             # 0 (empty) / 2 (edgeless: kill + confirm)
-            return (torch.zeros((b, n), **i32),
-                    torch.zeros((b, self.workers), **i32)
-                    if counters else None,
-                    torch.full((b,), 0 if n == 0 else 2, **i32),
+            pw = torch.zeros((b, self.workers), **i32) if counters else None
+            rounds = torch.full((b,), 0 if n == 0 else 2, **i32)
+            rs = (obs.RoundStats(rounds, self._degenerate_stats(masks),
+                                 per_worker=pw, max_rounds=self.max_rounds)
+                  if self.instrument else None)
+            return (torch.zeros((b, n), **i32), pw, rounds,
                     masks.sum(dim=1, dtype=torch.int32) if counters else None,
-                    None)
+                    rs)
 
         def stack(xs, shape):
             return torch.stack(xs) if xs else torch.zeros(shape, **i32)
 
+        bufs = [self._buffers() for _ in range(b)]
+
         def batch():
-            rows = [self._fixpoint(masks[i], counters) for i in range(b)]
+            rows = [self._fixpoint(masks[i], counters, bufs[i])
+                    for i in range(b)]
             status = stack([r[0].to(torch.int32) for r in rows], (0, n))
             rounds = stack([r[1] for r in rows], (0,))
             if not counters:
@@ -230,42 +268,67 @@ class TrimEngine(EngineBase):
                     rounds, stack([r[3] for r in rows], (0,)))
 
         status, pw, rounds, max_qp = self._dispatch(batch)
-        return status, pw, rounds, max_qp, None
+        rs = self._wrap_stats(rounds, self._finish_rows(bufs), per_worker=pw)
+        return status, pw, rounds, max_qp, rs
 
     def run_batch(self, active_masks, counters: bool = True):
         """Trim B induced subgraphs in one counted dispatch; a list of B
         device-resident :class:`TrimResult`, equal element-wise to
         sequential ``run()`` calls (counters included)."""
-        status, pw, rounds, max_qp, _ = self.run_batch_stacked(
+        status, pw, rounds, max_qp, rs = self.run_batch_stacked(
             active_masks, counters=counters)
         return [TrimResult(status=status[i], rounds=rounds[i],
                            max_frontier=None if max_qp is None else max_qp[i],
-                           per_worker_edges=None if pw is None else pw[i])
+                           per_worker_edges=None if pw is None else pw[i],
+                           round_stats=None if rs is None else rs.row(i))
                 for i in range(status.shape[0])]
 
     # -- degenerate paths (no dispatch, still device-resident) -------------
+    def _degenerate_stats(self, masks):
+        """Round stats for the no-dispatch paths: every active vertex dies
+        in the first processed round (slot 0), zero edges traversed.
+        ``masks`` is (n,) or (B, n) bool; buffers come back (R,)/(B, R)."""
+        deaths = masks.sum(dim=-1, dtype=torch.int32)[..., None]
+        frontier = torch.nn.functional.pad(deaths, (0, self.max_rounds - 1))
+        zeros = torch.zeros_like(frontier)
+        return {name: (frontier if name == "r_frontier" else zeros)
+                for name in self._stat_names()}
+
     def _degenerate(self, act, counters):
         """n == 0 or m == 0: the fixpoint is immediate, so no kernel runs;
         the result has the kernel path's dtypes and device."""
         n = self.graph.n
         i32 = dict(dtype=torch.int32, device=self.device)
         pw = torch.zeros((self.workers,), **i32) if counters else None
+
+        def stats_for(mask, rounds):
+            if not self.instrument:
+                return None
+            return obs.RoundStats(rounds, self._degenerate_stats(mask),
+                                  per_worker=pw, max_rounds=self.max_rounds)
+
         if n == 0:
+            rounds = torch.zeros((), **i32)
             return TrimResult(status=torch.zeros((0,), **i32),
-                              rounds=torch.zeros((), **i32),
+                              rounds=rounds,
                               max_frontier=(torch.zeros((), **i32)
                                             if counters else None),
-                              per_worker_edges=pw)
+                              per_worker_edges=pw,
+                              round_stats=stats_for(torch.zeros(
+                                  (0,), dtype=torch.bool,
+                                  device=self.device), rounds))
         # no edges: every (active) vertex is a sink and dies in round one;
         # rounds follows the AC-3 convention (α + 1): one killing round,
         # one confirming round
         if act is None:
             act = torch.ones((n,), dtype=torch.bool, device=self.device)
+        rounds = torch.full((), 2, **i32)
         return TrimResult(status=torch.zeros((n,), **i32),
-                          rounds=torch.tensor(2, **i32),
+                          rounds=rounds,
                           max_frontier=(act.sum(dtype=torch.int32)
                                         if counters else None),
-                          per_worker_edges=pw)
+                          per_worker_edges=pw,
+                          round_stats=stats_for(act, rounds))
 
 
 __all__ = ["plan", "TrimEngine", "BACKENDS", "available_methods"]

@@ -13,18 +13,52 @@ once (O(n+m) counting sort, pre-seedable) and the dispatch accounting.
   shape.  The property is kept so callers written against the reference
   read the same accounting.
 
-The reference's ``_dispatch`` also opens an ``obs`` span, feeds the
-MetricsPlane and arms the FaultPlane.  The port has none of those planes
-yet; what needs them raises :class:`NotImplementedError` naming the
-ROADMAP item that brings it (A7 observability and metrics, A8 faults and
-checkpoints).
+Every dispatch is one ``obs`` span (``cat="engine"``: family, plan
+signature, seq), a no-op context while the global recorder is disabled.
+Its ``phase`` is ``"build+execute"`` when ``kernels/_build.py`` compiled
+a kernel library during the dispatch (the port's counterpart of the
+reference's ``"compile+execute"``) and ``"execute"`` otherwise.
+
+While the process-global MetricsPlane is enabled each dispatch also
+feeds it (``_feed_plane``; one ``enabled`` read when it is off):
+
+=================================  =====================================
+reference                          port
+=================================  =====================================
+``repro_dispatch_latency_seconds`` ``repro_dispatch_wall_seconds``
+{family, phase=compile|execute}    {family, phase=build|execute}: the
+(host dispatch latency; jax        dispatch's wall time, its device work
+dispatch is asynchronous)          included (the fixpoint ends in a sync)
+``repro_dispatches{family}``       the same
+``repro_traces{family}``           ``repro_kernel_builds{family}``:
+                                   libraries compiled during dispatches
+``repro_plan_compiles{family,      ``repro_plan_builds{family, plan}``
+plan}``, ``repro_retrace_storms``  and ``repro_rebuild_storms``
+``repro_plan_cost_flops/_bytes``   ``repro_plan_kernel_flops/_bytes``:
+(XLA cost model, compile           the hand-written kernels' bound
+dispatches)                        formulas over a plan's first dispatch
+``repro_engine_live_bytes``        the same (``nbytes_breakdown``)
+=================================  =====================================
+
+and ``_publish_round_stats`` folds an instrumented run's
+:class:`~repro_torch.obs.RoundStats` into ``repro_fixpoint_rounds``,
+``repro_fixpoint_work``, ``repro_busiest_worker_edges`` and
+``repro_worker_imbalance``, as the reference does.
+
+The reference's FaultPlane points and checkpoint protocol arrive with
+ROADMAP A8 and raise :class:`NotImplementedError` until then.
 """
 from __future__ import annotations
+
+import time
+from typing import Dict
 
 import numpy as np
 import torch
 
-from .graph import _CKPT_A8, _NBYTES_A7, CSRGraph
+from .. import obs
+from ..kernels import _build
+from .graph import _CKPT_A8, CSRGraph
 
 
 class EngineBase:
@@ -32,12 +66,21 @@ class EngineBase:
 
     #: engine family name; subclasses override
     family = "engine"
+    #: per-round stats (``_plan_stats``); off unless a plan asks
+    instrument = False
+    max_rounds = 0
 
     def __init__(self, graph: CSRGraph, *, transpose: CSRGraph | None = None):
         self.graph = graph
         self._transpose = transpose
         self._transpose_builds = 0
         self._dispatches = 0
+        self._costed = False
+
+    def plan_signature(self) -> str:
+        """Stable short description of the plan's static configuration,
+        used to label spans.  Subclasses refine it."""
+        return f"{self.family}(n={self.graph.n},m={self.graph.m})"
 
     @property
     def transpose(self) -> CSRGraph:
@@ -70,18 +113,148 @@ class EngineBase:
                              f"{tuple(x.shape)}")
         return x.to(self.device, torch.bool)
 
-    def _dispatch(self, fn, *args):
-        """Run one fixpoint call and count it as one dispatch, however
-        many rounds and host syncs it takes."""
-        out = fn(*args)
-        self._dispatches += 1
+    # -- memory accounting (nbytes protocol, DESIGN.md §13) ----------------
+    def nbytes_breakdown(self) -> Dict[str, int]:
+        """Live-buffer bytes by component (``numel * element_size``, no
+        device sync).  Subclasses extend with their plan caches; the base
+        accounts the graph and the cached transpose."""
+        out = {"graph": obs.array_nbytes(self.graph)}
+        if self._transpose is not None:
+            out["transpose"] = obs.array_nbytes(self._transpose)
         return out
 
     def nbytes(self) -> int:
-        raise NotImplementedError(_NBYTES_A7)
+        """Total live-buffer bytes held by this engine."""
+        return sum(self.nbytes_breakdown().values())
 
-    def nbytes_breakdown(self) -> dict:
-        raise NotImplementedError(_NBYTES_A7)
+    # -- dispatch ----------------------------------------------------------
+    def _dispatch(self, fn, *args):
+        """Run one fixpoint call and count it as one dispatch, however
+        many rounds and host syncs it takes: one span, and with an
+        enabled plane its metrics (the first dispatch also captures the
+        kernel calls for the plan's cost).  With the recorder and the
+        plane both off it reads their two flags and nothing else."""
+        plane = obs.get_plane()
+        if not (plane.enabled or obs.get_recorder().enabled):
+            out = fn(*args)
+            self._dispatches += 1
+            return out
+        builds = _build.BUILDS[0]
+        t0 = time.perf_counter() if plane.enabled else 0.0
+        with obs.span("dispatch", cat="engine", family=self.family,
+                      plan=self.plan_signature(),
+                      seq=self._dispatches) as sp:
+            if plane.enabled and not self._costed:
+                self._costed = True
+                out, cost = obs.plan_cost_of(fn, *args)
+            else:
+                out, cost = fn(*args), None
+            built = _build.BUILDS[0] - builds
+            if sp is not None:
+                sp.attrs["builds"] = built
+                sp.attrs["phase"] = ("build+execute" if built
+                                     else "execute")
+            if plane.enabled:
+                self._feed_plane(plane, built, time.perf_counter() - t0,
+                                 cost, sp)
+        self._dispatches += 1
+        return out
+
+    def _feed_plane(self, plane, built, elapsed, cost, sp) -> None:
+        """Publish one dispatch to the MetricsPlane (enabled plane only)."""
+        plane.histogram(
+            "repro_dispatch_wall_seconds",
+            "engine dispatch wall time by family, its device work included "
+            "(the port's fixpoints end in a host sync), split by whether a "
+            "kernel library was built during it",
+        ).observe(elapsed, family=self.family,
+                  phase="build" if built else "execute")
+        plane.counter(
+            "repro_dispatches",
+            "device dispatches issued per engine family",
+        ).inc(family=self.family)
+        plan = self.plan_signature()
+        if built:
+            plane.counter(
+                "repro_kernel_builds",
+                "kernel libraries compiled during an engine family's "
+                "dispatches",
+            ).inc(built, family=self.family)
+            plane.note_build(self.family, plan)
+        if cost:
+            obs.record_plan_cost(plane, self.family, plan, cost)
+            if sp is not None:
+                sp.attrs["cost"] = cost
+        obs.publish_engine_memory(plane, self)
+
+    # -- per-round stats (DESIGN.md §11) -----------------------------------
+    def _plan_stats(self, instrument: bool, max_rounds, n: int) -> None:
+        """Record the plan's ``instrument`` flag and round capacity
+        (``obs.round_capacity``; 0, and ``max_rounds`` ignored, when
+        off)."""
+        self.instrument = bool(instrument)
+        self.max_rounds = (obs.round_capacity(n, max_rounds)
+                           if self.instrument else 0)
+
+    def _stat_names(self) -> tuple:
+        """The stats this plan's fixpoint records; subclasses override."""
+        return ("r_frontier", "r_edges")
+
+    def _buffers(self):
+        """Empty round buffers for one run (``None`` when off)."""
+        return (obs.stats_init(self.max_rounds, self._stat_names())
+                if self.instrument else None)
+
+    def _finish_rows(self, bufs):
+        """A batch's ``(B, R)`` buffers from its rows' (None when off)."""
+        return (obs.finish_rows(bufs, self.max_rounds, self._stat_names(),
+                                self.device) if self.instrument else None)
+
+    def _wrap_stats(self, rounds, done, per_worker=None):
+        """The :class:`~repro_torch.obs.RoundStats` of a finished run
+        (``done``: ``RoundBuffers.finish()`` or ``obs.finish_rows``; None
+        when off), published to the MetricsPlane."""
+        if done is None:
+            return None
+        dev, host = done
+        rs = obs.RoundStats(rounds, dev, per_worker=per_worker,
+                            max_rounds=self.max_rounds, host=host)
+        self._publish_round_stats(rs)
+        return rs
+
+    def _publish_round_stats(self, rs) -> None:
+        """Fold one run's :class:`~repro_torch.obs.RoundStats` into the
+        MetricsPlane (rounds, per-stat work totals, worker skew).  No-op
+        when the plane is disabled or the plan was not instrumented; an
+        enabled plane moves the stats buffers to the host."""
+        plane = obs.get_plane()
+        if rs is None or not plane.enabled:
+            return
+        plane.counter(
+            "repro_fixpoint_rounds",
+            "fixpoint rounds executed per engine family (summed over "
+            "batches)",
+        ).inc(int(np.sum(rs.rounds)), family=self.family)
+        work = plane.counter(
+            "repro_fixpoint_work",
+            "per-round instrumented work totals by stat (edges = edges "
+            "traversed, frontier = frontier sizes, decrements = counter "
+            "decrements, r_sparse = rounds on the sparse path)")
+        for name in rs.names:
+            work.inc(float(np.sum(rs.total(name))),
+                     family=self.family, stat=name)
+        mwe = rs.max_worker_edges()
+        if mwe is not None:
+            plane.gauge(
+                "repro_busiest_worker_edges",
+                "edges traversed by the busiest worker in the last "
+                "instrumented run (paper's per-worker load metric)",
+            ).set(float(np.max(mwe)), family=self.family)
+            plane.gauge(
+                "repro_worker_imbalance",
+                "max/mean per-worker traversed edges in the last "
+                "instrumented run (1.0 = perfectly balanced)",
+            ).set(float(np.max(rs.imbalance())), family=self.family)
 
     def state_dict(self):
         raise NotImplementedError(_CKPT_A8)

@@ -119,6 +119,11 @@ class CSRGraph:
     def to_numpy(self):
         return self.indptr.cpu().numpy(), self.indices.cpu().numpy()
 
+    def nbytes(self) -> int:
+        """Bytes of ``indptr`` and ``indices`` (no device sync)."""
+        return (self.indptr.numel() * self.indptr.element_size()
+                + self.indices.numel() * self.indices.element_size())
+
     def to(self, device) -> "CSRGraph":
         """This graph on ``device`` (itself when it already lies there)."""
         if self.device == torch.device(device):
@@ -146,17 +151,21 @@ class TrimResult:
                    None when the run disabled counters
     per_worker_edges: (P,) traversed-edge counts of P static vertex
                    partitions; None when the run disabled counters
+    round_stats:   per-round :class:`repro_torch.obs.RoundStats`; None
+                   unless the plan had ``instrument=True``
 
     Scalar counters move to the host on first attribute access and are
     cached, so a chain of engine runs never syncs for values it does not
     read.
     """
 
-    __slots__ = ("_status", "_rounds", "_edges", "_max_frontier", "_pw")
+    __slots__ = ("_status", "_rounds", "_edges", "_max_frontier", "_pw",
+                 "_round_stats")
 
     def __init__(self, status, rounds, edges_traversed=None,
-                 max_frontier=None, per_worker_edges=None):
+                 max_frontier=None, per_worker_edges=None, round_stats=None):
         self._status = status
+        self._round_stats = round_stats
         self._rounds = rounds
         self._edges = edges_traversed
         self._max_frontier = max_frontier
@@ -165,6 +174,10 @@ class TrimResult:
     @property
     def status(self):
         return self._status
+
+    @property
+    def round_stats(self):
+        return self._round_stats
 
     @property
     def rounds(self) -> int:
@@ -223,8 +236,6 @@ def worker_of(n: int, workers: int, chunk: int = 4096) -> np.ndarray:
     return ((v // chunk) % workers).astype(np.int32)
 
 
-_NBYTES_A7 = ("memory accounting arrives with the MetricsPlane port "
-              "(ROADMAP A7)")
 _CKPT_A8 = "checkpoint/resume arrives with the FaultPlane port (ROADMAP A8)"
 
 
@@ -316,13 +327,26 @@ class DeltaCSR:
     def needs_compact(self) -> bool:
         return self.overlay_fraction > self.load_factor
 
-    # -- not ported yet ----------------------------------------------------
+    # -- memory accounting (DESIGN.md §13) ---------------------------------
     def nbytes_breakdown(self) -> dict:
-        raise NotImplementedError(_NBYTES_A7)
+        """Overlay bytes by component (device overlay, insert buffers, and
+        the host mirrors that drive resolution), excluding the base graph
+        — the owning engine accounts that as its ``graph`` component."""
+        from ..obs.memory import array_nbytes
+        return {
+            "tombstones": array_nbytes((self.tomb, self._tomb_np)),
+            "insert_buffers": array_nbytes((
+                self.ins_src, self.ins_dst, self.ins_alive,
+                self._ins_src_np, self._ins_dst_np, self._ins_alive_np)),
+            "host_index": array_nbytes((self._src_np, self._dst_np,
+                                        self._key_order, self._keys_sorted)),
+        }
 
     def nbytes(self) -> int:
-        raise NotImplementedError(_NBYTES_A7)
+        """Total overlay bytes (base graph excluded)."""
+        return sum(self.nbytes_breakdown().values())
 
+    # -- not ported yet ----------------------------------------------------
     def state_dict(self) -> dict:
         raise NotImplementedError(_CKPT_A8)
 

@@ -42,6 +42,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import obs
 from ..kernels import ops as kops
 from .common import FrontierPlan, frontier_plan, segment_sum
 from .engine import _to
@@ -56,7 +57,7 @@ _INT32_MAX = torch.iinfo(torch.int32).max
 
 def peel_bucket_kernel(indptr, indices, t_indptr, t_indices, t_rows,
                        active, *, k_stop, frontier: FrontierPlan =
-                       FrontierPlan(), src=None):
+                       FrontierPlan(), src=None, stats=None):
     """Bucketed out-degree peeling to the coreness fixpoint.
 
     ``active``: (n,) bool — peel the induced subgraph (inactive vertices
@@ -65,6 +66,15 @@ def peel_bucket_kernel(indptr, indices, t_indptr, t_indices, t_rows,
     ``k_stop``, so the survivors are exactly the ``k_stop``-core
     (``k_stop = 1`` is AC-4 trimming).  ``t_rows``: (mT,) source of each
     Gᵀ edge; ``src``: (m,) source of each G edge (built when not given).
+
+    ``stats`` (a :class:`~repro_torch.obs.RoundBuffers` over
+    ``r_frontier``, ``r_edges``, ``r_k`` and, on a non-dense plan,
+    ``r_sparse``; or ``None``) records each round's bucket size, the Gᵀ
+    edges its decrement traverses and the level ``k`` peeled (a per-slot
+    value, meaningful within the round capacity); the counter
+    initialization's edge scan is charged to slot 0.  An instrumented run
+    brings the bucket's count and degree sum back in its loop test on
+    every plan; ``k`` stays on the card.
 
     Returns ``(coreness, peel_round, rounds)``: (n,) int32 peel value
     (survivors of a bounded run get ``k_stop``; inactive vertices -1),
@@ -77,7 +87,10 @@ def peel_bucket_kernel(indptr, indices, t_indptr, t_indices, t_rows,
         src = row_ids(indptr, indices.shape[0])
     # induced live out-degree: the AC-4 counter initialization
     counters = segment_sum(active[src] & active[indices], src, n)
+    if stats is not None:
+        stats.record(0, r_edges=counters.sum(dtype=torch.int32))
     sparse = frontier.mode != "dense"
+    known = sparse or stats is not None
     t_deg = t_indptr[1:] - t_indptr[:-1]
 
     def dense_dec(front):
@@ -105,15 +118,22 @@ def peel_bucket_kernel(indptr, indices, t_indptr, t_indices, t_rows,
         front = kops.bucket_peel(counters, alive, k_next)
         go = (alive.any() if k_stop is None
               else (alive & (counters < k_stop)).any())
-        if sparse:
+        if known:
             go, count, edges = torch.stack(
                 [go.to(torch.int64), front.sum(),
                  torch.where(front, t_deg, 0).sum()]).tolist()  # host sync
-            use_sparse = count <= frontier.cap and edges <= frontier.ecap
+            use_sparse = (sparse and count <= frontier.cap
+                          and edges <= frontier.ecap)
         else:
             go, use_sparse = bool(go), False                  # host sync
         if not go:
             break
+        if stats is not None:
+            # the decrement traverses every Gᵀ edge of the bucket: edges
+            vals = dict(r_frontier=count, r_edges=edges, r_k=k_next)
+            if sparse:
+                vals["r_sparse"] = int(use_sparse)
+            stats.record(rounds, **vals)
         dec = sparse_dec(front, edges) if use_sparse else dense_dec(front)
         counters = counters - dec
         coreness = torch.where(front, k_next, coreness)
@@ -129,12 +149,12 @@ def peel_bucket_kernel(indptr, indices, t_indptr, t_indices, t_rows,
 
 
 def _run_bucket(graph_arrays, transpose_arrays, active, *, k_stop,
-                frontier=FrontierPlan()):
+                frontier=FrontierPlan(), stats=None):
     indptr, indices, src = graph_arrays
     t_indptr, t_indices, t_rows = transpose_arrays
     return peel_bucket_kernel(indptr, indices, t_indptr, t_indices, t_rows,
                               active, k_stop=k_stop, frontier=frontier,
-                              src=src)
+                              src=src, stats=stats)
 
 
 register_kernel(KernelSpec(name="bucket", run=_run_bucket,
@@ -157,19 +177,29 @@ class PeelResult:
                 -1 for survivors of a bounded run and inactive vertices.
     rounds:     rounds executed (an int / a (B,) int32 array); moves to
                 the host on first access.
+    round_stats: per-round :class:`repro_torch.obs.RoundStats` (bucket
+                size, Gᵀ edges traversed, level ``k``); None unless the
+                plan had ``instrument=True``.
     """
 
-    __slots__ = ("_coreness", "_peel_round", "_rounds", "_k_stop")
+    __slots__ = ("_coreness", "_peel_round", "_rounds", "_k_stop",
+                 "_round_stats")
 
-    def __init__(self, coreness, peel_round, rounds, k_stop=None):
+    def __init__(self, coreness, peel_round, rounds, k_stop=None,
+                 round_stats=None):
         self._coreness = coreness
         self._peel_round = peel_round
         self._rounds = rounds
         self._k_stop = k_stop
+        self._round_stats = round_stats
 
     @property
     def coreness(self):
         return self._coreness
+
+    @property
+    def round_stats(self):
+        return self._round_stats
 
     @property
     def peel_round(self):
@@ -247,7 +277,8 @@ class PeelResult:
 
 def plan_peel(graph: CSRGraph, method: str = "bucket", *,
               transpose: CSRGraph | None = None, frontier: str = "auto",
-              instrument: bool = False, device="cuda") -> "PeelEngine":
+              instrument: bool = False, max_rounds: int | None = None,
+              device="cuda") -> "PeelEngine":
     """Build a :class:`PeelEngine` for ``graph`` on ``device`` (the graph
     and a pre-seeded ``transpose`` move there; a missing CUDA device
     raises).
@@ -255,12 +286,14 @@ def plan_peel(graph: CSRGraph, method: str = "bucket", *,
     ``transpose`` pre-seeds the Gᵀ cache (shared with a TrimEngine over
     the same graph).  ``frontier``: "auto" (default) picks the dense or
     compacted decrement each round, "dense"/"sparse" pin one; the results
-    are identical.  ``instrument=True`` (per-round stats) is not ported
-    yet and raises.
+    are identical.  ``instrument=True`` attaches per-round stats to every
+    result; a full-coreness peel can take up to n rounds, so pass
+    ``max_rounds`` to size the buffers (the tail of a longer run folds
+    into the last slot).
     """
     return PeelEngine(graph, method=method, transpose=transpose,
                       frontier=frontier, instrument=instrument,
-                      device=device)
+                      max_rounds=max_rounds, device=device)
 
 
 class PeelEngine(EngineBase):
@@ -270,32 +303,43 @@ class PeelEngine(EngineBase):
     family = "peel"
 
     def __init__(self, graph, *, method, transpose, frontier="auto",
-                 instrument=False, device="cuda"):
+                 instrument=False, max_rounds=None, device="cuda"):
         self.spec = get_kernel(method, family="peel")  # raises on unknown
-        if instrument:
-            raise NotImplementedError(
-                "instrument=True (per-round stats) is not ported yet: "
-                "ROADMAP A7")
         dev = resolve_device(device)
         super().__init__(_to(graph, dev), transpose=_to(transpose, dev))
         self.device = dev
         self.method = method
         self.fplan = frontier_plan(frontier, graph.n, graph.m)
+        self._plan_stats(instrument, max_rounds, graph.n)
         self._garrs = None
         self._tarrs = None
 
     def plan_signature(self) -> str:
         """The reference's signature string for the same plan."""
-        return (f"peel[{self.method}]"
-                f"(n={self.graph.n},m={self.graph.m})"
-                f"+frontier[{self.fplan.mode}]")
+        sig = (f"peel[{self.method}]"
+               f"(n={self.graph.n},m={self.graph.m})"
+               f"+frontier[{self.fplan.mode}]")
+        return sig + "+stats" if self.instrument else sig
 
     def _plan_kwargs(self):
-        """The reference's plan kwargs without ``use_kernel``;
-        ``instrument`` / ``max_rounds`` keep their defaults (ROADMAP
-        A7)."""
+        """The reference's plan kwargs without ``use_kernel``."""
         return {"method": self.method, "frontier": self.fplan.mode,
-                "instrument": False, "max_rounds": None}
+                "instrument": self.instrument,
+                "max_rounds": self.max_rounds if self.instrument else None}
+
+    def nbytes_breakdown(self):
+        # _garrs[0:2] / _tarrs[0:2] alias the graph and the cached
+        # transpose (counted by the base); the row ids are new bytes
+        out = super().nbytes_breakdown()
+        if self._garrs is not None:
+            out["edge_src"] = obs.array_nbytes(self._garrs[2])
+        if self._tarrs is not None:
+            out["row_ids"] = obs.array_nbytes(self._tarrs[2])
+        return out
+
+    def _stat_names(self):
+        names = ("r_frontier", "r_edges", "r_k")
+        return names + (("r_sparse",) if self.fplan.mode != "dense" else ())
 
     # -- cached resources --------------------------------------------------
     def _graph_arrays(self):
@@ -318,9 +362,10 @@ class PeelEngine(EngineBase):
                              f">= 0, got {k!r}")
         return None if k is None else int(k)
 
-    def _peel(self, active, k):
+    def _peel(self, active, k, stats=None):
         return self.spec.run(self._graph_arrays(), self._transpose_arrays(),
-                             active, k_stop=k, frontier=self.fplan)
+                             active, k_stop=k, frontier=self.fplan,
+                             stats=stats)
 
     # -- execution ---------------------------------------------------------
     def run(self, k: int | None = None, active=None) -> PeelResult:
@@ -338,8 +383,11 @@ class PeelEngine(EngineBase):
                                                   "active mask"))
         if n == 0 or m == 0:
             return self._degenerate(act, k)
-        core, rnd, rounds = self._dispatch(self._peel, act, k)
-        return PeelResult(core, rnd, rounds, k_stop=k)
+        bufs = self._buffers()
+        core, rnd, rounds = self._dispatch(self._peel, act, k, bufs)
+        return PeelResult(core, rnd, rounds, k_stop=k,
+                          round_stats=self._wrap_stats(
+                              rounds, bufs and bufs.finish()))
 
     def run_batch(self, active_masks, k: int | None = None) -> PeelResult:
         """Peel B induced subgraphs in one counted dispatch.
@@ -358,9 +406,10 @@ class PeelEngine(EngineBase):
         if n == 0 or m == 0:
             return self._degenerate(masks, k)
         b = masks.shape[0]
+        bufs = [self._buffers() for _ in range(b)]
 
         def batch():
-            rows = [self._peel(masks[i], k) for i in range(b)]
+            rows = [self._peel(masks[i], k, bufs[i]) for i in range(b)]
             if not rows:
                 z = torch.zeros((0, n), dtype=torch.int32,
                                 device=self.device)
@@ -369,7 +418,9 @@ class PeelEngine(EngineBase):
             return tuple(torch.stack(col) for col in zip(*rows))
 
         core, rnd, rounds = self._dispatch(batch)
-        return PeelResult(core, rnd, rounds, k_stop=k)
+        return PeelResult(core, rnd, rounds, k_stop=k,
+                          round_stats=self._wrap_stats(
+                              rounds, self._finish_rows(bufs)))
 
     # -- degenerate paths (no dispatch, still device-resident) -------------
     def _degenerate(self, act, k):
@@ -384,10 +435,20 @@ class PeelEngine(EngineBase):
         if k == 0:
             rnd = torch.full(act.shape, -1, **i32)
             rounds = torch.zeros(lead, **i32)
+            peeled = torch.zeros(lead + (1,), **i32)
         else:
             rnd = core.clone()
             rounds = torch.ones(lead, **i32)
-        return PeelResult(core, rnd, rounds, k_stop=k)
+            peeled = act.sum(dim=-1, dtype=torch.int32)[..., None]
+        rs = None
+        if self.instrument:
+            frontier = torch.nn.functional.pad(peeled,
+                                               (0, self.max_rounds - 1))
+            zeros = torch.zeros_like(frontier)
+            rs = obs.RoundStats(rounds, {"r_frontier": frontier,
+                                         "r_edges": zeros, "r_k": zeros},
+                                max_rounds=self.max_rounds)
+        return PeelResult(core, rnd, rounds, k_stop=k, round_stats=rs)
 
 
 # -- host oracle ---------------------------------------------------------------

@@ -38,6 +38,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import obs
 from ..kernels import ops as kops
 from .common import FrontierPlan, frontier_plan
 from .engine import _to
@@ -58,32 +59,49 @@ def _mark(n: int, targets, ok):
 
 
 def _sweep(seeds, active, dense_new, sparse_new, out_deg,
-           frontier: FrontierPlan):
-    """The BSP loop shared by both methods.  ``dense_new(frontier,
-    pending)`` and ``sparse_new(frontier, pending, edges)`` give the newly
-    reached vertices; ``out_deg`` is the out-degree the sparse body
-    expands (the rows of G), and ``edges`` the frontier's host-known sum
-    of it.  Returns ``(visited, rounds)``; ``rounds`` counts expansions
-    executed."""
+           frontier: FrontierPlan, stats=None):
+    """The BSP loop shared by both methods.  ``dense_new(frontier, pending,
+    edges)`` and ``sparse_new(frontier, pending, edges)`` give the newly
+    reached vertices; ``dense_new`` also the round's edge charge (the
+    values to add to ``r_edges``; only asked for when ``stats`` is
+    given).  ``out_deg`` is the out-degree the sparse body expands (the
+    rows of G), and ``edges`` the frontier's host-known sum of it.  An
+    instrumented sweep reads the frontier's count (and that sum) in its
+    loop test on every plan.  Returns ``(visited, rounds)``; ``rounds``
+    counts expansions executed."""
     visited = seeds & active
     front = visited
     sparse = frontier.mode != "dense"
+    known = sparse or stats is not None
+    edges = None
     rounds = 0
     while True:
-        if sparse:
-            count, edges = torch.stack(
-                [front.sum(), torch.where(front, out_deg, 0).sum()]
-            ).tolist()                                       # host sync
+        if known:
+            parts = [front.sum()]
+            if out_deg is not None:
+                parts.append(torch.where(front, out_deg, 0).sum())
+            got = torch.stack(parts).tolist()                # host sync
+            count, edges = got[0], got[-1] if out_deg is not None else None
             if count == 0:
                 break
-            use_sparse = count <= frontier.cap and edges <= frontier.ecap
+            use_sparse = (sparse and count <= frontier.cap
+                          and edges <= frontier.ecap)
         else:
             if not bool(front.any()):                        # host sync
                 break
             use_sparse = False
         pending = active & ~visited
-        new = (sparse_new(front, pending, edges) if use_sparse
-               else dense_new(front, pending))
+        if use_sparse:
+            new, charge = sparse_new(front, pending, edges), (edges,)
+        else:
+            new, charge = dense_new(front, pending, edges)
+        if stats is not None:
+            vals = dict(r_frontier=count)
+            if sparse:
+                vals["r_sparse"] = int(use_sparse)
+            stats.record(rounds, **vals)
+            for c in charge:
+                stats.record(rounds, r_edges=c)
         visited = visited | new
         front = new
         rounds += 1
@@ -107,20 +125,23 @@ def _sparse_push(indptr, indices, frontier: FrontierPlan):
 
 
 def reach_push_kernel(indptr, indices, edge_src, seeds, active, *,
-                      frontier: FrontierPlan = FrontierPlan()):
+                      frontier: FrontierPlan = FrontierPlan(), stats=None):
     """Forward reachability by per-edge push (one dense O(m) pass per
     round).  ``edge_src``: (m,) int32 source of each edge.  Rounds whose
     frontier fits ``frontier.cap`` members and ``frontier.ecap`` out-edges
-    expand only the frontier's rows; the masks are identical.  Returns
+    expand only the frontier's rows; the masks are identical.  ``stats``
+    (a :class:`~repro_torch.obs.RoundBuffers` or ``None``) records each
+    round's frontier size and its out-edge sum, on either body.  Returns
     ``(visited (n,) bool, rounds 0-d int32)``."""
     n = indptr.shape[0] - 1
     deg = indptr[1:] - indptr[:-1]
 
-    def dense_new(front, pending):
-        return pending & _mark(n, indices, front[edge_src])
+    def dense_new(front, pending, edges):
+        return pending & _mark(n, indices, front[edge_src]), (edges,)
 
     return _sweep(seeds, active, dense_new,
-                  _sparse_push(indptr, indices, frontier), deg, frontier)
+                  _sparse_push(indptr, indices, frontier), deg, frontier,
+                  stats)
 
 
 def window_tile(t_indptr, t_indices, window: int):
@@ -137,7 +158,8 @@ def window_tile(t_indptr, t_indices, window: int):
 
 def reach_pull_kernel(t_indptr, t_indices, seeds, active, *, window: int,
                       overflow: bool = True, fwd=None,
-                      frontier: FrontierPlan = FrontierPlan(), tile=None):
+                      frontier: FrontierPlan = FrontierPlan(), tile=None,
+                      stats=None):
     """Forward reachability by pull over in-neighbors (Gᵀ).
 
     Dense round: gather the frontier membership of every vertex's first
@@ -154,7 +176,13 @@ def reach_pull_kernel(t_indptr, t_indices, seeds, active, *, window: int,
     on v" are the same predicate, so the masks are identical.
 
     ``tile``: the ``window_tile`` of Gᵀ, built here when not given (an
-    engine builds it once).  Returns ``(visited, rounds)``.
+    engine builds it once).  ``stats`` (a
+    :class:`~repro_torch.obs.RoundBuffers` or ``None``) records each
+    round's frontier size and its ``r_edges`` charge, which depends on the
+    body taken, as in the reference: a sparse round the frontier's
+    forward degree sum; a dense round ``min(in-degree, W)`` a pending
+    vertex (its whole in-degree when no vertex overflows the window), plus
+    m when the whole-row OR ran.  Returns ``(visited, rounds)``.
     """
     t_deg = t_indptr[1:] - t_indptr[:-1]
     sparse = frontier.mode != "dense"
@@ -164,6 +192,9 @@ def reach_pull_kernel(t_indptr, t_indices, seeds, active, *, window: int,
     win_sources, valid = (window_tile(t_indptr, t_indices, window)
                           if tile is None else tile)
     wide = t_deg > window if overflow else None
+    m = t_indices.shape[0]
+    if stats is not None:
+        tile_deg = t_deg.clamp(max=window) if overflow else t_deg
 
     def row_hits(front):
         # int32 prefix sum: the counts are <= m < 2^31
@@ -171,14 +202,16 @@ def reach_pull_kernel(t_indptr, t_indices, seeds, active, *, window: int,
             torch.cumsum(front[t_indices], dim=0, dtype=torch.int32), (1, 0))
         return (csum[t_indptr[1:]] - csum[t_indptr[:-1]]) > 0
 
-    def dense_new(front, pending):
+    def dense_new(front, pending, edges):
         hit = kops.frontier_expand(front[win_sources], valid, pending)
+        charge = (() if stats is None
+                  else ((tile_deg * pending).sum(dtype=torch.int32),))
         if not overflow:
-            return hit            # no vertex overflows the window: exact
+            return hit, charge    # no vertex overflows the window: exact
         rest = pending & ~hit & wide
         if not bool(rest.any()):                             # host sync
-            return hit
-        return hit | (rest & row_hits(front))
+            return hit, charge
+        return hit | (rest & row_hits(front)), charge + (m,)
 
     if sparse:
         f_indptr, f_indices = fwd
@@ -186,25 +219,27 @@ def reach_pull_kernel(t_indptr, t_indices, seeds, active, *, window: int,
         sparse_new = _sparse_push(f_indptr, f_indices, frontier)
     else:
         f_deg, sparse_new = None, None
-    return _sweep(seeds, active, dense_new, sparse_new, f_deg, frontier)
+    return _sweep(seeds, active, dense_new, sparse_new, f_deg, frontier,
+                  stats)
 
 
 def _run_push(graph_arrays, transpose_arrays, seeds, active, *, window,
-              overflow=False, frontier=FrontierPlan(), tile=None):
+              overflow=False, frontier=FrontierPlan(), tile=None,
+              stats=None):
     del transpose_arrays, window, overflow, tile
     indptr, indices, edge_src = graph_arrays
     return reach_push_kernel(indptr, indices, edge_src, seeds, active,
-                             frontier=frontier)
+                             frontier=frontier, stats=stats)
 
 
 def _run_pull(graph_arrays, transpose_arrays, seeds, active, *, window,
-              overflow=True, frontier=FrontierPlan(), tile=None):
+              overflow=True, frontier=FrontierPlan(), tile=None, stats=None):
     indptr, indices, _ = graph_arrays
     t_indptr, t_indices = transpose_arrays
     return reach_pull_kernel(t_indptr, t_indices, seeds, active,
                              window=window, overflow=overflow,
                              fwd=(indptr, indices), frontier=frontier,
-                             tile=tile)
+                             tile=tile, stats=stats)
 
 
 register_kernel(KernelSpec(name="push", run=_run_push,
@@ -224,18 +259,26 @@ class ReachResult:
             (seeds included).
     rounds: frontier expansions executed (an int, or a (B,) int32 array
             for a batch); moves to the host on first access.
+    round_stats: per-round :class:`repro_torch.obs.RoundStats` (frontier
+            size, edges examined); None unless the plan had
+            ``instrument=True``.
     """
 
-    __slots__ = ("_mask", "_rounds", "_n_reached")
+    __slots__ = ("_mask", "_rounds", "_n_reached", "_round_stats")
 
-    def __init__(self, mask, rounds):
+    def __init__(self, mask, rounds, round_stats=None):
         self._mask = mask
         self._rounds = rounds
         self._n_reached = None
+        self._round_stats = round_stats
 
     @property
     def mask(self):
         return self._mask
+
+    @property
+    def round_stats(self):
+        return self._round_stats
 
     @property
     def rounds(self):
@@ -275,6 +318,7 @@ class ReachResult:
 def plan_reach(graph: CSRGraph, backend: str = "dense", *,
                window: int = 16, transpose: CSRGraph | None = None,
                frontier: str = "auto", instrument: bool = False,
+               max_rounds: int | None = None,
                device="cuda") -> "ReachEngine":
     """Build a :class:`ReachEngine` for ``graph`` on ``device`` (the graph
     and a pre-seeded ``transpose`` move there; a missing CUDA device
@@ -284,11 +328,14 @@ def plan_reach(graph: CSRGraph, backend: str = "dense", *,
     ``frontier_expand`` kernel).  ``transpose`` pre-seeds the Gᵀ cache.
     ``frontier``: "auto" (default) picks the dense or compacted body each
     round, "dense"/"sparse" pin one; the masks are identical.
-    ``instrument=True`` (per-round stats) is not ported yet and raises.
+    ``instrument=True`` attaches per-round stats (``r_frontier``,
+    ``r_edges``, and ``r_sparse`` on a non-dense plan) of ``max_rounds``
+    slots to every result, with no extra host sync.
     """
     return ReachEngine(graph, backend=backend, window=window,
                        transpose=transpose, frontier=frontier,
-                       instrument=instrument, device=device)
+                       instrument=instrument, max_rounds=max_rounds,
+                       device=device)
 
 
 class ReachEngine(EngineBase):
@@ -298,14 +345,11 @@ class ReachEngine(EngineBase):
     family = "reach"
 
     def __init__(self, graph, *, backend, window, transpose,
-                 frontier="auto", instrument=False, device="cuda"):
+                 frontier="auto", instrument=False, max_rounds=None,
+                 device="cuda"):
         if backend not in REACH_BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; expected one of "
                              f"{REACH_BACKENDS}")
-        if instrument:
-            raise NotImplementedError(
-                "instrument=True (per-round stats) is not ported yet: "
-                "ROADMAP A7")
         dev = resolve_device(device)
         super().__init__(_to(graph, dev), transpose=_to(transpose, dev))
         self.device = dev
@@ -314,6 +358,7 @@ class ReachEngine(EngineBase):
         self.spec = get_kernel(self.method, family="reach")
         self.window = window
         self.fplan = frontier_plan(frontier, graph.n, graph.m)
+        self._plan_stats(instrument, max_rounds, graph.n)
         self._garrs = None
         self._tarrs = None
         self._overflow = None
@@ -321,17 +366,39 @@ class ReachEngine(EngineBase):
 
     def plan_signature(self) -> str:
         """The reference's signature string for the same plan."""
-        return (f"reach[{self.method}/{self.backend}]"
-                f"(n={self.graph.n},m={self.graph.m})"
-                f"+frontier[{self.fplan.mode}]")
+        sig = (f"reach[{self.method}/{self.backend}]"
+               f"(n={self.graph.n},m={self.graph.m})"
+               f"+frontier[{self.fplan.mode}]")
+        return sig + "+stats" if self.instrument else sig
 
     def _plan_kwargs(self):
-        """The reference's plan kwargs without ``use_kernel``;
-        ``instrument`` / ``max_rounds`` keep their defaults (ROADMAP
-        A7)."""
+        """The reference's plan kwargs without ``use_kernel``."""
         return {"backend": self.backend, "window": self.window,
-                "frontier": self.fplan.mode, "instrument": False,
-                "max_rounds": None}
+                "frontier": self.fplan.mode, "instrument": self.instrument,
+                "max_rounds": self.max_rounds if self.instrument else None}
+
+    def nbytes_breakdown(self):
+        # _garrs[0:2] / _tarrs alias the graph / transpose arrays (counted
+        # by the base); the push row ids and the pull tile are new bytes
+        out = super().nbytes_breakdown()
+        if self._garrs is not None and self._garrs[2] is not None:
+            out["edge_src"] = obs.array_nbytes(self._garrs[2])
+        if self._tile is not None:
+            out["window_tile"] = obs.array_nbytes(self._tile)
+        return out
+
+    def _stat_names(self):
+        names = ("r_frontier", "r_edges")
+        return names + (("r_sparse",) if self.fplan.mode != "dense" else ())
+
+    def _empty_stats(self, rounds):
+        """Zero stats for the no-dispatch paths (no edges to sweep)."""
+        if not self.instrument:
+            return None
+        z = torch.zeros(tuple(rounds.shape) + (self.max_rounds,),
+                        dtype=torch.int32, device=self.device)
+        return obs.RoundStats(rounds, {"r_frontier": z, "r_edges": z},
+                              max_rounds=self.max_rounds)
 
     # -- cached arrays -----------------------------------------------------
     def _graph_arrays(self):
@@ -396,11 +463,11 @@ class ReachEngine(EngineBase):
             return torch.ones(shape, dtype=torch.bool, device=self.device)
         return self._as_mask(active, shape, "active mask")
 
-    def _sweep(self, seeds, active):
+    def _sweep(self, seeds, active, stats=None):
         return self.spec.run(
             self._graph_arrays(), self._transpose_arrays(), seeds, active,
             window=self.window, overflow=self._has_overflow(),
-            frontier=self.fplan, tile=self._window_tile())
+            frontier=self.fplan, tile=self._window_tile(), stats=stats)
 
     # -- execution ---------------------------------------------------------
     def run(self, seeds, active=None) -> ReachResult:
@@ -411,10 +478,13 @@ class ReachEngine(EngineBase):
         act = self._active_mask(active, (n,))
         if n == 0 or m == 0:
             # no edges: nothing propagates beyond the seeds themselves
-            return ReachResult(seed_mask & act, torch.zeros(
-                (), dtype=torch.int32, device=self.device))
-        reached, rounds = self._dispatch(self._sweep, seed_mask, act)
-        return ReachResult(reached, rounds)
+            rounds = torch.zeros((), dtype=torch.int32, device=self.device)
+            return ReachResult(seed_mask & act, rounds,
+                               self._empty_stats(rounds))
+        bufs = self._buffers()
+        reached, rounds = self._dispatch(self._sweep, seed_mask, act, bufs)
+        return ReachResult(reached, rounds,
+                           self._wrap_stats(rounds, bufs and bufs.finish()))
 
     def run_batch(self, seed_masks, active_masks=None) -> ReachResult:
         """B reachability queries in one counted dispatch.
@@ -422,7 +492,9 @@ class ReachEngine(EngineBase):
         ``seed_masks``: (B, n) bool; ``active_masks``: (B, n) bool or
         ``None`` (whole graph).  Returns one :class:`ReachResult` with a
         stacked (B, n) ``mask`` and (B,) ``rounds``, equal row-wise to
-        sequential ``run()`` calls.
+        sequential ``run()`` calls, with (B, R) ``round_stats`` when
+        instrumented (each row's ``r_sparse`` and ``r_edges`` record the
+        bodies it took; the reference's vmapped rows always run dense).
         """
         n, m = self.graph.n, self.graph.m
         if np.ndim(seed_masks) != 2 or np.shape(seed_masks)[1] != n:
@@ -433,11 +505,12 @@ class ReachEngine(EngineBase):
         b = seeds.shape[0]
         act = self._active_mask(active_masks, (b, n))
         if n == 0 or m == 0:
-            return ReachResult(seeds & act, torch.zeros(
-                (b,), dtype=torch.int32, device=self.device))
+            rounds = torch.zeros((b,), dtype=torch.int32, device=self.device)
+            return ReachResult(seeds & act, rounds, self._empty_stats(rounds))
+        bufs = [self._buffers() for _ in range(b)]
 
         def batch():
-            rows = [self._sweep(seeds[i], act[i]) for i in range(b)]
+            rows = [self._sweep(seeds[i], act[i], bufs[i]) for i in range(b)]
             if not rows:
                 return seeds.clone(), torch.zeros(
                     (0,), dtype=torch.int32, device=self.device)
@@ -445,7 +518,8 @@ class ReachEngine(EngineBase):
                     torch.stack([r[1] for r in rows]))
 
         reached, rounds = self._dispatch(batch)
-        return ReachResult(reached, rounds)
+        return ReachResult(reached, rounds,
+                           self._wrap_stats(rounds, self._finish_rows(bufs)))
 
 
 __all__ = ["plan_reach", "ReachEngine", "ReachResult", "REACH_BACKENDS",

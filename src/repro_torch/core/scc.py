@@ -32,6 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import obs
 from .engine import _to, plan
 from .graph import CSRGraph, check_edge_ids, resolve_device
 from .reach import plan_reach
@@ -115,7 +116,7 @@ def scc_decompose(graph: CSRGraph, use_trim: bool = True,
                   counters: bool = False, max_batch: int = 1024,
                   active=None, trim2: bool = True, workers: int = 1,
                   chunk: int = 4096, frontier: str = "auto",
-                  instrument: bool = False,
+                  instrument: bool = False, max_rounds: int | None = None,
                   checkpoint_dir: str | None = None,
                   checkpoint_every: int = 0, resume: bool = False,
                   device="cuda"):
@@ -132,15 +133,18 @@ def scc_decompose(graph: CSRGraph, use_trim: bool = True,
     size-≤2 SCCs between the trim and pivot phases of every generation.
     ``frontier`` is threaded to all four engine plans.
 
+    ``instrument=True`` plans all four engines with per-round stats
+    (``max_rounds`` slots): ``stats["trim_rounds"]`` / ``["reach_rounds"]``
+    sum the fixpoint rounds of every trim and reach pass.  Each generation
+    is one ``obs`` span (cat ``"scc"``, with its region and pivot counts)
+    when a recorder is active, so one ``obs.recording()`` around the call
+    holds the generations and their engines' dispatch spans.
+
     The graph moves to ``device`` (default the card; raises without one).
-    ``instrument=True`` (ROADMAP A7) and checkpoint/resume (``checkpoint_dir``,
-    ``checkpoint_every``, ``resume``; ROADMAP A8) are not ported yet and
-    raise :class:`NotImplementedError`.
+    Checkpoint/resume (``checkpoint_dir``, ``checkpoint_every``,
+    ``resume``) is not ported yet (ROADMAP A8) and raises
+    :class:`NotImplementedError`.
     """
-    if instrument:
-        raise NotImplementedError(
-            "instrument=True (per-round stats) is not ported yet: "
-            "ROADMAP A7")
     if checkpoint_dir is not None or checkpoint_every or resume:
         raise NotImplementedError(
             "scc_decompose checkpoint/resume is not ported yet: "
@@ -152,7 +156,8 @@ def scc_decompose(graph: CSRGraph, use_trim: bool = True,
              "trim_edges_traversed": 0 if counters else None,
              "per_worker_edges": (np.zeros(workers, np.int64)
                                   if counters else None),
-             "trim_rounds": None, "reach_rounds": None,
+             "trim_rounds": 0 if instrument else None,
+             "reach_rounds": 0 if instrument else None,
              "engine_traces": 0, "transpose_builds": 1}
     if n == 0:
         return np.zeros(0, np.int64), stats
@@ -171,21 +176,24 @@ def scc_decompose(graph: CSRGraph, use_trim: bool = True,
 
     # four engines, one transpose build: the backward pair sweeps Gᵀ with
     # its transpose cache pre-seeded with G itself
+    obs_kw = dict(instrument=instrument, max_rounds=max_rounds)
     if use_trim:
         fw_trim = plan(graph, method=trim_method, backend=trim_backend,
                        window=window, workers=workers, chunk=chunk,
-                       frontier=frontier, device=dev)
+                       frontier=frontier, device=dev, **obs_kw)
         gt = fw_trim.transpose           # the one and only build
         bw_trim = plan(gt, method=trim_method, backend=trim_backend,
                        window=window, transpose=graph, workers=workers,
-                       chunk=chunk, frontier=frontier, device=dev)
+                       chunk=chunk, frontier=frontier, device=dev, **obs_kw)
     else:
         fw_trim = bw_trim = None
         gt = graph.transpose()
     fw_reach = plan_reach(graph, backend=reach_backend, window=window,
-                          transpose=gt, frontier=frontier, device=dev)
+                          transpose=gt, frontier=frontier, device=dev,
+                          **obs_kw)
     bw_reach = plan_reach(gt, backend=reach_backend, window=window,
-                          transpose=graph, frontier=frontier, device=dev)
+                          transpose=graph, frontier=frontier, device=dev,
+                          **obs_kw)
     t2_arrs = (graph.indptr, graph.indices, gt.indptr, gt.indices)
 
     labels = torch.full((n,), -1, dtype=torch.int32, device=dev)
@@ -206,95 +214,108 @@ def scc_decompose(graph: CSRGraph, use_trim: bool = True,
         n_regions = len(regions)
         live_host = _pad_pow2(np.stack(regions))          # (B, n), disjoint
         regions = []
+        with obs.span("generation", cat="scc", gen=stats["generations"],
+                      regions=n_regions) as gen_sp:
+            if use_trim:
+                # one dispatch (per max_batch chunk) trims every pending
+                # region; directions alternate by generation
+                engine = (fw_trim if stats["generations"] % 2 == 1
+                          or not trim_transpose else bw_trim)
+                parts = [engine.run_batch_stacked(on_dev(c),
+                                                  counters=counters)
+                         for c in _chunks(live_host, max_batch)]
+                stats["trim_passes"] += n_regions
+                if counters:
+                    # one (B, workers) int32 transfer; int64 sums on the
+                    # host
+                    pw = torch.cat([p[1] for p in parts])[:n_regions] \
+                        .cpu().numpy().astype(np.int64)
+                    stats["trim_edges_traversed"] += int(pw.sum())
+                    stats["per_worker_edges"] += pw.sum(axis=0)
+                if instrument:
+                    stats["trim_rounds"] += int(torch.cat(
+                        [p[2] for p in parts])[:n_regions].sum())
+                status = torch.cat([p[0] for p in parts]) != 0
+                live = on_dev(live_host)
+                dead = live & ~status
+                live = live & status
+                # regions are disjoint: the union keeps one label a vertex
+                dead_union = dead.any(dim=0)
+                # one transfer serves the label counter and the worklist
+                blob = torch.cat([dead_union[None], live]).cpu().numpy()
+                dead_host, live_host = blob[0], blob[1:]
+                k = int(dead_host.sum())
+                if k:
+                    rank = torch.cumsum(dead_union, dim=0,
+                                        dtype=torch.int32) - 1
+                    labels = torch.where(dead_union, next_label + rank, labels)
+                    next_label += k
+                    stats["trimmed_total"] += k
 
-        if use_trim:
-            # one dispatch (per max_batch chunk) trims every pending region;
-            # directions alternate by generation
-            engine = (fw_trim if stats["generations"] % 2 == 1
-                      or not trim_transpose else bw_trim)
-            parts = [engine.run_batch_stacked(on_dev(c), counters=counters)
-                     for c in _chunks(live_host, max_batch)]
-            stats["trim_passes"] += n_regions
-            if counters:
-                # one (B, workers) int32 transfer; sums in int64 on the host
-                pw = torch.cat([p[1] for p in parts])[:n_regions] \
-                    .cpu().numpy().astype(np.int64)
-                stats["trim_edges_traversed"] += int(pw.sum())
-                stats["per_worker_edges"] += pw.sum(axis=0)
-            status = torch.cat([p[0] for p in parts]) != 0
-            live = on_dev(live_host)
-            dead = live & ~status
-            live = live & status
-            # regions are disjoint, so the union keeps one label per vertex
-            dead_union = dead.any(dim=0)
-            # one transfer serves the label counter and the worklist
-            blob = torch.cat([dead_union[None], live]).cpu().numpy()
-            dead_host, live_host = blob[0], blob[1:]
-            k = int(dead_host.sum())
-            if k:
-                rank = torch.cumsum(dead_union, dim=0, dtype=torch.int32) - 1
-                labels = torch.where(dead_union, next_label + rank, labels)
-                next_label += k
-                stats["trimmed_total"] += k
+            if trim2 and live_host.any():
+                # one dispatch (per max_batch chunk) detects size-≤2 SCCs in
+                # every pending region; each pair/singleton gets one label
+                # keyed by its representative (min endpoint)
+                parts2 = [_trim2_batch(*t2_arrs, on_dev(c))
+                          for c in _chunks(live_host, max_batch)]
+                stats["trim2_dispatches"] += len(parts2)
+                det = torch.cat([p[0] for p in parts2])
+                partner = torch.cat([torch.where(p[0], p[1], -1)
+                                     for p in parts2]).amax(dim=0)
+                det_union = det.any(dim=0)
+                is_rep = det_union & (idx <= partner)
+                rep = torch.where(det_union, torch.minimum(idx, partner), idx)
+                rank2 = torch.cumsum(is_rep, dim=0, dtype=torch.int32) - 1
+                blob2 = torch.cat([is_rep[None], det_union[None],
+                                   on_dev(live_host) & ~det]).cpu().numpy()
+                n_sccs = int(blob2[0].sum())
+                if n_sccs:
+                    labels = torch.where(det_union, next_label + rank2[rep],
+                                         labels)
+                    next_label += n_sccs
+                    stats["trim2_sccs"] += n_sccs
+                    stats["trim2_removed"] += int(blob2[1].sum())
+                    live_host = blob2[2:]
 
-        if trim2 and live_host.any():
-            # one dispatch (per max_batch chunk) detects size-≤2 SCCs in
-            # every pending region; each pair/singleton gets one label
-            # keyed by its representative (min endpoint)
-            parts2 = [_trim2_batch(*t2_arrs, on_dev(c))
-                      for c in _chunks(live_host, max_batch)]
-            stats["trim2_dispatches"] += len(parts2)
-            det = torch.cat([p[0] for p in parts2])
-            partner = torch.cat([torch.where(p[0], p[1], -1)
-                                 for p in parts2]).amax(dim=0)
-            det_union = det.any(dim=0)
-            is_rep = det_union & (idx <= partner)
-            rep = torch.where(det_union, torch.minimum(idx, partner), idx)
-            rank2 = torch.cumsum(is_rep, dim=0, dtype=torch.int32) - 1
-            blob2 = torch.cat([is_rep[None], det_union[None],
-                               on_dev(live_host) & ~det]).cpu().numpy()
-            n_sccs = int(blob2[0].sum())
-            if n_sccs:
-                labels = torch.where(det_union, next_label + rank2[rep],
-                                     labels)
-                next_label += n_sccs
-                stats["trim2_sccs"] += n_sccs
-                stats["trim2_removed"] += int(blob2[1].sum())
-                live_host = blob2[2:]
+            keep = np.nonzero(live_host.any(axis=1))[0]
+            if keep.size == 0:
+                continue
+            live_host = _pad_pow2(live_host[keep])
+            B = keep.size                       # real regions; the rest is pad
 
-        keep = np.nonzero(live_host.any(axis=1))[0]
-        if keep.size == 0:
-            continue
-        live_host = _pad_pow2(live_host[keep])
-        B = keep.size                       # real regions; the rest is pad
+            # one pivot per surviving region: its first live vertex
+            pivots = live_host[:B].argmax(axis=1)
+            stats["pivots"] += B
+            if stats["pivots"] > max_pivots:
+                raise RuntimeError("scc_decompose: pivot budget exceeded")
+            seeds = np.zeros_like(live_host)
+            seeds[np.arange(B), pivots] = True
 
-        # one pivot per surviving region: its first live vertex
-        pivots = live_host[:B].argmax(axis=1)
-        stats["pivots"] += B
-        if stats["pivots"] > max_pivots:
-            raise RuntimeError("scc_decompose: pivot budget exceeded")
-        seeds = np.zeros_like(live_host)
-        seeds[np.arange(B), pivots] = True
+            # all B pivots advance together: one dispatch per direction (per
+            # max_batch chunk)
+            def sweep(reach):
+                outs = [reach.run_batch(on_dev(s), on_dev(a))
+                        for s, a in zip(_chunks(seeds, max_batch),
+                                        _chunks(live_host, max_batch))]
+                if instrument:
+                    stats["reach_rounds"] += int(sum(
+                        np.asarray(o.rounds).sum() for o in outs))
+                return torch.cat([o.mask for o in outs])[:B]
+            fw = sweep(fw_reach)
+            bw = sweep(bw_reach)
+            live = on_dev(live_host[:B])
+            scc = fw & bw
+            scc_ids = next_label + torch.arange(B, dtype=torch.int32,
+                                                device=dev)
+            owner = torch.where(scc, scc_ids[:, None], -1).amax(dim=0)
+            labels = torch.where(owner >= 0, owner, labels)
+            next_label += B
 
-        # all B pivots advance together: one dispatch per direction (per
-        # max_batch chunk)
-        def sweep(reach):
-            outs = [reach.run_batch(on_dev(s), on_dev(a))
-                    for s, a in zip(_chunks(seeds, max_batch),
-                                    _chunks(live_host, max_batch))]
-            return torch.cat([o.mask for o in outs])[:B]
-        fw = sweep(fw_reach)
-        bw = sweep(bw_reach)
-        live = on_dev(live_host[:B])
-        scc = fw & bw
-        scc_ids = next_label + torch.arange(B, dtype=torch.int32, device=dev)
-        owner = torch.where(scc, scc_ids[:, None], -1).amax(dim=0)
-        labels = torch.where(owner >= 0, owner, labels)
-        next_label += B
-
-        children = torch.cat([fw & ~scc, bw & ~scc,
-                              live & ~fw & ~bw]).cpu().numpy()
-        regions = [r for r in children if r.any()]
+            children = torch.cat([fw & ~scc, bw & ~scc,
+                                  live & ~fw & ~bw]).cpu().numpy()
+            regions = [r for r in children if r.any()]
+            if gen_sp is not None:
+                gen_sp.attrs["pivots"] = B
 
     labels = labels.cpu().numpy().astype(np.int64)  # the one materialization
     assert ((labels >= 0) | ~region0).all()

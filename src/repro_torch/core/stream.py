@@ -42,15 +42,21 @@ only the consumed slots ``[0, n_ins)`` and the sparse decrement only the
 frontier's expanded edges, both known on the host: slots past them would
 add nothing but serialised atomics.
 
-Not ported yet: ``instrument=True``/``max_rounds`` (ROADMAP A7), memory
-accounting (A7), ``state_dict``/``load_state`` and the FaultPlane's
-``mid-update-batch`` point (A8).
+``instrument=True`` records each dispatch's per-round stats (frontier
+size, live arcs traversed, decrements applied to live vertices, the
+sparse-round flag; a from-scratch initialization's scan of every overlay
+arc is charged to slot 0) without a host sync; ``retrim()`` reports
+those of the dispatch that produced the current fixpoint.
+
+Not ported yet: ``state_dict``/``load_state`` and the FaultPlane's
+``mid-update-batch`` point (ROADMAP A8).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .. import obs
 from ..kernels import ops as kops
 from .common import FrontierPlan, frontier_plan, segment_sum
 from .enginebase import EngineBase
@@ -64,7 +70,8 @@ STREAM_BACKENDS = ("dense",)
 # -- the stream kernel (family "stream") ---------------------------------------
 
 def _run_stream_ac4(tarrs, overlay, state, updates, *, n_ins: int,
-                    full: bool, frontier: FrontierPlan = FrontierPlan()):
+                    full: bool, frontier: FrontierPlan = FrontierPlan(),
+                    stats=None):
     """One apply step: structural overlay updates, counter maintenance and
     the (incremental or from-scratch) AC-4 fixpoint.
 
@@ -84,6 +91,11 @@ def _run_stream_ac4(tarrs, overlay, state, updates, *, n_ins: int,
              high-water mark; the slots past it are never alive).
     full:    ignore the incremental state and rebuild the fixpoint from
              scratch over the overlay.
+    stats:   a :class:`~repro_torch.obs.RoundBuffers` over ``r_frontier``,
+             ``r_edges``, ``r_decrements`` (and ``r_sparse`` on a non-dense
+             plan) that each round records into, or ``None``.  An
+             instrumented run reads the frontier's count in its loop test
+             on every plan.
 
     Returns ``((status, counters), rounds, dirty)`` with ``rounds`` an int
     and ``dirty`` a bool.
@@ -132,9 +144,15 @@ def _run_stream_ac4(tarrs, overlay, state, updates, *, n_ins: int,
                            add_live.to(torch.int32)]))
             status = status & ~front
 
+    if stats is not None and (full or dirty):
+        # the from-scratch initialization scans every overlay arc: the
+        # base edges and the insert buffer's capacity, as the reference
+        stats.record(0, r_edges=t_rows.shape[0] + ins_alive.shape[0])
+
     # 3. AC-4 propagation over the overlay: each Gᵀ arc whose dead
     # propagator is on the frontier decrements its predecessor
     sparse = frontier.mode != "dense"
+    known = sparse or stats is not None
     t_deg = t_indptr[1:] - t_indptr[:-1]
 
     def base_dec_dense(f):
@@ -153,13 +171,14 @@ def _run_stream_ac4(tarrs, overlay, state, updates, *, n_ins: int,
 
     rounds = 0
     while True:
-        if sparse:
+        if known:
             count, tedges = torch.stack(
                 [front.sum(), torch.where(front, t_deg, 0).sum()]
             ).tolist()                                        # host sync
             if count == 0:
                 break
-            use_sparse = count <= frontier.cap and tedges <= frontier.ecap
+            use_sparse = (sparse and count <= frontier.cap
+                          and tedges <= frontier.ecap)
         else:
             if not bool(front.any()):                         # host sync
                 break
@@ -168,6 +187,12 @@ def _run_stream_ac4(tarrs, overlay, state, updates, *, n_ins: int,
                else base_dec_dense(front))
         if n_ins:
             dec = dec + segment_sum(front[ins_tgt] & ins_live, ins_own, n)
+        if stats is not None:
+            vals = dict(r_frontier=count, r_edges=dec.sum(dtype=torch.int32),
+                        r_decrements=(dec * status).sum(dtype=torch.int32))
+            if sparse:
+                vals["r_sparse"] = int(use_sparse)
+            stats.record(rounds, **vals)
         # every vertex's counter moves, the dead ones' too: the values are
         # path-dependent, as in the reference
         counters = counters - dec
@@ -191,14 +216,21 @@ class StreamResult:
              them, so nothing is left to fetch)
     dirty:   the batch had a reviving insertion and restarted from the
              from-scratch initialization (still one dispatch)
+    round_stats: the batch's per-round :class:`repro_torch.obs.RoundStats`
+             when the engine is instrumented, else None
     """
 
-    __slots__ = ("_status", "_rounds", "_dirty")
+    __slots__ = ("_status", "_rounds", "_dirty", "_round_stats")
 
-    def __init__(self, status, rounds: int, dirty: bool):
+    def __init__(self, status, rounds: int, dirty: bool, round_stats=None):
         self._status = status
         self._rounds = rounds
         self._dirty = dirty
+        self._round_stats = round_stats
+
+    @property
+    def round_stats(self):
+        return self._round_stats
 
     @property
     def status(self):
@@ -242,8 +274,9 @@ def plan_stream(graph, method: str = "ac4", backend: str = "dense", *,
     ``frontier``: "auto" (default) picks the dense or compacted decrement
     each round, "dense"/"sparse" pin one; the results are identical.  The
     capacities are sized once from the base graph and survive compaction.
-    ``instrument=True`` and ``max_rounds`` (per-round stats) are not
-    ported yet and raise.
+    ``instrument=True`` attaches per-round stats of ``max_rounds`` slots
+    (default ``obs.round_capacity(n)``) to each ``apply`` result and to
+    ``retrim()``; ``instrument=False`` ignores ``max_rounds``.
     """
     return StreamEngine(graph, method=method, backend=backend,
                         capacity=capacity, load_factor=load_factor,
@@ -263,10 +296,6 @@ class StreamEngine(EngineBase):
         if backend not in STREAM_BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; expected one "
                              f"of {STREAM_BACKENDS}")
-        if instrument or max_rounds is not None:
-            raise NotImplementedError(
-                "instrument=True / max_rounds (per-round stats) is not "
-                "ported yet: ROADMAP A7")
         if isinstance(graph, DeltaCSR):
             if capacity is not None or load_factor is not None:
                 raise ValueError(
@@ -286,6 +315,8 @@ class StreamEngine(EngineBase):
         # sized once from the base graph; compaction changes the
         # representation, not the graph, so the plan stays valid
         self.fplan = frontier_plan(frontier, delta.n, delta.m_base)
+        self._plan_stats(instrument, max_rounds, delta.n)
+        self._last_stats = None
         self._tarrs = None
         self._state = None          # (status bool (n,), counters int32 (n,))
         self._rounds_total = 0
@@ -298,20 +329,51 @@ class StreamEngine(EngineBase):
                 torch.zeros((0,), dtype=torch.int32, device=self.device))
 
     def plan_signature(self) -> str:
-        return (f"stream[{self.method}/{self.backend}]"
-                f"(n={self.delta.n},m={self.delta.m_base},"
-                f"cap={self.delta.capacity})"
-                f"+frontier[{self.fplan.mode}]")
+        sig = (f"stream[{self.method}/{self.backend}]"
+               f"(n={self.delta.n},m={self.delta.m_base},"
+               f"cap={self.delta.capacity})"
+               f"+frontier[{self.fplan.mode}]")
+        return sig + "+stats" if self.instrument else sig
 
     def _plan_kwargs(self):
-        """The reference's plan kwargs without ``use_kernel``;
-        ``instrument`` / ``max_rounds`` keep their defaults (ROADMAP
-        A7)."""
+        """The reference's plan kwargs without ``use_kernel``."""
         return {"method": self.method, "backend": self.backend,
                 "capacity": self.delta.capacity,
                 "load_factor": self.delta.load_factor,
-                "frontier": self.fplan.mode, "instrument": False,
-                "max_rounds": None}
+                "frontier": self.fplan.mode, "instrument": self.instrument,
+                "max_rounds": self.max_rounds if self.instrument else None}
+
+    def nbytes_breakdown(self):
+        # _tarrs[0:2] seed the base transpose cache (counted by the base);
+        # the Gᵀ row ids and the base-edge permutation, the DeltaCSR
+        # overlay (tombstones, insert buffers, host index) and the fixpoint
+        # state are new bytes
+        out = super().nbytes_breakdown()
+        for k, v in self.delta.nbytes_breakdown().items():
+            out[f"delta_{k}"] = v
+        if self._tarrs is not None:
+            out["transpose_perm"] = obs.array_nbytes(self._tarrs[2:])
+        if self._state is not None:
+            out["state"] = obs.array_nbytes(self._state)
+        return out
+
+    def _stat_names(self):
+        names = ("r_frontier", "r_edges", "r_decrements")
+        return names + (("r_sparse",) if self.fplan.mode != "dense" else ())
+
+    def _step_stats(self, rounds, bufs):
+        """RoundStats of the latest dispatch (zeros for an empty graph's,
+        which ran nothing), also kept for ``retrim()``."""
+        if not self.instrument:
+            return None
+        if bufs is None:
+            z = np.zeros(self.max_rounds, np.int64)
+            rs = obs.RoundStats(0, {}, max_rounds=self.max_rounds,
+                                host={k: z for k in self._stat_names()[:3]})
+        else:
+            rs = self._wrap_stats(rounds, bufs.finish())
+        self._last_stats = rs
+        return rs
 
     # -- cached resources --------------------------------------------------
     def _transpose_arrays(self):
@@ -361,12 +423,13 @@ class StreamEngine(EngineBase):
         flat = torch.from_numpy(np.concatenate(parts).astype(np.int32))
         return torch.split(flat.to(self.device), [p.size for p in parts])
 
-    def _step(self, full: bool, updates):
+    def _step(self, full: bool, updates, stats=None):
         d = self.delta
         return self.spec.run(
             self._transpose_arrays(),
             (d.tomb, d.ins_src, d.ins_dst, d.ins_alive), self._state,
-            updates, n_ins=d.n_ins, full=full, frontier=self.fplan)
+            updates, n_ins=d.n_ins, full=full, frontier=self.fplan,
+            stats=stats)
 
     # -- execution ---------------------------------------------------------
     def apply(self, deletions=None, insertions=None) -> StreamResult:
@@ -382,7 +445,8 @@ class StreamEngine(EngineBase):
         if d.n == 0:
             if dsrc.size or isrc.size:
                 raise ValueError("cannot update an empty (n=0) graph")
-            return StreamResult(self._state[0], 0, False)
+            return StreamResult(self._state[0], 0, False,
+                                self._step_stats(0, None))
         # validate the whole batch before anything commits: a bad
         # insertion must not leave the deletions half-applied.  (The
         # reference arms its FaultPlane point "mid-update-batch" here;
@@ -394,13 +458,15 @@ class StreamEngine(EngineBase):
                 d.grow(isrc.size)
         eids, slots_del = d.resolve_deletions(dsrc, ddst)
         slots_ins = d.stage_inserts(isrc, idst)
+        bufs = self._buffers()
         state, rounds, dirty = self._dispatch(
             self._step, False,
             self._updates(dsrc, ddst, eids, slots_del, isrc, idst,
-                          slots_ins))
+                          slots_ins), bufs)
         self._state = state
         self._rounds_total += rounds
-        res = StreamResult(state[0], rounds, dirty)
+        res = StreamResult(state[0], rounds, dirty,
+                           self._step_stats(rounds, bufs))
         if d.needs_compact:
             self.compact()
         return res
@@ -417,10 +483,13 @@ class StreamEngine(EngineBase):
         """
         if full and self.delta.n:
             z = np.zeros(0, np.int64)
+            bufs = self._buffers()
             self._state, self._rounds_total, _ = self._dispatch(
-                self._step, True, self._updates(z, z, z, z, z, z, z))
+                self._step, True, self._updates(z, z, z, z, z, z, z), bufs)
+            self._step_stats(self._rounds_total, bufs)
         return TrimResult(status=self._state[0].to(torch.int32),
-                          rounds=self._rounds_total)
+                          rounds=self._rounds_total,
+                          round_stats=self._last_stats)
 
     def snapshot(self) -> CSRGraph:
         """Materialize the current graph (base minus tombstones plus live

@@ -80,6 +80,11 @@ LAUNCHES = {"first_live_scan": 0, "first_live_probe": 0,
             "frontier_expand": 0, "bucket_peel": 0, "counter_scatter": 0,
             "flash_attention": 0, "segment_sum": 0, "mutant_copy": 0}
 
+#: libraries this process compiled (a one-element list, read and bumped
+#: in place): ``EngineBase._dispatch`` tags a dispatch during which it
+#: grew ``"build+execute"``
+BUILDS = [0]
+
 _LIBS: dict[str, ctypes.CDLL] = {}
 #: C entry point name -> (library, its argument types before the geometry)
 SIGNATURES: dict[str, tuple] = {}
@@ -167,6 +172,7 @@ def build_all() -> dict[str, float]:
             continue
         target.with_suffix(".log").write_text(log)
         os.replace(tmp, target)
+        BUILDS[0] += 1
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return took

@@ -5,6 +5,9 @@ A tensor on the CPU takes the kernel's plain PyTorch version
 Hopper kernel, or raises: there is no fallback from a failed build or
 launch to the plain version.  Each kernel wrapper counts its launches in
 :data:`LAUNCHES` (a plain int per kernel); the plain path never counts.
+Every call, on either path, is also noted to the observability layer
+(``obs.note_kernel``: an instant span, ``repro_kernel_calls``, and the
+plan cost capture), which costs an attribute read or two when it is off.
 
 Mirrors ``src/repro/kernels/ops.py`` for the kernels of the trimming,
 reachability, peel and stream engines' paths, of the LM prefill and of the
@@ -16,6 +19,7 @@ from __future__ import annotations
 
 import math
 
+from ..obs.recorder import note_kernel
 from . import ref
 from ._build import LAUNCHES, reset_launches
 from . import bucket_peel as _bpl
@@ -38,11 +42,17 @@ def _on_cpu(t) -> bool:
     return t.device.type == "cpu"
 
 
+def _noted(name: str, cpu: bool, args, out):
+    note_kernel(name, "plain" if cpu else "cuda", args, out)
+    return out
+
+
 def first_live_scan(flags, valid, active):
     """(n, W) bool ×2 + (n,) bool -> (first (n,) int32, found (n,) bool)."""
-    if _on_cpu(flags):
-        return ref.first_live_ref(flags, valid, active)
-    return _fls.first_live_scan(flags, valid, active)
+    cpu = _on_cpu(flags)
+    out = (ref.first_live_ref(flags, valid, active) if cpu
+           else _fls.first_live_scan(flags, valid, active))
+    return _noted("first_live_scan", cpu, (flags, valid, active), out)
 
 
 def first_live_probe(status, indptr, indices, start, scanning,
@@ -50,54 +60,60 @@ def first_live_probe(status, indptr, indices, start, scanning,
     """(n,) bool status, CSR (indptr, indices), (n,) int32 start and (n,)
     bool scanning -> (first (n,) int32, found (n,) bool) of each scanning
     row's window: the windowed probe with its liveness gather."""
-    if _on_cpu(status):
-        return ref.first_live_probe_ref(status, indptr, indices, start,
-                                        scanning, window)
-    return _fls.first_live_probe(status, indptr, indices, start, scanning,
-                                 window)
+    args = (status, indptr, indices, start, scanning, window)
+    cpu = _on_cpu(status)
+    out = (ref.first_live_probe_ref(*args) if cpu
+           else _fls.first_live_probe(*args))
+    return _noted("first_live_probe", cpu, args, out)
 
 
 def prefix_positions(x):
     """(n,) int32/bool -> (exclusive prefix (n,) int32, total 0-d int32)."""
-    if _on_cpu(x):
-        return ref.prefix_positions_ref(x)
-    return _fc.prefix_positions(x)
+    cpu = _on_cpu(x)
+    out = ref.prefix_positions_ref(x) if cpu else _fc.prefix_positions(x)
+    return _noted("prefix_positions", cpu, (x,), out)
 
 
 def frontier_compact(mask, capacity: int):
     """(n,) bool -> (ids (capacity,) int32 with sentinel n, count 0-d)."""
-    if _on_cpu(mask):
-        return ref.frontier_compact_ref(mask, capacity)
-    return _fc.frontier_compact(mask, capacity)
+    cpu = _on_cpu(mask)
+    out = (ref.frontier_compact_ref(mask, capacity) if cpu
+           else _fc.frontier_compact(mask, capacity))
+    return _noted("frontier_compact", cpu, (mask, capacity), out)
 
 
 def sparse_expand(indptr, indices, ids, ecap: int):
     """CSR rows of compacted ``ids`` -> (src, tgt, pos, valid), (ecap,)."""
-    if _on_cpu(indptr):
-        return ref.sparse_expand_ref(indptr, indices, ids, ecap)
-    return _fc.sparse_expand(indptr, indices, ids, ecap)
+    args = (indptr, indices, ids, ecap)
+    cpu = _on_cpu(indptr)
+    out = ref.sparse_expand_ref(*args) if cpu else _fc.sparse_expand(*args)
+    return _noted("sparse_expand", cpu, args, out)
 
 
 def frontier_expand(flags, valid, pending):
     """(n, W) bool ×2 + (n,) bool -> hit (n,) bool."""
-    if _on_cpu(flags):
-        return ref.frontier_expand_ref(flags, valid, pending)
-    return _fex.frontier_expand(flags, valid, pending)
+    cpu = _on_cpu(flags)
+    out = (ref.frontier_expand_ref(flags, valid, pending) if cpu
+           else _fex.frontier_expand(flags, valid, pending))
+    return _noted("frontier_expand", cpu, (flags, valid, pending), out)
 
 
 def bucket_peel(counters, alive, k):
     """(n,) int32 + (n,) bool + 1-element int32 ``k`` -> (n,) bool."""
-    if _on_cpu(counters):
-        return ref.bucket_peel_ref(counters, alive, k)
-    return _bpl.bucket_peel(counters, alive, k)
+    cpu = _on_cpu(counters)
+    out = (ref.bucket_peel_ref(counters, alive, k) if cpu
+           else _bpl.bucket_peel(counters, alive, k))
+    return _noted("bucket_peel", cpu, (counters, alive, k), out)
 
 
 def counter_scatter(counters, status, upd_src, upd_delta):
     """(n,) int32 + (n,) bool + (B,) int32 x 2 -> (new (n,) int32,
     dead (n,) bool)."""
-    if _on_cpu(counters):
-        return ref.counter_scatter_ref(counters, status, upd_src, upd_delta)
-    return _cs.counter_scatter(counters, status, upd_src, upd_delta)
+    args = (counters, status, upd_src, upd_delta)
+    cpu = _on_cpu(counters)
+    out = (ref.counter_scatter_ref(*args) if cpu
+           else _cs.counter_scatter(*args))
+    return _noted("counter_scatter", cpu, args, out)
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
@@ -105,10 +121,11 @@ def flash_attention(q, k, v, *, causal: bool = True,
     """q (B, Hq, Sq, D), k and v (B, Hkv, Sk, D) -> (B, Hq, Sq, D) in
     q.dtype: causal GQA attention, queries aligned to the end of the keys.
     On a CUDA tensor an unsupported head dim or dtype raises."""
-    if _on_cpu(q):
-        return ref.flash_attention_ref(q, k, v, causal=causal,
-                                       sm_scale=sm_scale)
-    return _fa.flash_attention(q, k, v, causal=causal, sm_scale=sm_scale)
+    cpu = _on_cpu(q)
+    out = (ref.flash_attention_ref(q, k, v, causal=causal, sm_scale=sm_scale)
+           if cpu else
+           _fa.flash_attention(q, k, v, causal=causal, sm_scale=sm_scale))
+    return _noted("flash_attention", cpu, (q, k, v, causal, sm_scale), out)
 
 
 def segment_index(seg_ids, num_segments: int):
@@ -127,17 +144,21 @@ def segment_sum(values, seg_ids, num_segments: int, index=None):
     and restored afterwards.  ``index``: :func:`segment_index` of
     ``seg_ids``, built here where it is None; the plain version on the CPU
     does not need it."""
-    if _on_cpu(values):
-        return ref.segment_sum_ref(values, seg_ids, num_segments)
-    rest = tuple(values.shape[1:])
-    flat = values.reshape(values.shape[0], math.prod(rest))
-    return _ss.segment_sum(flat, seg_ids, num_segments, index).view(
-        (num_segments,) + rest)
+    cpu = _on_cpu(values)
+    if cpu:
+        out = ref.segment_sum_ref(values, seg_ids, num_segments)
+    else:
+        rest = tuple(values.shape[1:])
+        flat = values.reshape(values.shape[0], math.prod(rest))
+        out = _ss.segment_sum(flat, seg_ids, num_segments, index).view(
+            (num_segments,) + rest)
+    return _noted("segment_sum", cpu, (values, seg_ids, num_segments), out)
 
 
 def mutant_copy(x, carry=None, *, block: int = 256):
     """(n,) int32 (+ a 1-element int32 carry) -> (n,) int32 ``x +
     carry``: the static checks' copy kernel."""
-    if _on_cpu(x):
-        return ref.mutant_copy_ref(x, carry)
-    return _mc.mutant_copy(x, carry, block=block)
+    cpu = _on_cpu(x)
+    out = (ref.mutant_copy_ref(x, carry) if cpu
+           else _mc.mutant_copy(x, carry, block=block))
+    return _noted("mutant_copy", cpu, (x, carry), out)

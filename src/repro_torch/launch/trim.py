@@ -13,16 +13,20 @@ trimming and k-core peeling on one named graph (PyTorch port of
 ``--graph`` names one of ``graphs.BENCHMARK_GRAPHS``.  Everything runs on
 ``--device`` (default ``cuda``; a missing card raises).  Each app plans
 its engine once and runs it twice: ``first`` includes the one-time set-up
-(row ids, tiles, the kernels' build), ``steady`` is a warm run.  ``--app check`` runs the static-analysis
-plane instead (``repro_torch.analysis.check``; ``--strict``,
-``--mutants``, and ``--metrics-json PATH`` for the findings JSON): no
-graph, no engine, nothing on the card.
+(row ids, tiles, the kernels' build), ``steady`` is a warm run.
+``--metrics-json PATH`` runs the app under an enabled MetricsPlane with
+instrumented engines and writes the plane's snapshot to PATH
+(``obs.load_snapshot`` reads it back): dispatches, fixpoint rounds and
+work, live bytes per engine, the kernels' calls and cost, and the card's
+allocator bytes.  ``--app check`` runs the static-analysis plane instead
+(``repro_torch.analysis.check``; ``--strict``, ``--mutants``, and
+``--metrics-json PATH`` for the findings JSON): no graph, no engine,
+nothing on the card.
 
 Not ported yet, and raising :class:`NotImplementedError` that names the
 ROADMAP item: ``--dryrun`` (A11), ``--backend sharded`` (A6),
-``--metrics-json`` outside ``--app check`` (A7), ``--checkpoint-dir``,
-``--checkpoint-every``, ``--fault-seed``, ``--fault-rate`` and
-``--retries`` (A8).
+``--checkpoint-dir``, ``--checkpoint-every``, ``--fault-seed``,
+``--fault-rate`` and ``--retries`` (A8).
 """
 from __future__ import annotations
 
@@ -39,13 +43,13 @@ def _sync(device) -> None:
 
 
 def run_local(graph_name: str, method: str, workers: int,
-              backend: str = "dense", device="cuda"):
+              backend: str = "dense", device="cuda", instrument=False):
     from ..core.engine import plan
     from ..graphs import make
     g = make(graph_name, device=device)
     # this entry point never passes active masks
     engine = plan(g, method=method, backend=backend, workers=workers,
-                  unmasked=True, device=device)
+                  unmasked=True, instrument=instrument, device=device)
     t0 = time.time()
     res = engine.run().materialize()
     t_first = time.time() - t0
@@ -62,7 +66,7 @@ def run_local(graph_name: str, method: str, workers: int,
 
 
 def run_scc(graph_name: str, method: str, backend: str = "dense",
-            reach_backend: str = "windowed", device="cuda"):
+            reach_backend: str = "windowed", device="cuda", instrument=False):
     """FW-BW SCC decomposition with trim-2: per worklist generation one
     batched trim dispatch, one trim-2 dispatch and two batched reach
     dispatches; labels reach the host once."""
@@ -77,7 +81,7 @@ def run_scc(graph_name: str, method: str, backend: str = "dense",
         labels, stats = scc_decompose(g, trim_method=method,
                                       trim_backend=backend,
                                       reach_backend=reach_backend,
-                                      device=device)
+                                      instrument=instrument, device=device)
         times.append(time.time() - t0)
     t_first, t_steady = times
     print(f"[scc] {graph_name} n={g.n} m={g.m} trim={method}/{backend} "
@@ -90,7 +94,7 @@ def run_scc(graph_name: str, method: str, backend: str = "dense",
 
 
 def run_stream(graph_name: str, batches: int = 3, batch_frac: float = 0.001,
-               seed: int = 0, device="cuda"):
+               seed: int = 0, device="cuda", instrument=False):
     """Incremental trimming under a synthetic deletion feed: ``apply()``
     absorbs each batch through the counter_scatter kernel and a
     delta-seeded fixpoint; ``retrim(full=True)`` is the from-scratch
@@ -100,7 +104,7 @@ def run_stream(graph_name: str, batches: int = 3, batch_frac: float = 0.001,
     from ..core.stream import plan_stream
     from ..graphs import make
     g = make(graph_name, device=device)
-    engine = plan_stream(g)
+    engine = plan_stream(g, instrument=instrument)
     rng = np.random.default_rng(seed)
     src, dst = engine.delta._src_np, engine.delta._dst_np
     k = max(1, int(g.m * batch_frac))
@@ -126,7 +130,7 @@ def run_stream(graph_name: str, batches: int = 3, batch_frac: float = 0.001,
     return engine
 
 
-def run_peel(graph_name: str, device="cuda"):
+def run_peel(graph_name: str, device="cuda", instrument=False):
     """Full out-degree coreness in one dispatch on the peel engine, plus
     the k = 1 == AC-4 cross-check."""
     import numpy as np
@@ -135,7 +139,7 @@ def run_peel(graph_name: str, device="cuda"):
     from ..core.peel import plan_peel
     from ..graphs import make
     g = make(graph_name, device=device)
-    engine = plan_peel(g, device=device)
+    engine = plan_peel(g, instrument=instrument, device=device)
     t0 = time.time()
     res = engine.run().materialize()
     t_first = time.time() - t0
@@ -165,7 +169,6 @@ def _refuse_unported(args) -> None:
     for given, flag, item in (
             (args.dryrun, "--dryrun", "A11"),
             (args.backend == "sharded", "--backend sharded", "A6"),
-            (args.metrics_json is not None, "--metrics-json", "A7"),
             (args.checkpoint_dir is not None, "--checkpoint-dir", "A8"),
             (args.checkpoint_every is not None, "--checkpoint-every", "A8"),
             (args.fault_seed is not None, "--fault-seed", "A8"),
@@ -194,7 +197,8 @@ def main(argv=None):
     ap.add_argument("--mutants", action="store_true",
                     help="--app check: run the mutation corpus")
     ap.add_argument("--metrics-json", metavar="PATH",
-                    help="--app check: write the findings JSON to PATH")
+                    help="write the MetricsPlane snapshot of the run to "
+                         "PATH (--app check: the findings JSON)")
     # the reference's flags whose planes are not ported yet: each raises
     ap.add_argument("--dryrun", action="store_true")
     ap.add_argument("--checkpoint-dir", metavar="DIR")
@@ -218,15 +222,32 @@ def main(argv=None):
     if args.strict or args.mutants:
         ap.error("--strict/--mutants apply to --app check")
     _refuse_unported(args)
-    if args.app == "scc":
-        return run_scc(args.graph, args.method, args.backend,
-                       args.reach_backend, device=args.device)
-    if args.app == "stream":
-        return run_stream(args.graph, device=args.device)
-    if args.app == "peel":
-        return run_peel(args.graph, device=args.device)
-    return run_local(args.graph, args.method, args.workers, args.backend,
-                     device=args.device)
+    import contextlib
+
+    from .. import obs
+    kw = dict(device=args.device, instrument=args.metrics_json is not None)
+    scope = (obs.collecting_metrics() if args.metrics_json
+             else contextlib.nullcontext(None))
+    with scope as plane:
+        if args.app == "scc":
+            out = run_scc(args.graph, args.method, args.backend,
+                          args.reach_backend, **kw)
+        elif args.app == "stream":
+            out = run_stream(args.graph, **kw)
+        elif args.app == "peel":
+            out = run_peel(args.graph, **kw)
+        else:
+            out = run_local(args.graph, args.method, args.workers,
+                            args.backend, **kw)
+        if plane is not None:
+            obs.publish_device_memory(plane)
+    if plane is not None:
+        import json
+        with open(args.metrics_json, "w") as f:
+            json.dump(plane.snapshot(), f, indent=1)
+        print(f"[trim] metrics snapshot: {args.metrics_json} "
+              f"({len(plane.families)} families)")
+    return out
 
 
 if __name__ == "__main__":

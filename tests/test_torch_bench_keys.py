@@ -4,16 +4,20 @@ benchmark's own sizes, on the CPU:
 * ``BENCH_trim.json``: its five integer keys (rounds, edges_total,
   max_per_worker, trimmed, max_qp) for 4 methods x {dense, windowed};
 * ``BENCH_scc.json``: ``sccs`` of ``scc_decompose`` with default
-  arguments and the AC-6 trim ``rounds``;
+  arguments, the AC-6 trim ``rounds``, and ``frontier_path_taken`` from
+  the instrumented AC-6 run's ``r_sparse`` total (``bench_scc.py``'s
+  rule);
 * ``BENCH_peel.json``: its eight integer keys (generations, pivots,
   trim-2 removals and SCCs, ``max_core``, ``one_core``) on the fringe
   graphs;
 * ``BENCH_stream.json``: ``n``, ``m``, ``batch_edges``,
-  ``median_incr_rounds`` and ``trimmed`` under ``bench_family``'s feed.
+  ``median_incr_rounds`` and ``trimmed`` under ``bench_family``'s feed;
+* ``BENCH_obs.json``: per family, the 4 methods' ``edges_total``,
+  ``max_per_worker``, ``imbalance`` (3 places), ``rounds`` and
+  ``trimmed`` from instrumented runs at 16 workers, chunk 1, the eight
+  ``scc`` keys (span counts included) and ``ordering_ok``.
 
-The counters are deterministic integers, so they must be equal.
-``BENCH_scc.json``'s ``frontier_path_taken`` comes from per-round stats,
-which the port does not have yet (ROADMAP A7)."""
+The counters are deterministic integers, so they must be equal."""
 import json
 import os
 
@@ -22,6 +26,7 @@ import torch
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core import plan, plan_peel, plan_stream
 from repro_torch.core.scc import scc_decompose
 from repro_torch.graphs import generators as G
@@ -98,9 +103,15 @@ def test_bench_scc_json_keys(family):
     g = G.BENCHMARK_GRAPHS[family][0](**SCC_SIZES[family], device="cpu")
     assert (g.n, g.m) == (bench["n"], bench["m"])
     labels, _ = scc_decompose(g, device="cpu")
-    rounds = plan(g, method="ac6", device="cpu").run(counters=False).rounds
-    assert (len(np.unique(labels)), rounds) == (bench["sccs"],
-                                                bench["rounds"])
+    rs = plan(g, method="ac6", instrument=True,
+              device="cpu").run(counters=False).round_stats
+    rounds = int(rs.rounds)
+    # bench_scc.py's rule: the r_sparse total decides the path
+    sparse = int(rs.total("r_sparse")) if "r_sparse" in rs.names else 0
+    path = ("dense" if sparse == 0 else "sparse" if sparse >= rounds
+            else "mixed")
+    assert (len(np.unique(labels)), rounds, path) == (
+        bench["sccs"], bench["rounds"], bench["frontier_path_taken"])
 
 
 @pytest.mark.parametrize("family", sorted(PEEL_SIZES))
@@ -170,3 +181,49 @@ def test_bench_stream_json_keys(family):
                median_incr_rounds=int(np.median(rounds)),
                trimmed=engine.retrim().n_trimmed)
     assert got == {key: bench[key] for key in STREAM_KEYS}
+
+
+# benchmarks/bench_obs.py SIZES, WORKERS and CHUNK
+OBS_SIZES = JSON_SIZES
+OBS_WORKERS, OBS_CHUNK = 16, 1
+
+
+@pytest.mark.parametrize("family", sorted(OBS_SIZES))
+def test_bench_obs_json_keys(family):
+    """``benchmarks/bench_obs.py`` ``bench_family``: the paper's per-worker
+    traversed edges (Table 7 / Fig. 4) from the instrumented engines, the
+    round totals held against the per-worker counters on every run, and
+    one instrumented ``scc_decompose`` under a recorder.  Every family
+    runs here (chain, the slowest, in ~7 s: its 5,001 host-driven AC-3
+    rounds)."""
+    bench = _bench("obs", family)
+    g = G.BENCHMARK_GRAPHS[family][0](**OBS_SIZES[family], device="cpu")
+    assert (g.n, g.m) == (bench["n"], bench["m"])
+    methods = {}
+    for method in ("ac3", "ac4", "ac4*", "ac6"):
+        res = plan(g, method=method, workers=OBS_WORKERS, chunk=OBS_CHUNK,
+                   instrument=True, device="cpu").run(counters=True)
+        pw = np.asarray(res.per_worker_edges).astype(np.int64)
+        assert int(res.round_stats.total("r_edges")) == int(pw.sum())
+        methods[method] = {
+            "edges_total": int(pw.sum()), "max_per_worker": int(pw.max()),
+            "imbalance": round(float(pw.max() / max(pw.mean(), 1e-9)), 3),
+            "rounds": int(res.rounds), "trimmed": int(res.n_trimmed)}
+    with obs.recording() as rec:
+        _, stats = scc_decompose(g, counters=True, workers=OBS_WORKERS,
+                                 chunk=OBS_CHUNK, instrument=True,
+                                 device="cpu")
+    pw = stats["per_worker_edges"]
+    scc = {"generations": stats["generations"],
+           "trim_rounds": stats["trim_rounds"],
+           "reach_rounds": stats["reach_rounds"],
+           "trim_edges_total": int(pw.sum()),
+           "trim_max_per_worker": int(pw.max()),
+           "trim_imbalance": round(float(pw.max() / max(pw.mean(), 1e-9)),
+                                   3),
+           "dispatch_spans": len(rec.select("dispatch", cat="engine")),
+           "generation_spans": len(rec.select("generation", cat="scc"))}
+    mx = {m: methods[m]["max_per_worker"] for m in methods}
+    ordering = bool(mx["ac3"] > mx["ac4"] >= mx["ac6"])
+    assert (methods, scc, ordering) == (bench["methods"], bench["scc"],
+                                        bench["ordering_ok"])

@@ -14,6 +14,9 @@ run them with::
 
 This file imports no ``jax``, so it runs where only PyTorch is installed.
 """
+import contextlib
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -44,6 +47,30 @@ def cuda():
 
 def _eq(a, b):
     return torch.equal(a.cpu(), b.cpu())
+
+
+@contextlib.contextmanager
+def _profiled():
+    """A profile of the CPU and the card that records from the first item
+    of the block: the profiler has been seen to lose the first device
+    items after it starts, so the card runs 64 spin kernels and idles
+    20 ms first (:func:`_device_names` leaves them out)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(64):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(0.02)
+        yield prof
+
+
+def _device_names(prof):
+    """Names of a :func:`_profiled` block's device items (kernels and
+    copies), without its spin kernels."""
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "spin_kernel" not in e.name]
 
 
 @pytest.mark.parametrize("n,W", [(1, 16), (333, 16), (4097, 16), (64, 8),
@@ -215,15 +242,12 @@ def test_sparse_expand_lookback_edge_cases(cuda, kind):
 
 
 def _kernel_items(fn):
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _profiled() as prof:
         fn()
         torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return _device_names(prof)
 
 
 def test_sparse_expand_is_one_launch(cuda):
@@ -846,7 +870,6 @@ def test_captured_launches_are_the_cards(cuda, tmp_path):
     card, in order."""
     import json
 
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.analysis.capture import profiled_launches
     from repro_torch.analysis.catalog import (KERNEL_CATALOG,
@@ -857,8 +880,7 @@ def test_captured_launches_are_the_cards(cuda, tmp_path):
             want += [(w.kernel, tuple(w.grid), tuple(w.block))
                      for w in entry.build(point)]
             points.append((entry, point))
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _profiled() as prof:
         for entry, point in points:
             entry.run(point, cuda)
         torch.cuda.synchronize()
@@ -868,3 +890,137 @@ def test_captured_launches_are_the_cards(cuda, tmp_path):
                             {k for _, k in LAUNCH_DECLARATIONS})
     assert got == want
     assert {k for k, _, _ in got} == {k for _, k in LAUNCH_DECLARATIONS}
+
+
+# -- observability on the card (chip_smoke.py phase 14) --------------------
+
+#: device items instrument=True may add a round on the auto frontier (the
+#: stat sums the host does not already read: a reduction is a memset and a
+#: reduce, plus a cast for a bool input), and a run to fold them
+INSTRUMENT_ITEMS = {"ac3": 3, "ac4": 3, "ac4*": 3, "ac6": 5}
+INSTRUMENT_FOLD_ITEMS = 6
+
+
+def _card_syncs(fn):
+    """Host syncs of one call of ``fn`` under torch's sync debug mode."""
+    import warnings
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("called a synchronizing CUDA operation" in str(w.message)
+               for w in rec)
+
+
+def _card_items(*fns, reps=3):
+    """Device items (kernels and copies) of one call of each of ``fns``:
+    the largest count of ``reps`` profiles in turns, since the profiler
+    has been seen to lose items of a profile (all of them, or some) and
+    never to report one that did not run."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    counts = [0] * len(fns)
+    for _ in range(reps):
+        for i, fn in enumerate(fns):
+            with _profiled() as prof:
+                fn()
+                torch.cuda.synchronize()
+            counts[i] = max(counts[i], len(_device_names(prof)))
+    assert all(counts), "the profiler reported no device item"
+    return counts
+
+
+@pytest.mark.parametrize("method", ["ac3", "ac4", "ac4*", "ac6"])
+@pytest.mark.parametrize("backend", ["dense", "windowed"])
+def test_instrumented_trim_on_card(cuda, method, backend):
+    """Status, counters and rounds equal the plain run bit for bit, the
+    round totals the per-worker counters, the stats the CPU's; no host
+    sync is added, and at most ``INSTRUMENT_ITEMS`` device items a
+    round plus the fold."""
+    g = G.rmat(n_log2=14, m=131_072, seed=1, device=cuda)
+    kw = dict(method=method, backend=backend, workers=16)
+    plain = plan(g, device=cuda, **kw)
+    inst = plan(g, instrument=True, device=cuda, **kw)
+    a, b = plain.run(), inst.run()
+    assert _eq(a.status, b.status) and a.rounds == b.rounds
+    assert np.array_equal(a.per_worker_edges, b.per_worker_edges)
+    assert a.max_frontier == b.max_frontier
+    rs = b.round_stats
+    assert int(rs.total("r_edges")) == int(b.per_worker_edges.sum())
+    assert int(rs.total("r_frontier")) == b.n_trimmed
+    cpu = plan(G.rmat(n_log2=14, m=131_072, seed=1, device="cpu"),
+               instrument=True, device="cpu", **kw).run().round_stats
+    assert rs.to_dict() == cpu.to_dict()
+    assert _card_syncs(inst.run) == _card_syncs(plain.run)
+    n0, n1 = _card_items(plain.run, inst.run)
+    extra = n1 - n0
+    assert 0 <= extra <= INSTRUMENT_ITEMS[method] * b.rounds \
+        + INSTRUMENT_FOLD_ITEMS
+
+
+def test_instrumented_reach_peel_stream_scc_on_card(cuda):
+    from repro_torch import obs
+    g = G.rmat(n_log2=12, m=32_768, seed=1, device=cuda)
+    gc = G.rmat(n_log2=12, m=32_768, seed=1, device="cpu")
+    for backend in ("dense", "windowed"):
+        r0 = plan_reach(g, backend=backend, device=cuda).run(0)
+        r1 = plan_reach(g, backend=backend, instrument=True,
+                        device=cuda).run(0)
+        assert _eq(r0.mask, r1.mask) and r0.rounds == r1.rounds
+        assert int(r1.round_stats.total("r_frontier")) == r1.n_reached
+        assert r1.round_stats.to_dict() == plan_reach(
+            gc, backend=backend, instrument=True,
+            device="cpu").run(0).round_stats.to_dict()
+    p0 = plan_peel(g, device=cuda).run()
+    p1 = plan_peel(g, instrument=True, device=cuda).run()
+    assert _eq(p0.coreness, p1.coreness) and p0.rounds == p1.rounds
+    assert p1.round_stats.to_dict() == plan_peel(
+        gc, instrument=True, device="cpu").run().round_stats.to_dict()
+    s0, s1 = plan_stream(g), plan_stream(g, instrument=True)
+    src, dst = s0.delta._src_np.copy(), s0.delta._dst_np.copy()
+    rng = np.random.default_rng(0)
+    alive = np.ones(src.size, bool)
+    for _ in range(3):
+        ids = rng.choice(np.flatnonzero(alive), 300, replace=False)
+        alive[ids[20:]] = False          # the first 20 come straight back
+        batch = dict(deletions=(src[ids], dst[ids]),
+                     insertions=(src[ids[:20]], dst[ids[:20]]))
+        a, b = s0.apply(**batch), s1.apply(**batch)
+        assert _eq(a.status, b.status)
+        assert (a.rounds, a.dirty) == (b.rounds, b.dirty)
+        assert b.round_stats is not None
+    with obs.recording() as rec:
+        labels1, st1 = scc_decompose(g, instrument=True, device=cuda)
+    labels0, st0 = scc_decompose(g, device=cuda)
+    assert np.array_equal(labels0, labels1)
+    assert st1["trim_rounds"] > 0
+    assert len(rec.select("dispatch", cat="engine")) == \
+        st1["trim_dispatches"] + st1["reach_dispatches"]
+    assert len(rec.select("generation", cat="scc")) == st1["generations"]
+
+
+def test_engine_nbytes_against_the_allocator(cuda):
+    """``nbytes_breakdown()`` of the cached resources equals what caching
+    them added to ``torch.cuda.memory_allocated()``, up to the
+    allocator's rounding of each of the 4 tensors to 512 bytes (all are
+    under 1 MiB, so they come from its small pool, whose blocks split at
+    any remainder of 512 bytes or more)."""
+    from repro_torch import obs
+    g = G.rmat(n_log2=14, m=131_072, seed=1, device=cuda)
+    eng = plan(g, method="ac4", workers=16, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()     # fresh segments: only the rounding left
+    before = torch.cuda.memory_allocated()
+    eng._transpose_arrays()
+    eng._ids()
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
+    cached = sum(v for k, v in eng.nbytes_breakdown().items()
+                 if k != "graph")
+    assert 0 <= grown - cached < 512 * 4
+    stats = obs.device_memory_stats()
+    assert stats["cuda:0"]["allocated_bytes.all.current"] > 0

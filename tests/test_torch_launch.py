@@ -56,11 +56,9 @@ def test_cli_app_matches_reference(app, graph, argv, capsys):
 
 @pytest.mark.parametrize("argv,item", [
     (["--dryrun"], "A11"),
-    (["--app", "stream", "--metrics-json", "m.json"], "A7"),
     (["--app", "peel", "--checkpoint-every", "2"], "A8"),
     (["--app", "scc", "--dryrun"], "A11"),
     (["--backend", "sharded"], "A6"),
-    (["--metrics-json", "m.json"], "A7"),
     (["--app", "scc", "--checkpoint-dir", "ckpt"], "A8"),
     (["--checkpoint-every", "2"], "A8"),
     (["--fault-seed", "1"], "A8"),

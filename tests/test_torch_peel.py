@@ -176,8 +176,8 @@ def test_validation(monkeypatch):
         eng.run_batch(np.ones(tg.n, bool))
     with pytest.raises(ValueError, match="unknown method"):
         tcore.plan_peel(tg, method="nope", device=CPU)
-    with pytest.raises(NotImplementedError, match="A7"):
-        tcore.plan_peel(tg, instrument=True, device=CPU)
+    assert tcore.plan_peel(tg, instrument=True,
+                           device=CPU).run().round_stats is not None
     with pytest.raises(NotImplementedError, match="A8"):
         eng.state_dict()
     assert tcore.available_methods("peel") == ("bucket",)

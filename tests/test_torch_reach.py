@@ -160,8 +160,8 @@ def test_degenerate_and_validation(monkeypatch):
         eng.run_batch(np.ones(tg.n, bool))
     with pytest.raises(ValueError, match="unknown backend"):
         tcore.plan_reach(tg, backend="carrier-pigeon", device=CPU)
-    with pytest.raises(NotImplementedError, match="A7"):
-        tcore.plan_reach(tg, instrument=True, device=CPU)
+    assert tcore.plan_reach(tg, instrument=True,
+                            device=CPU).run(0).round_stats is not None
     assert set(tcore.available_methods("reach")) == {"push", "pull"}
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
