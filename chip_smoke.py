@@ -191,6 +191,30 @@ non-zero and prints no result line):
    ``repro_torch.launch.trim``'s ``main`` (as phase 10 calls it) with
    ``--app scc --graph RMAT --metrics-json``: the snapshot reads back with
    the dispatch, round and live-bytes families.
+15. (after phase 14) faults and checkpoints at RMAT scale 22, with the
+   launch counts set to 0 just before and read just after (every kernel
+   of the trim, SCC / reach / peel, stream and training paths must run):
+   (a) AC-4 dense and AC-6 windowed under an inert FaultPlane equal phase
+   3's status and per-worker counters, with the lint's host-sync budget
+   (AC-4: phase 13's count); (b) a ``pre-dispatch`` and a
+   ``post-dispatch`` fault, each through ``call_with_retries``, on those
+   two trims, the pull reach and the full peel: results equal phases 3
+   and 6, one dispatch counted; (c) the four engines through
+   ``save_engine`` and ``restore_engine``: save ms, restore ms and bytes,
+   the restored runs equal; (d) the stream saved after phase 9's tick 4,
+   restored, ticks 5-8 replayed against phase 9's status and counters
+   (tick 5 under a retried ``mid-update-batch`` fault, tick 6 under a
+   ``pre-dispatch`` fault recovered from the tick-5 checkpoint), and one
+   more deletion-only tick against phase 9's engine; (e)
+   ``scc_decompose(checkpoint_every=1)`` faulted at its last
+   ``pre-dispatch``, then ``resume=True``: phase 6's labels, generations
+   and pivots; (f) MeshGraphNet on the molecule cell resumed at step 2 of
+   4: restored state bit for bit, losses equal an uninterrupted run's
+   (bit for bit where two uninterrupted runs agree, else to phase 12's
+   1e-4); (g) ``python -m repro_torch.launch.trim --app scc --graph RMAT
+   --checkpoint-dir D --fault-seed 7 --fault-rate 0.05 --retries 5`` in a
+   subprocess: its final checkpoint holds the labels of a run without
+   faults.  Checkpoints go under ``build/chip_smoke_ckpt`` and are removed.
 
 The last two lines are the kernel table and the result, as JSON.  Needs
 one CUDA device; imports nothing of JAX or of the JAX package.
@@ -201,6 +225,7 @@ import argparse
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -312,6 +337,11 @@ INSTRUMENT_FOLD_ITEMS = 6
 # feed's first insertions come at tick 3)
 OVERHEAD_TRIMS = (("ac4", "dense"), ("ac6", "windowed"))
 OBS_TICKS = 4
+# phase 15: checkpoints go under build/ (gitignored) and are removed at the
+# end; the stream is saved after tick REPLAY_FROM of phase 9 and replayed
+CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
+REPLAY_FROM = 4
+FAULT_TRIMS = (("ac4", "dense"), ("ac6", "windowed"))
 # PyTorch's caching allocator: 511 bytes of rounding and at most 1 MiB of
 # an unsplit segment remainder a tensor
 ALLOC_SLACK = 511 + (1 << 20)
@@ -1658,7 +1688,9 @@ def scc_peel_real_phase(dev, g, gt):
         f"numpy oracle ({oracle_s:.1f} s on the host); peel(k=1) == AC-4")
 
     # reach: both backends x {auto, dense} frontiers from vertex 0 and
-    # from the first vertex of the 1-core other than 0
+    # from the first vertex of the 1-core other than 0 (phase 15 reruns the
+    # pull from 0)
+    reach0 = None
     for seed in (0, int(np.flatnonzero(core[1:] >= 1)[0]) + 1):
         want = np.zeros(g.n, bool)
         want[breadth_first_order(csr, seed, directed=True,
@@ -1672,6 +1704,8 @@ def scc_peel_real_phase(dev, g, gt):
                 check(np.array_equal(r.mask, want),
                       f"reach {backend}/{frontier} from {seed} differs "
                       "from scipy's BFS")
+                if (seed, backend, frontier) == (0, "windowed", "auto"):
+                    reach0 = r.mask
                 log(f"# phase 6: reach {backend}/{frontier} from {seed}: "
                     f"reached={int(want.sum())} rounds={r.rounds} "
                     f"wall_ms={wall:.1f}; equals scipy BFS")
@@ -1699,7 +1733,8 @@ def scc_peel_real_phase(dev, g, gt):
         f"alone takes {transpose_ms:.1f}); partition equals scipy's "
         f"on the canonical CSR ({time.perf_counter() - t0:.1f} s on the "
         "host)")
-    return dict(peel=res, peel_engine=peel, scc=(labels, stats))
+    return dict(peel=res, peel_engine=peel, scc=(labels, stats),
+                reach0=reach0)
 
 
 # -- phases 8 and 9: the stream engine ----------------------------------------
@@ -1815,9 +1850,11 @@ def stream_reference_phase(dev):
 def stream_real_phase(dev, g):
     """The trim-stream feed at the real size; every tick checked against
     AC-4 on the snapshot, the last one against the numpy oracle too.
-    Returns the engine and its feed (``--profile`` continues them) and the
+    Returns the engine and its feed (``--profile`` continues them), the
     first ``OBS_TICKS`` ticks' status, rounds and dirty flag (phase 14
-    replays them instrumented)."""
+    replays them instrumented), and what phase 15 (d) replays: the engine
+    saved after tick ``REPLAY_FROM``, the later ticks' batches, and every
+    tick's status and counters on the host."""
     import numpy as np
     import torch
 
@@ -1836,8 +1873,10 @@ def stream_real_phase(dev, g):
         f"permutation, plan-time retrim(full=True)) {(t2 - t1) * 1e3:.1f} "
         f"ms; capacity={delta.capacity} plan={engine.plan_signature()}; "
         f"feed arrays {(time.perf_counter() - t2) * 1e3:.1f} ms")
+    from repro_torch import fault
     walls = {False: [], True: []}       # apply ms, by "with insertions"
     ticks = []
+    replay = dict(dir=str(CKPT_DIR / "stream"), batches=[], host=[])
     for tick in range(STREAM_TICKS):
         batch = feed.next()
         n_upd = len(batch["deletions"][0]) + (
@@ -1850,6 +1889,15 @@ def stream_real_phase(dev, g):
         walls[batch["insertions"] is not None].append(apply_ms)
         if tick < OBS_TICKS:
             ticks.append((res.status.clone(), res.rounds, res.dirty))
+        replay["host"].append(tuple(x.cpu().numpy() for x in engine._state))
+        if tick >= REPLAY_FROM:
+            replay["batches"].append(batch)
+        if tick + 1 == REPLAY_FROM:
+            ms, nbytes = timed_save(
+                lambda: fault.save_engine(replay["dir"], engine, tick + 1),
+                replay["dir"], tick + 1)
+            log(f"# phase 9: engine saved after tick {tick} for phase 15 "
+                f"(d): save_ms={ms:.1f} bytes={nbytes}")
         t0 = time.perf_counter()
         snap = engine.snapshot()
         t1 = time.perf_counter()
@@ -1881,7 +1929,7 @@ def stream_real_phase(dev, g):
     check(torch.equal(full.status, before), "retrim(full=True) differs")
     log(f"# phase 9: retrim(full=True): "
         f"{(time.perf_counter() - t0) * 1e3:.1f} ms, rounds={full.rounds}")
-    return engine, feed, ticks
+    return engine, feed, ticks, replay
 
 
 # -- phase 13: the static checks ----------------------------------------------
@@ -2075,18 +2123,48 @@ def mutant_copy_phase(dev):
     return row
 
 
-def sync_budget_phase(dev, g, gt):
-    """(d): one warm AC-4 and one AC-6 trim at the real size: the host
-    syncs torch counts on the card, and the CPU lint's counter, against
-    the lint's budget for the rounds and probe steps the card ran."""
+def budget_syncs(eng, entry: str, what: str):
+    """One run of a warm engine with its host syncs counted twice, by
+    torch on the card and by the CPU lint's counter; both must equal the
+    lint's budget (``PLAN_CATALOG[entry]``) for the rounds and probe-loop
+    tests the card ran.  Returns ``(result, syncs, rounds, tests)``."""
     import warnings
 
     import torch
 
     from repro_torch.analysis import syncs
     from repro_torch.analysis.catalog import PLAN_CATALOG
+    budget = next(e for e in PLAN_CATALOG if e.name == entry)
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        with syncs.probe_tests() as probes:
+            with syncs.SyncCounter() as counter:
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    res = eng.run()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+    card = sum(SYNC_WARNING in str(w.message) for w in rec)
+    rounds, tests = res.rounds, probes.tests()
+    want = syncs.budget(budget, rounds, tests)
+    sites = [f"{Path(w.filename).name}:{w.lineno}" for w in rec
+             if SYNC_WARNING in str(w.message)]
+    check(card == want and counter.syncs == want,
+          f"{what}: {card} syncs on the card ({sites}), {counter.syncs} by "
+          f"the lint ({counter.events}), budget {want}")
+    return res, card, rounds, tests
+
+
+def sync_budget_phase(dev, g, gt):
+    """(d): one warm AC-4 and one AC-6 trim at the real size: the host
+    syncs torch counts on the card, and the CPU lint's counter, against
+    the lint's budget for the rounds and probe steps the card ran.
+    Returns the card's count of each (phase 15 (a) holds an inert
+    FaultPlane to them)."""
+    import torch
+
     from repro_torch.core import plan
-    budgets = {e.name: e for e in PLAN_CATALOG}
+    counts = {}
     # the auto frontier syncs as the sparse one does: one read a round,
     # which also carries the dense/sparse choice
     for method, entry in (("ac4", "trim/ac4[probe=dense,frontier=sparse]"),
@@ -2094,28 +2172,12 @@ def sync_budget_phase(dev, g, gt):
         eng = plan(g, method=method, workers=16, transpose=gt, device=dev)
         eng.run()
         torch.cuda.synchronize()
-        with warnings.catch_warnings(record=True) as rec:
-            warnings.simplefilter("always")
-            with syncs.probe_tests() as probes:
-                with syncs.SyncCounter() as counter:
-                    torch.cuda.set_sync_debug_mode("warn")
-                    try:
-                        res = eng.run()
-                    finally:
-                        torch.cuda.set_sync_debug_mode("default")
-        card = sum(SYNC_WARNING in str(w.message) for w in rec)
-        rounds, tests = res.rounds, probes.tests()
-        want = syncs.budget(budgets[entry], rounds, tests)
+        _, card, rounds, tests = budget_syncs(eng, entry, method)
+        counts[method] = card
         log(f"# phase 13: {method} at RMAT scale 22 (auto frontier): "
             f"{rounds} rounds, {tests} probe-loop tests; host syncs on the "
-            f"card {card}, counted by the lint {counter.syncs}, budget "
-            f"{want}")
-        sites = [f"{Path(w.filename).name}:{w.lineno}" for w in rec
-                 if SYNC_WARNING in str(w.message)]
-        check(card == want and counter.syncs == want,
-              f"{method}: {card} syncs on the card ({sites}), "
-              f"{counter.syncs} by the lint ({counter.events}), budget "
-              f"{want}")
+            f"card and counted by the lint {card}, equal to the budget")
+    return counts
 
 
 # -- phase 14: observability on the card --------------------------------------
@@ -2395,6 +2457,323 @@ def obs_real_phase(dev, g, gt, trims, real6, ticks):
         f"{len(plane.families)} families "
         f"({', '.join(sorted(plane.families))}); dispatches {disp} "
         f"({time.perf_counter() - t0:.1f} s)")
+
+
+# -- phase 15: faults and checkpoints -----------------------------------------
+
+def ckpt_bytes(path: str, step: int) -> int:
+    """Bytes of one checkpoint step on disk (its .npy files and
+    manifest)."""
+    d = Path(path) / f"step_{step:08d}"
+    return sum(f.stat().st_size for f in d.iterdir())
+
+
+def timed_save(fn, path: str, step: int):
+    """Wall ms of one synchronous save (the card's copies to the host and
+    the disk writes), and the bytes it wrote."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3, ckpt_bytes(path, step)
+
+
+def fault_phase(dev, g, gt, trims, real6, replay, syncs13):
+    """Phase 15: the FaultPlane and checkpoints at RMAT scale 22, each
+    result held bit for bit to the plain runs of phases 3, 6, 9 and 13."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch import fault as flt
+    from repro_torch.core import plan, plan_peel, plan_reach
+    from repro_torch.core.scc import scc_decompose
+    from repro_torch.train import checkpoint as ckpt_lib
+
+    def no_sleep(_):
+        pass
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    # the four engines of (b) and (c), planned as phases 3 and 6 planned
+    # them; ``run`` gives each one's result, ``same`` holds it to the
+    # earlier phase's
+    def trim_case(method, backend):
+        want = trims[method, backend]
+        return dict(
+            make=lambda: plan(g, method=method, backend=backend, workers=16,
+                              transpose=gt, device=dev),
+            run=lambda e: e.run(),
+            same=lambda r: (torch.equal(r.status, want.status)
+                            and r.rounds == want.rounds
+                            and np.array_equal(r.per_worker_edges,
+                                               want.per_worker_edges)))
+    cases = {f"{m}/{b}": trim_case(m, b) for m, b in FAULT_TRIMS}
+    cases["reach pull"] = dict(
+        make=lambda: plan_reach(g, backend="windowed", transpose=gt,
+                                device=dev),
+        run=lambda e: e.run(0).materialize(),
+        same=lambda r: np.array_equal(r.mask, real6["reach0"]))
+    peel_want = real6["peel"]
+    cases["peel"] = dict(
+        make=lambda: plan_peel(g, transpose=gt, device=dev),
+        run=lambda e: e.run().materialize(),
+        same=lambda r: (np.array_equal(r.coreness, peel_want.coreness)
+                        and r.rounds == peel_want.rounds))
+
+    # (a) an inert plane: armed at every dispatch, firing never
+    t_a = time.perf_counter()
+    for (method, backend), entry in zip(
+            FAULT_TRIMS, ("trim/ac4[probe=dense,frontier=sparse]",
+                          "trim/ac6[probe=windowed,frontier=dense]")):
+        eng = cases[f"{method}/{backend}"]["make"]()
+        eng.run()
+        torch.cuda.synchronize()
+        with flt.injecting_faults() as plane:
+            res, card, rounds, tests = budget_syncs(
+                eng, entry, f"{method}/{backend} under an inert plane")
+        check(cases[f"{method}/{backend}"]["same"](res)
+              and plane.armings["pre-dispatch"] == 1
+              and plane.armings["post-dispatch"] == 1
+              and not plane.injected,
+              f"(a) {method}/{backend} under an inert plane differs from "
+              "phase 3")
+        # phase 13 ran the same AC-4 plan (its AC-6 was dense)
+        same13 = (method, backend) == ("ac4", "dense")
+        if same13:
+            check(card == syncs13[method], f"(a) {method}: {card} host "
+                  f"syncs, phase 13 counted {syncs13[method]}")
+        log(f"# phase 15 (a): {method}/{backend} under an inert FaultPlane:"
+            f" status and per-worker counters equal phase 3's; {card} host "
+            f"syncs ({rounds} rounds, {tests} probe-loop tests), the lint's "
+            f"budget" + (" and phase 13's count" if same13 else ""))
+    log(f"# phase 15 (a): {time.perf_counter() - t_a:.1f} s")
+
+    # (b) a pre-dispatch and a post-dispatch fault, retried
+    t_b = time.perf_counter()
+    engines = {}
+    for name, case in cases.items():
+        for point in ("pre-dispatch", "post-dispatch"):
+            eng = case["make"]()
+            with flt.injecting_faults(
+                    flt.FaultSchedule(0, at={point: [1]})) as plane:
+                res = flt.call_with_retries(lambda: case["run"](eng),
+                                            retries=2, sleep=no_sleep)
+            check(case["same"](res) and plane.injected[point] == 1
+                  and plane.recoveries[(point, "retry")] == 1
+                  and eng.dispatches == 1,
+                  f"(b) {name}: a retried {point} fault differs from the "
+                  f"fault-free run (dispatches {eng.dispatches})")
+            engines[name] = eng
+        log(f"# phase 15 (b): {name}: a pre-dispatch and a post-dispatch "
+            "fault, each retried once: results equal phases 3/6, one "
+            "dispatch counted")
+    log(f"# phase 15 (b): {time.perf_counter() - t_b:.1f} s")
+
+    # (c) save, restore, run
+    t_c = time.perf_counter()
+    for i, (name, eng) in enumerate(engines.items()):
+        path = str(CKPT_DIR / f"engine{i}")
+        save_ms, nbytes = timed_save(
+            lambda: flt.save_engine(path, eng, 1), path, 1)
+        (restored, step, _, _), restore_ms = timed(
+            lambda: flt.restore_engine(path, device=dev))
+        res, run_ms = timed(lambda: cases[name]["run"](restored))
+        check(step == 1 and cases[name]["same"](res)
+              and restored.dispatches == eng.dispatches + 1,
+              f"(c) {name}: the restored engine's run differs")
+        log(f"# phase 15 (c): {name}: save_ms={save_ms:.1f} "
+            f"restore_ms={restore_ms:.1f} bytes={nbytes} "
+            f"({restored.plan_signature()}); the restored run "
+            f"({run_ms:.1f} ms) equals phases 3/6")
+        del restored
+        shutil.rmtree(path)
+    del engines
+    log(f"# phase 15 (c): {time.perf_counter() - t_c:.1f} s")
+
+    # (d) the stream: restore after tick REPLAY_FROM and replay the rest
+    t_d = time.perf_counter()
+    host = replay["host"]
+
+    def same_tick(eng, tick):
+        status, counters = host[tick]
+        return (np.array_equal(eng._state[0].cpu().numpy(), status)
+                and np.array_equal(eng._state[1].cpu().numpy(), counters)
+                and np.array_equal(
+                    eng.retrim().status.cpu().numpy().astype(bool), status))
+
+    (stream, step, _, _), restore_ms = timed(
+        lambda: flt.restore_engine(replay["dir"], device=dev))
+    check(step == REPLAY_FROM and same_tick(stream, REPLAY_FROM - 1),
+          "(d) the restored stream differs from phase 9's tick")
+    log(f"# phase 15 (d): stream restored as it was after phase 9's tick "
+        f"{REPLAY_FROM - 1} in {restore_ms:.1f} ms")
+    tick5 = str(CKPT_DIR / "stream5")
+    dirty = []
+    for i, batch in enumerate(replay["batches"]):
+        tick = REPLAY_FROM + i
+        if i == 0:
+            # retry-safe: nothing has committed at this point
+            with flt.injecting_faults(flt.FaultSchedule(
+                    0, at={"mid-update-batch": [1]})) as plane:
+                res = flt.call_with_retries(lambda: stream.apply(**batch),
+                                            retries=2, sleep=no_sleep)
+            check(plane.injected["mid-update-batch"] == 1,
+                  "(d) the mid-update-batch fault did not fire")
+            how = "a mid-update-batch fault, retried with the same batch"
+        elif i == 1:
+            # the host mirrors moved: restore the previous tick's
+            # checkpoint and re-apply
+            with flt.injecting_faults(flt.FaultSchedule(
+                    0, at={"pre-dispatch": [1]})) as plane:
+                try:
+                    stream.apply(**batch)
+                    fired = False
+                except flt.DeviceFault:
+                    fired = True
+            check(fired, "(d) the pre-dispatch fault did not fire")
+            (stream, _, _, _), restore_ms = timed(
+                lambda: flt.restore_engine(tick5, device=dev))
+            res = stream.apply(**batch)
+            how = (f"a pre-dispatch fault, recovered by restoring the "
+                   f"checkpoint after tick {tick - 1} ({restore_ms:.1f} ms) "
+                   "and re-applying")
+        else:
+            res = stream.apply(**batch)
+            how = "no fault"
+        dirty.append(res.dirty)
+        check(same_tick(stream, tick),
+              f"(d) replayed tick {tick} differs from phase 9's")
+        if i == 0:
+            save_ms, nbytes = timed_save(
+                lambda: flt.save_engine(tick5, stream, tick + 1), tick5,
+                tick + 1)
+            how += f"; saved: save_ms={save_ms:.1f} bytes={nbytes}"
+        log(f"# phase 15 (d): tick {tick}: {how}; status, counters and "
+            f"retrim() equal phase 9's (dirty={res.dirty})")
+    # one more deletion-only tick on the replayed engine and on phase 9's
+    # own, which ended at the same tick: a batch that revives nothing goes
+    # through counter_scatter (an insertion tick above may revive).
+    # Phase 9 ended with retrim(full=True), which recounts the dead
+    # vertices' counters, so only the live ones (live out-degrees) compare
+    extra = replay["feed"].next(insert=False)
+    for eng in (stream, replay["engine"]):
+        res = eng.apply(**extra)
+        check(not res.dirty, "(d) a deletion-only batch came back dirty")
+    (s1, c1), (s2, c2) = stream._state, replay["engine"]._state
+    check(torch.equal(s1, s2) and torch.equal(c1[s1], c2[s2]),
+          "(d) the replayed engine and phase 9's differ after one more "
+          "deletion-only tick")
+    log(f"# phase 15 (d): dirty flags of the replayed ticks {dirty}; one "
+        f"more deletion-only tick on both engines: status and live "
+        f"counters equal; {time.perf_counter() - t_d:.1f} s")
+    del stream
+
+    # (e) SCC: a fault at the last pre-dispatch, then resume
+    t_e = time.perf_counter()
+    labels0, stats0 = real6["scc"]
+    last = stats0["trim_dispatches"] + stats0["reach_dispatches"]
+    path = str(CKPT_DIR / "scc")
+    with flt.injecting_faults(flt.FaultSchedule(
+            0, at={"pre-dispatch": [last]})) as plane:
+        try:
+            scc_decompose(g, checkpoint_dir=path, checkpoint_every=1,
+                          device=dev)
+            fired = False
+        except flt.DeviceFault:
+            fired = True
+    saved = ckpt_lib.latest_step(path)
+    check(fired and saved is not None,
+          f"(e) the fault at pre-dispatch #{last} did not fire")
+    (labels, stats), resume_ms = timed(lambda: scc_decompose(
+        g, checkpoint_dir=path, checkpoint_every=1, resume=True, device=dev))
+    check(np.array_equal(labels, labels0)
+          and (stats["generations"], stats["pivots"])
+          == (stats0["generations"], stats0["pivots"]),
+          "(e) the resumed SCC differs from phase 6's")
+    log(f"# phase 15 (e): scc_decompose(checkpoint_every=1), a fault at "
+        f"pre-dispatch #{last} of {last} (phase 6's dispatches), "
+        f"generation {saved} on disk ({ckpt_bytes(path, saved)} bytes); "
+        f"resume=True in {resume_ms:.1f} ms: labels, generations "
+        f"({stats['generations']}) and pivots ({stats['pivots']}) equal "
+        f"phase 6's; {time.perf_counter() - t_e:.1f} s")
+    shutil.rmtree(path)
+
+    # (f) the trainer: MeshGraphNet on the molecule cell resumes at 2 of 4
+    t_f = time.perf_counter()
+    from repro_torch.launch import train as tcli
+    from repro_torch.train import Trainer, TrainerConfig
+
+    def trainer(steps, ckpt=None):
+        step, params, opt_state, stream_, put = tcli.build(
+            "meshgraphnet", 0, smoke=False, device=dev)
+        return Trainer(step, params, opt_state, stream_,
+                       TrainerConfig(num_steps=steps, ckpt_dir=ckpt,
+                                     ckpt_every=2, log_every=100),
+                       put_batch=put)
+
+    def state(tr):
+        return [t for _, t in ckpt_lib.leaves({"p": tr.params,
+                                               "o": tr.opt_state})]
+
+    whole = [[h["loss"] for h in trainer(4).run()] for _ in range(2)]
+    path = str(CKPT_DIR / "trainer")
+    first = trainer(2, path)
+    losses = [h["loss"] for h in first.run()]
+    second = trainer(4, path)
+    check(second.start_step == 2
+          and all(torch.equal(a, b) for a, b in zip(state(second),
+                                                    state(first))),
+          "(f) the restored parameters or AdamW state differ from the "
+          "saved ones")
+    losses += [h["loss"] for h in second.run()]
+    if whole[0] == whole[1]:
+        check(losses == whole[0], f"(f) resumed losses {losses} differ "
+              f"from the uninterrupted {whole[0]}")
+        how = "bit for bit (two uninterrupted runs agree bit for bit)"
+    else:
+        err = max(abs(a - b) / abs(b) for a, b in zip(losses, whole[0]))
+        check(err <= TRAIN_TOL["loss"], f"(f) resumed losses {losses} "
+              f"differ from the uninterrupted {whole[0]} by {err:.3g}")
+        how = (f"to {err:.3g} relative (two uninterrupted runs differ, so "
+               f"the tolerance is phase 12's {TRAIN_TOL['loss']})")
+    log(f"# phase 15 (f): meshgraphnet molecule: restored at step 2 of 4 "
+        f"({ckpt_bytes(path, 2)} bytes), parameters and AdamW state equal "
+        f"the saved ones bit for bit; losses {losses} equal the "
+        f"uninterrupted run's {how}; {time.perf_counter() - t_f:.1f} s")
+    del first, second
+    shutil.rmtree(path)
+
+    # (g) the command line, in its own process
+    t_g = time.perf_counter()
+    from repro_torch.graphs import make
+    path = str(CKPT_DIR / "cli")
+    argv = [sys.executable, "-m", "repro_torch.launch.trim", "--app", "scc",
+            "--graph", "RMAT", "--checkpoint-dir", os.path.relpath(path, ROOT),
+            "--fault-seed",
+            "7", "--fault-rate", "0.05", "--retries", "5"]
+    out = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True,
+                         timeout=300, env=dict(os.environ, PYTHONPATH=str(
+                             ROOT / "src")))
+    check(out.returncode == 0, f"(g) the CLI failed: {out.stderr[-2000:]}")
+    tree, step, _ = ckpt_lib.load_flat(path)
+    clean, _ = scc_decompose(make("RMAT", device=dev), device=dev)
+    check(np.array_equal(tree["labels"].astype(np.int64), clean)
+          and tree["regions"].shape[0] == 0,
+          "(g) the CLI's final labels differ from a run without faults")
+    resumed = out.stdout.count("resuming from latest checkpoint")
+    log(f"# phase 15 (g): {' '.join(argv[1:])}: exit 0, {resumed} "
+        f"resume(s); the final checkpoint (generation {step}) holds the "
+        f"labels of a run without faults; {time.perf_counter() - t_g:.1f} "
+        f"s; {out.stdout.strip().splitlines()[-1]}")
+    shutil.rmtree(path)
 
 
 # -- phase 10: the command line ------------------------------------------------
@@ -2960,6 +3339,7 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also profile the real-size runs (phase 7, last)")
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     import torch
     if not torch.cuda.is_available():
@@ -3005,7 +3385,7 @@ def main() -> int:
         check(analysis_launches[name] > 0,
               f"{name} was never launched in the static checks' phase")
     rows["mutant_copy"] = mutant_copy_phase(dev)
-    sync_budget_phase(dev, g, gt)
+    syncs13 = sync_budget_phase(dev, g, gt)
     log(f"# phase 13: done in {time.perf_counter() - t0:.1f} s")
     ops.reset_launches()
     obs_methods = reference_phase(dev)
@@ -3029,8 +3409,9 @@ def main() -> int:
         check(scc_launches[name] > 0,
               f"{name} was never launched on the SCC / reach / peel path")
     stream_reference_phase(dev)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
     ops.reset_launches()
-    stream, feed, ticks = stream_real_phase(dev, g)
+    stream, feed, ticks, replay = stream_real_phase(dev, g)
     stream_launches = dict(ops.LAUNCHES)
     log(f"# phase 9: launches in phase 9 (the real-size stream path): "
         f"{stream_launches}")
@@ -3047,7 +3428,19 @@ def main() -> int:
     for name in TRIM_PATH + SCC_PEEL_PATH + STREAM_PATH:
         check(obs_launches[name] > 0,
               f"{name} was never launched on an instrumented path")
-    del trims, real6, obs_methods, ticks
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    fault_phase(dev, g, gt, trims, real6,
+                dict(replay, feed=feed, engine=stream), syncs13)
+    fault_launches = dict(ops.LAUNCHES)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    log(f"# phase 15: launches in (a)-(g): {fault_launches}; done in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name in TRIM_PATH + SCC_PEEL_PATH + STREAM_PATH + TRAIN_PATH:
+        check(fault_launches[name] > 0,
+              f"{name} was never launched on the faults' and checkpoints' "
+              "paths")
+    del trims, real6, obs_methods, ticks, replay
     cli_phase()
     lm, serve_launches = serve_phase(dev)
     for name in SERVE_PATH:
@@ -3069,6 +3462,7 @@ def main() -> int:
                      **{n: train_launches for n in TRAIN_PATH},
                      **{n: analysis_launches for n in ANALYSIS_OWN}}
     launches = {name: path_launches[name][name] for name in KERNELS}
+    log(f"# total: {time.perf_counter() - t_start:.1f} s")
     table = [dict(name=name, route="cuda", source=KERNELS[name][0],
                   replaces=KERNELS[name][1], launches=launches[name],
                   **rows[name]) for name in KERNELS]

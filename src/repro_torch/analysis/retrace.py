@@ -2,8 +2,9 @@
 counterpart of ``src/repro/analysis/retrace.py``.
 
 Every engine's ``_plan_kwargs()`` and ``plan_signature()`` are the static
-configuration a checkpoint rebuilds an engine from (ROADMAP A8) and a
-metrics label keys on (``obs.metrics``).  A kwarg that is unhashable, non-canonical (a
+configuration a checkpoint rebuilds an engine from
+(``fault.restore_engine``) and a metrics label keys on
+(``obs.metrics``).  A kwarg that is unhashable, non-canonical (a
 numpy scalar instead of a Python int) or ``NaN`` (``NaN != NaN``, so no
 two plans ever compare equal) makes every replan a new configuration.
 Under jit that is a retrace storm; PyTorch traces nothing, so the lint

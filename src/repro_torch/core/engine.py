@@ -112,8 +112,7 @@ class TrimEngine(EngineBase):
         self.unmasked = unmasked
         self.fplan = frontier_plan(frontier, graph.n, graph.m)
         self._plan_stats(instrument, max_rounds, graph.n)
-        self._tarrs = None
-        self._worker_ids = None
+        self._invalidate_caches()
 
     def plan_signature(self) -> str:
         """The reference's signature string for the same plan."""
@@ -133,6 +132,10 @@ class TrimEngine(EngineBase):
                 "unmasked": self.unmasked, "frontier": self.fplan.mode,
                 "instrument": self.instrument,
                 "max_rounds": self.max_rounds if self.instrument else None}
+
+    def _invalidate_caches(self):
+        self._tarrs = None
+        self._worker_ids = None
 
     def nbytes_breakdown(self):
         # _tarrs[0:2] alias the cached transpose (already accounted by the

@@ -45,8 +45,19 @@ and ``_publish_round_stats`` folds an instrumented run's
 ``repro_fixpoint_work``, ``repro_busiest_worker_edges`` and
 ``repro_worker_imbalance``, as the reference does.
 
-The reference's FaultPlane points and checkpoint protocol arrive with
-ROADMAP A8 and raise :class:`NotImplementedError` until then.
+The FaultPlane (DESIGN.md §14, ``repro_torch.fault``) arms two points in
+every dispatch, as the reference does: ``"pre-dispatch"`` before the
+fixpoint runs and ``"post-dispatch"`` after it returned, before the
+dispatch is counted, so a faulted dispatch that is retried leaves the
+counters where a fault-free run leaves them.  The disabled plane costs
+one attribute read a dispatch.
+
+The checkpoint protocol is the reference's: ``state_dict`` (flat
+``{name: array}``: the graph and a built transpose; subclasses add their
+persistent state), ``state_meta`` (family, plan signature and kwargs,
+``dispatches``, ``traces``, ``transpose_builds``) and ``load_state``,
+which overwrites the engine with a checkpoint's exact arrays
+(``fault.save_engine`` / ``fault.restore_engine``).
 """
 from __future__ import annotations
 
@@ -57,8 +68,9 @@ import numpy as np
 import torch
 
 from .. import obs
+from ..fault.plane import get_fault_plane
 from ..kernels import _build
-from .graph import _CKPT_A8, CSRGraph
+from .graph import CSRGraph
 
 
 class EngineBase:
@@ -133,10 +145,20 @@ class EngineBase:
         many rounds and host syncs it takes: one span, and with an
         enabled plane its metrics (the first dispatch also captures the
         kernel calls for the plan's cost).  With the recorder and the
-        plane both off it reads their two flags and nothing else."""
+        plane both off it reads their two flags and the FaultPlane's, and
+        nothing else.  The FaultPlane's ``"post-dispatch"`` point is armed
+        before the dispatch is counted."""
+        fplane = get_fault_plane()
+        faults = fplane.enabled
+        if faults:
+            fplane.arm("pre-dispatch", family=self.family,
+                       seq=self._dispatches)
         plane = obs.get_plane()
         if not (plane.enabled or obs.get_recorder().enabled):
             out = fn(*args)
+            if faults:
+                fplane.arm("post-dispatch", family=self.family,
+                           seq=self._dispatches)
             self._dispatches += 1
             return out
         builds = _build.BUILDS[0]
@@ -157,6 +179,9 @@ class EngineBase:
             if plane.enabled:
                 self._feed_plane(plane, built, time.perf_counter() - t0,
                                  cost, sp)
+            if faults:
+                fplane.arm("post-dispatch", family=self.family,
+                           seq=self._dispatches)
         self._dispatches += 1
         return out
 
@@ -256,14 +281,62 @@ class EngineBase:
                 "instrumented run (1.0 = perfectly balanced)",
             ).set(float(np.max(rs.imbalance())), family=self.family)
 
-    def state_dict(self):
-        raise NotImplementedError(_CKPT_A8)
+    # -- checkpoint/resume protocol (DESIGN.md §14) ------------------------
+    def state_dict(self) -> Dict[str, object]:
+        """Checkpointable state as a flat ``{name: array}`` tree: the graph
+        and, once built, the transpose; subclasses add their persistent
+        state.  Everything else an engine holds is a function of these
+        arrays and the plan kwargs of :meth:`state_meta`, so a restore is
+        bit-identical."""
+        out = {"graph_indptr": self.graph.indptr,
+               "graph_indices": self.graph.indices}
+        if self._transpose is not None:
+            out["transpose_indptr"] = self._transpose.indptr
+            out["transpose_indices"] = self._transpose.indices
+        return out
 
-    def state_meta(self) -> dict:
-        raise NotImplementedError(_CKPT_A8)
+    def state_meta(self) -> Dict[str, object]:
+        """JSON side of :meth:`state_dict`: the engine family, the plan
+        kwargs a fresh process re-plans from, and the accounting counters
+        (``traces`` is the port's 0), restored so a resumed engine counts
+        on from the checkpoint."""
+        return {"family": self.family, "plan": self.plan_signature(),
+                "dispatches": self._dispatches, "traces": self.traces,
+                "transpose_builds": self._transpose_builds,
+                "plan_kwargs": self._plan_kwargs()}
+
+    def _plan_kwargs(self) -> Dict[str, object]:
+        """The kwargs that rebuild this plan (subclasses override)."""
+        return {}
+
+    def _check_family(self, meta) -> None:
+        if meta.get("family") != self.family:
+            raise ValueError(f"checkpoint family {meta.get('family')!r} "
+                             f"does not match engine family "
+                             f"{self.family!r}")
+
+    def _graph_from(self, tree, prefix: str) -> CSRGraph:
+        return CSRGraph.from_numpy(tree[f"{prefix}_indptr"],
+                                   tree[f"{prefix}_indices"], self.device)
 
     def load_state(self, tree, meta) -> None:
-        raise NotImplementedError(_CKPT_A8)
+        """Overwrite this engine with a checkpoint's exact arrays (``tree``
+        from :meth:`state_dict` or ``train.checkpoint.load_flat``, ``meta``
+        from :meth:`state_meta`), on the engine's device.  The caches
+        derived from the graph and the transpose are dropped and rebuilt
+        from the restored arrays.  The reference's ``traces`` is not
+        restored: the port traces nothing."""
+        self._check_family(meta)
+        self.graph = self._graph_from(tree, "graph")
+        self._transpose = (self._graph_from(tree, "transpose")
+                           if "transpose_indptr" in tree else None)
+        self._dispatches = int(meta.get("dispatches", 0))
+        self._transpose_builds = int(meta.get("transpose_builds", 0))
+        self._invalidate_caches()
+
+    def _invalidate_caches(self) -> None:
+        """Drop the plan caches derived from the graph and the transpose
+        (subclasses override); they are rebuilt deterministically."""
 
 
 __all__ = ["EngineBase"]

@@ -236,9 +236,6 @@ def worker_of(n: int, workers: int, chunk: int = 4096) -> np.ndarray:
     return ((v // chunk) % workers).astype(np.int32)
 
 
-_CKPT_A8 = "checkpoint/resume arrives with the FaultPlane port (ROADMAP A8)"
-
-
 def _pow2(x: int) -> int:
     """The least power of two >= x (1 for x <= 1)."""
     return 1 if x <= 1 else 1 << (int(x) - 1).bit_length()
@@ -346,15 +343,61 @@ class DeltaCSR:
         """Total overlay bytes (base graph excluded)."""
         return sum(self.nbytes_breakdown().values())
 
-    # -- not ported yet ----------------------------------------------------
+    # -- checkpoint/resume (DESIGN.md §14) ---------------------------------
     def state_dict(self) -> dict:
-        raise NotImplementedError(_CKPT_A8)
+        """The overlay's checkpointable arrays: the base CSR, the tombstone
+        mask and the insert buffers (the device copies; the host mirrors
+        equal them by construction and are rebuilt from them on
+        :meth:`load_state`)."""
+        return {"base_indptr": self.base.indptr,
+                "base_indices": self.base.indices,
+                "tomb": self.tomb, "ins_src": self.ins_src,
+                "ins_dst": self.ins_dst, "ins_alive": self.ins_alive}
 
     def state_meta(self) -> dict:
-        raise NotImplementedError(_CKPT_A8)
+        """JSON side of :meth:`state_dict` (sizing and slot accounting)."""
+        return {"capacity": self.capacity, "load_factor": self.load_factor,
+                "n_ins": self.n_ins, "n_tomb": self.n_tomb}
 
     def load_state(self, tree: dict, meta: dict) -> None:
-        raise NotImplementedError(_CKPT_A8)
+        """Overwrite this overlay with a checkpoint's exact state, on the
+        current base's device.  The base is rebuilt from the saved CSR
+        arrays without a re-sort (edge order, and so every derived
+        permutation and the instance ``resolve_deletions`` picks, is
+        kept); the host mirrors come from the saved device arrays, the
+        slot accounting from ``meta``.  The host index is a function of
+        the base alone: it is kept when the saved base equals the current
+        one (a freshly planned engine over the checkpoint's base)."""
+        indptr = np.asarray(tree["base_indptr"])
+        indices = np.asarray(tree["base_indices"])
+        cur_indptr, cur_indices = self.base.to_numpy()
+        same = (np.array_equal(cur_indptr, indptr)
+                and np.array_equal(cur_indices, indices))
+        base = (self.base if same else
+                CSRGraph.from_numpy(indptr, indices, self.device))
+        capacity = int(meta["capacity"])
+        tomb = np.asarray(tree["tomb"], bool)
+        ins_src = np.asarray(tree["ins_src"])
+        ins_dst = np.asarray(tree["ins_dst"])
+        ins_alive = np.asarray(tree["ins_alive"], bool)
+        if tomb.shape != (base.m,) or ins_src.shape != (capacity,):
+            raise ValueError("checkpoint overlay shapes do not match the "
+                             "saved base/capacity")
+        self.capacity = capacity
+        self.load_factor = float(meta["load_factor"])
+        if not same:
+            self._rebase(base)
+        self._tomb_np = tomb.copy()
+        self._ins_src_np = ins_src.astype(np.int64)
+        self._ins_dst_np = ins_dst.astype(np.int64)
+        self._ins_alive_np = ins_alive.copy()
+        self.n_ins = int(meta["n_ins"])
+        self.n_tomb = int(meta["n_tomb"])
+        dev = self.device
+        self.tomb = torch.from_numpy(self._tomb_np.copy()).to(dev)
+        self.ins_src = torch.from_numpy(ins_src.astype(np.int32)).to(dev)
+        self.ins_dst = torch.from_numpy(ins_dst.astype(np.int32)).to(dev)
+        self.ins_alive = torch.from_numpy(self._ins_alive_np.copy()).to(dev)
 
     # -- host-side bookkeeping (the engine drives these) -------------------
     def resolve_deletions(self, src, dst):

@@ -311,8 +311,7 @@ class PeelEngine(EngineBase):
         self.method = method
         self.fplan = frontier_plan(frontier, graph.n, graph.m)
         self._plan_stats(instrument, max_rounds, graph.n)
-        self._garrs = None
-        self._tarrs = None
+        self._invalidate_caches()
 
     def plan_signature(self) -> str:
         """The reference's signature string for the same plan."""
@@ -326,6 +325,10 @@ class PeelEngine(EngineBase):
         return {"method": self.method, "frontier": self.fplan.mode,
                 "instrument": self.instrument,
                 "max_rounds": self.max_rounds if self.instrument else None}
+
+    def _invalidate_caches(self):
+        self._garrs = None
+        self._tarrs = None
 
     def nbytes_breakdown(self):
         # _garrs[0:2] / _tarrs[0:2] alias the graph and the cached

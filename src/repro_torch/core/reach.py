@@ -359,10 +359,7 @@ class ReachEngine(EngineBase):
         self.window = window
         self.fplan = frontier_plan(frontier, graph.n, graph.m)
         self._plan_stats(instrument, max_rounds, graph.n)
-        self._garrs = None
-        self._tarrs = None
-        self._overflow = None
-        self._tile = None
+        self._invalidate_caches()
 
     def plan_signature(self) -> str:
         """The reference's signature string for the same plan."""
@@ -376,6 +373,12 @@ class ReachEngine(EngineBase):
         return {"backend": self.backend, "window": self.window,
                 "frontier": self.fplan.mode, "instrument": self.instrument,
                 "max_rounds": self.max_rounds if self.instrument else None}
+
+    def _invalidate_caches(self):
+        self._garrs = None
+        self._tarrs = None
+        self._overflow = None
+        self._tile = None
 
     def nbytes_breakdown(self):
         # _garrs[0:2] / _tarrs alias the graph / transpose arrays (counted

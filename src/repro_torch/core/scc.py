@@ -118,8 +118,8 @@ def scc_decompose(graph: CSRGraph, use_trim: bool = True,
                   chunk: int = 4096, frontier: str = "auto",
                   instrument: bool = False, max_rounds: int | None = None,
                   checkpoint_dir: str | None = None,
-                  checkpoint_every: int = 0, resume: bool = False,
-                  device="cuda"):
+                  checkpoint_every: int = 0, checkpointer=None,
+                  resume: bool = False, device="cuda"):
     """Return (labels, stats).  labels: (n,) int64 numpy component ids.
 
     ``active`` restricts decomposition to an induced subgraph: only
@@ -140,15 +140,18 @@ def scc_decompose(graph: CSRGraph, use_trim: bool = True,
     when a recorder is active, so one ``obs.recording()`` around the call
     holds the generations and their engines' dispatch spans.
 
+    ``checkpoint_dir`` + ``checkpoint_every=k`` (DESIGN.md §14) save the
+    generation-level driver state (labels, the pending regions, the label
+    counter and the stats) every k completed generations and once at the
+    end, through ``fault.save_tree`` (``checkpointer``: an
+    ``AsyncCheckpointer`` that takes the disk IO), in the reference's
+    tree and metadata.  ``resume=True`` restores the latest checkpoint
+    and continues: a generation is atomic and a function of (labels,
+    regions, label counter, generation parity), so a resumed run's labels
+    equal an uninterrupted run's.
+
     The graph moves to ``device`` (default the card; raises without one).
-    Checkpoint/resume (``checkpoint_dir``, ``checkpoint_every``,
-    ``resume``) is not ported yet (ROADMAP A8) and raises
-    :class:`NotImplementedError`.
     """
-    if checkpoint_dir is not None or checkpoint_every or resume:
-        raise NotImplementedError(
-            "scc_decompose checkpoint/resume is not ported yet: "
-            "ROADMAP A8")
     n = graph.n
     stats = {"generations": 0, "trim_passes": 0, "trimmed_total": 0,
              "pivots": 0, "trim_dispatches": 0, "reach_dispatches": 0,
@@ -209,7 +212,45 @@ def scc_decompose(graph: CSRGraph, use_trim: bool = True,
     regions = [region0] if region0.any() else []
     idx = torch.arange(n, dtype=torch.int32, device=dev)
 
+    # -- generation-level checkpoint/resume (DESIGN.md §14) ----------------
+    ckpt_on = checkpoint_dir is not None and checkpoint_every > 0
+    last_saved = -1
+
+    def save_gen(gens):
+        from ..fault.ckpt import save_tree
+        tree = {"labels": labels,
+                "regions": (np.stack(regions) if regions
+                            else np.zeros((0, n), bool))}
+        if counters:
+            tree["per_worker_edges"] = stats["per_worker_edges"]
+        drv_stats = {k: v for k, v in stats.items()
+                     if k != "per_worker_edges"}
+        save_tree(checkpoint_dir, gens, tree,
+                  {"driver": {"kind": "scc", "next_label": next_label,
+                              "stats": drv_stats}},
+                  checkpointer=checkpointer)
+
+    if resume and checkpoint_dir is not None:
+        from ..train import checkpoint as _ckpt
+        last = _ckpt.latest_step(checkpoint_dir)
+        if last is not None:
+            tree, _, meta = _ckpt.load_flat(checkpoint_dir, last)
+            drv = meta["driver"]
+            labels = on_dev(np.asarray(tree["labels"], np.int32))
+            regions = [r.copy() for r in np.asarray(tree["regions"], bool)
+                       if r.any()]
+            next_label = int(drv["next_label"])
+            stats.update(drv["stats"])
+            if counters:
+                stats["per_worker_edges"] = np.asarray(
+                    tree["per_worker_edges"], np.int64).copy()
+            last_saved = last
+
     while regions:
+        if ckpt_on and stats["generations"] > max(last_saved, 0) \
+                and stats["generations"] % checkpoint_every == 0:
+            last_saved = stats["generations"]
+            save_gen(last_saved)
         stats["generations"] += 1
         n_regions = len(regions)
         live_host = _pad_pow2(np.stack(regions))          # (B, n), disjoint
@@ -316,6 +357,11 @@ def scc_decompose(graph: CSRGraph, use_trim: bool = True,
             regions = [r for r in children if r.any()]
             if gen_sp is not None:
                 gen_sp.attrs["pivots"] = B
+
+    if ckpt_on and stats["generations"] != last_saved:
+        # the final state: an empty worklist, every label assigned; a
+        # resumed run restores it and replays no generation
+        save_gen(stats["generations"])
 
     labels = labels.cpu().numpy().astype(np.int64)  # the one materialization
     assert ((labels >= 0) | ~region0).all()

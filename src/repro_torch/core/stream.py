@@ -48,8 +48,13 @@ sparse-round flag; a from-scratch initialization's scan of every overlay
 arc is charged to slot 0) without a host sync; ``retrim()`` reports
 those of the dispatch that produced the current fixpoint.
 
-Not ported yet: ``state_dict``/``load_state`` and the FaultPlane's
-``mid-update-batch`` point (ROADMAP A8).
+**Faults and checkpoints** (DESIGN.md §14).  ``apply`` arms the
+FaultPlane's ``"mid-update-batch"`` point once the batch is validated and
+before anything commits, so a fault there is retried with the same
+batch; past it the host mirrors move, and a fault in the dispatch is
+recovered by restoring a checkpoint and re-applying.  ``state_dict``
+saves the overlay and the AC-4 state, counters verbatim (a dead vertex's
+counter depends on the path that killed it), in the reference's names.
 """
 from __future__ import annotations
 
@@ -57,6 +62,7 @@ import numpy as np
 import torch
 
 from .. import obs
+from ..fault.plane import get_fault_plane
 from ..kernels import ops as kops
 from .common import FrontierPlan, frontier_plan, segment_sum
 from .enginebase import EngineBase
@@ -448,10 +454,15 @@ class StreamEngine(EngineBase):
             return StreamResult(self._state[0], 0, False,
                                 self._step_stats(0, None))
         # validate the whole batch before anything commits: a bad
-        # insertion must not leave the deletions half-applied.  (The
-        # reference arms its FaultPlane point "mid-update-batch" here;
-        # that plane arrives with ROADMAP A8.)
+        # insertion must not leave the deletions half-applied
         isrc, idst = check_edge_ids(d.n, isrc, idst)
+        # fault point "mid-update-batch": nothing (host mirror or device)
+        # has committed, so a fault here is retry-safe with the same
+        # batch; past it the host mirrors move before the dispatch
+        fplane = get_fault_plane()
+        if fplane.enabled:
+            fplane.arm("mid-update-batch", family=self.family,
+                       deletions=int(dsrc.size), insertions=int(isrc.size))
         if d.n_ins + isrc.size > d.capacity:
             self.compact()          # free the insert buffer first
             if isrc.size > d.capacity:
@@ -490,6 +501,53 @@ class StreamEngine(EngineBase):
         return TrimResult(status=self._state[0].to(torch.int32),
                           rounds=self._rounds_total,
                           round_stats=self._last_stats)
+
+    # -- checkpoint/resume (DESIGN.md §14) ---------------------------------
+    def state_dict(self):
+        """The DeltaCSR overlay (base, tombstones, insert buffers) and the
+        persistent AC-4 state; ``rounds_total`` as the reference's 0-d
+        int32.  The base CSR is the graph, and the transpose caches are
+        rebuilt from the restored host mirrors."""
+        out = dict(self.delta.state_dict())
+        out["status"] = self._state[0]
+        out["counters"] = self._state[1]
+        out["rounds_total"] = np.asarray(self._rounds_total, np.int32)
+        return out
+
+    def state_meta(self):
+        meta = super().state_meta()
+        meta["delta"] = self.delta.state_meta()
+        meta["compactions"] = self._compactions
+        return meta
+
+    def load_state(self, tree, meta):
+        """Overwrite the overlay and the fixpoint state with a
+        checkpoint's exact arrays.  The AC-4 counters are restored
+        verbatim, not recomputed, so a resumed engine is bit-identical to
+        the uninterrupted one, counters included.  The transpose caches
+        are functions of the base alone: kept when the saved base is the
+        one this engine was planned over."""
+        self._check_family(meta)
+        base = self.delta.base
+        self.delta.load_state(tree, meta["delta"])
+        if self.delta.base is not base:
+            self.graph = self.delta.base
+            self._transpose = None
+            self._invalidate_caches()
+
+        def dev(name, dtype):
+            return torch.from_numpy(np.array(tree[name], dtype)).to(
+                self.device)
+
+        self._state = (dev("status", bool), dev("counters", np.int32))
+        self._rounds_total = int(np.asarray(tree["rounds_total"]))
+        self._dispatches = int(meta.get("dispatches", 0))
+        self._transpose_builds = int(meta.get("transpose_builds", 0))
+        self._compactions = int(meta.get("compactions", 0))
+        self._last_stats = None
+
+    def _invalidate_caches(self):
+        self._tarrs = None
 
     def snapshot(self) -> CSRGraph:
         """Materialize the current graph (base minus tombstones plus live

@@ -15,9 +15,12 @@ seed 0 by a ``torch.Generator`` on the device; the optimizer is AdamW
 one disjoint union (``models.gnn.common.molecule_union``), so every layer
 aggregates the whole batch with one ``segment_sum`` launch.  It prints the
 reference's line ``[train] {arch}: first loss ..., last loss ...``.
+``--ckpt-dir DIR`` checkpoints the parameters and the AdamW state there
+(``TrainerConfig`` defaults: every 50 steps and at the end, the newest 3
+kept) and resumes from the latest step in DIR.
 
 Not ported yet, and raising :class:`NotImplementedError` that names the
-ROADMAP item: LM and recsys training (A11) and ``--ckpt-dir`` (A8).
+ROADMAP item: LM and recsys training (A11).
 """
 from __future__ import annotations
 
@@ -87,14 +90,11 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default: the card)")
     args = ap.parse_args(argv)
-    if args.ckpt_dir is not None:
-        raise NotImplementedError(
-            "--ckpt-dir: checkpointing is not ported to repro_torch yet "
-            "(ROADMAP A8)")
     step, params, opt_state, stream, put = build(
         args.arch, 0, smoke=args.smoke, device=args.device)
     tr = Trainer(step, params, opt_state, stream,
-                 TrainerConfig(num_steps=args.steps, log_every=5),
+                 TrainerConfig(num_steps=args.steps, ckpt_dir=args.ckpt_dir,
+                               log_every=5),
                  put_batch=put)
     hist = tr.run()
     losses = [h["loss"] for h in hist]

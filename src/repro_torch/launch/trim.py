@@ -9,6 +9,8 @@ trimming and k-core peeling on one named graph (PyTorch port of
     python -m repro_torch.launch.trim --app peel --graph BA
     python -m repro_torch.launch.trim --app stream --graph chain --device cpu
     python -m repro_torch.launch.trim --app check --strict
+    python -m repro_torch.launch.trim --app scc --graph RMAT \
+        --checkpoint-dir ckpt --fault-seed 7 --fault-rate 0.05 --retries 5
 
 ``--graph`` names one of ``graphs.BENCHMARK_GRAPHS``.  Everything runs on
 ``--device`` (default ``cuda``; a missing card raises).  Each app plans
@@ -23,15 +25,24 @@ allocator bytes.  ``--app check`` runs the static-analysis plane instead
 ``--metrics-json PATH`` for the findings JSON): no graph, no engine,
 nothing on the card.
 
+``--fault-seed SEED`` installs a FaultPlane with a seeded
+``FaultSchedule`` firing at ``--fault-rate`` an arming, for any app.
+``--app scc --checkpoint-dir DIR`` saves the SCC driver's generation
+state every ``--checkpoint-every`` generations through an async writer,
+and on a ``DeviceFault`` or ``IOFault`` resumes from the latest saved
+generation, at most ``--retries`` times.
+
 Not ported yet, and raising :class:`NotImplementedError` that names the
-ROADMAP item: ``--dryrun`` (A11), ``--backend sharded`` (A6),
-``--checkpoint-dir``, ``--checkpoint-every``, ``--fault-seed``,
-``--fault-rate`` and ``--retries`` (A8).
+ROADMAP item: ``--dryrun`` (A11) and ``--backend sharded`` (A6).
 """
 from __future__ import annotations
 
 import argparse
 import time
+
+
+#: the reference's defaults of --checkpoint-every, --fault-rate, --retries
+FAULT_DEFAULTS = {"checkpoint_every": 5, "fault_rate": 0.05, "retries": 3}
 
 
 def _sync(device) -> None:
@@ -65,25 +76,72 @@ def run_local(graph_name: str, method: str, workers: int,
     return res
 
 
+def _scc_resuming(g, checkpoint_dir: str, retries: int, **kw):
+    """``scc_decompose`` with generation checkpoints through an async
+    writer; a ``DeviceFault`` or ``IOFault`` is retried with backoff, each
+    retry resuming from the latest saved generation, at most ``retries``
+    times (the reference's loop)."""
+    from .. import fault as flt
+    from ..core.scc import scc_decompose
+    from ..train.checkpoint import AsyncCheckpointer
+    checkpointer = AsyncCheckpointer(checkpoint_dir)
+    try:
+        att = 0
+        while True:
+            try:
+                return scc_decompose(g, checkpoint_dir=checkpoint_dir,
+                                     checkpointer=checkpointer,
+                                     resume=att > 0, **kw)
+            except (flt.DeviceFault, flt.IOFault) as e:
+                att += 1
+                if att > retries:
+                    raise
+                time.sleep(flt.backoff_delay(att - 1))
+                try:
+                    checkpointer.wait()
+                except OSError:
+                    pass
+                flt.get_fault_plane().record_recovery(
+                    getattr(e, "point", "unknown"), "restore")
+                print(f"[scc] fault at {getattr(e, 'point', 'unknown')!r}:"
+                      f" resuming from latest checkpoint (attempt {att})")
+    finally:
+        try:
+            checkpointer.close()
+        except OSError as e:
+            print(f"[scc] checkpoint writer error at close: {e}")
+
+
 def run_scc(graph_name: str, method: str, backend: str = "dense",
-            reach_backend: str = "windowed", device="cuda", instrument=False):
+            reach_backend: str = "windowed", device="cuda", instrument=False,
+            checkpoint_dir: str | None = None, checkpoint_every: int = 0,
+            retries: int = 3):
     """FW-BW SCC decomposition with trim-2: per worklist generation one
     batched trim dispatch, one trim-2 dispatch and two batched reach
-    dispatches; labels reach the host once."""
+    dispatches; labels reach the host once.  With ``checkpoint_dir`` it
+    runs once, checkpointing and resuming across faults
+    (:func:`_scc_resuming`); otherwise twice (first and steady)."""
     import numpy as np
 
     from ..core.scc import scc_decompose
     from ..graphs import make
     g = make(graph_name, device=device)
-    times = []
-    for _ in range(2):
+    kw = dict(trim_method=method, trim_backend=backend,
+              reach_backend=reach_backend, instrument=instrument,
+              device=device)
+    if checkpoint_dir is not None:
         t0 = time.time()
-        labels, stats = scc_decompose(g, trim_method=method,
-                                      trim_backend=backend,
-                                      reach_backend=reach_backend,
-                                      instrument=instrument, device=device)
-        times.append(time.time() - t0)
-    t_first, t_steady = times
+        labels, stats = _scc_resuming(g, checkpoint_dir, retries,
+                                      checkpoint_every=checkpoint_every,
+                                      **kw)
+        t_first = t_steady = time.time() - t0
+    else:
+        times = []
+        for _ in range(2):
+            t0 = time.time()
+            labels, stats = scc_decompose(g, **kw)
+            times.append(time.time() - t0)
+        t_first, t_steady = times
     print(f"[scc] {graph_name} n={g.n} m={g.m} trim={method}/{backend} "
           f"reach={reach_backend}: {len(np.unique(labels)):,} SCCs, "
           f"generations={stats['generations']} pivots={stats['pivots']} "
@@ -168,12 +226,7 @@ def _refuse_unported(args) -> None:
     naming the ROADMAP item that brings each."""
     for given, flag, item in (
             (args.dryrun, "--dryrun", "A11"),
-            (args.backend == "sharded", "--backend sharded", "A6"),
-            (args.checkpoint_dir is not None, "--checkpoint-dir", "A8"),
-            (args.checkpoint_every is not None, "--checkpoint-every", "A8"),
-            (args.fault_seed is not None, "--fault-seed", "A8"),
-            (args.fault_rate is not None, "--fault-rate", "A8"),
-            (args.retries is not None, "--retries", "A8")):
+            (args.backend == "sharded", "--backend sharded", "A6")):
         if given:
             raise NotImplementedError(
                 f"{flag} is not ported yet: ROADMAP {item}")
@@ -199,13 +252,25 @@ def main(argv=None):
     ap.add_argument("--metrics-json", metavar="PATH",
                     help="write the MetricsPlane snapshot of the run to "
                          "PATH (--app check: the findings JSON)")
-    # the reference's flags whose planes are not ported yet: each raises
+    ap.add_argument("--checkpoint-dir", metavar="DIR",
+                    help="checkpoint the SCC driver's generation state "
+                         "here and resume across faults (--app scc)")
+    # the next three default to None so that --app check can tell them
+    # given; FAULT_DEFAULTS holds the reference's defaults
+    ap.add_argument("--checkpoint-every", type=int, metavar="GENS",
+                    help="generations between driver checkpoints (with "
+                         "--checkpoint-dir; default 5)")
+    ap.add_argument("--fault-seed", type=int, default=None, metavar="SEED",
+                    help="install a deterministic FaultSchedule with this "
+                         "seed (chaos testing; off by default)")
+    ap.add_argument("--fault-rate", type=float,
+                    help="per-arming fault probability for --fault-seed "
+                         "(default 0.05)")
+    ap.add_argument("--retries", type=int,
+                    help="bound on resume-from-checkpoint attempts "
+                         "(default 3)")
+    # the reference's flag whose path is not ported yet: it raises
     ap.add_argument("--dryrun", action="store_true")
-    ap.add_argument("--checkpoint-dir", metavar="DIR")
-    ap.add_argument("--checkpoint-every", type=int, metavar="GENS")
-    ap.add_argument("--fault-seed", type=int, metavar="SEED")
-    ap.add_argument("--fault-rate", type=float)
-    ap.add_argument("--retries", type=int)
     args = ap.parse_args(argv)
     if args.app == "check":
         # the static-analysis plane: no graph, no engine, no device work
@@ -221,17 +286,31 @@ def main(argv=None):
         return check_main(argv)
     if args.strict or args.mutants:
         ap.error("--strict/--mutants apply to --app check")
+    if args.checkpoint_dir and args.app != "scc":
+        ap.error("--checkpoint-dir applies to --app scc")
     _refuse_unported(args)
+    for name, default in FAULT_DEFAULTS.items():
+        if getattr(args, name) is None:
+            setattr(args, name, default)
     import contextlib
 
     from .. import obs
     kw = dict(device=args.device, instrument=args.metrics_json is not None)
+    if args.fault_seed is not None:
+        from .. import fault as flt
+        fault_scope = flt.injecting_faults(
+            flt.FaultSchedule(args.fault_seed, rate=args.fault_rate))
+    else:
+        fault_scope = contextlib.nullcontext(None)
     scope = (obs.collecting_metrics() if args.metrics_json
              else contextlib.nullcontext(None))
-    with scope as plane:
+    with fault_scope, scope as plane:
         if args.app == "scc":
             out = run_scc(args.graph, args.method, args.backend,
-                          args.reach_backend, **kw)
+                          args.reach_backend,
+                          checkpoint_dir=args.checkpoint_dir,
+                          checkpoint_every=args.checkpoint_every,
+                          retries=args.retries, **kw)
         elif args.app == "stream":
             out = run_stream(args.graph, **kw)
         elif args.app == "peel":

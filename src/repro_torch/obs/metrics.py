@@ -41,8 +41,9 @@ dispatch during which ``kernels/_build.py`` compiled a library is a
 "build" dispatch, :meth:`MetricsPlane.note_build` counts them per plan
 (``repro_plan_builds``, the reference's ``repro_plan_compiles``) and warns
 once past :data:`RETRACE_STORM_THRESHOLD` (``repro_rebuild_storms``, the
-reference's ``repro_retrace_storms``).  :class:`MetricsServer` has no
-FaultPlane point (ROADMAP A8).
+reference's ``repro_retrace_storms``).  :class:`MetricsServer` arms the
+FaultPlane's ``"metrics-server"`` point on every scrape and answers 503
+when it fires, as the reference does.
 """
 from __future__ import annotations
 
@@ -580,6 +581,12 @@ class MetricsServer:
 
         class Handler(http.server.BaseHTTPRequestHandler):
             def do_GET(self):                      # noqa: N802 (stdlib API)
+                from ..fault.plane import get_fault_plane
+                try:
+                    get_fault_plane().arm("metrics-server", path=self.path)
+                except OSError as e:               # injected IOFault
+                    self.send_error(503, f"injected fault: {e}")
+                    return
                 path = self.path.split("?", 1)[0]
                 if path == "/metrics":
                     body = plane_getter().to_openmetrics().encode()

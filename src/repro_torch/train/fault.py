@@ -3,8 +3,9 @@
 than ``threshold x`` the rolling median, and escalates after ``patience``
 consecutive flags.
 
-Not ported: ``ElasticManager`` (mesh rebuilds and checkpoint replay,
-ROADMAP A6 and A8).
+Not ported: ``ElasticManager`` (mesh rebuilds and checkpoint replay
+across a shrinking mesh), which needs a mesh and collectives: ROADMAP
+A6.
 """
 from __future__ import annotations
 

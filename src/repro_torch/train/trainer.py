@@ -5,14 +5,23 @@ once per batch; the loop then reads the metrics as Python floats, which
 waits for the device (the reference's ``block_until_ready``), times the
 step with a :class:`StragglerMonitor` and logs every ``log_every`` steps.
 
-Not ported: checkpointing (``ckpt_dir`` raises, ROADMAP A8) and the
-elastic restore that rides on it.
+With ``ckpt_dir`` the trainer checkpoints ``{"params", "opt"}`` through an
+:class:`~repro_torch.train.checkpoint.AsyncCheckpointer` (keeping the
+newest ``keep``) every ``ckpt_every`` steps and at the end, with
+``stream_step`` in the metadata, and resumes from the latest step at
+start-up.  The port's step updates the model's parameters in place, so a
+restore copies the saved values into those very tensors (rebinding the
+list would leave the model training its old weights) and rebuilds the
+optimizer state, its step count included.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable
 
+import torch
+
+from . import checkpoint as ckpt_lib
 from .fault import StragglerMonitor
 
 
@@ -20,7 +29,15 @@ from .fault import StragglerMonitor
 class TrainerConfig:
     num_steps: int = 100
     ckpt_dir: str | None = None
+    ckpt_every: int = 50
+    keep: int = 3
     log_every: int = 10
+
+
+def _device_of(tree):
+    """The device of the first tensor in ``tree`` (the CPU without one)."""
+    return next((x.device for _, x in ckpt_lib.leaves(tree)
+                 if isinstance(x, torch.Tensor)), torch.device("cpu"))
 
 
 class Trainer:
@@ -32,10 +49,6 @@ class Trainer:
 
     def __init__(self, step_fn: Callable, params, opt_state, stream,
                  cfg: TrainerConfig, put_batch: Callable | None = None):
-        if cfg.ckpt_dir is not None:
-            raise NotImplementedError(
-                "checkpointing (ckpt_dir) is not ported to repro_torch yet "
-                "(ROADMAP A8)")
         self.step_fn = step_fn
         self.params = params
         self.opt_state = opt_state
@@ -43,11 +56,27 @@ class Trainer:
         self.cfg = cfg
         self.put_batch = put_batch or (lambda b: b)
         self.monitor = StragglerMonitor()
+        self.ckpt = (ckpt_lib.AsyncCheckpointer(cfg.ckpt_dir, cfg.keep)
+                     if cfg.ckpt_dir else None)
+        self.start_step = 0
         self.history: list[dict] = []
+        if cfg.ckpt_dir and ckpt_lib.latest_step(cfg.ckpt_dir) is not None:
+            state, step, _ = ckpt_lib.restore(
+                cfg.ckpt_dir, self._state(), device=_device_of(params))
+            with torch.no_grad():
+                for (_, p), (_, q) in zip(ckpt_lib.leaves(self.params),
+                                          ckpt_lib.leaves(state["params"])):
+                    p.copy_(q)
+            self.opt_state = state["opt"]
+            self.start_step = step
+            print(f"[trainer] restored checkpoint at step {step}")
+
+    def _state(self) -> dict:
+        return {"params": self.params, "opt": self.opt_state}
 
     def run(self):
         cfg = self.cfg
-        for step in range(cfg.num_steps):
+        for step in range(self.start_step, cfg.num_steps):
             batch = self.put_batch(self.stream.batch_at(step))
             self.monitor.start_step()
             self.params, self.opt_state, metrics = self.step_fn(
@@ -62,4 +91,11 @@ class Trainer:
             if step % cfg.log_every == 0:
                 print(f"[trainer] step {step}: " + ", ".join(
                     f"{k}={v:.4f}" for k, v in rec.items() if k != "step"))
+            if self.ckpt and (step + 1) % cfg.ckpt_every == 0:
+                self.ckpt.save(step + 1, self._state(),
+                               metadata={"stream_step": step + 1})
+        if self.ckpt:
+            self.ckpt.save(cfg.num_steps, self._state(),
+                           metadata={"stream_step": cfg.num_steps})
+            self.ckpt.wait()
         return self.history

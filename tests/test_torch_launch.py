@@ -56,14 +56,8 @@ def test_cli_app_matches_reference(app, graph, argv, capsys):
 
 @pytest.mark.parametrize("argv,item", [
     (["--dryrun"], "A11"),
-    (["--app", "peel", "--checkpoint-every", "2"], "A8"),
     (["--app", "scc", "--dryrun"], "A11"),
     (["--backend", "sharded"], "A6"),
-    (["--app", "scc", "--checkpoint-dir", "ckpt"], "A8"),
-    (["--checkpoint-every", "2"], "A8"),
-    (["--fault-seed", "1"], "A8"),
-    (["--fault-rate", "0.1"], "A8"),
-    (["--retries", "2"], "A8"),
 ])
 def test_cli_unported_flags_raise(argv, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):

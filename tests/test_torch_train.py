@@ -16,6 +16,7 @@ Tolerances, and why:
   the optimizer tightly.
 """
 import io
+import os
 from contextlib import redirect_stdout
 
 import numpy as np
@@ -41,7 +42,9 @@ from repro_torch.models import convert
 from repro_torch.models.gnn.common import molecule_loss, molecule_union
 from repro_torch.optim import (AdamW, HybridAdamW, cosine_schedule,
                                global_norm)
+from repro_torch.optim.adamw import AdamWState
 from repro_torch.train import StragglerMonitor, Trainer, TrainerConfig
+from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch import configs
 
 torch.set_num_threads(1)
@@ -191,9 +194,56 @@ def test_trainer_tracks_reference_history(arch):
     np.testing.assert_allclose(got, want, rtol=1e-4)
 
 
-def test_trainer_refuses_checkpoints_and_monitors():
-    with pytest.raises(NotImplementedError, match="A8"):
-        Trainer(None, [], None, None, TrainerConfig(ckpt_dir="/nonexistent"))
+def _smoke_trainer(arch, steps, ckpt_dir=None, ckpt_every=50):
+    """The launcher's reduced model on the smoke stream (weights from seed
+    0, so every call starts from the same ones)."""
+    step, params, opt_state, stream, put = tlaunch.build(arch, 0, smoke=True,
+                                                         device="cpu")
+    return Trainer(step, params, opt_state, stream,
+                   TrainerConfig(num_steps=steps, ckpt_dir=ckpt_dir,
+                                 ckpt_every=ckpt_every, log_every=100),
+                   put_batch=put)
+
+
+def _state_leaves(tr):
+    return [t for _, t in ckpt_lib.leaves({"p": tr.params,
+                                           "o": tr.opt_state})]
+
+
+@pytest.mark.parametrize("arch", ["schnet", "meshgraphnet"])
+def test_trainer_resume_bit_identical(arch, tmp_path):
+    """4 steps with a checkpoint every 2, then a fresh trainer resumes from
+    step 4 to 6: the restored parameters and AdamW state equal the saved
+    ones, and the losses, parameters and AdamW state equal an
+    uninterrupted 6-step run's, bit for bit."""
+    whole = _smoke_trainer(arch, 6)
+    want = [h["loss"] for h in whole.run()]
+    d = str(tmp_path / "ck")
+    first = _smoke_trainer(arch, 4, d, ckpt_every=2)
+    got = [h["loss"] for h in first.run()]
+    assert sorted(os.listdir(d)) == ["step_00000002", "step_00000004"]
+    assert ckpt_lib.load_flat(d)[2] == {"stream_step": 4}
+    second = _smoke_trainer(arch, 6, d, ckpt_every=2)
+    assert second.start_step == 4
+    assert isinstance(second.opt_state, AdamWState)
+    assert int(second.opt_state.count) == 4
+    for a, b in zip(_state_leaves(second), _state_leaves(first)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    hist = second.run()
+    assert [h["step"] for h in hist] == [4, 5]
+    assert got + [h["loss"] for h in hist] == want
+    for a, b in zip(_state_leaves(second), _state_leaves(whole)):
+        assert torch.equal(a, b)
+    assert ckpt_lib.latest_step(d) == 6
+
+
+def test_trainer_refuses_checkpoints_and_monitors(tmp_path):
+    # a checkpoint of another model is refused, not half-loaded
+    d = str(tmp_path / "other")
+    other = [torch.zeros(3)]
+    ckpt_lib.save(d, 1, {"params": other, "opt": AdamW().init(other)})
+    with pytest.raises((KeyError, ValueError)):
+        _smoke_trainer("schnet", 2, d)
     mon = StragglerMonitor(threshold=2.0, patience=2)
     acts = [mon.observe(t) for t in [1.0] * 5 + [3.0, 3.0, 1.0]]
     assert acts == ["ok"] * 5 + ["warn", "escalate", "ok"]
@@ -217,9 +267,18 @@ def test_train_cli_refuses_unported():
     for arch in ("qwen3-1.7b", "wide-deep"):
         with pytest.raises(NotImplementedError, match="A11"):
             tlaunch.main(["--arch", arch, "--smoke", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A8"):
-        tlaunch.main(["--arch", "schnet", "--smoke", "--device", "cpu",
-                      "--ckpt-dir", "/nonexistent"])
+
+
+def test_train_cli_ckpt_dir_resumes(tmp_path):
+    d = str(tmp_path / "ck")
+    argv = ["--arch", "schnet", "--smoke", "--device", "cpu", "--ckpt-dir", d]
+    first = tlaunch.main([*argv, "--steps", "2"])
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        rest = tlaunch.main([*argv, "--steps", "4"])
+    assert "[trainer] restored checkpoint at step 2" in buf.getvalue()
+    assert [h["step"] for h in first + rest] == [0, 1, 2, 3]
+    assert ckpt_lib.latest_step(d) == 4
 
 
 def test_equiformer_deep_update_vanishes_like_reference():
