@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port on one CUDA device: the trimming engine,
 the static checks, then the SCC driver, the reachability engine, the
 k-core peel, the stream engine (incremental trimming), the command line,
-LM serving and GNN training.
+LM serving, GNN training, the trim-stream server and wide-deep.
 
     python3 chip_smoke.py               # the check, a few minutes on an H100
     python3 chip_smoke.py --profile     # also: where the time goes (phase 7)
@@ -215,6 +215,40 @@ non-zero and prints no result line):
    --checkpoint-dir D --fault-seed 7 --fault-rate 0.05 --retries 5`` in a
    subprocess: its final checkpoint holds the labels of a run without
    faults.  Checkpoints go under ``build/chip_smoke_ckpt`` and are removed.
+16. (after phase 12) the trim-stream server, with the launch counts set to
+   0 just before (a) and read just after: (a) ``serve_trim_stream`` on
+   phase 9's graph (registered as ``RMAT22``), feed (33,554 deletions a
+   tick, seed 0) and capacity, 8 ticks, ``metrics_port=0``, a checkpoint
+   every 4 ticks: the final checkpoint's status and counters equal phase
+   9's after its eighth tick bit for bit; a scraper thread fetches
+   ``/healthz`` and ``/metrics`` once during the feed (200, 200,
+   ``repro_serve_updates`` in the text); the ``--metrics-json``
+   snapshot's ``repro_serve_updates`` equals the ticks' sum;
+   counter_scatter, frontier_compact and sparse_expand must have run; the
+   set-up, apply ms per tick, save ms and bytes.  (b) the reference's
+   acceptance scenario: an uninterrupted in-process run on ``--graph
+   RMAT`` (scale 13, 8 ticks of 256, a checkpoint every 2), then ``python
+   -m repro_torch.launch.serve --app trim-stream`` with the same flags,
+   SIGKILLed after its first checkpoint and restarted: the final
+   checkpoints' status, counters, feed_alive and rng_state are equal.
+17. (after phase 16) wide-deep at its published config (2,521,512,975
+   parameters, random weights from a seeded generator on the card, TF32
+   off), the launch counts set to 0 before and read after (no port kernel
+   runs): (a) ``serve_recsys`` at the serve_p99 (512) and serve_bulk
+   (262,144) batches: ms a batch (median of 10, synchronised) and req/s;
+   (b) the forward at B = 512 against the CPU path on the same weights
+   (the touched table rows and the dense parameters copied to the host),
+   to 1e-5 of the largest logit; (c) ``retrieval_scores`` against
+   1,048,576 candidates: its time, the top-100 values to 1e-5 and the
+   indices where the values are distinct; (d) ``python -m
+   repro_torch.launch.train --arch wide-deep --steps 3`` in-process at the
+   train_batch cell's 65,536 rows: step ms and peak memory, its first loss
+   equal to a fresh model's on batch 0, and on that batch's first 4,096
+   rows the loss (1e-4 relative) and the MLP's and touched table rows'
+   gradients (1e-3 of each largest entry) equal the CPU path's; whether
+   ``F.embedding``'s backward gives the same bits on a rerun; (e) one
+   ``HybridAdamW`` step: its moment bytes against AdamW's, the SGD tables
+   equal to ``p - sgd_lr * g`` bit for bit.
 
 The last two lines are the kernel table and the result, as JSON.  Needs
 one CUDA device; imports nothing of JAX or of the JAX package.
@@ -297,6 +331,9 @@ KERNELS = {   # name -> (CUDA source, the Pallas kernel it replaces)
 TRIM_PATH = ("first_live_probe", "frontier_compact", "sparse_expand")
 SCC_PEEL_PATH = ("frontier_expand", "bucket_peel")
 STREAM_PATH = ("counter_scatter",)
+# the trim-stream server's ticks: the deletion-only counter scatter and the
+# sparse decrement rounds' compaction and expansion
+SERVER_PATH = ("counter_scatter", "frontier_compact", "sparse_expand")
 SERVE_PATH = ("flash_attention",)
 TRAIN_PATH = ("segment_sum",)
 # phase 13 launches every kernel; the copy kernel is this path's own, and
@@ -376,6 +413,12 @@ OGB = dict(n=2_449_029, m=61_859_140, d=128)
 # phase 12 step against the CPU: loss relative, gradients to a share of
 # each tensor's largest entry (the f32 sums run in other orders)
 TRAIN_TOL = dict(loss=1e-4, grad=1e-3)
+# phase 16: the trim-stream server checkpoints every 4 of phase 9's ticks
+SERVE_CKPT_EVERY = 4
+# phase 17: wide-deep at its published config: the launcher's steps at the
+# train_batch cell, the rows of its first batch held against the CPU
+RECSYS = dict(steps=3, check_batch=4096)
+RECSYS_TOL = dict(fwd=1e-5, loss=1e-4, grad=1e-3)
 # the message of torch's sync debug mode for one synchronizing operation
 # (enabling the mode also warns, once a process, with another message that
 # mentions synchronizing operations: it is not a sync)
@@ -3162,6 +3205,439 @@ def train_phase(dev):
     return totals, profiled
 
 
+# -- phase 16: the trim-stream server -------------------------------------------
+
+class TeeOut:
+    """A stdout that also keeps what was written (to read the port the
+    metrics server printed)."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def scrape_once(tee, found: dict, timeout_s: float = 120.0) -> None:
+    """Wait for the server's port in ``tee``, then for a finished tick on
+    ``/healthz``, then fetch ``/metrics`` and ``/healthz`` once."""
+    import urllib.request
+    deadline = time.monotonic() + timeout_s
+    port = None
+    while time.monotonic() < deadline:
+        if port is None:
+            m = re.search(r"127\.0\.0\.1:(\d+)/metrics", "".join(tee.text))
+            port = int(m.group(1)) if m else None
+        if port is not None:
+            base = f"http://127.0.0.1:{port}"
+            try:
+                health = urllib.request.urlopen(f"{base}/healthz", timeout=5)
+                doc = json.loads(health.read())
+                if doc.get("ticks_done", 0) >= 1:
+                    metrics = urllib.request.urlopen(f"{base}/metrics",
+                                                     timeout=5)
+                    found.update(health=health.status, doc=doc,
+                                 metrics=metrics.status,
+                                 text=metrics.read().decode())
+                    return
+            except OSError:
+                pass
+        time.sleep(0.01)
+
+
+def server_real_phase(dev, tick8):
+    """Phase 16 (a): ``serve_trim_stream`` on phase 9's graph with phase 9's
+    feed and capacity: its final checkpoint must hold phase 9's state
+    after tick 8 (``tick8``: status and counters on the host)."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.launch import serve
+    from repro_torch.train import checkpoint as ckpt_lib
+
+    path = str(CKPT_DIR / "serve")
+    mjson = str(CKPT_DIR / "serve_metrics.json")
+    k = REAL["m"] // 1000                # phase 9's batch
+    serve._STREAM_GRAPHS["RMAT22"] = ("rmat", dict(REAL))
+    tee, found = TeeOut(sys.stdout), {}
+    scraper = threading.Thread(target=scrape_once, args=(tee, found),
+                               daemon=True)
+    t0 = time.perf_counter()
+    sys.stdout = tee
+    scraper.start()
+    try:
+        with obs.recording() as rec:
+            engine = serve.serve_trim_stream(
+                "RMAT22", ticks=STREAM_TICKS, batch=k, seed=0,
+                metrics_port=0, metrics_json=mjson, checkpoint_dir=path,
+                checkpoint_every=SERVE_CKPT_EVERY, device=dev)
+    finally:
+        sys.stdout = tee.out
+        del serve._STREAM_GRAPHS["RMAT22"]
+    wall = time.perf_counter() - t0
+    scraper.join(timeout=10)
+    tree, step, meta = ckpt_lib.load_flat(path)
+    check(step == STREAM_TICKS and meta["feed"]["tick"] == STREAM_TICKS,
+          f"(a) the final checkpoint is step {step}")
+    check(np.array_equal(tree["status"].astype(bool), tick8[0].astype(bool))
+          and np.array_equal(tree["counters"], tick8[1]),
+          "(a) the server's final status or counters differ from phase 9's "
+          "after tick 8")
+    check(found.get("health") == 200 and found.get("metrics") == 200
+          and "repro_serve_updates" in found.get("text", ""),
+          f"(a) the scrape during the feed failed: {found}")
+    ticks = rec.select("tick", cat="serve")
+    dispatches = rec.select("dispatch", cat="engine")
+    updates = sum(t.attrs["updates"] for t in ticks)
+    snap = json.loads(Path(mjson).read_text())["families"]
+    got = sum(c["value"] for c in snap["repro_serve_updates"]["children"])
+    check(len(ticks) == STREAM_TICKS and got == updates,
+          f"(a) repro_serve_updates {got} != the ticks' {updates}")
+    save = snap["repro_checkpoint_seconds"]["children"][0]
+    setup_ms = ticks[0].ts * 1e3            # the recorder starts with the call
+    tick_ms = [t.dur * 1e3 for t in ticks]
+    log(f"# phase 16 (a): serve_trim_stream('RMAT22', ticks={STREAM_TICKS}, "
+        f"batch={k}) on phase 9's graph and feed: {wall:.1f} s in all; "
+        f"set-up {setup_ms:.1f} ms from the call to the first tick (the "
+        f"graph's generation, the DeltaCSR index, Gᵀ and the plan-time "
+        f"retrim, {dispatches[0].dur * 1e3:.1f} ms); apply ms per tick "
+        f"{[round(x, 1) for x in tick_ms]} (median "
+        f"{np.median(tick_ms):.1f}); {updates} updates; final checkpoint "
+        f"(step {step}) status and counters equal phase 9's after tick "
+        f"{STREAM_TICKS} bit for bit; scraped /healthz and /metrics "
+        f"(200, 200) after tick {found['doc']['ticks_done']}; "
+        f"repro_serve_updates {got} = the ticks' sum; saves: "
+        f"{save['count']} at {save['sum'] / save['count'] * 1e3:.1f} ms "
+        f"each on the loop's thread ({save['labels']['mode']}), "
+        f"{ckpt_bytes(path, step)} bytes; dirty ticks "
+        f"{meta['feed']['dirty_ticks']}, compactions {engine.compactions}")
+    del engine
+    torch.cuda.empty_cache()
+
+
+def server_kill_phase(dev):
+    """Phase 16 (b): the reference's acceptance scenario on the card: an
+    uninterrupted run, then the CLI SIGKILLed after its first checkpoint
+    and restarted; the final checkpoints must be equal."""
+    import contextlib
+    import io
+    import os
+
+    import numpy as np
+
+    from repro_torch.launch import serve
+    from repro_torch.train import checkpoint as ckpt_lib
+
+    t0 = time.perf_counter()
+    whole = str(CKPT_DIR / "serve_whole")
+    with contextlib.redirect_stdout(io.StringIO()):
+        serve.serve_trim_stream("RMAT", ticks=8, batch=256, seed=0,
+                                checkpoint_dir=whole, checkpoint_every=2,
+                                device=dev)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    killed = None
+    for attempt in range(3):
+        path = str(CKPT_DIR / f"serve_killed{attempt}")
+        argv = [sys.executable, "-m", "repro_torch.launch.serve", "--app",
+                "trim-stream", "--graph", "RMAT", "--ticks", "8",
+                "--update-batch", "256", "--checkpoint-dir", path,
+                "--checkpoint-every", "2"]
+        proc = subprocess.Popen(argv, cwd=ROOT, env=env,
+                                stdout=subprocess.DEVNULL,
+                                stderr=subprocess.PIPE, text=True)
+        try:
+            deadline = time.monotonic() + 120
+            while time.monotonic() < deadline and proc.poll() is None:
+                step = ckpt_lib.latest_step(path)
+                if step is not None and step > 0:
+                    break
+                time.sleep(0.002)
+            proc.kill()                          # SIGKILL: no cleanup
+            proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+        step = ckpt_lib.latest_step(path)
+        if step is not None and step < 8:
+            killed = (path, step)
+            break
+        log(f"# phase 16 (b): attempt {attempt}: the process reached step "
+            f"{step} before the kill; again")
+    check(killed is not None, "(b) the CLI was never killed mid-feed")
+    path, at = killed
+    out = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    check(out.returncode == 0, f"(b) the restarted CLI failed: "
+          f"{out.stderr[-2000:]}")
+    check(f"resumed from {path} at tick {at}/8" in out.stdout,
+          f"(b) the restart did not resume at tick {at}")
+    ta, sa, ma = ckpt_lib.load_flat(whole)
+    tb, sb, mb = ckpt_lib.load_flat(path)
+    for key in ("status", "counters", "feed_alive"):
+        check(np.array_equal(ta[key], tb[key]), f"(b) {key} differs")
+    check(sa == sb == 8 and ma["feed"]["rng_state"] == mb["feed"]["rng_state"],
+          "(b) the steps or the feed's RNG state differ")
+    log(f"# phase 16 (b): {' '.join(argv[1:])}: SIGKILLed at its step-{at} "
+        f"checkpoint, restarted: resumed at tick {at}, final checkpoint "
+        f"(step 8) status, counters, feed_alive and rng_state equal the "
+        f"uninterrupted in-process run's; "
+        f"{time.perf_counter() - t0:.1f} s; "
+        f"{out.stdout.strip().splitlines()[-1]}")
+
+
+# -- phase 17: wide-deep at its published width ----------------------------------
+
+def recsys_batch(cfg, b: int, seed: int, dev):
+    """``b`` requests on ``dev``: dense features, ids over each field's
+    whole vocabulary (as ``RecsysStream`` draws them) and labels."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    host = {"dense": rng.normal(size=(b, cfg.n_dense)).astype(np.float32),
+            "sparse_ids": np.stack(
+                [rng.integers(0, v, (b, cfg.ids_per_field))
+                 for v in cfg.vocab_sizes], axis=1).astype(np.int32),
+            "labels": rng.integers(0, 2, (b,)).astype(np.float32)}
+    return {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
+
+
+def recsys_host_copy(model, batch):
+    """The CPU path on the same weights: a CPU ``WideDeep`` holding the
+    card model's dense parameters and, per field, the table rows
+    ``batch`` touches (the only rows its forward reads), with the batch's
+    ids remapped into them.  Returns (model, batch, per-field row ids)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.recsys import WideDeep
+    ids = batch["sparse_ids"]
+    rows, local = [], []
+    for f in range(model.cfg.n_sparse):
+        u, inv = torch.unique(ids[:, f], return_inverse=True)
+        rows.append(u)
+        local.append(inv)
+    cfg = dataclasses.replace(model.cfg,
+                              vocab_sizes=tuple(len(u) for u in rows))
+    host = WideDeep(cfg, device="cpu", init=False)
+    with torch.no_grad():
+        for name, p in host.named_parameters():
+            src = model.get_parameter(name)
+            if name.startswith(("tables.", "wide_tables.")):
+                src = src[rows[int(name.split(".t")[-1])]]
+            p.copy_(src.cpu())
+    hb = {k: v.cpu() for k, v in batch.items()}
+    hb["sparse_ids"] = torch.stack(local, dim=1).cpu().to(torch.int32)
+    return host, hb, rows
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want|."""
+    return float((got.cpu() - want).abs().max()) / max(
+        float(want.abs().max()), 1e-30)
+
+
+def recsys_phase(dev):
+    """Phase 17: wide-deep at its published config on the card: serving at
+    the serve_p99 and serve_bulk batches, the forward and retrieval against
+    the CPU path on the same weights, the train launcher at train_batch
+    with its first step against the CPU, and one HybridAdamW step."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.launch import train as tcli
+    from repro_torch.models.recsys import WideDeep, loss_grads
+    from repro_torch.optim import AdamW, HybridAdamW
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 products in f32
+    spec = configs.get("wide-deep")
+    cfg, cells = spec.make_config(), spec.shapes
+
+    def new_model():
+        return WideDeep(cfg, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = new_model()
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in model.parameters())
+    tbytes = sum(p.numel() * 4 for n, p in model.named_parameters()
+                 if "tables" in n)
+    log(f"# phase 17: wide-deep: {n_par:,} parameters (param_count() "
+        f"{cfg.param_count():,}), tables {tbytes:,} bytes in float32, drawn "
+        f"on the card in {(time.perf_counter() - t0) * 1e3:.0f} ms")
+
+    # (a) serving at the serve_p99 and serve_bulk batches
+    for cell in ("serve_p99", "serve_bulk"):
+        b = cells[cell].meta["batch"]
+        scores, stats = serve.serve_recsys(batch=b, model=model,
+                                           return_stats=True)
+        check(scores.shape == (b,) and np.isfinite(scores).all(),
+              f"(a) {cell}: scores of shape {scores.shape}, or not finite")
+        ms = float(np.median(stats["batch_ms"]))
+        log(f"# phase 17 (a): {cell} batch {b}: {ms:.3f} ms a batch "
+            f"(median of 10, synchronised; "
+            f"{min(stats['batch_ms']):.3f}-{max(stats['batch_ms']):.3f}), "
+            f"{b / ms * 1e3:,.0f} req/s")
+
+    # (b) the card's forward against the CPU path on the same weights
+    b = cells["serve_p99"].meta["batch"]
+    batch = recsys_batch(cfg, b, 1, dev)
+    host, hb, _ = recsys_host_copy(model, batch)
+    with torch.no_grad():
+        err = rel_err(model(batch), host(hb))
+    check(err <= RECSYS_TOL["fwd"], f"(b) the forward at B={b} differs "
+          f"from the CPU's by {err:.3g} of its largest logit")
+    log(f"# phase 17 (b): forward at B={b} equals the CPU path's on the "
+        f"same weights to {err:.3g} of its largest logit (tolerance "
+        f"{RECSYS_TOL['fwd']})")
+
+    # (c) retrieval against retrieval_cand's candidates
+    n_cand = cells["retrieval_cand"].meta["n_candidates"]
+    query = recsys_batch(cfg, 1, 2, dev)
+    query["candidates"] = torch.randn(
+        n_cand, cfg.retrieval_dim, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(2))
+    with torch.no_grad():
+        vals, idx = model.retrieval_scores(query)
+        ms = time_ms(lambda: model.retrieval_scores(query), reps=10)
+        host, hq, _ = recsys_host_copy(model, query)
+        hq["candidates"] = query["candidates"].cpu()
+        hv, hi = host.retrieval_scores(hq)
+    verr = rel_err(vals, hv)
+    hv = hv.numpy()
+    distinct = np.ones(100, bool)
+    distinct[1:] &= np.diff(hv) != 0
+    distinct[:-1] &= np.diff(hv) != 0
+    check(verr <= RECSYS_TOL["fwd"] and np.array_equal(
+        idx.cpu().numpy()[distinct], hi.numpy()[distinct]),
+        f"(c) the top-100 differ from the CPU's ({verr:.3g})")
+    log(f"# phase 17 (c): retrieval_scores against {n_cand:,} candidates: "
+        f"{ms:.3f} ms (CUDA events); top-100 values equal the CPU's to "
+        f"{verr:.3g}, indices equal at the {int(distinct.sum())} distinct "
+        f"values")
+    del model, host, query, batch
+    torch.cuda.empty_cache()
+
+    # (d) the train launcher at train_batch, as a user runs it
+    made, trainer = [], tcli.Trainer
+
+    class KeptTrainer(trainer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    tcli.Trainer = KeptTrainer
+    try:
+        with contextlib.redirect_stdout(out):
+            hist = tcli.main(["--arch", "wide-deep", "--steps",
+                              str(RECSYS["steps"])])
+    finally:
+        tcli.Trainer = trainer
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    line = out.getvalue().strip().splitlines()[-1]
+    check(line.startswith("[train] wide-deep: first loss ")
+          and all(math.isfinite(h["loss"]) for h in hist),
+          f"the train launcher printed {line!r}")
+    times = made[0].monitor.times
+    stream = made[0].stream
+    del made
+    torch.cuda.empty_cache()
+    log(line)
+    log(f"# phase 17 (d): python -m repro_torch.launch.train --arch "
+        f"wide-deep --steps {RECSYS['steps']} (batch {stream.batch}): "
+        f"{wall:.1f} s in all; step ms {[round(t * 1e3, 1) for t in times]}; "
+        f"peak device memory {peak / 1e9:.2f} GB ({held / 1e9:.2f} GB held "
+        f"before)")
+
+    # the launcher's first step against the CPU on the same weights
+    model = new_model()
+    params = model.params()
+    full = {k: torch.as_tensor(v, device=dev)
+            for k, v in stream.batch_at(0).items()}
+    with torch.no_grad():
+        first = model.loss(full).item()
+    check(abs(first - hist[0]["loss"]) <= RECSYS_TOL["loss"] * abs(first),
+          f"(d) the launcher's first loss {hist[0]['loss']} is not {first}")
+    small = {k: v[:RECSYS["check_batch"]] for k, v in full.items()}
+    del full
+    loss = model.loss(small)
+    grads = dict(zip(params, loss_grads(loss, params)))
+    host, hb, rows = recsys_host_copy(model, small)
+    hparams = host.params()
+    hloss = host.loss(hb)
+    hgrads = dict(zip(hparams, loss_grads(hloss, hparams)))
+    lerr = abs(loss.item() - hloss.item()) / abs(hloss.item())
+    gerr = 0.0
+    for name, g in grads.items():
+        if "tables" in name:
+            g = g[rows[int(name.split("/t")[-1])]]
+        gerr = max(gerr, rel_err(g, hgrads[name]))
+    check(lerr <= RECSYS_TOL["loss"] and gerr <= RECSYS_TOL["grad"],
+          f"(d) step 1 against the CPU: loss {lerr:.3g}, gradients {gerr:.3g}")
+    again = torch.autograd.grad(model.loss(small),
+                                [params[f"tables/t{f}"] for f in (0, 4, 12)])
+    same = all(torch.equal(a, grads[f"tables/t{f}"])
+               for a, f in zip(again, (0, 4, 12)))
+    log(f"# phase 17 (d): the launcher's first loss equals a fresh model's "
+        f"on batch 0 ({first:.6f}); on its first {RECSYS['check_batch']} "
+        f"rows the card's loss equals the CPU path's to {lerr:.3g} "
+        f"(tolerance {RECSYS_TOL['loss']}) and the MLP's and the touched "
+        f"table rows' gradients to {gerr:.3g} of their largest entry "
+        f"(tolerance {RECSYS_TOL['grad']}); F.embedding's backward rerun "
+        f"on tables t0, t4, t12: {'the same bits' if same else 'OTHER BITS'}")
+    del again, host, hparams, hgrads
+
+    # (e) one HybridAdamW step at the published width
+    full_state = AdamW(lr=1e-3).init(params)
+    adamw_bytes = sum(t.numel() * t.element_size()
+                      for t in full_state.mu + full_state.nu)
+    del full_state
+    torch.cuda.empty_cache()
+    opt = HybridAdamW(adamw=AdamW(lr=1e-3))
+    state = opt.init(params)
+    hybrid_bytes = sum(t.numel() * t.element_size()
+                       for t in state.mu + state.nu)
+    want = {n: (p.detach() - opt.sgd_lr * grads[n])
+            for n, p in params.items() if "tables" in n}
+    grad_list = [grads[n] for n in params]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = opt.step(params, grad_list, state)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    check(all(torch.equal(params[n].detach(), w) for n, w in want.items()),
+          "(e) an SGD table is not p - sgd_lr * g bit for bit")
+    check(int(state.count) == 1, "(e) the step count is not 1")
+    dense_bytes = sum(p.numel() * 4 for n, p in params.items()
+                      if "tables" not in n)
+    log(f"# phase 17 (e): HybridAdamW: moments {hybrid_bytes:,} bytes (the "
+        f"{dense_bytes:,} bytes of dense parameters twice, and a 0-d zero a "
+        f"table) against AdamW's {adamw_bytes:,}; one step {step_ms:.1f} ms; "
+        f"the {len(want)} SGD tables equal p - {opt.sgd_lr} g bit for bit")
+    del model, params, grads, grad_list, want, state, small, loss
+    torch.cuda.empty_cache()
+
+
 # -- phase 7 (--profile): where the time goes ----------------------------------
 
 # the port's kernels of the trimming path, whose device time each trim's
@@ -3440,6 +3916,7 @@ def main() -> int:
         check(fault_launches[name] > 0,
               f"{name} was never launched on the faults' and checkpoints' "
               "paths")
+    tick8 = replay["host"][STREAM_TICKS - 1]     # phase 16 (a) holds this
     del trims, real6, obs_methods, ticks, replay
     cli_phase()
     lm, serve_launches = serve_phase(dev)
@@ -3452,6 +3929,31 @@ def main() -> int:
     for name in TRAIN_PATH:
         check(train_launches[name] > 0,
               f"{name} was never launched on the training path")
+    if not args.profile:                # phase 17 wants the card's memory
+        del lm, profiled
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    ops.reset_launches()
+    server_real_phase(dev, tick8)
+    server_launches = dict(ops.LAUNCHES)
+    log(f"# phase 16: launches in (a) (the server at the real size): "
+        f"{server_launches}")
+    for name in SERVER_PATH:
+        check(server_launches[name] > 0,
+              f"{name} was never launched on the trim-stream server's path")
+    server_kill_phase(dev)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    log(f"# phase 16: done in {time.perf_counter() - t0:.1f} s")
+    del tick8
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    recsys_phase(dev)
+    recsys_launches = dict(ops.LAUNCHES)
+    check(not any(recsys_launches.values()),
+          f"the recsys path launched a port kernel: {recsys_launches}")
+    log(f"# phase 17: launches {recsys_launches} (the recsys path runs no "
+        f"TPU kernel's port); done in {time.perf_counter() - t0:.1f} s")
     if args.profile:
         profile_phase(dev, g, gt, stream, feed, lm, profiled)
 

@@ -1,11 +1,9 @@
 """Declarative architecture registry (port of ``src/repro/configs/base.py``).
 
-Each language-model and GNN architecture contributes one module defining
-an :class:`ArchSpec`: the exact published configuration, a reduced
-configuration for CPU smoke tests, and its shape cells (name →
-:class:`ShapeCell`).  The reference also registers a recsys architecture;
-its model is not ported yet, and :func:`get` raises
-:class:`NotImplementedError` naming ROADMAP A11 for its id.
+Each language-model, GNN and recsys architecture contributes one module
+defining an :class:`ArchSpec`: the exact published configuration, a
+reduced configuration for CPU smoke tests, and its shape cells (name →
+:class:`ShapeCell`).
 """
 from __future__ import annotations
 
@@ -24,7 +22,7 @@ class ShapeCell:
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     id: str
-    family: str                   # lm | gnn (recsys is not ported)
+    family: str                   # lm | gnn | recsys
     make_config: Callable[[], Any]
     make_reduced: Callable[[], Any]
     shapes: dict[str, ShapeCell]
@@ -33,9 +31,6 @@ class ArchSpec:
 
 REGISTRY: dict[str, ArchSpec] = {}
 
-#: the reference's architectures whose models the port does not have yet
-NOT_PORTED = {"wide-deep": "recsys"}
-
 
 def register(spec: ArchSpec):
     REGISTRY[spec.id] = spec
@@ -43,10 +38,6 @@ def register(spec: ArchSpec):
 
 
 def get(arch_id: str) -> ArchSpec:
-    if arch_id in NOT_PORTED:
-        raise NotImplementedError(
-            f"{arch_id!r} is a {NOT_PORTED[arch_id]} architecture; its model "
-            "is not ported to repro_torch yet (ROADMAP A11)")
     if arch_id not in REGISTRY:
         raise KeyError(f"unknown arch {arch_id!r}; have {sorted(REGISTRY)}")
     return REGISTRY[arch_id]
@@ -90,4 +81,16 @@ def gnn_shapes() -> dict[str, ShapeCell]:
         "molecule": ShapeCell(
             "molecule", "train",
             dict(n_nodes=30, n_edges=64, batch=128)),
+    }
+
+
+def recsys_shapes() -> dict[str, ShapeCell]:
+    return {
+        "train_batch": ShapeCell("train_batch", "train", dict(batch=65536)),
+        "serve_p99": ShapeCell("serve_p99", "serve", dict(batch=512)),
+        "serve_bulk": ShapeCell("serve_bulk", "serve", dict(batch=262144)),
+        # 1M candidates, padded to 2^20 so the candidate matrix shards
+        # evenly over all 256/512 devices
+        "retrieval_cand": ShapeCell("retrieval_cand", "retrieval",
+                                    dict(batch=1, n_candidates=1_048_576)),
     }

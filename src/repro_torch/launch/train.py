@@ -1,8 +1,9 @@
 """Training launcher of the port (PyTorch port of
-``src/repro/launch/train.py``) for the GNN family::
+``src/repro/launch/train.py``) for the GNN and recsys families::
 
     python -m repro_torch.launch.train --arch schnet --smoke --device cpu
     python -m repro_torch.launch.train --arch meshgraphnet --steps 5  # card
+    python -m repro_torch.launch.train --arch wide-deep --smoke --device cpu
 
 ``--smoke`` trains the reduced configuration on
 ``GraphBatchStream(batch=4, n_nodes=16, n_edges=48)``, as the reference
@@ -19,8 +20,13 @@ reference's line ``[train] {arch}: first loss ..., last loss ...``.
 (``TrainerConfig`` defaults: every 50 steps and at the end, the newest 3
 kept) and resumes from the latest step in DIR.
 
+``--arch wide-deep`` trains Wide & Deep with AdamW (lr 1e-3), as the
+reference's ``build_smoke`` does: the reduced configuration on
+``RecsysStream(batch=32)`` with ``--smoke``, else the published one
+(2,521,512,975 parameters) on the ``train_batch`` cell's 65,536 rows.
+
 Not ported yet, and raising :class:`NotImplementedError` that names the
-ROADMAP item: LM and recsys training (A11).
+ROADMAP item: LM training (A11).
 """
 from __future__ import annotations
 
@@ -29,9 +35,10 @@ import argparse
 import torch
 
 from .. import configs
-from ..data import GraphBatchStream
+from ..data import GraphBatchStream, RecsysStream
 from ..models.gnn import MODELS
 from ..models.gnn.common import molecule_loss, molecule_union
+from ..models.recsys import WideDeep, make_recsys_train_step
 from ..optim import AdamW
 from ..train import Trainer, TrainerConfig
 
@@ -54,16 +61,19 @@ def make_train_step(model, opt: AdamW, loss_fn):
 
 def build(arch_id: str, seed: int = 0, *, smoke: bool = True,
           device="cuda"):
-    """``(step, params, opt_state, stream, put_batch)`` for a GNN id: the
-    reduced config on the smoke stream, or the published one on the
-    molecule cell's.  Other families raise naming their ROADMAP item."""
+    """``(step, params, opt_state, stream, put_batch)`` for a GNN or recsys
+    id: the reduced config on the smoke stream, or the published one on
+    the molecule cell's (GNNs) or the ``train_batch`` cell's (recsys).  LM
+    ids raise naming their ROADMAP item."""
     spec = configs.get(arch_id)
-    if spec.family != "gnn":
+    if spec.family == "lm":
         raise NotImplementedError(
-            f"{arch_id!r}: {spec.family} training is not ported to "
-            "repro_torch yet (ROADMAP A11: LM training, recsys)")
+            f"{arch_id!r}: LM training is not ported to repro_torch yet "
+            "(ROADMAP A11: LM training)")
     cfg = spec.make_reduced() if smoke else spec.make_config()
     gen = torch.Generator(device=device).manual_seed(seed)
+    if spec.family == "recsys":
+        return _build_recsys(spec, cfg, gen, seed, smoke, device)
     model = MODELS[type(cfg)](cfg, device=device, generator=gen)
     opt = AdamW(lr=1e-3)
     params = list(model.parameters())
@@ -73,10 +83,27 @@ def build(arch_id: str, seed: int = 0, *, smoke: bool = True,
             lambda b: molecule_union(b, device))
 
 
+def _build_recsys(spec, cfg, gen, seed: int, smoke: bool, device):
+    model = WideDeep(cfg, device=device, generator=gen)
+    opt = AdamW(lr=1e-3)
+    params = model.params()
+    batch = 32 if smoke else spec.shapes["train_batch"].meta["batch"]
+    stream = RecsysStream(batch=batch, n_dense=cfg.n_dense,
+                          n_sparse=cfg.n_sparse, vocab_sizes=cfg.vocab_sizes,
+                          ids_per_field=cfg.ids_per_field, seed=seed)
+
+    def put(b):
+        return {k: torch.as_tensor(v, device=device) for k, v in b.items()}
+
+    return (make_recsys_train_step(model, opt), params, opt.init(params),
+            stream, put)
+
+
 def build_smoke(arch_id: str, seed: int = 0, *, device="cuda"):
     """The reference's ``build_smoke``: ``(step, params, opt_state,
-    stream)`` at the reduced config; batches go through
-    ``models.gnn.common.molecule_union`` first."""
+    stream)`` at the reduced config; a GNN's batches go through
+    ``models.gnn.common.molecule_union`` first, a recsys batch's arrays
+    become tensors on the device."""
     return build(arch_id, seed, smoke=True, device=device)[:4]
 
 

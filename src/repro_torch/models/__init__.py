@@ -1,7 +1,7 @@
 """Models of the port: the dense decoder-only LM (``transformer.LM``), its
 building blocks (``layers``), the four GNNs (``gnn``) with their
-equivariant constants (``equivariant``), and the weight converter
-(``convert``)."""
+equivariant constants (``equivariant``), Wide & Deep (``recsys``), and the
+weight converter (``convert``)."""
 from .layers import LMConfig
 from .transformer import LM
 

@@ -18,6 +18,13 @@ tree attribute for attribute (a dict key is a child module or parameter,
 a list index an entry of an ``nn.ModuleList``), so :func:`gnn_from_numpy`
 walks the tree into a freshly built module and :func:`gnn_to_numpy` walks
 the module back into the tree, both exactly.
+
+**Wide & Deep.** The reference's tree is ``{"tables": {"t0", ...},
+"wide_tables": {...}, "mlp": [{"w", "b"}, ...], "head", "wide_dense",
+"bias", "query_proj"}``; the port's :class:`~.recsys.WideDeep` mirrors it
+the same way (``tables`` and ``wide_tables`` are parameter dicts),
+so :func:`widedeep_from_numpy` and :func:`widedeep_to_numpy` walk it like
+the GNNs'.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ import torch
 from .. import configs
 from .gnn import MODELS
 from .layers import LMConfig
+from .recsys import WideDeep, WideDeepConfig
 from .transformer import LM
 
 _ATTN = ("wq", "wk", "wv", "wo", "q_norm", "k_norm")
@@ -107,10 +115,29 @@ def gnn_from_numpy(arch_or_cfg, tree: dict, *, d_feat=None, device="cuda"):
     config is taken, or a config dataclass) with the weights of the
     reference's parameter tree (``jax.tree.map(np.asarray, params)``)."""
     cfg = _gnn_config(arch_or_cfg)
-    model = MODELS[type(cfg)](cfg, d_feat=d_feat, device=device, init=False)
+    return _load(MODELS[type(cfg)](cfg, d_feat=d_feat, device=device,
+                                   init=False), cfg.name, tree)
+
+
+def widedeep_from_numpy(cfg: WideDeepConfig, tree: dict, *,
+                        device="cuda") -> WideDeep:
+    """The port's :class:`~.recsys.WideDeep` for ``cfg`` with the weights of
+    the reference's parameter tree (``jax.tree.map(np.asarray, params)``)."""
+    return _load(WideDeep(cfg, device=device, init=False), cfg.name, tree)
+
+
+def widedeep_to_numpy(model: WideDeep) -> dict:
+    """The reference's parameter tree of a port :class:`~.recsys.WideDeep`,
+    as numpy."""
+    return gnn_to_numpy(model)
+
+
+def _load(model, name: str, tree: dict):
+    """``model`` with the values of ``tree``, which must name exactly its
+    parameters."""
     have = gnn_to_numpy(model)
     if _keys(have) != _keys(tree):
-        raise ValueError(f"{cfg.name}: parameter tree differs from the "
+        raise ValueError(f"{name}: parameter tree differs from the "
                          f"port's: {sorted(_keys(tree) ^ _keys(have))[:8]}")
     with torch.no_grad():
         _walk_into(model, tree)

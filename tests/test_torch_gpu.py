@@ -1073,3 +1073,62 @@ def test_checkpoint_roundtrip_on_card(cuda, family, tmp_path):
               "reach": "frontier_expand", "peel": "bucket_peel",
               "stream": "counter_scatter"}[family]
     assert ops.LAUNCHES[kernel] > before[kernel], kernel
+
+
+def test_trim_stream_server_on_card_matches_cpu(cuda, tmp_path):
+    """The trim-stream server on ``chain`` (8 ticks of 32 updates) ends in
+    the CPU run's checkpoint, bit for bit, and its ticks run the stream's
+    kernels."""
+    from repro_torch.launch import serve
+    from repro_torch.train import checkpoint as ckpt_lib
+
+    dirs = {}
+    for dev in ("cpu", "cuda"):
+        dirs[dev] = str(tmp_path / dev)
+        ops.reset_launches()
+        serve.serve_trim_stream("chain", ticks=8, batch=32, seed=0,
+                                checkpoint_dir=dirs[dev],
+                                checkpoint_every=100, device=dev)
+        if dev == "cuda":
+            for name in ("counter_scatter", "frontier_compact",
+                         "sparse_expand"):
+                assert ops.LAUNCHES[name] > 0, name
+    want, _, wmeta = ckpt_lib.load_flat(dirs["cpu"])
+    got, _, meta = ckpt_lib.load_flat(dirs["cuda"])
+    for key in ("status", "counters", "tomb", "ins_alive", "feed_alive",
+                "feed_pending", "feed_pending_lens"):
+        assert np.array_equal(got[key], want[key]), key
+    assert meta["feed"] == wmeta["feed"]
+
+
+def test_recsys_forward_on_card_matches_cpu(cuda):
+    """Wide & Deep at the published widths (vocabs cut to 2^12): the card's
+    forward, tower and loss equal the CPU's on the same weights to 1e-5,
+    and the embedding's backward gives the same bits on a rerun."""
+    from repro_torch.models import convert, recsys
+
+    cfg = recsys.WideDeepConfig(vocab_sizes=(1 << 12,) * 40)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    model = recsys.WideDeep(cfg, device=cuda, generator=gen)
+    host = convert.widedeep_from_numpy(cfg, convert.widedeep_to_numpy(model),
+                                       device="cpu")
+    rng = np.random.default_rng(0)
+    b = {"dense": rng.normal(size=(512, 13)).astype(np.float32),
+         "sparse_ids": rng.integers(0, 1 << 12, (512, 40, 2)).astype(np.int32),
+         "labels": rng.integers(0, 2, 512).astype(np.float32)}
+    assert not torch.backends.cuda.matmul.allow_tf32     # torch's default
+    dev_b = {k: torch.as_tensor(v, device=cuda) for k, v in b.items()}
+    cpu_b = {k: torch.as_tensor(v) for k, v in b.items()}
+    with torch.no_grad():
+        got, want = model(dev_b).cpu(), host(cpu_b)
+        tol = 1e-5 * float(want.abs().max())
+        assert float((got - want).abs().max()) <= tol
+        got, want = model.user_tower(dev_b).cpu(), host.user_tower(cpu_b)
+        assert float((got - want).abs().max()) <= 1e-5 * float(
+            want.abs().max())
+    grads = []
+    for _ in range(2):
+        loss = model.loss(dev_b)
+        grads.append(torch.autograd.grad(loss, [model.tables["t0"]])[0])
+    assert torch.equal(grads[0], grads[1])
+    assert abs(float(loss) - float(host.loss(cpu_b))) <= 1e-5 * float(loss)

@@ -85,8 +85,11 @@ def test_configs_match_reference():
             assert (dataclasses.asdict(getattr(configs.get(arch), make)())
                     == dataclasses.asdict(getattr(jconfigs.get(arch),
                                                   make)()))
-    with pytest.raises(NotImplementedError, match="A11"):
-        configs.get("wide-deep")
+    assert configs.get("wide-deep").family == "recsys"    # ported (A11)
+    for make in ("make_config", "make_reduced"):
+        assert (dataclasses.asdict(getattr(configs.get("wide-deep"), make)())
+                == dataclasses.asdict(getattr(jconfigs.get("wide-deep"),
+                                              make)()))
     with pytest.raises(KeyError):
         configs.get("no-such-arch")
 

@@ -110,10 +110,14 @@ def test_serve_cli_prints_reference_fields(capsys):
 
 
 def test_serve_cli_refuses_unported():
-    with pytest.raises(NotImplementedError, match="A10"):
-        serve.main(["--app", "trim-stream"])
-    with pytest.raises(NotImplementedError, match="A11"):
-        serve.main(["--arch", "wide-deep", "--smoke", "--device", "cpu"])
+    """The MoE LMs still raise (A11); trim-stream and wide-deep, which
+    raised before they were ported, now serve."""
+    engine = serve.main(["--app", "trim-stream", "--graph", "chain",
+                         "--ticks", "2", "--update-batch", "8",
+                         "--device", "cpu"])
+    assert engine.compactions == 0 and engine.delta.n == 2_000
+    scores = serve.main(["--arch", "wide-deep", "--smoke", "--device", "cpu"])
+    assert scores.shape == (4,) and np.isfinite(scores).all()
     with pytest.raises(NotImplementedError, match="A11"):
         serve.main(["--arch", "arctic-480b", "--smoke", "--device", "cpu"])
     with pytest.raises(SystemExit):
