@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port on one CUDA device: the trimming engine,
 the static checks, then the SCC driver, the reachability engine, the
 k-core peel, the stream engine (incremental trimming), the command line,
-LM serving, GNN training, the trim-stream server and wide-deep.
+LM serving, GNN training, the trim-stream server, wide-deep and LM
+training.
 
     python3 chip_smoke.py               # the check, a few minutes on an H100
     python3 chip_smoke.py --profile     # also: where the time goes (phase 7)
@@ -249,6 +250,28 @@ non-zero and prints no result line):
    ``F.embedding``'s backward gives the same bits on a rerun; (e) one
    ``HybridAdamW`` step: its moment bytes against AdamW's, the SGD tables
    equal to ``p - sgd_lr * g`` bit for bit.
+18. (after phase 17) LM training at full width: (a) ``python -m
+   repro_torch.launch.train --arch qwen3-1.7b --steps 3`` in-process at
+   the published config (2,031,732,736 parameters, random weights from
+   seed 0, AdamW lr 1e-3, remat on, ``TokenStream(batch=2, seq=4096)``:
+   train_4k's sequence, its batch of 256 cut to one card's), the launch
+   counts set to 0 just before and read just after: flash_attention on
+   flash_fwd_wgmma 2 x 28 times a step (each layer's forward and its
+   remat recompute) and the torch-op backward 28 times; every loss
+   finite, the last below the first, the loss on batch 0 lower after the
+   steps; ms per step, tokens/s, peak memory.  (b) step 0 at (B, S) =
+   (1, 512) on the same full-width weights through the kernel and through
+   the plain version under autograd: in f32 (flash_fwd) the loss to 1e-5
+   relative and every gradient to 1e-3 of its largest entry; in bf16 both
+   held against the f32 gradients, the kernel's at most 1.5x as far as
+   the plain version's; a rerun gives the same bits.  (c)
+   ``FlashAttentionFn`` forward and backward at (2, 16, 8, 4096, 128)
+   bf16, on (B, S, H, D) projections viewed (B, H, S, D) as the model
+   passes them: the forward against the plain version to FLASH_TOL, the
+   gradient against autograd through the plain version to 2^-7 of each
+   largest entry, then both timed beside SDPA's (``enable_gqa``) in
+   device ms, SDPA only as a yardstick.  ``--profile`` adds one training
+   step to phase 7.
 
 The last two lines are the kernel table and the result, as JSON.  Needs
 one CUDA device; imports nothing of JAX or of the JAX package.
@@ -336,6 +359,7 @@ STREAM_PATH = ("counter_scatter",)
 SERVER_PATH = ("counter_scatter", "frontier_compact", "sparse_expand")
 SERVE_PATH = ("flash_attention",)
 TRAIN_PATH = ("segment_sum",)
+LM_TRAIN_PATH = ("flash_attention",)
 # phase 13 launches every kernel; the copy kernel is this path's own, and
 # so are first_live_scan (the Pallas kernel's own contract, which the
 # engines' probe no longer takes) and prefix_positions (no path calls it
@@ -419,6 +443,20 @@ SERVE_CKPT_EVERY = 4
 # train_batch cell, the rows of its first batch held against the CPU
 RECSYS = dict(steps=3, check_batch=4096)
 RECSYS_TOL = dict(fwd=1e-5, loss=1e-4, grad=1e-3)
+# phase 18: qwen3-1.7b trained at its published config through the
+# launcher (TokenStream(batch=2, seq=4096): train_4k's sequence, its batch
+# of 256 cut to one card's); step 0 at (B, S) = (1, 512) through the kernel
+# and through the plain version (f32: loss relative, gradients to a share
+# of each largest entry; bf16: the kernel's distance from the f32
+# gradients at most 1.5x the plain version's); the attention timed at
+# the training shape
+LM_TRAIN = dict(arch="qwen3-1.7b", steps=3)
+LM_CHECK = dict(b=1, s=512)
+LM_TOL = dict(loss=1e-5, grad=1e-3, bf16=1.5)
+FLASH_TRAIN = dict(b=2, hq=16, hkv=8, s=4096, d=128)
+# FlashAttentionFn's bf16 gradient against the plain version's autograd,
+# as a share of each largest entry: the same f32 math, rounded to bf16 once
+FLASH_GRAD_TOL = 2.0 ** -7
 # the message of torch's sync debug mode for one synchronizing operation
 # (enabling the mode also warns, once a process, with another message that
 # mentions synchronizing operations: it is not a sync)
@@ -2755,7 +2793,7 @@ def fault_phase(dev, g, gt, trims, real6, replay, syncs13):
     from repro_torch.train import Trainer, TrainerConfig
 
     def trainer(steps, ckpt=None):
-        step, params, opt_state, stream_, put = tcli.build(
+        step, params, opt_state, stream_, put, _ = tcli.build(
             "meshgraphnet", 0, smoke=False, device=dev)
         return Trainer(step, params, opt_state, stream_,
                        TrainerConfig(num_steps=steps, ckpt_dir=ckpt,
@@ -3638,6 +3676,299 @@ def recsys_phase(dev):
     torch.cuda.empty_cache()
 
 
+# -- phase 18: LM training at full width ---------------------------------------
+
+def lm_grads(lm, batch):
+    """``lm.loss(batch)`` and its gradients, the model's parameters in
+    order."""
+    import torch
+    loss, _ = lm.loss(batch)
+    return loss.item(), torch.autograd.grad(loss, list(lm.parameters()))
+
+
+def plain_attention(q, k, v, *, causal=True, sm_scale=None):
+    """``ops.flash_attention``'s plain version, differentiated by autograd
+    through its own ops (phase 18 (b))."""
+    from repro_torch.kernels import ref
+    return ref.flash_attention_ref(q, k, v, causal=causal, sm_scale=sm_scale)
+
+
+def grad_dist(grads, truth):
+    """(||g - t|| / ||t|| over every tensor, the worst tensor's max |g - t|
+    over its max |t|)."""
+    num = den = worst = 0.0
+    for g, t in zip(grads, truth):
+        diff = g.float() - t
+        num += float(diff.square().sum())
+        den += float(t.square().sum())
+        worst = max(worst, float(diff.abs().max())
+                    / max(float(t.abs().max()), 1e-30))
+    return math.sqrt(num / den), worst
+
+
+def lm_train_phase(dev):
+    """Phase 18 (a): ``python -m repro_torch.launch.train --arch
+    qwen3-1.7b --steps 3`` in-process at the published config, the launch
+    counts set to 0 just before and read just after.  Returns the launch
+    counts."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as tcli
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.get(LM_TRAIN["arch"]).make_config()
+    kernel = fa.kernel_for(cfg.compute_dtype, cfg.d_head)
+    check(kernel == "flash_fwd_wgmma", f"the {cfg.compute_dtype} training "
+          f"at D={cfg.d_head} runs {kernel}, not flash_fwd_wgmma")
+    made, trainer = [], tcli.Trainer
+
+    class KeptTrainer(trainer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    out = io.StringIO()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    tcli.Trainer = KeptTrainer
+    try:
+        with contextlib.redirect_stdout(out):
+            hist = tcli.main(["--arch", LM_TRAIN["arch"], "--steps",
+                              str(LM_TRAIN["steps"])])
+    finally:
+        tcli.Trainer = trainer
+    launches = dict(ops.LAUNCHES)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    tr = made.pop()
+    line = out.getvalue().strip().splitlines()[-1]
+    log(line)
+    losses = [h["loss"] for h in hist]
+    check(line.startswith(f"[train] {LM_TRAIN['arch']}: first loss ")
+          and len(losses) == LM_TRAIN["steps"]
+          and all(map(math.isfinite, losses)),
+          f"(a) the train launcher printed {line!r}, losses {losses}")
+    check(losses[-1] < losses[0], f"(a) the loss went {losses}")
+    steps, n = LM_TRAIN["steps"], cfg.n_layers
+    # remat recomputes every layer's attention in the backward
+    want = {"flash_attention": 2 * n * steps, "flash_attention_bwd": n * steps}
+    check({k: v for k, v in launches.items() if v} == want,
+          f"(a) launches {launches}, expected {want}")
+    model = tr.layout.lm
+    batch0 = tr.put_batch(tr.stream.batch_at(0))
+    with torch.no_grad():
+        after = model.loss(batch0)[0].item()
+    check(after < losses[0], f"(a) the loss on batch 0 went {losses[0]} -> "
+          f"{after}")
+    n_par = sum(p.numel() for p in model.parameters())
+    state = 4 * n_par * 4               # f32 params, grads, two moments
+    ms = [t * 1e3 for t in tr.monitor.times]
+    toks = tr.stream.batch * tr.stream.seq
+    log(f"# phase 18 (a): python -m repro_torch.launch.train --arch "
+        f"{LM_TRAIN['arch']} --steps {steps}: {n_par:,} parameters "
+        f"(param_count() {cfg.param_count():,}), remat={cfg.remat}, batch "
+        f"{tr.stream.batch} x {tr.stream.seq} tokens; {wall:.1f} s in all; "
+        f"losses {[round(x, 4) for x in losses]}, on batch 0 after the "
+        f"steps {after:.4f}; step ms {[round(x, 1) for x in ms]} (median of "
+        f"the last {len(ms) - 1}: {np.median(ms[1:]):.1f}); "
+        f"{toks / np.median(ms[1:]) * 1e3:,.0f} tokens/s; peak device "
+        f"memory {peak / 1e9:.2f} GB ({held / 1e9:.2f} GB held before; "
+        f"params, grads and AdamW moments {state / 1e9:.2f} GB); launches "
+        f"{want} ({n} forward launches a step on {kernel}, {n} more in the "
+        f"remat recompute, {n} torch-op backwards)")
+    del tr, model, batch0
+    torch.cuda.empty_cache()
+    return launches
+
+
+def lm_profile_step(dev):
+    """Phase 7's LM training step: the launcher's published-config model
+    and stream, one step to warm up, then one profiled."""
+    from repro_torch.launch import train as tcli
+    step, params, opt_state, stream, put, _ = tcli.build(
+        LM_TRAIN["arch"], 0, smoke=False, device=dev)
+    state = {"opt": opt_state, "step": 0}
+
+    def one():
+        batch = put(stream.batch_at(state["step"]))
+        state["step"] += 1
+        _, state["opt"], metrics = step(params, state["opt"], batch)
+        return (f"loss={metrics['loss'].item():.4f} B={stream.batch} "
+                f"S={stream.seq}")
+    one()
+    profile_run(f"{LM_TRAIN['arch']} train step (fwd, remat bwd, AdamW)",
+                one)
+
+
+def lm_phase(dev):
+    """Phase 18: (a), (b) and (c); returns (a)'s launch counts."""
+    t0 = time.perf_counter()
+    launches = lm_train_phase(dev)
+    for name in LM_TRAIN_PATH:
+        check(launches[name] > 0,
+              f"{name} was never launched on the LM training path")
+    lm_check_phase(dev)
+    lm_attention_times(dev)
+    log(f"# phase 18: launches in (a) (the LM training path): {launches}; "
+        f"done in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def lm_check_phase(dev):
+    """Phase 18 (b): step 0 at the published width with (B, S) =
+    ``LM_CHECK``, through the kernel and through the plain version on the
+    same weights, in f32 and in bf16; a rerun's bits."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import LM
+
+    cfg = configs.get(LM_TRAIN["arch"]).make_config()
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    check(fa.kernel_for(torch.float32, cfg.d_head) == "flash_fwd",
+          "f32 at D=128 does not reach flash_fwd")
+    lm32 = LM(cfg32, device=dev,
+              generator=torch.Generator(device=dev).manual_seed(0))
+    lm16 = LM(cfg, device=dev, init=False)
+    lm16.load_state_dict(lm32.state_dict(keep_vars=True), assign=True)
+    check(all(a is b for a, b in zip(lm16.parameters(), lm32.parameters())),
+          "(b) the bf16 model does not share the f32 model's weights")
+    batch = {k: torch.as_tensor(v, device=dev).long() for k, v in
+             TokenStream(LM_CHECK["b"], LM_CHECK["s"], cfg.vocab,
+                         seed=0).batch_at(0).items()}
+    real = ops.flash_attention
+
+    def plain(lm):
+        ops.flash_attention = plain_attention
+        try:
+            return lm_grads(lm, batch)
+        finally:
+            ops.flash_attention = real
+
+    n = cfg.n_layers
+    ops.reset_launches()
+    loss32, g32 = lm_grads(lm32, batch)
+    count = (ops.LAUNCHES["flash_attention"],
+             ops.LAUNCHES["flash_attention_bwd"])
+    check(count == (2 * n, n), f"(b) f32 launches {count}")
+    ploss32, p32 = plain(lm32)
+    lerr = abs(loss32 - ploss32) / abs(ploss32)
+    gerr = grad_dist(g32, p32)[1]
+    del p32
+    check(lerr <= LM_TOL["loss"] and gerr <= LM_TOL["grad"],
+          f"(b) f32: the kernel's loss differs from the plain version's by "
+          f"{lerr:.3g}, a gradient by {gerr:.3g} of its largest entry")
+    loss16, k16 = lm_grads(lm16, batch)
+    ploss16, p16 = plain(lm16)
+    dk, wk = grad_dist(k16, g32)
+    dp, wp = grad_dist(p16, g32)
+    del p16
+    check(dk <= LM_TOL["bf16"] * dp,
+          f"(b) bf16: the kernel's gradients lie {dk:.3g} from the f32 "
+          f"ones, over {LM_TOL['bf16']}x the plain version's {dp:.3g}")
+    _, again = lm_grads(lm16, batch)
+    same = all(torch.equal(a, b) for a, b in zip(again, k16))
+    check(same, "(b) a rerun of the bf16 step gave other bits")
+    log(f"# phase 18 (b): full width, (B, S) = ({LM_CHECK['b']}, "
+        f"{LM_CHECK['s']}), step 0: f32 (flash_fwd, launches {count}): "
+        f"loss {loss32:.6f}, the plain version's to {lerr:.3g} relative "
+        f"(tolerance {LM_TOL['loss']}), gradients to {gerr:.3g} of each "
+        f"largest entry (tolerance {LM_TOL['grad']}); bf16 (flash_fwd_wgmma"
+        f"): loss {loss16:.6f} (plain {ploss16:.6f}); against the f32 "
+        f"gradients: kernel {dk:.4g}, plain version {dp:.4g} (norm of the "
+        f"difference over the norm; the worst tensor {wk:.3g} and {wp:.3g}"
+        f" of its largest entry), kernel within {LM_TOL['bf16']}x; a rerun "
+        f"{'gives the same bits' if same else 'OTHER BITS'}")
+    del lm16, lm32, g32, k16, again
+    torch.cuda.empty_cache()
+
+
+def lm_attention_times(dev):
+    """Phase 18 (c) at the training shape, on (B, S, H, D) projections
+    viewed (B, H, S, D) as the model passes them: ``FlashAttentionFn``'s
+    forward (the kernel) against the plain version, its gradient
+    (``flash_attention_bwd``) against autograd through the plain version,
+    then both and SDPA's forward and backward in device ms.  Returns the
+    four times."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+
+    b, hq, hkv, s, d = (FLASH_TRAIN[k] for k in ("b", "hq", "hkv", "s",
+                                                  "d"))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v, dout = (torch.randn((b, s, h, d), generator=gen, device=dev)
+                     .to(torch.bfloat16).transpose(1, 2)
+                     for h in (hq, hkv, hkv, hq))
+    got = fa.flash_attention(q, k, v)
+    e = float((got.float() - ref.flash_attention_ref(q, k, v).float())
+              .abs().max())
+    del got
+    check(e <= FLASH_TOL["bfloat16"],
+          f"(c) flash_attention at the training shape: max |err| {e}")
+    ours = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = ops.flash_attention(*ours)
+    check(type(out.grad_fn).__name__ == "FlashAttentionFnBackward",
+          "(c) the call did not go through FlashAttentionFn")
+    grads = torch.autograd.grad(out, ours, dout, retain_graph=True)
+    plain = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(ref.flash_attention_ref(*plain), plain, dout)
+    del plain
+    gerr = max(float((g.float() - w.float()).abs().max())
+               / float(w.float().abs().max()) for g, w in zip(grads, want))
+    check(all(g.shape == w.shape and g.dtype == w.dtype
+              for g, w in zip(grads, want)) and gerr <= FLASH_GRAD_TOL,
+          f"(c) FlashAttentionFn's gradient at the training shape is "
+          f"{gerr:.3g} of its largest entry from the plain version's")
+    del grads, want
+    torch.cuda.empty_cache()
+    lib = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    lout = F.scaled_dot_product_attention(*lib, is_causal=True,
+                                          enable_gqa=True)
+    t = dict(
+        fwd=device_ms(lambda: fa.flash_attention(q, k, v), reps=10),
+        bwd=device_ms(lambda: torch.autograd.grad(out, ours, dout,
+                                                  retain_graph=True), reps=3),
+        sdpa_fwd=device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), reps=10),
+        sdpa_bwd=device_ms(lambda: torch.autograd.grad(
+            lout, lib, dout, retain_graph=True), reps=10))
+    bwd_wall = time_ms(lambda: torch.autograd.grad(out, ours, dout,
+                                                   retain_graph=True),
+                       reps=3, warmup=1)
+    log(f"# phase 18 (c): (B, Hq, Hkv, S, D) = ({b}, {hq}, {hkv}, {s}, {d}) "
+        f"bf16 causal on (B, S, H, D) views: FlashAttentionFn forward max "
+        f"|err| {e:.3g} (tolerance {FLASH_TOL['bfloat16']}), gradient "
+        f"{gerr:.3g} of each largest entry from the plain version's autograd "
+        f"(tolerance 2^-7); device ms: forward "
+        f"{t['fwd']:.4f} (flash_fwd_wgmma), backward {t['bwd']:.4f} "
+        f"(flash_attention_bwd, f32 torch ops, {fa.bwd_block_rows(b, hq, s, s)}"
+        f" query rows a block; {bwd_wall:.4f} by CUDA events); SDPA "
+        f"(enable_gqa) forward {t['sdpa_fwd']:.4f}, backward "
+        f"{t['sdpa_bwd']:.4f} (the library yardstick, no part of the path)")
+    del q, k, v, dout, ours, out, lib, lout
+    torch.cuda.empty_cache()
+    return t
+
+
 # -- phase 7 (--profile): where the time goes ----------------------------------
 
 # the port's kernels of the trimming path, whose device time each trim's
@@ -3736,9 +4067,10 @@ def profile_phase(dev, g, gt, stream, feed, lm, profiled):
     """Per trimming method at the real size, then one ``scc_decompose``,
     one full peel, the stream engine's deletion-only ``apply``, its
     ``apply`` with insertions and ``retrim(full=True)``, the served LM's
-    prefill (8 x 2048 tokens) and one decode step, and one MeshGraphNet
+    prefill (8 x 2048 tokens) and one decode step, one MeshGraphNet
     training step on molecule and on minibatch_lg (forward, backward and
-    AdamW): see :func:`profile_run`.  Each engine and step runs once before
+    AdamW), and one qwen3-1.7b training step at its published config
+    (phase 18's): see :func:`profile_run`.  Each engine and step runs once before
     it is profiled; each stream call takes the feed's next batch."""
     from repro_torch.core import plan, plan_peel
     from repro_torch.core.common import frontier_plan
@@ -3808,6 +4140,9 @@ def profile_phase(dev, g, gt, stream, feed, lm, profiled):
             return f"loss={metrics['loss'].item():.4f}"
         one_step()
         profile_run(label, one_step)
+    del profiled
+    torch.cuda.empty_cache()
+    lm_profile_step(dev)
 
 
 def main() -> int:
@@ -3954,6 +4289,7 @@ def main() -> int:
           f"the recsys path launched a port kernel: {recsys_launches}")
     log(f"# phase 17: launches {recsys_launches} (the recsys path runs no "
         f"TPU kernel's port); done in {time.perf_counter() - t0:.1f} s")
+    lm_launches = lm_phase(dev)
     if args.profile:
         profile_phase(dev, g, gt, stream, feed, lm, profiled)
 
@@ -3964,6 +4300,10 @@ def main() -> int:
                      **{n: train_launches for n in TRAIN_PATH},
                      **{n: analysis_launches for n in ANALYSIS_OWN}}
     launches = {name: path_launches[name][name] for name in KERNELS}
+    # flash_attention's paths: one prefill (phase 11) and three training
+    # steps (phase 18)
+    for name in LM_TRAIN_PATH:
+        launches[name] += lm_launches[name]
     log(f"# total: {time.perf_counter() - t_start:.1f} s")
     table = [dict(name=name, route="cuda", source=KERNELS[name][0],
                   replaces=KERNELS[name][1], launches=launches[name],

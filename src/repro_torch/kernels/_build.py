@@ -73,12 +73,18 @@ _frontier_defines()
 
 #: kernel launches per public wrapper (a plain int each), counted only where
 #: a wrapper actually launches its CUDA kernel — the plain CPU path never
-#: counts.  Re-exported as ``repro_torch.kernels.ops.LAUNCHES``.
+#: counts; ``flash_attention_bwd`` is the one exception, below.
+#: Re-exported as ``repro_torch.kernels.ops.LAUNCHES``.
 LAUNCHES = {"first_live_scan": 0, "first_live_probe": 0,
             "prefix_positions": 0,
             "frontier_compact": 0, "sparse_expand": 0,
             "frontier_expand": 0, "bucket_peel": 0, "counter_scatter": 0,
-            "flash_attention": 0, "segment_sum": 0, "mutant_copy": 0}
+            "flash_attention": 0, "segment_sum": 0, "mutant_copy": 0,
+            # the one entry that is no kernel: flash_attention's backward
+            # in torch ops (kernels.flash_attention.flash_attention_bwd),
+            # counted once a backward on the card, so a run can show that
+            # training went through it
+            "flash_attention_bwd": 0}
 
 #: libraries this process compiled (a one-element list, read and bumped
 #: in place): ``EngineBase._dispatch`` tags a dispatch during which it

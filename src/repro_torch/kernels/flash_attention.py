@@ -19,8 +19,18 @@ picks one from (dtype, D) alone (:func:`kernel_for`), with no fallback:
 Sums run in another order than the plain version's, so the two agree to
 f32 rounding (bf16 outputs to one rounding of the output).
 
-This wrapper takes CUDA tensors only: it launches a kernel or raises.
-``kernels.ops`` routes CPU tensors to ``ref.flash_attention_ref``.
+:func:`flash_attention` takes CUDA tensors only: it launches a kernel or
+raises.  ``kernels.ops`` routes CPU tensors to ``ref.flash_attention_ref``.
+
+Training differentiates through :class:`FlashAttentionFn`: its forward
+is the forward ``kernels.ops`` resolved for the device (this module's
+kernel on a CUDA tensor, the plain version on a CPU one), its backward
+:func:`flash_attention_bwd`, the attention gradient in plain float32
+torch ops on either device.  The TPU kernel has
+no backward (no ``custom_vjp``; Pallas registers no transpose rule for
+``pallas_call``), so the reference's training step differentiates the
+attention XLA runs off the TPU, ``attention_ref_chunked`` with float32
+scores: what :func:`flash_attention_bwd` computes.
 """
 from __future__ import annotations
 
@@ -30,7 +40,7 @@ import math
 import torch
 
 from . import _build
-from .ref import flash_blocks
+from .ref import NEG_INF, flash_blocks
 
 _VP = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -51,6 +61,9 @@ WGMMA_HEAD_DIMS = (64, 128)
 #: flash_fwd_wgmma's geometry: q rows per CTA (= keys per kv tile),
 #: threads (three warpgroups), K/V ring stages
 WG_ROWS, WG_THREADS, WG_STAGES = 128, 384, 2
+#: the backward's budget for one (B, Hq, rows, Sk) float32 temporary; about
+#: four are alive at once
+BWD_TILE_BYTES = 512 << 20
 
 
 def smem_bytes(d: int) -> int:
@@ -157,3 +170,92 @@ def flash_attention(q, k, v, *, causal: bool = True,
                       _build.stream_of(q))
     _build.LAUNCHES["flash_attention"] += 1
     return out
+
+
+def bwd_block_rows(b: int, hq: int, sq: int, sk: int) -> int:
+    """Query rows per step of :func:`flash_attention_bwd`: as many as keep
+    one (B, Hq, rows, Sk) float32 temporary within
+    :data:`BWD_TILE_BYTES`."""
+    return max(1, min(sq, BWD_TILE_BYTES // (4 * b * hq * max(sk, 1))))
+
+
+def flash_attention_bwd(q, k, v, dout, *, causal: bool = True,
+                        sm_scale: float | None = None):
+    """The gradient of causal GQA attention: q (B, Hq, Sq, D), k and v
+    (B, Hkv, Sk, D), ``dout`` (B, Hq, Sq, D) -> (dq, dk, dv) in the
+    inputs' dtypes.  Queries are aligned to the end of the keys, as in the
+    forward; Sq > Sk is refused (such rows have no gradient contract).
+
+    Plain torch ops in float32 on any device, as XLA differentiates the
+    reference's ``attention_ref_chunked``: the scores and the softmax are
+    recomputed, then dV = Pᵀ·dO, dS = P ∘ (dP − rowsum(dP ∘ P)) with
+    dP = dO·Vᵀ, dQ = dS·K·scale and dK = dSᵀ·Q·scale, dK and dV summed
+    over the q heads of each kv head.  Query rows go
+    :func:`bwd_block_rows` at a time, each block against the keys its
+    causal rows can see."""
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    if sq > sk:
+        raise ValueError(f"flash_attention_bwd: Sq={sq} > Sk={sk} has no "
+                         "gradient contract")
+    if hkv == 0 or hq % hkv:
+        raise ValueError(f"flash_attention_bwd: Hq={hq} is not a multiple "
+                         f"of Hkv={hkv}")
+    g = hq // hkv
+    scale = 1.0 / math.sqrt(d) if sm_scale is None else sm_scale
+    rows = bwd_block_rows(b, hq, sq, sk)
+    off = sk - sq
+    dev = q.device
+    qf = q.float().reshape(b, hkv, g, sq, d)
+    dof = dout.float().reshape(b, hkv, g, sq, d)
+    kf, vf = k.float(), v.float()
+    dq = torch.empty_like(qf)
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for r0 in range(0, sq, rows):
+        r1 = min(sq, r0 + rows)
+        kend = min(sk, off + r1) if causal else sk
+        qb, dob = qf[:, :, :, r0:r1], dof[:, :, :, r0:r1]
+        kb, vb = kf[:, :, :kend], vf[:, :, :kend]
+        s = torch.einsum("bkgqd,bkcd->bkgqc", qb, kb) * scale
+        if causal:
+            q_pos = off + torch.arange(r0, r1, device=dev)
+            seen = q_pos[:, None] >= torch.arange(kend, device=dev)[None, :]
+            s = torch.where(seen, s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        del s
+        dv[:, :, :kend] += torch.einsum("bkgqc,bkgqd->bkcd", p, dob)
+        ds = torch.einsum("bkgqd,bkcd->bkgqc", dob, vb)      # dP
+        ds.sub_((ds * p).sum(-1, keepdim=True)).mul_(p)     # dS
+        del p
+        dq[:, :, :, r0:r1] = torch.einsum("bkgqc,bkcd->bkgqd", ds, kb) * scale
+        dk[:, :, :kend] += torch.einsum("bkgqc,bkgqd->bkcd", ds, qb) * scale
+        del ds
+    return (dq.reshape(b, hq, sq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Differentiable flash attention: ``apply(q, k, v, causal, sm_scale,
+    fwd)`` returns ``fwd(q, k, v, causal=..., sm_scale=...)``, the forward
+    the caller resolved for the device (:func:`flash_attention` on the
+    card); the backward is :func:`flash_attention_bwd`.  It saves q, k and
+    v; a CUDA backward adds one to ``LAUNCHES["flash_attention_bwd"]``
+    (torch ops, not a kernel of the port)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale, fwd):
+        if q.shape[2] > k.shape[2]:
+            raise ValueError(f"flash_attention: Sq={q.shape[2]} > Sk="
+                             f"{k.shape[2]} has no gradient contract")
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return fwd(q, k, v, causal=causal, sm_scale=sm_scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        if q.device.type != "cpu":
+            _build.LAUNCHES["flash_attention_bwd"] += 1
+        dq, dk, dv = flash_attention_bwd(q, k, v, dout, causal=ctx.causal,
+                                         sm_scale=ctx.sm_scale)
+        return dq, dk, dv, None, None, None

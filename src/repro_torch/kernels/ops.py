@@ -4,20 +4,24 @@ A tensor on the CPU takes the kernel's plain PyTorch version
 (``kernels/ref.py``).  A tensor on a CUDA device launches the hand-written
 Hopper kernel, or raises: there is no fallback from a failed build or
 launch to the plain version.  Each kernel wrapper counts its launches in
-:data:`LAUNCHES` (a plain int per kernel); the plain path never counts.
+:data:`LAUNCHES` (a plain int per kernel; ``flash_attention_bwd`` counts
+the torch-op backward on the card); the plain path never counts.
 Every call, on either path, is also noted to the observability layer
 (``obs.note_kernel``: an instant span, ``repro_kernel_calls``, and the
 plan cost capture), which costs an attribute read or two when it is off.
 
 Mirrors ``src/repro/kernels/ops.py`` for the kernels of the trimming,
-reachability, peel and stream engines' paths, of the LM prefill and of the
-GNN layers' aggregation, and the static checks' copy kernel.  The
+reachability, peel and stream engines' paths, of the LM prefill and
+training and of the GNN layers' aggregation, and the static checks' copy
+kernel.  The
 reference's ``use_kernel`` switch is not carried over: the device is the
 only switch.
 """
 from __future__ import annotations
 
 import math
+
+import torch
 
 from ..obs.recorder import note_kernel
 from . import ref
@@ -120,11 +124,16 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     sm_scale: float | None = None):
     """q (B, Hq, Sq, D), k and v (B, Hkv, Sk, D) -> (B, Hq, Sq, D) in
     q.dtype: causal GQA attention, queries aligned to the end of the keys.
-    On a CUDA tensor an unsupported head dim or dtype raises."""
+    On a CUDA tensor an unsupported head dim or dtype raises.  With grad
+    enabled and an input that requires it, the call goes through
+    ``flash_attention.FlashAttentionFn`` (the same forward, and the
+    gradient of ``flash_attention_bwd``)."""
     cpu = _on_cpu(q)
-    out = (ref.flash_attention_ref(q, k, v, causal=causal, sm_scale=sm_scale)
-           if cpu else
-           _fa.flash_attention(q, k, v, causal=causal, sm_scale=sm_scale))
+    fwd = ref.flash_attention_ref if cpu else _fa.flash_attention
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        out = _fa.FlashAttentionFn.apply(q, k, v, causal, sm_scale, fwd)
+    else:
+        out = fwd(q, k, v, causal=causal, sm_scale=sm_scale)
     return _noted("flash_attention", cpu, (q, k, v, causal, sm_scale), out)
 
 

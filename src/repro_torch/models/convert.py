@@ -11,6 +11,10 @@ stacked on a leading L axis::
 :func:`lm_from_numpy` takes that tree as numpy arrays (``jax.tree.map(
 np.asarray, params)``) and returns the port's :class:`~.transformer.LM`;
 :func:`lm_to_numpy` goes back.  Both keep the values and dtypes exactly.
+:func:`lm_to_numpy` also stacks any list that follows ``LM.parameters()``
+(their gradients, AdamW's moments) into that tree and :func:`lm_list`
+takes it apart again; :class:`LMLayout` does so for a trainer's whole
+state, so an LM checkpoint is in the reference's layout.
 
 **GNNs.** The reference keeps a GNN's parameters as nested dicts and lists
 (an MLP is a list of ``{"w", "b"}``).  The port's GNN modules mirror that
@@ -37,50 +41,94 @@ from .layers import LMConfig
 from .recsys import WideDeep, WideDeepConfig
 from .transformer import LM
 
-_ATTN = ("wq", "wk", "wv", "wo", "q_norm", "k_norm")
-_FFN = ("w_gate", "w_up", "w_down")
+
+def _ref_path(name: str):
+    """A port parameter name -> (the reference's tree path, its layer or
+    None): ``blocks.3.attn.wq`` -> (("blocks", "attn", "wq"), 3)."""
+    parts = name.split(".")
+    if parts[0] == "blocks":
+        return ("blocks", *parts[2:]), int(parts[1])
+    return tuple(parts), None
+
+
+def lm_to_numpy(lm: LM, tensors=None) -> dict:
+    """The reference's stacked tree of ``tensors`` (numpy, on the host):
+    one entry per parameter of ``lm`` in ``lm.parameters()`` order (by
+    default the parameters themselves; their gradients or AdamW moments
+    just as well), each layer's stacked on a leading L axis."""
+    names = [n for n, _ in lm.named_parameters()]
+    tensors = lm.parameters() if tensors is None else tensors
+    stacks: dict = {}
+    for name, t in zip(names, tensors, strict=True):
+        path, layer = _ref_path(name)
+        arr = t.detach().cpu().numpy()
+        if layer is None:
+            stacks[path] = arr
+        else:
+            stacks.setdefault(path, []).append(arr)
+    tree: dict = {}
+    for path, arr in stacks.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.stack(arr) if isinstance(arr, list) else arr
+    return tree
+
+
+def lm_list(lm: LM, tree: dict) -> list:
+    """:func:`lm_to_numpy` undone: the entries of ``tree`` (numpy arrays or
+    tensors) per parameter of ``lm``, in ``lm.parameters()`` order, a
+    layer's entry a slice of its stack."""
+    out = []
+    for name, p in lm.named_parameters():
+        path, layer = _ref_path(name)
+        node = tree
+        for key in path:
+            node = node[key]
+        leaf = node if layer is None else node[layer]
+        if tuple(leaf.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: shape {tuple(leaf.shape)} does not "
+                             f"match the port's {tuple(p.shape)}")
+        out.append(leaf)
+    return out
 
 
 def lm_from_numpy(cfg: LMConfig, tree: dict, *, device="cuda") -> LM:
     lm = LM(cfg, device=device, init=False)
-    blocks = tree["blocks"]
     with torch.no_grad():
-        def put(param, arr):
-            arr = np.asarray(arr)
-            if tuple(arr.shape) != tuple(param.shape):
-                raise ValueError(f"shape {arr.shape} does not match the "
-                                 f"port's {tuple(param.shape)}")
-            param.copy_(torch.tensor(arr))
-
-        put(lm.embed, tree["embed"])
-        put(lm.out_head, tree["out_head"])
-        put(lm.final_norm, tree["final_norm"])
-        for i, block in enumerate(lm.blocks):
-            put(block.ln1, blocks["ln1"][i])
-            put(block.ln2, blocks["ln2"][i])
-            for name, p in block.attn.named_parameters():
-                put(p, blocks["attn"][name][i])
-            for name, p in block.ffn.named_parameters():
-                put(p, blocks["ffn"][name][i])
+        for p, arr in zip(lm.parameters(), lm_list(lm, tree)):
+            p.copy_(torch.tensor(np.asarray(arr)))
     return lm
 
 
-def lm_to_numpy(lm: LM) -> dict:
-    def stack(get):
-        return np.stack([get(b).detach().cpu().numpy() for b in lm.blocks])
+class LMLayout:
+    """A trainer's LM state in the reference's checkpoint layout:
+    ``{"params": stacked tree, "opt": AdamWState(count, mu=stacked tree,
+    nu=stacked tree)}`` (``train.checkpoint`` names its leaves
+    ``params/blocks/attn/wq``, ``opt/.mu/embed``, ``opt/.count``, as the
+    reference's ``tree_flatten_with_path`` does)."""
 
-    attn = {n: stack(lambda b, n=n: getattr(b.attn, n))
-            for n in _ATTN if hasattr(lm.blocks[0].attn, n)}
-    ffn = {n: stack(lambda b, n=n: getattr(b.ffn, n)) for n in _FFN}
-    return {
-        "embed": lm.embed.detach().cpu().numpy(),
-        "out_head": lm.out_head.detach().cpu().numpy(),
-        "final_norm": lm.final_norm.detach().cpu().numpy(),
-        "blocks": {"attn": attn,
-                   "ln1": stack(lambda b: b.ln1),
-                   "ln2": stack(lambda b: b.ln2),
-                   "ffn": ffn},
-    }
+    def __init__(self, lm: LM):
+        self.lm = lm
+
+    def tree(self, params, opt_state) -> dict:
+        """The state as host arrays in the reference's layout."""
+        return {"params": lm_to_numpy(self.lm, params),
+                "opt": type(opt_state)(
+                    count=opt_state.count.detach().cpu().numpy(),
+                    mu=lm_to_numpy(self.lm, opt_state.mu),
+                    nu=lm_to_numpy(self.lm, opt_state.nu))}
+
+    def load(self, tree, params):
+        """Copy a restored ``tree`` (tensors on the parameters' device)
+        into ``params`` in place; returns the AdamW state, its moments
+        slices of the restored stacks."""
+        with torch.no_grad():
+            for p, q in zip(params, lm_list(self.lm, tree["params"])):
+                p.copy_(q)
+        opt = tree["opt"]
+        return type(opt)(count=opt.count, mu=lm_list(self.lm, opt.mu),
+                         nu=lm_list(self.lm, opt.nu))
 
 
 def _gnn_config(arch_or_cfg):

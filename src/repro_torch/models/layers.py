@@ -9,10 +9,13 @@ reference accumulates a bf16 product in f32
 (``preferred_element_type=jnp.float32``) the port computes in f32; where
 its output is bf16 (``x @ W.astype(dt)``) the port's is bf16 too.
 
-The prefill's causal attention goes through ``kernels.ops.flash_attention``
-(the hand-written Hopper kernel on a CUDA tensor, its plain version on a
-CPU one); decode attention is plain einsum, as the reference leaves it to
-XLA.  The capacity-based MoE (``moe_ffn``) and the mesh-sharded head
+The prefill's and training's causal attention goes through
+``kernels.ops.flash_attention`` (the hand-written Hopper kernel on a CUDA
+tensor, its plain version on a CPU one; with grad enabled its gradient is
+``flash_attention.flash_attention_bwd``); decode attention is plain
+einsum, as the reference leaves it to XLA.  The functions carry
+gradients: nothing on the prefill and training path writes in place (only
+decode writes its new k/v into the cache).  The capacity-based MoE (``moe_ffn``) and the mesh-sharded head
 layout (``axes``) are not ported: an ``LMConfig`` with ``moe=True`` raises
 :class:`NotImplementedError` naming ROADMAP A11 when a model is built.
 """
@@ -54,7 +57,8 @@ class LMConfig:
     # numerics / memory
     compute_dtype: Any = torch.bfloat16
     param_dtype: Any = torch.float32
-    remat: bool = True                 # kept for parity; no gradient here
+    remat: bool = True                 # training: recompute each layer
+    # group but its weight matmuls in the backward (``transformer.LM``)
     scan_unroll: bool = False          # kept for parity; layers are a loop
 
     @property

@@ -1,5 +1,5 @@
-"""Decoder-only LM with KV-cache serving (PyTorch port of the dense part of
-``src/repro/models/transformer.py``).
+"""Decoder-only LM with KV-cache serving and training (PyTorch port of
+the dense part of ``src/repro/models/transformer.py``).
 
 :class:`LM` is an ``nn.Module``: the embedding, one :class:`Block` per
 layer (``ln1``, :class:`Attention` with optional ``q_norm``/``k_norm``,
@@ -11,28 +11,47 @@ per layer (``models.convert`` maps between the two).  Layers run in a
 Python loop, in groups of ``cfg.layer_group`` with the reference's layer
 types (llama4: 3 chunked-local layers + 1 global).
 
+Training: :meth:`LM.loss` and :func:`make_train_step`, as the reference's.
+With ``cfg.remat`` each layer group runs under ``torch.utils.checkpoint``
+with a selective policy that keeps the weight matmuls' outputs and
+recomputes the rest in the backward, attention included: the reference's
+``dots_with_no_batch_dims_saveable``.  ``forward``, ``prefill`` and
+``decode_step`` run under ``torch.no_grad``.
+
 Not ported: the MoE FFN (an ``LMConfig`` with ``moe=True`` raises,
-ROADMAP A11), sharding (``MeshAxes``, ``param_specs``, ``cache_specs``),
-and training (``loss``, ``make_train_step``; ROADMAP A11).  ``remat`` has no
-meaning without a gradient and is ignored.
+ROADMAP A11), sharding (``MeshAxes``, ``param_specs``, ``cache_specs``).
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .layers import LMConfig, attention, rms_norm, swiglu
 
-__all__ = ["LM", "Block", "Attention", "SwiGLU"]
+__all__ = ["LM", "Block", "Attention", "SwiGLU", "make_train_step"]
 
 
 def _param(*shape, dtype, device):
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad=False)
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 
 
 def _weights(module: nn.Module) -> dict:
     return dict(module.named_parameters(recurse=False))
+
+
+def _keep_weight_matmuls(ctx, op, *args, **kwargs):
+    """The remat policy: a weight matmul (``x @ W``, one ``aten.mm``: no
+    batch dimension) is saved, everything else recomputed."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_contexts():
+    return create_selective_checkpoint_contexts(_keep_weight_matmuls)
 
 
 class Attention(nn.Module):
@@ -133,11 +152,45 @@ class LM(nn.Module):
         return tuple(i < g - 1 for i in range(g))
 
     def _embed(self, tokens):
-        return self.embed[tokens].to(self.cfg.compute_dtype)
+        # F.embedding: a gather, whose backward on the card sorts the ids
+        # and reduces each row's segment (no atomic: the same bits again)
+        return F.embedding(tokens, self.embed).to(self.cfg.compute_dtype)
 
     def _head(self, x):
         x = rms_norm(x, self.final_norm)
         return (x @ self.out_head.to(self.cfg.compute_dtype)).float()
+
+    def _group(self, x, positions, first: int, cache=None):
+        """Layers ``first .. first + layer_group - 1``; each one's (k, v)
+        is written into ``cache`` when given."""
+        cfg = self.cfg
+        types = self._layer_types()
+        s = x.shape[1]
+        for i in range(first, first + cfg.layer_group):
+            x, (k, v) = self.blocks[i](x, positions,
+                                       chunked=types[i % cfg.layer_group])
+            if cache is not None:
+                cache[0][i, :, :s] = k
+                cache[1][i, :, :s] = v
+        return x
+
+    def _run(self, tokens, cache=None):
+        """tokens (B, S) -> logits (B, S, V) f32 through every layer group,
+        with gradients where grad is enabled (and remat when
+        ``cfg.remat`` is set and no cache is filled)."""
+        cfg = self.cfg
+        b, s = tokens.shape
+        x = self._embed(tokens)
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        remat = cfg.remat and cache is None and torch.is_grad_enabled()
+        for first in range(0, cfg.n_layers, cfg.layer_group):
+            if remat:
+                x = checkpoint(self._group, x, positions, first,
+                               use_reentrant=False,
+                               context_fn=_remat_contexts)
+            else:
+                x = self._group(x, positions, first, cache)
+        return self._head(x)
 
     # ------------------------------------------------------------ forward
     @torch.no_grad()
@@ -152,24 +205,30 @@ class LM(nn.Module):
         the reference's cache, which ``serve`` pads to prompt + gen)."""
         cfg = self.cfg
         b, s = tokens.shape
-        x = self._embed(tokens)
-        positions = torch.arange(s, device=x.device).expand(b, s)
-        types = self._layer_types()
         cache = None
         if collect_cache:
             shape = (cfg.n_layers, b, cache_len or s, cfg.n_kv_heads,
                      cfg.d_head)
             cache = tuple(torch.zeros(shape, dtype=cfg.compute_dtype,
-                                      device=x.device) for _ in range(2))
-        for i, block in enumerate(self.blocks):
-            x, (k, v) = block(x, positions,
-                              chunked=types[i % cfg.layer_group])
-            if collect_cache:
-                cache[0][i, :, :s] = k
-                cache[1][i, :, :s] = v
-        logits = self._head(x)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+                                      device=self.device)
+                          for _ in range(2))
+        logits = self._run(tokens, cache)
+        aux = torch.zeros((), dtype=torch.float32, device=logits.device)
         return logits, aux, cache
+
+    # --------------------------------------------------------------- loss
+    def loss(self, batch):
+        """``batch``: ``tokens`` and ``targets``, (B, S) int64 on the
+        model's device -> the reference's ``(nll + 0.01 * aux, {"nll",
+        "aux"})``, differentiable where grad is enabled.  The target
+        logit is gathered: the value of the reference's one-hot
+        contraction, which it takes only to shard the vocab."""
+        logits = self._run(batch["tokens"])
+        logz = torch.logsumexp(logits, dim=-1)
+        tgt = logits.gather(-1, batch["targets"][..., None]).squeeze(-1)
+        nll = (logz - tgt).mean()
+        aux = torch.zeros((), dtype=torch.float32, device=nll.device)
+        return nll + 0.01 * aux, {"nll": nll, "aux": aux}
 
     # ------------------------------------------------------------ serving
     @torch.no_grad()
@@ -198,3 +257,20 @@ class LM(nn.Module):
             x, _ = block(x, positions, chunked=types[i % cfg.layer_group],
                          kv_cache=(ks[i], vs[i]), cache_pos=pos)
         return self._head(x[:, 0]), cache
+
+
+def make_train_step(model: LM, optimizer):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)`` as the reference's: the loss and its gradient (autograd,
+    with respect to ``params``, the model's parameters in order), then
+    one ``optimizer.step`` written into ``params`` in place; ``metrics``
+    holds ``nll``, ``aux`` and ``loss``."""
+
+    def train_step(params, opt_state, batch):
+        loss, metrics = model.loss(batch)
+        grads = torch.autograd.grad(loss, params)
+        opt_state = optimizer.step(params, grads, opt_state)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return params, opt_state, dict(metrics, loss=loss.detach())
+
+    return train_step

@@ -12,7 +12,10 @@ newest ``keep``) every ``ckpt_every`` steps and at the end, with
 start-up.  The port's step updates the model's parameters in place, so a
 restore copies the saved values into those very tensors (rebinding the
 list would leave the model training its old weights) and rebuilds the
-optimizer state, its step count included.
+optimizer state, its step count included.  With a ``layout`` (an LM's
+``models.convert.LMLayout``) the state is saved and restored in that
+layout, the reference's stacked one; without one ``{"params": list,
+"opt": AdamWState}`` is saved as it is.
 """
 from __future__ import annotations
 
@@ -45,16 +48,20 @@ class Trainer:
 
     step_fn(params, opt_state, batch) -> (params, opt_state, metrics)
     stream.batch_at(step) -> host batch dict
+    layout: ``tree(params, opt_state)`` / ``load(tree, params)`` of the
+    checkpointed state, or None to save it as it is held
     """
 
     def __init__(self, step_fn: Callable, params, opt_state, stream,
-                 cfg: TrainerConfig, put_batch: Callable | None = None):
+                 cfg: TrainerConfig, put_batch: Callable | None = None,
+                 layout=None):
         self.step_fn = step_fn
         self.params = params
         self.opt_state = opt_state
         self.stream = stream
         self.cfg = cfg
         self.put_batch = put_batch or (lambda b: b)
+        self.layout = layout
         self.monitor = StragglerMonitor()
         self.ckpt = (ckpt_lib.AsyncCheckpointer(cfg.ckpt_dir, cfg.keep)
                      if cfg.ckpt_dir else None)
@@ -63,16 +70,22 @@ class Trainer:
         if cfg.ckpt_dir and ckpt_lib.latest_step(cfg.ckpt_dir) is not None:
             state, step, _ = ckpt_lib.restore(
                 cfg.ckpt_dir, self._state(), device=_device_of(params))
-            with torch.no_grad():
-                for (_, p), (_, q) in zip(ckpt_lib.leaves(self.params),
-                                          ckpt_lib.leaves(state["params"])):
-                    p.copy_(q)
-            self.opt_state = state["opt"]
+            if layout is None:
+                with torch.no_grad():
+                    for (_, p), (_, q) in zip(
+                            ckpt_lib.leaves(self.params),
+                            ckpt_lib.leaves(state["params"])):
+                        p.copy_(q)
+                self.opt_state = state["opt"]
+            else:
+                self.opt_state = layout.load(state, self.params)
             self.start_step = step
             print(f"[trainer] restored checkpoint at step {step}")
 
     def _state(self) -> dict:
-        return {"params": self.params, "opt": self.opt_state}
+        if self.layout is None:
+            return {"params": self.params, "opt": self.opt_state}
+        return self.layout.tree(self.params, self.opt_state)
 
     def run(self):
         cfg = self.cfg

@@ -4,7 +4,9 @@ outputs are int32 or bool; the flash attention kernel to a stated float
 tolerance; the segment sum, which adds in another order, to 1e-5 of each
 segment's sum of absolute values), the engines on the card
 against the engines on the CPU, the LM's prefill (through the flash
-kernel) against its decode, a GNN training step on the card against
+kernel) against its decode, the attention gradient with the kernel's
+forward against autograd through the plain version, LM training with
+and without remat, a GNN and an LM training step on the card against
 the same step on the CPU, the static checks' copy kernel against
 ``x.clone()``, and every captured launch record against the grid and
 block the profiler sees.  They skip where no CUDA device is present; on a machine with one
@@ -675,6 +677,127 @@ def test_lm_prefill_decode_on_card(cuda, dtype):
     lm_cpu.load_state_dict({k_: t.cpu() for k_, t in lm.state_dict().items()})
     cpu, _, _ = lm_cpu(toks.cpu())
     torch.testing.assert_close(full.cpu(), cpu, atol=tol, rtol=tol)
+
+
+def _attn_grads(fn, q, k, v, dout):
+    """Gradients of ``fn(q, k, v) . dout`` with respect to q, k, v."""
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = fn(*leaves)
+    return out.detach(), torch.autograd.grad(out, leaves, dout)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64),
+                                     (torch.bfloat16, 128),
+                                     (torch.float32, 16), (torch.float32, 32),
+                                     (torch.bfloat16, 16),
+                                     (torch.bfloat16, 32)])
+def test_flash_attention_fn_grad_on_card(cuda, dtype, d):
+    """``FlashAttentionFn`` with the kernel's forward (flash_fwd_wgmma at
+    bf16 D 64/128, flash_fwd otherwise) against autograd through the
+    plain version on the same card tensors: the gradient to 1e-4 of each
+    largest entry in f32, to 2^-7 in bf16 (the same f32 math, rounded to
+    bf16 once); one forward and one backward counted; a rerun gives the
+    same bits."""
+    rng = np.random.default_rng(d)
+    q, k, v, dout = (torch.as_tensor(rng.normal(size=shape), device=cuda)
+                     .to(dtype) for shape in ((2, 8, 256, d), (2, 4, 256, d),
+                                              (2, 4, 256, d), (2, 8, 256, d)))
+    before = dict(ops.LAUNCHES)
+    out, grads = _attn_grads(ops.flash_attention, q, k, v, dout)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert ops.LAUNCHES["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + 1
+    _, plain = _attn_grads(ref.flash_attention_ref, q, k, v, dout)
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    for g, w, x in zip(grads, plain, (q, k, v)):
+        assert g.dtype == x.dtype and g.shape == x.shape
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= tol * float(w.float().abs().max())
+    assert all(torch.equal(a, b) for a, b in
+               zip(grads, fa.flash_attention_bwd(q, k, v, dout)))
+    again_out, again = _attn_grads(ops.flash_attention, q, k, v, dout)
+    assert torch.equal(again_out, out)
+    assert all(torch.equal(a, b) for a, b in zip(again, grads))
+
+
+def _card_lm(cuda, d_head, dtype, remat):
+    """The reduced qwen3 (2 layers) with ``d_head``, drawn on the card
+    from seed 0."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import LM
+    cfg = dataclasses.replace(configs.get("qwen3-1.7b").make_reduced(),
+                              d_head=d_head, compute_dtype=dtype,
+                              remat=remat)
+    return LM(cfg, device=cuda)
+
+
+def _card_batch(cfg, cuda, s=256):
+    from repro_torch.data import TokenStream
+    return {k: torch.as_tensor(v, device=cuda).long() for k, v in
+            TokenStream(2, s, cfg.vocab, seed=0).batch_at(0).items()}
+
+
+@pytest.mark.parametrize("d_head", [16, 64])
+def test_lm_remat_bit_identical_on_card(cuda, d_head):
+    """remat on and off on the card (bf16; flash_fwd at D 16,
+    flash_fwd_wgmma at D 64): the same loss and gradients bit for bit;
+    with remat the forward kernel runs twice a layer, the backward once."""
+    grads, counts = {}, {}
+    for remat in (False, True):
+        lm = _card_lm(cuda, d_head, torch.bfloat16, remat)
+        batch = _card_batch(lm.cfg, cuda)
+        before = dict(ops.LAUNCHES)
+        loss, _ = lm.loss(batch)
+        grads[remat] = (loss.detach(), torch.autograd.grad(
+            loss, list(lm.parameters())))
+        torch.cuda.synchronize()
+        counts[remat] = tuple(ops.LAUNCHES[n] - before[n] for n in
+                              ("flash_attention", "flash_attention_bwd"))
+    n = lm.cfg.n_layers
+    assert counts == {False: (n, n), True: (2 * n, n)}
+    assert torch.equal(grads[False][0], grads[True][0])
+    assert all(torch.equal(a, b) for a, b in zip(grads[False][1],
+                                                  grads[True][1]))
+
+
+def test_lm_train_step_card_vs_cpu(cuda):
+    """One ``make_train_step`` of the reduced qwen3 (f32 compute, D = 64,
+    remat on) on the card and on the CPU from the same weights: the loss
+    to 1e-5 relative, the gradients (AdamW's first moments) to 1e-3 of
+    each largest entry.  AdamW's first step moves an entry by ``lr g /
+    |g|``, so an entry whose gradient is near 0 may move the other way on
+    the other device: the parameters are within ``2 lr`` of the CPU's,
+    and fewer than 0.1% of them by more than 1e-5."""
+    from repro_torch.models import LM
+    from repro_torch.models.transformer import make_train_step
+    from repro_torch.optim import AdamW
+    lm = _card_lm(cuda, 64, torch.float32, True)
+    host = LM(lm.cfg, device="cpu", init=False)
+    host.load_state_dict({k: t.cpu() for k, t in lm.state_dict().items()})
+    batch = _card_batch(lm.cfg, cuda)
+    out = []
+    for model, b in ((lm, batch), (host, {k: t.cpu() for k, t in
+                                          batch.items()})):
+        opt = AdamW(lr=1e-3)
+        ps = list(model.parameters())
+        _, st, met = make_train_step(model, opt)(ps, opt.init(ps), b)
+        out.append((ps, st, met))
+    (ps, st, met), (hps, hst, hmet) = out
+    assert abs(met["loss"].item() - hmet["loss"].item()) \
+        <= 1e-5 * hmet["loss"].item()
+    for m, hm in zip(st.mu, hst.mu):
+        assert float((m.cpu() - hm).abs().max()) \
+            <= 1e-3 * float(hm.abs().max())
+    off = total = 0
+    for p, hp in zip(ps, hps):
+        diff = (p.detach().cpu() - hp.detach()).abs()
+        assert float(diff.max()) <= 2e-3 * (1 + 1e-3)
+        off += int((diff > 1e-5).sum())
+        total += diff.numel()
+    assert off < 1e-3 * total
 
 
 def _segment_close(got, values, ids, n):

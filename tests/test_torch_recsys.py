@@ -312,8 +312,8 @@ def test_serve_recsys_with_carried_weights_matches_reference():
 def test_train_cli_first_loss_matches_reference_with_carried_weights():
     jstep, jparams, jst, jstream = jbuild_smoke("wide-deep")
     _, _, jmet = jstep(jparams, jst, jstream.batch_at(0))
-    step, params, st, stream, put = tlaunch.build("wide-deep", smoke=True,
-                                                  device="cpu")
+    step, params, st, stream, put, _ = tlaunch.build("wide-deep", smoke=True,
+                                                     device="cpu")
     carried = _flat(jparams)
     assert set(carried) == set(params)
     with torch.no_grad():

@@ -251,8 +251,8 @@ def test_trainer_tracks_reference_history(arch):
 def _smoke_trainer(arch, steps, ckpt_dir=None, ckpt_every=50):
     """The launcher's reduced model on the smoke stream (weights from seed
     0, so every call starts from the same ones)."""
-    step, params, opt_state, stream, put = tlaunch.build(arch, 0, smoke=True,
-                                                         device="cpu")
+    step, params, opt_state, stream, put, _ = tlaunch.build(
+        arch, 0, smoke=True, device="cpu")
     return Trainer(step, params, opt_state, stream,
                    TrainerConfig(num_steps=steps, ckpt_dir=ckpt_dir,
                                  ckpt_every=ckpt_every, log_every=100),
@@ -318,13 +318,15 @@ def test_train_cli_smoke_prints_reference_line():
 
 
 def test_train_cli_refuses_unported():
-    """LM training still raises (A11); wide-deep, which raised before it
-    was ported, now trains."""
+    """The MoE LMs still raise (A11, MoE); a dense LM and wide-deep, which
+    raised before they were ported, now train."""
     with pytest.raises(NotImplementedError, match="A11"):
-        tlaunch.main(["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu"])
-    hist = tlaunch.main(["--arch", "wide-deep", "--smoke", "--steps", "2",
-                         "--device", "cpu"])
-    assert len(hist) == 2 and np.isfinite([h["loss"] for h in hist]).all()
+        tlaunch.main(["--arch", "arctic-480b", "--smoke", "--device", "cpu"])
+    for arch in ("qwen3-1.7b", "wide-deep"):
+        hist = tlaunch.main(["--arch", arch, "--smoke", "--steps", "2",
+                             "--device", "cpu"])
+        assert len(hist) == 2
+        assert np.isfinite([h["loss"] for h in hist]).all()
 
 
 def test_train_cli_ckpt_dir_resumes(tmp_path):

@@ -176,7 +176,7 @@ torch.backends.cudnn.allow_tf32 = False
 train = {}
 for arch in ("meshgraphnet", "schnet", "mace", "equiformer-v2"):
     step, params, opt_state, stream, put = cli.build(arch, smoke=False,
-                                                     device=dev)
+                                                     device=dev)[:5]
     tr = Trainer(step, params, opt_state, stream,
                  TrainerConfig(num_steps=20, log_every=20), put_batch=put)
     tr.run()
@@ -254,7 +254,7 @@ def gnn_segment_shapes(dev) -> dict:
     ss.segment_sum = record
     try:
         for arch in ("meshgraphnet", "schnet", "mace", "equiformer-v2"):
-            step, params, opt_state, stream, put = cli.build(
+            step, params, opt_state, stream, put, _ = cli.build(
                 arch, smoke=False, device=dev)
             step(params, opt_state, put(stream.batch_at(0)))
             torch.cuda.synchronize()
