@@ -2,8 +2,8 @@
 """Drive the PyTorch/CUDA port on one CUDA device: the trimming engine,
 the static checks, then the SCC driver, the reachability engine, the
 k-core peel, the stream engine (incremental trimming), the command line,
-LM serving, GNN training, the trim-stream server, wide-deep and LM
-training.
+LM serving, GNN training, the trim-stream server, wide-deep, LM
+training and the MoE LMs.
 
     python3 chip_smoke.py               # the check, a few minutes on an H100
     python3 chip_smoke.py --profile     # also: where the time goes (phase 7)
@@ -100,7 +100,8 @@ non-zero and prints no result line):
    BFS; ``scc_decompose`` against scipy's strong components over the
    canonical CSR; the full coreness peel against a numpy k-core oracle;
    frontier_expand and bucket_peel must have been launched.
-7. (``--profile``, run last) one call of each real-size path under
+7. (``--profile``, run after phase 18; arctic's rows after phase 19) one
+   call of each real-size path under
    torch.profiler: the eight trims, ``scc_decompose``, the full peel, and
    the stream engine's deletion-only ``apply``, ``apply`` with
    insertions and ``retrim(full=True)``: wall and device-busy time, idle
@@ -272,6 +273,27 @@ non-zero and prints no result line):
    largest entry, then both timed beside SDPA's (``enable_gqa``) in
    device ms, SDPA only as a yardstick.  ``--profile`` adds one training
    step to phase 7.
+19. (after phase 18, with everything else freed) the MoE FFN: (a)
+   arctic-480b at its published width with the depth cut from 35 layers
+   to 1 (14,069,945,344 parameters, 56.28 GB in f32, random weights from
+   seed 0 drawn on the card), ``serve_lm`` with phase 11's traffic (8 x
+   2048 prompt tokens, 32 new; the prefill's capacity of 320 slots an
+   expert drops tokens, decode's 8 does not), the launch counts set to 0
+   just before it and read just after: flash_attention once, on
+   flash_fwd_wgmma at a GQA group of 7; prefill and decode ms, tok/s,
+   peak memory; the kernel at that group against its plain version and
+   its device ms.  (b) decode against forward at that width, dropless
+   (capacity factor E / k), B = 2, T = 256: in f32 to 1e-3, in bf16
+   within 1.5x of the bf16 forward's distance from the f32 forward, at
+   the positions every path routed alike (a routing difference must be a
+   near tie).  (c) ``moe_ffn`` at that width in f32 against a per-token
+   loop of the same rules at T = 1,024 (capacity 20 against a mean load
+   of 16) with 64 rows of exact ties, to 1e-4.  (d) ``python -m
+   repro_torch.launch.train --arch A --smoke --steps 3`` for both MoE ids:
+   every loss finite; step 0 in f32 (TF32 off) equal to the CPU's (loss
+   1e-4 relative, gradients 1e-3 of each largest entry).  ``--profile``
+   adds arctic's prefill and one decode step to phase 7, after this
+   phase.
 
 The last two lines are the kernel table and the result, as JSON.  Needs
 one CUDA device; imports nothing of JAX or of the JAX package.
@@ -457,6 +479,28 @@ FLASH_TRAIN = dict(b=2, hq=16, hkv=8, s=4096, d=128)
 # FlashAttentionFn's bf16 gradient against the plain version's autograd,
 # as a share of each largest entry: the same f32 math, rounded to bf16 once
 FLASH_GRAD_TOL = 2.0 ** -7
+# phase 19: arctic-480b at its published width, the depth cut from 35 layers
+# to 1 (the one cut), served with phase 11's traffic; (b) prefill against
+# decode at B = 2, T = 256 (prompt 128, 4 steps), dropless (capacity factor
+# E / k); (c) moe_ffn against a per-token loop at T = 1024, cf 1.25 (cap 20
+# against a mean load of 16), with TIE_ROWS tokens whose router logits are
+# exact zeros; (d) both MoE ids at their reduced configs through the train
+# launcher, step 0 against the CPU in f32
+MOE_SERVE = dict(arch="arctic-480b", n_layers=1, batch=8, prompt_len=2048,
+                 gen_len=32, seed=0)
+MOE_CHECK = dict(b=2, s=256, prompt=128, steps=4)
+MOE_LOOP = dict(t=1024, tie_every=16, seed=0)
+MOE_TRAIN = dict(archs=("arctic-480b", "llama4-maverick-400b-a17b"),
+                 steps=3)
+# (b): a routing difference between two paths (bf16 router logits tie
+# often) is allowed only at a near tie: router logits of the k-th and the
+# next expert (or two of the top k) within 2^-4 of each other, four bf16
+# steps at logits in [2, 4); the logits of a position are compared where
+# all the paths routed it alike.  (c) relative to the loop's largest entry;
+# (d) as phase 12's
+MOE_TOL = dict(f32=1e-3, bf16=1.5, near_tie=2.0 ** -4, loop=1e-4,
+               loss=1e-4, grad=1e-3)
+MOE_PATH = ("flash_attention",)
 # the message of torch's sync debug mode for one synchronizing operation
 # (enabling the mode also warns, once a process, with another message that
 # mentions synchronizing operations: it is not a sync)
@@ -3973,6 +4017,459 @@ def lm_attention_times(dev):
 
 # the port's kernels of the trimming path, whose device time each trim's
 # profile also lists
+# -- phase 19: the MoE FFN, arctic-480b at its published width ------------
+
+def moe_gap(gates, k: int):
+    """``(top experts (T, k), the gap (T,))`` of one call's (T, E) gates,
+    lower expert first on a tie as ``layers.moe_route`` orders them; the
+    gap is the least difference of router logits (log gates) between
+    consecutive ones among the first k + 1."""
+    import torch
+    srt, idx = torch.sort(gates, dim=-1, descending=True, stable=True)
+    logs = srt[:, :k + 1].log()
+    return idx[:, :k], (logs[:, :k] - logs[:, 1:]).min(-1).values
+
+
+class MoeRouting:
+    """While entered, every ``moe_ffn`` call of the port's LM also keeps
+    its gates (``transformer.moe_ffn`` wrapped): ``calls`` in call order,
+    each a (T, E) f32 tensor on the card."""
+
+    def __enter__(self):
+        from repro_torch.models import layers, transformer
+        self.calls, self._real = [], transformer.moe_ffn
+
+        def recording(p, cfg, x):
+            xf = x.reshape(-1, x.shape[-1])
+            self.calls.append(
+                (xf @ p["router"].to(cfg.compute_dtype)).float()
+                .softmax(-1))
+            return layers.moe_ffn(p, cfg, x)
+        transformer.moe_ffn = recording
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer
+        transformer.moe_ffn = self._real
+
+    def take(self):
+        calls, self.calls = self.calls, []
+        return calls
+
+
+def moe_window(routing, cfg, b: int, s: int, prompt: int, steps: int):
+    """The routing of :func:`decode_vs_forward`'s window (positions
+    prompt - 1 .. prompt + steps - 1) from a one-layer model's recorded
+    calls: the forward over (b, s), the prefill over (b, prompt), then a
+    call a decode step.  Returns two ((b, steps + 1, k) experts, gaps)
+    pairs: the forward's, and the prefill's last position with decode's."""
+    import torch
+    calls = routing.take()
+    check(len(calls) == 2 + steps, f"{len(calls)} MoE calls recorded, "
+          f"not {2 + steps}")
+    k = cfg.top_k
+    fe, fg = moe_gap(calls[0], k)
+    fwd = (fe.view(b, s, k)[:, prompt - 1:prompt + steps],
+           fg.view(b, s)[:, prompt - 1:prompt + steps])
+    pe, pg = moe_gap(calls[1], k)
+    es, gs = [pe.view(b, prompt, k)[:, -1]], [pg.view(b, prompt)[:, -1]]
+    for call in calls[2:]:
+        e, g = moe_gap(call, k)
+        es.append(e)
+        gs.append(g)
+    return fwd, (torch.stack(es, 1), torch.stack(gs, 1))
+
+
+def moe_agree(what: str, *routes):
+    """The positions that every one of ``routes`` (``moe_window``'s pairs)
+    sends to the same experts; a position where they differ must be a
+    near tie on every path (gap at most ``MOE_TOL["near_tie"]``).  Returns
+    (the mask, the largest gap where they differ)."""
+    same = (routes[0][0] == routes[1][0]).all(-1)
+    for other in routes[2:]:
+        same &= (routes[0][0] == other[0]).all(-1)
+    gap = max(float(r[1][~same].max()) if bool((~same).any()) else 0.0
+              for r in routes)
+    check(gap <= MOE_TOL["near_tie"], f"{what}: the routing differs "
+          f"where the gates are {gap} apart, no near tie")
+    return same, gap
+
+
+def moe_serve_phase(dev):
+    """Phase 19 (a): ``serve_lm`` of arctic-480b at its published width,
+    cut to 1 layer, with phase 11's traffic; the launch counts set to 0
+    just before it and read just after.  Returns (the model, the
+    launches)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate, serve_lm
+    from repro_torch.models import LM, layers
+
+    full = configs.get(MOE_SERVE["arch"]).make_config()
+    cfg = dataclasses.replace(full, n_layers=MOE_SERVE["n_layers"])
+    free, total = torch.cuda.mem_get_info()
+    log(f"# phase 19: before the model: {free / 1e9:.2f} GB of "
+        f"{total / 1e9:.2f} GB free, {torch.cuda.memory_allocated() / 1e9:.2f}"
+        f" GB held by this process; {cfg.name} cut from {full.n_layers} "
+        f"layers to {cfg.n_layers} (the one cut: d {cfg.d_model}, "
+        f"{cfg.n_heads} q heads over {cfg.n_kv_heads} kv heads, d_ff "
+        f"{cfg.d_ff}, {cfg.n_experts} experts top-{cfg.top_k} + dense "
+        f"residual, vocab {cfg.vocab} as published)")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = LM(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(MOE_SERVE["seed"]))
+    torch.cuda.synchronize()
+    drawn = time.perf_counter() - t0
+    n_par = sum(p.numel() for p in lm.parameters())
+    check(n_par == cfg.param_count(),
+          f"{n_par:,} parameters, param_count() {cfg.param_count():,}")
+    experts = sum(p.numel() for n, p in lm.named_parameters()
+                  if n.split(".")[-1] in ("w_gate", "w_up", "w_down")
+                  and ".moe.dense." not in n and ".moe." in n)
+    t = MOE_SERVE["batch"] * MOE_SERVE["prompt_len"]
+    cap, cap_dec = (layers.moe_capacity(cfg, n)
+                    for n in (t, MOE_SERVE["batch"]))
+    log(f"# phase 19 (a): {n_par:,} parameters ({n_par * 4 / 1e9:.2f} GB "
+        f"in f32; experts {experts:,}, {experts * 4 / 1e9:.2f} GB), drawn "
+        f"on the card in {drawn * 1e3:.0f} ms, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; capacity "
+        f"{cap} slots an expert in the prefill (T = {t}, mean load "
+        f"{t * cfg.top_k // cfg.n_experts}), {cap_dec} in decode "
+        f"(T = {MOE_SERVE['batch']})")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    toks, stats = serve_lm(MOE_SERVE["arch"], batch=MOE_SERVE["batch"],
+                           prompt_len=MOE_SERVE["prompt_len"],
+                           gen_len=MOE_SERVE["gen_len"],
+                           seed=MOE_SERVE["seed"], smoke=False, device=dev,
+                           lm=lm, return_stats=True)
+    launches = dict(ops.LAUNCHES)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"flash_attention launched {launches['flash_attention']} times "
+          f"in one prefill, not {cfg.n_layers}")
+    kernel = fa.kernel_for(cfg.compute_dtype, cfg.d_head)
+    check(kernel == "flash_fwd_wgmma", f"the {cfg.compute_dtype} prefill "
+          f"at D={cfg.d_head} runs {kernel}, not flash_fwd_wgmma")
+    check(toks.shape == (MOE_SERVE["batch"], MOE_SERVE["gen_len"] + 1)
+          and toks.min() >= 0 and toks.max() < cfg.vocab,
+          f"served tokens {toks.shape} out of range")
+    dec = np.asarray(stats["decode_ms"])
+    n_tok = MOE_SERVE["batch"] * MOE_SERVE["gen_len"]
+    log(f"# phase 19 (a): serve_lm {MOE_SERVE['batch']} x "
+        f"{MOE_SERVE['prompt_len']} prompt tokens, {MOE_SERVE['gen_len']} "
+        f"new, in {wall:.1f} s: launches {launches} (flash_attention on "
+        f"{kernel}, {cfg.n_heads} q heads over {cfg.n_kv_heads} kv heads: "
+        f"a group of {cfg.n_heads // cfg.n_kv_heads}); prefill_ms="
+        f"{stats['prefill_ms']:.1f} ({t / stats['prefill_ms'] * 1e3:,.0f} "
+        f"tok/s); decode_ms per step median {np.median(dec):.2f} (first "
+        f"{dec[0]:.2f}, max {dec.max():.2f}); {n_tok / dec.sum() * 1e3:.0f}"
+        f" tok/s decode; peak device memory {peak / 1e9:.2f} GB")
+    _, warm = generate(lm, torch.as_tensor(
+        np.random.default_rng(MOE_SERVE["seed"] + 1).integers(
+            0, cfg.vocab, (MOE_SERVE["batch"], MOE_SERVE["prompt_len"])),
+        device=dev), MOE_SERVE["gen_len"])
+    dec = np.asarray(warm["decode_ms"])
+    log(f"# phase 19 (a): warm repeat: prefill_ms={warm['prefill_ms']:.1f}"
+        f" ({t / warm['prefill_ms'] * 1e3:,.0f} tok/s); decode_ms per step "
+        f"median {np.median(dec):.2f}; {n_tok / dec.sum() * 1e3:.0f} tok/s "
+        f"decode")
+
+    # the kernel at group 7, against its plain version on two of the
+    # prefill's rows, then timed at the prefill's shape
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=dev).manual_seed(7)
+    b, s, d = MOE_SERVE["batch"], MOE_SERVE["prompt_len"], cfg.d_head
+    q = torch.randn(b, cfg.n_heads, s, d, generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn(b, cfg.n_kv_heads, s, d, generator=gen, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2))
+    got = ops.flash_attention(q[:2], k[:2], v[:2], causal=True)
+    want = ref.flash_attention_ref(q[:2], k[:2], v[:2], causal=True)
+    err = float((got.float() - want.float()).abs().max())
+    check(err <= FLASH_TOL["bfloat16"], f"flash_attention at group "
+          f"{cfg.n_heads // cfg.n_kv_heads}: max |err| {err}")
+    del got, want
+    ms = device_ms(lambda: ops.flash_attention(q, k, v, causal=True))
+    log(f"# phase 19 (a): flash_attention {kernel} at (B, Hq, Hkv, S, D) = "
+        f"({b}, {cfg.n_heads}, {cfg.n_kv_heads}, {s}, {d}) bf16 causal: "
+        f"max |err| {err:.3g} against the plain version (rows 0-1, "
+        f"tolerance {FLASH_TOL['bfloat16']}); device_ms={ms:.4f}")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return lm, launches
+
+
+def moe_decode_phase(dev, lm):
+    """Phase 19 (b): prefill against decode at the published width,
+    dropless (capacity factor E / k: cap = T), in f32 at B = 2 and in
+    bf16 held against the f32 forward, on the (a) model's weights."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import LM
+
+    # with capacity drops a forward over S tokens and a prefill of fewer
+    # rank the batch's tokens differently and legitimately differ (in the
+    # reference too), so this check runs dropless; (a) serves the
+    # published capacity factor 1.25
+    cfg = dataclasses.replace(lm.cfg, capacity_factor=lm.cfg.n_experts
+                              / lm.cfg.top_k)
+    models = {}
+    for name, dt in (("f32", torch.float32), ("bf16", cfg.compute_dtype)):
+        # built on the meta device, then given (a)'s weights: no copy
+        models[name] = LM(dataclasses.replace(cfg, compute_dtype=dt),
+                          device="meta", init=False)
+        models[name].load_state_dict(lm.state_dict(keep_vars=True),
+                                     assign=True)
+        check(all(a is b for a, b in zip(models[name].parameters(),
+                                         lm.parameters())),
+              "(b) a model does not share (a)'s weights")
+    b, s, prompt, steps = (MOE_CHECK[x] for x in ("b", "s", "prompt",
+                                                  "steps"))
+    tokens = torch.as_tensor(np.random.default_rng(MOE_SERVE["seed"] + 2)
+                             .integers(0, cfg.vocab, (b, s)), device=dev)
+    with MoeRouting() as routing:
+        fwd32, dec32 = decode_vs_forward(models["f32"], tokens, prompt,
+                                         steps)
+        r_fwd32, r_dec32 = moe_window(routing, cfg, b, s, prompt, steps)
+        fwd16, dec16 = decode_vs_forward(models["bf16"], tokens, prompt,
+                                         steps)
+        r_fwd16, r_dec16 = moe_window(routing, cfg, b, s, prompt, steps)
+    del models
+    torch.cuda.empty_cache()
+    same32, gap32 = moe_agree("(b) f32", r_fwd32, r_dec32)
+    check(bool(same32.any()), "(b) f32: no position routed alike")
+    err = float((dec32 - fwd32).abs().amax(-1)[same32].max())
+    check(err <= MOE_TOL["f32"], f"(b) f32, B={b}, T={s}: decode differs "
+          f"from forward (max |err| {err}, tolerance {MOE_TOL['f32']})")
+    same, gap = moe_agree("(b) bf16", r_fwd32, r_fwd16, r_dec16)
+    same &= same32
+    n = int(same.sum())
+    check(2 * n >= same.numel(), f"(b) bf16: only {n} of {same.numel()} "
+          "positions routed alike on every path")
+    noise = float((fwd16 - fwd32).abs().amax(-1)[same].max())
+    derr = float((dec16 - fwd32).abs().amax(-1)[same].max())
+    check(noise <= 0.05 * float(fwd32.abs().max()),
+          f"(b) the bf16 forward lies {noise} from the f32 forward")
+    check(derr <= MOE_TOL["bf16"] * noise, f"(b) bf16: decode lies {derr} "
+          f"from the f32 forward, over {MOE_TOL['bf16']}x the bf16 "
+          f"forward's {noise}")
+    log(f"# phase 19 (b): dropless (capacity factor {cfg.capacity_factor},"
+        f" cap = T), B={b}, T={s}: prefill({prompt}) and {steps} decode "
+        f"steps against forward({s}): f32 max |err| {err:.3g} (tolerance "
+        f"{MOE_TOL['f32']}; {int(same32.sum())} of {same32.numel()} "
+        f"positions routed alike, largest gap where not {gap32:.3g}); bf16 "
+        f"against the f32 forward at the {n} positions that all three "
+        f"routed alike (largest gap where not {gap:.3g}, near tie below "
+        f"{MOE_TOL['near_tie']}): decode {derr:.3g}, bf16 forward "
+        f"{noise:.3g} (decode within {MOE_TOL['bf16']}x); |logits| max "
+        f"{float(fwd32.abs().max()):.2f}")
+
+
+def moe_loop(p, cfg, x, cap: int):
+    """A straightforward per-token MoE in f32: each token's top-k experts
+    by gate (lower expert first on a tie), weights renormalised; each
+    expert's slots go to tokens in order, k-minor; a token over capacity
+    adds nothing.  Returns (out (T, D), aux, dropped assignments)."""
+    import torch
+    import torch.nn.functional as F
+    t, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    gates = torch.softmax(x @ p["router"], dim=-1)
+    host = gates.cpu().tolist()
+    used, dropped, top1 = [0] * e, 0, [0] * e
+    rows = []
+    for i in range(t):
+        order = sorted(range(e), key=lambda j: (-host[i][j], j))[:k]
+        top1[order[0]] += 1
+        norm = max(sum(host[i][j] for j in order), 1e-9)
+        y = torch.zeros(d, device=x.device)
+        for j in order:
+            if used[j] >= cap:
+                dropped += 1
+                continue
+            used[j] += 1
+            h = F.silu(x[i] @ p["w_gate"][j]) * (x[i] @ p["w_up"][j])
+            y = y + (gates[i, j] / norm) * (h @ p["w_down"][j])
+        rows.append(y)
+    dense = p["dense"]
+    out = torch.stack(rows) + (F.silu(x @ dense["w_gate"]) * (
+        x @ dense["w_up"])) @ dense["w_down"]
+    me = torch.tensor(top1, device=x.device, dtype=torch.float32) / t
+    aux = e * float((me * gates.mean(0)).sum())
+    return out, aux, dropped
+
+
+def moe_loop_phase(dev, lm):
+    """Phase 19 (c): ``moe_ffn`` at the published width (f32 compute, the
+    (a) model's expert weights) against :func:`moe_loop`, with capacity
+    drops and rows of exact ties."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import layers
+
+    cfg = dataclasses.replace(lm.cfg, compute_dtype=torch.float32)
+    t, d = MOE_LOOP["t"], cfg.d_model
+    cap = layers.moe_capacity(cfg, t)
+    p = lm.blocks[0].moe.weights()
+    # a zeroed half of the router: the tie rows, whose other half is zero,
+    # get router logits of exactly 0, so every gate ties
+    p["router"] = p["router"].detach().clone()
+    p["router"][:d // 2] = 0
+    gen = torch.Generator(device=dev).manual_seed(MOE_LOOP["seed"])
+    x = torch.randn(t, d, generator=gen, device=dev)
+    ties = torch.arange(0, t, MOE_LOOP["tie_every"], device=dev)
+    x[ties, d // 2:] = 0
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        out, aux = layers.moe_ffn(p, cfg, x[None])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        want, want_aux, dropped = moe_loop(p, cfg, x, cap)
+        loop_s = time.perf_counter() - t0
+    gates = torch.softmax(x @ p["router"], dim=-1)
+    _, top = layers.moe_route(gates, cfg.top_k)
+    check(bool((top[ties] == torch.arange(cfg.top_k, device=dev)).all()),
+          "(c) a tie row is not routed to experts 0 .. k-1")
+    check(dropped > 0, "(c) no assignment was dropped")
+    err = float((out[0] - want).abs().max()) / float(want.abs().max())
+    aerr = abs(float(aux) - want_aux) / want_aux
+    check(err <= MOE_TOL["loop"] and aerr <= MOE_TOL["loop"],
+          f"(c) moe_ffn differs from the per-token loop by {err:.3g} of the"
+          f" largest entry, aux by {aerr:.3g} (tolerance {MOE_TOL['loop']})")
+    log(f"# phase 19 (c): moe_ffn at d {d}, {cfg.n_experts} experts "
+        f"top-{cfg.top_k}, T = {t} (f32, cap {cap} against a mean load of "
+        f"{t * cfg.top_k // cfg.n_experts}; {len(ties)} rows of exact ties,"
+        f" all to experts 0..{cfg.top_k - 1}): {dropped} of "
+        f"{t * cfg.top_k} assignments dropped; against the per-token loop "
+        f"max |err| {err:.3g} of the largest entry, aux {float(aux):.6f} "
+        f"({aerr:.3g}; tolerance {MOE_TOL['loop']}); {ms:.1f} ms once, the "
+        f"loop {loop_s:.1f} s")
+
+
+def moe_train_phase(dev):
+    """Phase 19 (d): both MoE ids at their reduced configs through the
+    train launcher (bf16, 3 steps), then step 0 in f32 (TF32 off) on the
+    card against the CPU on the same weights and batch."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as tcli
+    from repro_torch.models import LM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for arch in MOE_TRAIN["archs"]:
+        out = io.StringIO()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            hist = tcli.main(["--arch", arch, "--smoke", "--steps",
+                              str(MOE_TRAIN["steps"])])
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        line = out.getvalue().strip().splitlines()[-1]
+        losses = [h["loss"] for h in hist]
+        check(line.startswith(f"[train] {arch}: first loss ")
+              and len(losses) == MOE_TRAIN["steps"]
+              and all(map(math.isfinite, losses))
+              and all(h["aux"] > 0 for h in hist),
+              f"(d) {arch}: the train launcher printed {line!r}, history "
+              f"{hist}")
+        cfg = dataclasses.replace(configs.get(arch).make_reduced(),
+                                  compute_dtype=torch.float32)
+        card = LM(cfg, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(0))
+        host = LM(cfg, device="cpu", init=False)
+        host.load_state_dict({k: v.cpu() for k, v in
+                              card.state_dict().items()})
+        batch = TokenStream(4, 32, cfg.vocab, seed=0).batch_at(0)
+        got = lm_grads(card, {k: torch.as_tensor(v, device=dev).long()
+                              for k, v in batch.items()})
+        want = lm_grads(host, {k: torch.as_tensor(v).long()
+                               for k, v in batch.items()})
+        lerr = abs(got[0] - want[0]) / abs(want[0])
+        gerr = grad_dist([g.cpu() for g in got[1]], want[1])[1]
+        check(lerr <= MOE_TOL["loss"] and gerr <= MOE_TOL["grad"],
+              f"(d) {arch}: step 0 on the card differs from the CPU's: "
+              f"loss {lerr:.3g}, a gradient by {gerr:.3g} of its largest "
+              "entry")
+        log(f"# phase 19 (d): python -m repro_torch.launch.train --arch "
+            f"{arch} --smoke --steps {MOE_TRAIN['steps']}: {line}; losses "
+            f"{[round(x, 4) for x in losses]}, aux "
+            f"{[round(h['aux'], 4) for h in hist]}; {wall:.1f} s; launches "
+            f"{launches}; step 0 in f32 against the CPU: loss {got[0]:.6f} "
+            f"to {lerr:.3g} relative (tolerance {MOE_TOL['loss']}), "
+            f"gradients to {gerr:.3g} of each largest entry (tolerance "
+            f"{MOE_TOL['grad']})")
+        del card, host
+
+
+def moe_phase(dev):
+    """Phase 19: (a)-(d); returns (the arctic model, (a)'s launch
+    counts)."""
+    t0 = time.perf_counter()
+    lm, launches = moe_serve_phase(dev)
+    for name in MOE_PATH:
+        check(launches[name] > 0,
+              f"{name} was never launched on the MoE serving path")
+    moe_decode_phase(dev, lm)
+    moe_loop_phase(dev, lm)
+    moe_train_phase(dev)
+    log(f"# phase 19: launches in (a) (the MoE serving path): {launches}; "
+        f"done in {time.perf_counter() - t0:.1f} s")
+    return lm, launches
+
+
+def moe_profile(dev, lm):
+    """Phase 7's MoE rows: one prefill of phase 19's traffic and one
+    decode step of the (a) model, each run once before it is
+    profiled."""
+    import numpy as np
+    import torch
+    b, s = MOE_SERVE["batch"], MOE_SERVE["prompt_len"]
+    prompts = torch.as_tensor(np.random.default_rng(3).integers(
+        0, lm.cfg.vocab, (b, s)), device=dev)
+    held = {}
+
+    def prefill():
+        held.clear()
+        held["logits"], held["cache"] = lm.prefill(
+            prompts, cache_len=s + MOE_SERVE["gen_len"])
+        return f"B={b} S={s}"
+    prefill()
+    profile_run(f"{lm.cfg.name} (1 layer) serve prefill", prefill)
+    tok = held["logits"].argmax(-1, keepdim=True)
+
+    def step():
+        lm.decode_step(held["cache"], tok, s)
+        return f"B={b} pos={s}"
+    step()
+    profile_run(f"{lm.cfg.name} (1 layer) serve decode step", step)
+    held.clear()
+    torch.cuda.empty_cache()
+
+
 TRIM_KERNELS = ("first_live_probe", "compact_lookback", "expand_lookback")
 
 
@@ -4148,7 +4645,8 @@ def profile_phase(dev, g, gt, stream, feed, lm, profiled):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile the real-size runs (phase 7, last)")
+                    help="also profile the real-size runs (phase 7, "
+                         "after phase 18; arctic's after phase 19)")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -4292,6 +4790,14 @@ def main() -> int:
     lm_launches = lm_phase(dev)
     if args.profile:
         profile_phase(dev, g, gt, stream, feed, lm, profiled)
+        del lm, profiled
+    del g, gt, stream, feed             # phase 19 wants the card's memory
+    torch.cuda.empty_cache()
+    moe_lm, moe_launches = moe_phase(dev)
+    if args.profile:
+        moe_profile(dev, moe_lm)
+    del moe_lm
+    torch.cuda.empty_cache()
 
     path_launches = {**{n: trim_launches for n in TRIM_PATH},
                      **{n: scc_launches for n in SCC_PEEL_PATH},
@@ -4300,10 +4806,12 @@ def main() -> int:
                      **{n: train_launches for n in TRAIN_PATH},
                      **{n: analysis_launches for n in ANALYSIS_OWN}}
     launches = {name: path_launches[name][name] for name in KERNELS}
-    # flash_attention's paths: one prefill (phase 11) and three training
-    # steps (phase 18)
+    # flash_attention's paths: one prefill (phase 11), three training
+    # steps (phase 18) and arctic's one-layer prefill (phase 19 (a))
     for name in LM_TRAIN_PATH:
         launches[name] += lm_launches[name]
+    for name in MOE_PATH:
+        launches[name] += moe_launches[name]
     log(f"# total: {time.perf_counter() - t_start:.1f} s")
     table = [dict(name=name, route="cuda", source=KERNELS[name][0],
                   replaces=KERNELS[name][1], launches=launches[name],

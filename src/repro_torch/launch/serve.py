@@ -1,6 +1,7 @@
 """Serving launcher of the port (PyTorch port of
 ``src/repro/launch/serve.py``): batched prefill + greedy KV-cache decode
-for the dense LM architectures, batched scoring for wide-deep, and the
+for the LM architectures (dense and MoE), batched scoring for wide-deep,
+and the
 trim-stream server, long-lived incremental graph trimming over a
 synthetic edge-update feed::
 
@@ -18,11 +19,10 @@ wide-deep requests are ``numpy.random.default_rng(0)`` draws, as in the
 reference.  The prefill's attention runs the flash kernel
 (``kernels.ops.flash_attention``); decode attends over the preallocated
 cache with plain einsums.  ``--app trim-stream`` takes every flag of the
-reference's (:func:`serve_trim_stream`) and ``--device``.
-
-Not ported yet, and raising :class:`NotImplementedError` that names the
-ROADMAP item: the MoE LMs (A11).  A GNN id exits, as in the reference:
-serving applies to the lm and recsys families.
+reference's (:func:`serve_trim_stream`) and ``--device``.  A GNN id
+exits, as in the reference: serving applies to the lm and recsys
+families.  A MoE LM's published config does not fit one card (arctic-480b
+is 1.9 TB in f32): pass ``serve_lm`` a depth-cut model as ``lm=``.
 """
 from __future__ import annotations
 

@@ -1,8 +1,10 @@
 """Training launcher of the port (PyTorch port of
-``src/repro/launch/train.py``) for the dense LM, GNN and recsys families::
+``src/repro/launch/train.py``) for the LM (dense and MoE), GNN and recsys
+families::
 
     python -m repro_torch.launch.train --arch qwen3-1.7b --smoke --device cpu
     python -m repro_torch.launch.train --arch qwen3-1.7b --steps 3   # card
+    python -m repro_torch.launch.train --arch arctic-480b --smoke --device cpu
     python -m repro_torch.launch.train --arch schnet --smoke --device cpu
     python -m repro_torch.launch.train --arch meshgraphnet --steps 5  # card
     python -m repro_torch.launch.train --arch wide-deep --smoke --device cpu
@@ -27,9 +29,8 @@ int64 tensors on the device.  It prints the reference's line ``[train]
 the parameters and the AdamW state there (``TrainerConfig`` defaults:
 every 50 steps and at the end, the newest 3 kept; an LM's in the
 reference's stacked layout) and resumes from the latest step in DIR.
-
-Not ported yet, and raising :class:`NotImplementedError` that names the
-ROADMAP item: the MoE LMs (A11, MoE).
+The MoE LMs train at their reduced configs: at the published width
+neither fits one card (ROADMAP A6).
 """
 from __future__ import annotations
 
@@ -74,8 +75,7 @@ def build(arch_id: str, seed: int = 0, *, smoke: bool = True,
     published one on :data:`LM_FULL` (LMs), the molecule cell's (GNNs) or
     the ``train_batch`` cell's stream (recsys).  ``layout`` is the
     ``Trainer``'s: an LM's ``models.convert.LMLayout`` (checkpoints in the
-    reference's stacked layout), else None.  A MoE LM raises naming its
-    ROADMAP item."""
+    reference's stacked layout), else None."""
     spec = configs.get(arch_id)
     cfg = spec.make_reduced() if smoke else spec.make_config()
     gen = torch.Generator(device=device).manual_seed(seed)

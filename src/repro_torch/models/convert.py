@@ -8,6 +8,11 @@ stacked on a leading L axis::
                 "attn": {"wq", "wk", "wv", "wo"[, "q_norm", "k_norm"]},
                 "ffn": {"w_gate", "w_up", "w_down"}}}
 
+and a MoE LM has, in place of ``ffn``, ``"moe": {"router": (L, d, E),
+"w_gate", "w_up": (L, E, d, f), "w_down": (L, E, f, d)[, "dense":
+{"w_gate", "w_up", "w_down"}]}`` (the port's ``blocks.3.moe.dense.w_gate``
+is the reference's ``blocks/moe/dense/w_gate``, layer 3).
+
 :func:`lm_from_numpy` takes that tree as numpy arrays (``jax.tree.map(
 np.asarray, params)``) and returns the port's :class:`~.transformer.LM`;
 :func:`lm_to_numpy` goes back.  Both keep the values and dtypes exactly.

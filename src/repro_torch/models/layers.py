@@ -1,6 +1,6 @@
 """Transformer building blocks: RMSNorm, RoPE, GQA attention (full /
-chunked-local / decode) and the SwiGLU FFN (PyTorch port of
-``src/repro/models/layers.py``).
+chunked-local / decode), the SwiGLU FFN and the capacity-based top-k MoE
+FFN (PyTorch port of ``src/repro/models/layers.py``).
 
 Plain functions on tensors; the weights come from ``transformer.LM``.
 Compute runs in ``cfg.compute_dtype`` (bf16) over fp32 master weights cast
@@ -15,9 +15,10 @@ tensor, its plain version on a CPU one; with grad enabled its gradient is
 ``flash_attention.flash_attention_bwd``); decode attention is plain
 einsum, as the reference leaves it to XLA.  The functions carry
 gradients: nothing on the prefill and training path writes in place (only
-decode writes its new k/v into the cache).  The capacity-based MoE (``moe_ffn``) and the mesh-sharded head
-layout (``axes``) are not ported: an ``LMConfig`` with ``moe=True`` raises
-:class:`NotImplementedError` naming ROADMAP A11 when a model is built.
+decode writes its new k/v into the cache).  The MoE FFN (``moe_ffn``)
+reaches no kernel of its own, as in the reference: plain torch ops for
+the routing and dispatch, ``torch.bmm`` for the grouped expert products.
+The mesh-sharded head layout (``axes``) is not ported (ROADMAP A6).
 """
 from __future__ import annotations
 
@@ -42,7 +43,7 @@ class LMConfig:
     d_ff: int
     vocab: int
     qk_norm: bool = False
-    # MoE (configs only: the MoE FFN is not ported, ROADMAP A11)
+    # MoE
     moe: bool = False
     n_experts: int = 0
     top_k: int = 0
@@ -236,7 +237,85 @@ def swiglu(p, x, dt):
     return (gate * up) @ p["w_down"].to(dt)
 
 
+#: the MoE capacity floor: the reference's default
+#: ``FLAGS.moe_decode_capacity_floor`` (``src/repro/launch/perf_flags.py``,
+#: None there means 8); the port has no ``perf_flags`` yet (ROADMAP A11)
+MOE_CAPACITY_FLOOR = 8
+
+
+def moe_capacity(cfg: LMConfig, t: int) -> int:
+    """Slots per expert for ``t`` tokens: the statistical capacity
+    ``capacity_factor * t * top_k / n_experts``, floored so that a small
+    (decode) batch stays dropless."""
+    k = cfg.top_k
+    return max(int(cfg.capacity_factor * t * k / cfg.n_experts),
+               min(t * k, MOE_CAPACITY_FLOOR), 1)
+
+
+def moe_route(gates, k: int):
+    """The top ``k`` gates of each row and their experts, largest first,
+    the lower expert first on a tie (``jax.lax.top_k``'s order, which
+    ``torch.topk`` does not promise)."""
+    top_w, top_e = torch.sort(gates, dim=-1, descending=True, stable=True)
+    return top_w[:, :k], top_e[:, :k]
+
+
 def moe_ffn(p, cfg: LMConfig, x):
-    raise NotImplementedError(
-        "the capacity-based MoE FFN is not ported to repro_torch yet "
-        "(ROADMAP A11, MoE)")
+    """Capacity-based top-k MoE: x (B, S, D) -> ``(out (B, S, D), aux)``.
+
+    ``p``: ``router`` (D, E), ``w_gate``/``w_up`` (E, D, F), ``w_down``
+    (E, F, D), and ``dense`` (a SwiGLU's weights) for arctic's dense
+    residual or llama4's shared expert.  The reference's rules: each
+    token's top-k experts by softmax gate, weights renormalised; an
+    expert's slots go to its assignments in (token, k) order (a stable
+    sort of the expert ids), and an assignment past ``moe_capacity`` is
+    dropped and adds exactly 0.  The (E, cap, D) buffer is a copy of
+    the kept rows (one token a slot), built out of place, so autograd and
+    remat see a pure function; the expert products are batched over E.
+    ``aux`` is the Switch-style load-balancing loss, f32."""
+    dt = cfg.compute_dtype
+    b, s, d = x.shape
+    t = b * s
+    e, k = cfg.n_experts, cfg.top_k
+    cap = moe_capacity(cfg, t)
+
+    xf = x.reshape(t, d)
+    logits = (xf @ p["router"].to(dt)).float()                 # (T, E)
+    gates = torch.softmax(logits, dim=-1)
+    top_w, top_e = moe_route(gates, k)                          # (T, k)
+    top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    flat_e = top_e.reshape(-1)                                  # (T*k,)
+    sorted_e, order = torch.sort(flat_e, stable=True)
+    # rank within the expert: index - first index of that expert
+    first = torch.searchsorted(sorted_e, torch.arange(e, device=x.device))
+    pos_sorted = torch.arange(t * k, device=x.device) - first[sorted_e]
+    pos = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
+    keep = pos < cap
+    # a kept assignment's slot in the flat (E * cap) buffer; a dropped
+    # one writes a spare last row, cut off
+    slot = torch.where(keep, flat_e * cap + pos, e * cap)
+
+    tok = xf.repeat_interleave(k, dim=0)                        # (T*k, D)
+    buf = xf.new_zeros(e * cap + 1, d).index_put((slot,), tok)
+    buf = buf[:e * cap].view(e, cap, d)
+
+    gate_h = F.silu(torch.bmm(buf, p["w_gate"].to(dt)))
+    up_h = torch.bmm(buf, p["w_up"].to(dt))
+    out_buf = torch.bmm(gate_h * up_h, p["w_down"].to(dt)).view(e * cap, d)
+
+    gathered = torch.where(keep[:, None],
+                           out_buf[torch.where(keep, slot, 0)], 0)
+    w = torch.where(keep, top_w.reshape(-1), 0.0).to(dt)
+    # the reference's segment sum over tok_idx = repeat(arange(T), k)
+    combined = (gathered * w[:, None]).view(t, k, d).sum(1)
+    out = combined.view(b, s, d).to(dt)
+
+    if cfg.moe_dense_residual or cfg.moe_shared_expert:
+        out = out + swiglu(p["dense"], x, dt)
+
+    # load-balancing auxiliary loss (Switch-style)
+    me = F.one_hot(top_e[:, 0], e).float().mean(0)
+    ce = gates.mean(0)
+    aux = e * (me * ce).sum()
+    return out, aux

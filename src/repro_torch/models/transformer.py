@@ -1,9 +1,10 @@
-"""Decoder-only LM with KV-cache serving and training (PyTorch port of
-the dense part of ``src/repro/models/transformer.py``).
+"""Decoder-only LM (dense and MoE) with KV-cache serving and training
+(PyTorch port of ``src/repro/models/transformer.py``).
 
 :class:`LM` is an ``nn.Module``: the embedding, one :class:`Block` per
 layer (``ln1``, :class:`Attention` with optional ``q_norm``/``k_norm``,
-``ln2``, :class:`SwiGLU`), ``final_norm`` and ``out_head``.  Weights are
+``ln2``, and :class:`SwiGLU` as ``ffn`` or, under ``cfg.moe``,
+:class:`MoE` as ``moe``), ``final_norm`` and ``out_head``.  Weights are
 stored as the reference stores them, (in, out) and used as ``x @ W``, in
 ``cfg.param_dtype`` (fp32 masters, cast to ``cfg.compute_dtype`` at use);
 the reference stacks them on a leading L axis, the port keeps one module
@@ -15,11 +16,12 @@ Training: :meth:`LM.loss` and :func:`make_train_step`, as the reference's.
 With ``cfg.remat`` each layer group runs under ``torch.utils.checkpoint``
 with a selective policy that keeps the weight matmuls' outputs and
 recomputes the rest in the backward, attention included: the reference's
-``dots_with_no_batch_dims_saveable``.  ``forward``, ``prefill`` and
-``decode_step`` run under ``torch.no_grad``.
+``dots_with_no_batch_dims_saveable`` (a MoE layer keeps its router and
+dense-branch products and recomputes its batched expert products).
+``forward``, ``prefill`` and ``decode_step`` run under ``torch.no_grad``.
 
-Not ported: the MoE FFN (an ``LMConfig`` with ``moe=True`` raises,
-ROADMAP A11), sharding (``MeshAxes``, ``param_specs``, ``cache_specs``).
+Not ported: sharding (``MeshAxes``, ``param_specs``, ``cache_specs``;
+ROADMAP A6).
 """
 from __future__ import annotations
 
@@ -29,9 +31,9 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from .layers import LMConfig, attention, rms_norm, swiglu
+from .layers import LMConfig, attention, moe_ffn, rms_norm, swiglu
 
-__all__ = ["LM", "Block", "Attention", "SwiGLU", "make_train_step"]
+__all__ = ["LM", "Block", "Attention", "SwiGLU", "MoE", "make_train_step"]
 
 
 def _param(*shape, dtype, device):
@@ -44,7 +46,8 @@ def _weights(module: nn.Module) -> dict:
 
 def _keep_weight_matmuls(ctx, op, *args, **kwargs):
     """The remat policy: a weight matmul (``x @ W``, one ``aten.mm``: no
-    batch dimension) is saved, everything else recomputed."""
+    batch dimension) is saved, everything else recomputed (the MoE's
+    expert products are ``aten.bmm``, batched over the experts)."""
     if op is torch.ops.aten.mm.default:
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
@@ -76,6 +79,28 @@ class SwiGLU(nn.Module):
         self.w_down = _param(f, d, dtype=pd, device=device)
 
 
+class MoE(nn.Module):
+    """The MoE FFN's weights (``layers.moe_ffn``): ``router`` (d, E),
+    ``w_gate``/``w_up`` (E, d, f), ``w_down`` (E, f, d), and ``dense`` (a
+    :class:`SwiGLU`) for a dense residual or shared expert."""
+
+    def __init__(self, cfg: LMConfig, *, device):
+        super().__init__()
+        d, f, e, pd = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.param_dtype
+        self.router = _param(d, e, dtype=pd, device=device)
+        self.w_gate = _param(e, d, f, dtype=pd, device=device)
+        self.w_up = _param(e, d, f, dtype=pd, device=device)
+        self.w_down = _param(e, f, d, dtype=pd, device=device)
+        if cfg.moe_dense_residual or cfg.moe_shared_expert:
+            self.dense = SwiGLU(cfg, device=device)
+
+    def weights(self) -> dict:
+        p = _weights(self)
+        if hasattr(self, "dense"):
+            p["dense"] = _weights(self.dense)
+        return p
+
+
 class Block(nn.Module):
     def __init__(self, cfg: LMConfig, *, device):
         super().__init__()
@@ -83,17 +108,26 @@ class Block(nn.Module):
         self.ln1 = _param(cfg.d_model, dtype=cfg.param_dtype, device=device)
         self.ln2 = _param(cfg.d_model, dtype=cfg.param_dtype, device=device)
         self.attn = Attention(cfg, device=device)
-        self.ffn = SwiGLU(cfg, device=device)
+        if cfg.moe:
+            self.moe = MoE(cfg, device=device)
+        else:
+            self.ffn = SwiGLU(cfg, device=device)
 
     def forward(self, x, positions, chunked, kv_cache=None, cache_pos=None):
+        """-> ``(x, aux, (k, v))``: ``aux`` the MoE's auxiliary loss, a
+        0-d f32 zero for a dense layer."""
         cfg = self.cfg
         h, kv = attention(_weights(self.attn), cfg, rms_norm(x, self.ln1),
                           positions, chunked=chunked, kv_cache=kv_cache,
                           cache_pos=cache_pos)
         x = x + h
-        ff = swiglu(_weights(self.ffn), rms_norm(x, self.ln2),
-                    cfg.compute_dtype)
-        return x + ff, kv
+        if cfg.moe:
+            ff, aux = moe_ffn(self.moe.weights(), cfg, rms_norm(x, self.ln2))
+        else:
+            ff = swiglu(_weights(self.ffn), rms_norm(x, self.ln2),
+                        cfg.compute_dtype)
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return x + ff, aux, kv
 
 
 class LM(nn.Module):
@@ -107,10 +141,6 @@ class LM(nn.Module):
                  generator: torch.Generator | None = None,
                  init: bool = True):
         super().__init__()
-        if cfg.moe:
-            raise NotImplementedError(
-                f"{cfg.name}: the MoE FFN is not ported to repro_torch yet "
-                "(ROADMAP A11, MoE)")
         if cfg.n_layers % cfg.layer_group:
             raise ValueError(f"n_layers {cfg.n_layers} is not a multiple of "
                              f"layer_group {cfg.layer_group}")
@@ -136,9 +166,11 @@ class LM(nn.Module):
                 p.fill_(1.0)
                 continue
             scale = 0.02 if leaf == "embed" else p.shape[-2] ** -0.5
-            w = torch.randn(p.shape, generator=generator,
-                            dtype=torch.float32, device=p.device)
-            p.copy_(w * scale)
+            # drawn in place (``torch.randn``'s draw): a temporary the
+            # size of one arctic expert weight (17.85 GB in f32) would
+            # not fit beside the rest
+            p.normal_(generator=generator)
+            p.mul_(scale)
 
     @property
     def device(self) -> torch.device:
@@ -161,36 +193,42 @@ class LM(nn.Module):
         return (x @ self.out_head.to(self.cfg.compute_dtype)).float()
 
     def _group(self, x, positions, first: int, cache=None):
-        """Layers ``first .. first + layer_group - 1``; each one's (k, v)
-        is written into ``cache`` when given."""
+        """Layers ``first .. first + layer_group - 1`` -> ``(x, the sum of
+        their aux losses)``; each one's (k, v) is written into ``cache``
+        when given."""
         cfg = self.cfg
         types = self._layer_types()
         s = x.shape[1]
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(first, first + cfg.layer_group):
-            x, (k, v) = self.blocks[i](x, positions,
-                                       chunked=types[i % cfg.layer_group])
+            x, aux, (k, v) = self.blocks[i](
+                x, positions, chunked=types[i % cfg.layer_group])
+            aux_total = aux_total + aux
             if cache is not None:
                 cache[0][i, :, :s] = k
                 cache[1][i, :, :s] = v
-        return x
+        return x, aux_total
 
     def _run(self, tokens, cache=None):
-        """tokens (B, S) -> logits (B, S, V) f32 through every layer group,
-        with gradients where grad is enabled (and remat when
-        ``cfg.remat`` is set and no cache is filled)."""
+        """tokens (B, S) -> ``(logits (B, S, V) f32, aux)`` through every
+        layer group, ``aux`` the groups' summed MoE auxiliary loss, with
+        gradients where grad is enabled (and remat when ``cfg.remat`` is
+        set and no cache is filled)."""
         cfg = self.cfg
         b, s = tokens.shape
         x = self._embed(tokens)
         positions = torch.arange(s, device=x.device).expand(b, s)
         remat = cfg.remat and cache is None and torch.is_grad_enabled()
+        auxes = []
         for first in range(0, cfg.n_layers, cfg.layer_group):
             if remat:
-                x = checkpoint(self._group, x, positions, first,
-                               use_reentrant=False,
-                               context_fn=_remat_contexts)
+                x, aux = checkpoint(self._group, x, positions, first,
+                                    use_reentrant=False,
+                                    context_fn=_remat_contexts)
             else:
-                x = self._group(x, positions, first, cache)
-        return self._head(x)
+                x, aux = self._group(x, positions, first, cache)
+            auxes.append(aux)
+        return self._head(x), torch.stack(auxes).sum()
 
     # ------------------------------------------------------------ forward
     @torch.no_grad()
@@ -198,8 +236,8 @@ class LM(nn.Module):
                 cache_len: int | None = None):
         """tokens (B, S) int -> ``(logits (B, S, V) f32, aux, cache)``.
 
-        ``aux`` is the reference's MoE auxiliary loss, a 0-d zero for a
-        dense model.  With ``collect_cache`` the cache is ``(k, v)``, each
+        ``aux`` is the reference's MoE auxiliary loss (0-d f32), summed
+        over the layers; zero for a dense model.  With ``collect_cache`` the cache is ``(k, v)``, each
         (L, B, cache_len, Hkv, Dh) in the compute dtype with the first S
         positions filled and the rest zero (``cache_len`` defaults to S:
         the reference's cache, which ``serve`` pads to prompt + gen)."""
@@ -212,8 +250,7 @@ class LM(nn.Module):
             cache = tuple(torch.zeros(shape, dtype=cfg.compute_dtype,
                                       device=self.device)
                           for _ in range(2))
-        logits = self._run(tokens, cache)
-        aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+        logits, aux = self._run(tokens, cache)
         return logits, aux, cache
 
     # --------------------------------------------------------------- loss
@@ -223,11 +260,10 @@ class LM(nn.Module):
         "aux"})``, differentiable where grad is enabled.  The target
         logit is gathered: the value of the reference's one-hot
         contraction, which it takes only to shard the vocab."""
-        logits = self._run(batch["tokens"])
+        logits, aux = self._run(batch["tokens"])
         logz = torch.logsumexp(logits, dim=-1)
         tgt = logits.gather(-1, batch["targets"][..., None]).squeeze(-1)
         nll = (logz - tgt).mean()
-        aux = torch.zeros((), dtype=torch.float32, device=nll.device)
         return nll + 0.01 * aux, {"nll": nll, "aux": aux}
 
     # ------------------------------------------------------------ serving
@@ -254,8 +290,9 @@ class LM(nn.Module):
         types = self._layer_types()
         ks, vs = cache
         for i, block in enumerate(self.blocks):
-            x, _ = block(x, positions, chunked=types[i % cfg.layer_group],
-                         kv_cache=(ks[i], vs[i]), cache_pos=pos)
+            x, _, _ = block(x, positions,
+                            chunked=types[i % cfg.layer_group],
+                            kv_cache=(ks[i], vs[i]), cache_pos=pos)
         return self._head(x[:, 0]), cache
 
 

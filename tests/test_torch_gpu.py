@@ -6,8 +6,8 @@ segment's sum of absolute values), the engines on the card
 against the engines on the CPU, the LM's prefill (through the flash
 kernel) against its decode, the attention gradient with the kernel's
 forward against autograd through the plain version, LM training with
-and without remat, a GNN and an LM training step on the card against
-the same step on the CPU, the static checks' copy kernel against
+and without remat, a GNN and an LM (dense and MoE) training step and the
+MoE FFN on the card against the same on the CPU, the static checks' copy kernel against
 ``x.clone()``, and every captured launch record against the grid and
 block the profiler sees.  They skip where no CUDA device is present; on a machine with one
 run them with::
@@ -798,6 +798,95 @@ def test_lm_train_step_card_vs_cpu(cuda):
         off += int((diff > 1e-5).sum())
         total += diff.numel()
     assert off < 1e-3 * total
+
+
+@pytest.mark.parametrize("case", ["drops", "ties", "floor"])
+@pytest.mark.parametrize("k", [1, 2])
+def test_moe_ffn_card_vs_cpu(cuda, k, case):
+    """``layers.moe_ffn`` (f32 compute, TF32 off) on the card and on the
+    CPU on the same weights: the same routing and capacity drops (a
+    zeroed router for "ties": every token to experts 0..k-1, lower index
+    first; cf 0.5 for "drops"; T = 4 for "floor"), outputs to 1e-5 and
+    the aux loss to 1e-6."""
+    from repro_torch.models import layers
+    e, d, f = 16, 64, 96
+    t = 4 if case == "floor" else 512
+    cfg = layers.LMConfig(
+        name="moe", n_layers=1, d_model=d, n_heads=2, n_kv_heads=1,
+        d_head=32, d_ff=f, vocab=64, moe=True, n_experts=e, top_k=k,
+        capacity_factor=0.5 if case == "drops" else 1.25,
+        moe_dense_residual=True, compute_dtype=torch.float32)
+    gen = torch.Generator().manual_seed(k)
+    p = {"router": torch.randn(d, e, generator=gen) / d ** 0.5,
+         "w_gate": torch.randn(e, d, f, generator=gen) / d ** 0.5,
+         "w_up": torch.randn(e, d, f, generator=gen) / d ** 0.5,
+         "w_down": torch.randn(e, f, d, generator=gen) / f ** 0.5,
+         "dense": {n: torch.randn(*s, generator=gen) / s[0] ** 0.5
+                   for n, s in (("w_gate", (d, f)), ("w_up", (d, f)),
+                                ("w_down", (f, d)))}}
+    if case == "ties":
+        p["router"].zero_()
+    x = torch.randn(2, t // 2, d, generator=gen)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        on_card = layers.moe_ffn(
+            {n: (v.to(cuda) if torch.is_tensor(v) else
+                 {m: w.to(cuda) for m, w in v.items()})
+             for n, v in p.items()}, cfg, x.to(cuda))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    want, want_aux = layers.moe_ffn(p, cfg, x)
+    gates = torch.softmax(x.reshape(t, d) @ p["router"], -1)
+    _, top = layers.moe_route(gates, k)
+    _, top_card = layers.moe_route(gates.to(cuda), k)
+    assert torch.equal(top_card.cpu(), top)
+    if case == "ties":
+        assert bool((top == torch.arange(k)).all())
+    assert float((on_card[0].cpu() - want).abs().max()) <= 1e-5 * max(
+        1.0, float(want.abs().max()))
+    assert abs(float(on_card[1]) - float(want_aux)) <= 1e-6
+
+
+@pytest.mark.parametrize("arch", ["arctic-480b",
+                                  "llama4-maverick-400b-a17b"])
+def test_moe_lm_train_step_card_vs_cpu(cuda, arch):
+    """One ``make_train_step`` of a reduced MoE LM (f32 compute, remat
+    on, TF32 off) on the card and on the CPU from the same weights: the
+    loss and aux to 1e-5 relative, the gradients (AdamW's first moments)
+    to 1e-3 of each largest entry."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import LM
+    from repro_torch.models.transformer import make_train_step
+    from repro_torch.optim import AdamW
+    cfg = dataclasses.replace(configs.get(arch).make_reduced(),
+                              compute_dtype=torch.float32, remat=True)
+    lm = LM(cfg, device=cuda)
+    host = LM(cfg, device="cpu", init=False)
+    host.load_state_dict({k: t.cpu() for k, t in lm.state_dict().items()})
+    batch = _card_batch(cfg, cuda, s=64)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = []
+    try:
+        for model, b in ((lm, batch), (host, {k: t.cpu() for k, t in
+                                              batch.items()})):
+            opt = AdamW(lr=1e-3)
+            ps = list(model.parameters())
+            _, st, met = make_train_step(model, opt)(ps, opt.init(ps), b)
+            out.append((st, met))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (st, met), (hst, hmet) = out
+    for key in ("loss", "aux"):
+        assert abs(met[key].item() - hmet[key].item()) \
+            <= 1e-5 * abs(hmet[key].item()), key
+    for m, hm in zip(st.mu, hst.mu):
+        assert float((m.cpu() - hm).abs().max()) \
+            <= 1e-3 * float(hm.abs().max())
 
 
 def _segment_close(got, values, ids, n):

@@ -456,8 +456,17 @@ def test_train_cli_lm_smoke_line(arch):
 
 @pytest.mark.parametrize("arch", MOE)
 def test_train_cli_moe_raises(arch):
-    with pytest.raises(NotImplementedError, match="A11"):
-        tlaunch.main(["--arch", arch, "--smoke", "--device", "cpu"])
+    """Once the MoE LMs raised (A11); now ported: ``--smoke --device
+    cpu`` trains them and prints the reference's line."""
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        hist = tlaunch.main(["--arch", arch, "--smoke", "--steps", "2",
+                             "--device", "cpu"])
+    line = buf.getvalue().strip().splitlines()[-1]
+    assert line == (f"[train] {arch}: first loss {hist[0]['loss']:.4f}, "
+                    f"last loss {hist[-1]['loss']:.4f}")
+    assert len(hist) == 2 and np.isfinite([h["loss"] for h in hist]).all()
+    assert all(h["aux"] > 0 for h in hist)
 
 
 def test_train_cli_lm_ckpt_dir_resumes(tmp_path):

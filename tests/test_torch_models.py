@@ -226,9 +226,41 @@ def test_convert_round_trip_and_init():
 @pytest.mark.parametrize("arch", ["llama4-maverick-400b-a17b",
                                   "arctic-480b"])
 def test_moe_raises(arch):
+    """Once the MoE LMs raised (A11); now ported: the reduced config
+    builds with a ``moe`` module in every block, and its forward gives
+    finite logits and a positive aux loss (``tests/test_torch_moe.py``
+    holds them against the reference)."""
     cfg = configs.get(arch).make_reduced()
     assert cfg.moe
-    with pytest.raises(NotImplementedError, match="A11"):
-        LM(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        layers.moe_ffn({}, cfg, torch.zeros(1, 1, cfg.d_model))
+    lm = LM(cfg, device="cpu")
+    assert all(hasattr(b, "moe") and not hasattr(b, "ffn")
+               for b in lm.blocks)
+    assert sum(p.numel() for p in lm.parameters()) == cfg.param_count()
+    logits, aux, _ = lm(torch.as_tensor(_tokens(cfg.vocab), dtype=torch.long))
+    assert logits.shape == (2, 32, cfg.vocab)
+    assert bool(torch.isfinite(logits).all()) and float(aux) > 0
+    x = torch.zeros(1, 1, cfg.d_model, dtype=cfg.compute_dtype)
+    out, aux = layers.moe_ffn(lm.blocks[0].moe.weights(), cfg, x)
+    assert out.shape == x.shape and aux.dtype == torch.float32
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_init_in_place_keeps_the_draws(arch):
+    """``LM.init_weights`` draws into each parameter and scales it in
+    place; the bits are those of the earlier ``p.copy_(torch.randn(...) *
+    scale)``, drawn from the same generator in the same order."""
+    cfg = configs.get(arch).make_reduced()
+    got = LM(cfg, device="cpu", generator=torch.Generator().manual_seed(5))
+    gen = torch.Generator().manual_seed(5)
+    want = LM(cfg, device="cpu", init=False)
+    with torch.no_grad():
+        for name, p in want.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf in ("ln1", "ln2", "final_norm", "q_norm", "k_norm"):
+                p.fill_(1.0)
+                continue
+            scale = 0.02 if leaf == "embed" else p.shape[-2] ** -0.5
+            p.copy_(torch.randn(p.shape, generator=gen,
+                                dtype=torch.float32) * scale)
+    for (name, a), b in zip(got.named_parameters(), want.parameters()):
+        assert torch.equal(a, b), name

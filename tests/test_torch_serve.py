@@ -110,16 +110,17 @@ def test_serve_cli_prints_reference_fields(capsys):
 
 
 def test_serve_cli_refuses_unported():
-    """The MoE LMs still raise (A11); trim-stream and wide-deep, which
-    raised before they were ported, now serve."""
+    """The MoE LMs, trim-stream and wide-deep, which raised before they
+    were ported, now serve; a GNN id exits, as in the reference."""
     engine = serve.main(["--app", "trim-stream", "--graph", "chain",
                          "--ticks", "2", "--update-batch", "8",
                          "--device", "cpu"])
     assert engine.compactions == 0 and engine.delta.n == 2_000
     scores = serve.main(["--arch", "wide-deep", "--smoke", "--device", "cpu"])
     assert scores.shape == (4,) and np.isfinite(scores).all()
-    with pytest.raises(NotImplementedError, match="A11"):
-        serve.main(["--arch", "arctic-480b", "--smoke", "--device", "cpu"])
+    toks = serve.main(["--arch", "arctic-480b", "--smoke", "--device",
+                       "cpu", "--batch", "2", "--gen-len", "3"])
+    assert toks.shape == (2, 4) and 0 <= toks.min() and toks.max() < 512
     with pytest.raises(SystemExit):
         serve.main(["--smoke", "--device", "cpu"])         # no --arch
     with pytest.raises(SystemExit, match="lm/recsys"):     # as the reference

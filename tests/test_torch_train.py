@@ -318,11 +318,9 @@ def test_train_cli_smoke_prints_reference_line():
 
 
 def test_train_cli_refuses_unported():
-    """The MoE LMs still raise (A11, MoE); a dense LM and wide-deep, which
-    raised before they were ported, now train."""
-    with pytest.raises(NotImplementedError, match="A11"):
-        tlaunch.main(["--arch", "arctic-480b", "--smoke", "--device", "cpu"])
-    for arch in ("qwen3-1.7b", "wide-deep"):
+    """The LMs, the MoE ones too, and wide-deep, which raised before they
+    were ported, now train."""
+    for arch in ("qwen3-1.7b", "arctic-480b", "wide-deep"):
         hist = tlaunch.main(["--arch", arch, "--smoke", "--steps", "2",
                              "--device", "cpu"])
         assert len(hist) == 2
