@@ -3,7 +3,7 @@
 the static checks, then the SCC driver, the reachability engine, the
 k-core peel, the stream engine (incremental trimming), the command line,
 LM serving, GNN training, the trim-stream server, wide-deep, LM
-training and the MoE LMs.
+training, the MoE LMs, the example twins and the dry-run tools.
 
     python3 chip_smoke.py               # the check, a few minutes on an H100
     python3 chip_smoke.py --profile     # also: where the time goes (phase 7)
@@ -84,7 +84,10 @@ non-zero and prints no result line):
    vertices, 33.5M edges, the benchmark's RMAT parameters at the paper's
    average degree 8), 4 methods x 2 backends: all eight status masks
    equal each other and the numpy oracle, windowed counters equal dense
-   counters, AC-6 traverses <= m.
+   counters, AC-6 traverses <= m; each engine's working set (the
+   allocator's peak over its second run less what was allocated before)
+   is held to ``launch.trim.trim_footprint``'s ``run`` within
+   TRIM_RUN_BAND.
 4. the launch counts of phases 2 and 3: every trimming kernel ran on the
    real-size trimming path (phase 3).
 5. the committed SCC and peel counts at their benchmarks' sizes:
@@ -294,6 +297,31 @@ non-zero and prints no result line):
    1e-4 relative, gradients 1e-3 of each largest entry).  ``--profile``
    adds arctic's prefill and one decode step to phase 7, after this
    phase.
+20. (last) the example twins and the dry-run tools: (a) the four twins
+   of ``examples/`` (``examples/torch/``: quickstart, scc_decomposition,
+   serve_recsys, train_gnn_trimmed) in-process on the card at the
+   reference's sizes, the launch counts set to 0 just before and read
+   just after (EXAMPLES_PATH: segment_sum and a graph kernel must
+   launch); their own asserts hold; the first EXAMPLES_KEPT calls of each
+   kernel at each of its input shapes there are held against the plain
+   version afterwards (graph kernels bit-identical, segment_sum to
+   SEG_TOL).  (b) ``python -m repro_torch.launch.dryrun --all --jobs
+   DRYRUN_JOBS``, in a subprocess with the card hidden, started as this
+   phase starts (after every timed phase) and read at its end: one line
+   a cell (status, FLOPs, bytes, peak_hbm_est, fits, bound_s, trace
+   seconds).  (c) the dry-run
+   of the shapes earlier phases ran on the card (qwen3-1.7b prefill 8 x
+   2048, phase 11; its training step 2 x 4096, phase 18; arctic-480b at
+   1 layer, prefill and decode, phase 19; wide-deep train_batch, phase
+   17; MeshGraphNet minibatch_lg, phase 12) against what those phases
+   measured (``MEASURED``, no rerun): the bound no longer than the
+   measured time, and peak_hbm_est within DRYRUN_PEAK_BAND of the
+   measured peak less what other phases held.  (d) ``launch.trim
+   --dryrun`` at the production size, and ``trim_footprint`` at phase 3's
+   graph equal to phase 3's engines' ``obs.engine_nbytes``.  (e) a
+   reduced arctic decode in f32 at capacity floor 2
+   (``perf_flags.FLAGS.moe_decode_capacity_floor``) on the card against
+   the same calls on the CPU, to 1e-3 of the largest logit.
 
 The last two lines are the kernel table and the result, as JSON.  Needs
 one CUDA device; imports nothing of JAX or of the JAX package.
@@ -303,6 +331,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -504,6 +533,38 @@ MOE_PATH = ("flash_attention",)
 # the message of torch's sync debug mode for one synchronizing operation
 # (enabling the mode also warns, once a process, with another message that
 # mentions synchronizing operations: it is not a sync)
+# phase 20: what earlier phases measured, passed on to the dry-run's
+# checks (c) and (d) (no phase is rerun for them): per shape the time
+# (ms) and the peak device bytes less what other phases held, and phase
+# 3's engines' obs.engine_nbytes
+MEASURED: dict = {}
+# phase 20 (a): the example twins (examples/torch/), in-process on the card
+EXAMPLES = ("quickstart", "scc_decomposition", "serve_recsys",
+            "train_gnn_trimmed")
+EXAMPLES_PATH = ("segment_sum",)
+EXAMPLES_GRAPH = ("first_live_probe", "frontier_compact", "sparse_expand",
+                  "frontier_expand", "bucket_peel")
+# (a) the first calls of each kernel at each of its input shapes on the
+# examples' path keep their inputs and outputs; each is held against the
+# plain version afterwards (graph kernels bit-identical, segment_sum to
+# SEG_TOL)
+EXAMPLES_KEPT = 3
+# (b) the dry-run of every cell runs in DRYRUN_JOBS worker processes of a
+# subprocess with the card hidden (it runs on the meta device), started
+# when phase 20 starts, after every timed phase
+DRYRUN_OUT = ROOT / "build" / "chip_smoke_dryrun.jsonl"
+DRYRUN_JOBS = 4
+# (c) peak_hbm_est over the measured peak (less the bytes other phases
+# held) must lie in this band; the bound must not exceed the measured time
+DRYRUN_PEAK_BAND = (0.85, 1.05)
+# phase 3: launch.trim.trim_footprint's "run" over each engine's measured
+# working set (the allocator's peak over a run less what was allocated
+# before it) must lie in this band
+TRIM_RUN_BAND = (0.9, 1.1)
+# (c) estimated only, at qwen3-1.7b's prefill and training shapes
+DRYRUN_UNRUN = ("deepseek-7b", "minitron-4b")
+# (e) a reduced-arctic MoE decode at this capacity floor (the default is 8)
+MOE_FLOOR = dict(floor=2, batch=4, prompt=16, steps=4, tol=1e-3)
 SYNC_WARNING = "called a synchronizing CUDA operation"
 INF_NOTE = (" (overflows float32: the reference's clip scales every update "
             "to 0, so the parameters stay as they are; ROADMAP C)")
@@ -1639,26 +1700,44 @@ def real_phase(dev, g, gt):
     import numpy as np
     import torch
 
+    from repro_torch import obs
     from repro_torch.core import plan, trim_oracle
+    from repro_torch.launch import trim as tcli
 
+    MEASURED["graph"] = (g.n, g.m)
     runs = {}
     for method in METHODS:
         for backend in BACKENDS:
             eng = plan(g, method=method, backend=backend, workers=16,
                        transpose=gt, device=dev)
             walls = []
-            # the first run also builds the worker map and Gᵀ's row ids
+            # the first run also builds the worker map and Gᵀ's row ids;
+            # the second's peak above what was allocated before it is
+            # the run's working set
             for _ in range(2):
                 torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
                 t0 = time.perf_counter()
                 res = eng.run()
                 status = res.status.cpu().numpy()
                 walls.append((time.perf_counter() - t0) * 1e3)
+            work = torch.cuda.max_memory_allocated() - before
+            est = sum(tcli.trim_footprint(g.n, g.m, method, backend,
+                                          workers=16)["run"].values())
+            ratio = est / work
+            check(TRIM_RUN_BAND[0] <= ratio <= TRIM_RUN_BAND[1],
+                  f"{method}/{backend}: trim_footprint's run {est:,} is "
+                  f"{ratio:.4f} of the measured {work:,}, outside "
+                  f"{TRIM_RUN_BAND}")
             runs[method, backend] = res
+            MEASURED.setdefault("engine_nbytes", {})[method, backend] = \
+                obs.engine_nbytes(eng)
             log(f"# phase 3: {method}/{backend}: wall_ms first={walls[0]:.1f}"
                 f" second={walls[1]:.1f} rounds={res.rounds} "
                 f"edges={res.edges_traversed} "
-                f"trimmed={int((status == 0).sum())}")
+                f"trimmed={int((status == 0).sum())}; working set "
+                f"{work:,} B, trim_footprint's run {est:,} ({ratio:.4f})")
     t0 = time.perf_counter()
     want = trim_oracle(*g.to_numpy())
     log(f"# phase 3: numpy oracle: {int((~want).sum())} of {g.n} trimmed "
@@ -2952,6 +3031,7 @@ def serve_phase(dev):
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     cfg = configs.get(SERVE["arch"]).make_config()
     lm = LM(cfg, device=dev, generator=torch.Generator(
@@ -2996,6 +3076,8 @@ def serve_phase(dev):
             0, cfg.vocab, (SERVE["batch"], SERVE["prompt_len"])),
         device=dev), SERVE["gen_len"])
     dec = np.asarray(warm["decode_ms"])
+    MEASURED["qwen3 prefill"] = dict(ms=warm["prefill_ms"], peak=peak - held,
+                                     held=held)
     log(f"# phase 11: warm repeat: prefill_ms={warm['prefill_ms']:.1f} "
         f"decode_ms per step median {np.median(dec):.2f}; "
         f"{n_tok / dec.sum() * 1e3:.0f} tok/s decode; prefill "
@@ -3258,6 +3340,12 @@ def train_phase(dev):
           f"times, not {want}")
     add(launches)
     med = float(np.median(times[1:]))
+    # the run began with the model and the batch on the card: both are
+    # the dry-run's arguments, the rest of what was held is not
+    own = sum(t.numel() * t.element_size() for t in
+              [*model.parameters(), *batch.values()])
+    MEASURED["meshgraphnet minibatch_lg"] = dict(
+        ms=med * 1e3, peak=peak[0] - peak[1] + own, held=peak[1] - own)
     log(f"# phase 12: meshgraphnet on minibatch_lg ({LG['n']:,} nodes, "
         f"{LG['m']:,} edges, d_feat {LG['d_feat']}, {LG['classes']} "
         f"classes; data drawn in {setup_s:.1f} s): loss "
@@ -3643,6 +3731,8 @@ def recsys_phase(dev):
     times = made[0].monitor.times
     stream = made[0].stream
     del made
+    MEASURED["wide-deep train_batch"] = dict(
+        ms=float(np.median(times)) * 1e3, peak=peak - held, held=held)
     torch.cuda.empty_cache()
     log(line)
     log(f"# phase 17 (d): python -m repro_torch.launch.train --arch "
@@ -3817,6 +3907,10 @@ def lm_train_phase(dev):
           f"{after}")
     n_par = sum(p.numel() for p in model.parameters())
     state = 4 * n_par * 4               # f32 params, grads, two moments
+    MEASURED["qwen3 train"] = dict(
+        ms=float(np.median(list(tr.monitor.times)[1:])) * 1e3,
+        peak=peak - held,
+        held=held)
     ms = [t * 1e3 for t in tr.monitor.times]
     toks = tr.stream.batch * tr.stream.seq
     log(f"# phase 18 (a): python -m repro_torch.launch.train --arch "
@@ -4144,6 +4238,7 @@ def moe_serve_phase(dev):
         f"{t * cfg.top_k // cfg.n_experts}), {cap_dec} in decode "
         f"(T = {MOE_SERVE['batch']})")
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() - n_par * 4   # less the weights
     ops.reset_launches()
     t0 = time.perf_counter()
     toks, stats = serve_lm(MOE_SERVE["arch"], batch=MOE_SERVE["batch"],
@@ -4179,6 +4274,10 @@ def moe_serve_phase(dev):
             0, cfg.vocab, (MOE_SERVE["batch"], MOE_SERVE["prompt_len"])),
         device=dev), MOE_SERVE["gen_len"])
     dec = np.asarray(warm["decode_ms"])
+    MEASURED["arctic serve"] = dict(ms=warm["prefill_ms"], peak=peak - held,
+                                    held=held)
+    MEASURED["arctic decode"] = dict(ms=float(np.median(dec)), peak=None,
+                                     held=held)
     log(f"# phase 19 (a): warm repeat: prefill_ms={warm['prefill_ms']:.1f}"
         f" ({t / warm['prefill_ms'] * 1e3:,.0f} tok/s); decode_ms per step "
         f"median {np.median(dec):.2f}; {n_tok / dec.sum() * 1e3:.0f} tok/s "
@@ -4642,6 +4741,311 @@ def profile_phase(dev, g, gt, stream, feed, lm, profiled):
     lm_profile_step(dev)
 
 
+# -- phase 20: the example twins and the dry-run tools --------------------------
+
+def start_dryrun():
+    """Start ``python -m repro_torch.launch.dryrun --all`` in a subprocess
+    with the card hidden (it runs every cell on the meta device); phase
+    20 (b) reads what it wrote.  Returns the process."""
+    DRYRUN_OUT.parent.mkdir(parents=True, exist_ok=True)
+    DRYRUN_OUT.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--out", str(DRYRUN_OUT), "--jobs", str(DRYRUN_JOBS)], env=env,
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    proc.started = time.time()
+    return proc
+
+
+class KeptCalls:
+    """``obs.profile.capturing``'s sink for phase 20 (a): the first
+    EXAMPLES_KEPT calls of each kernel at each of its input shapes, with
+    their inputs and outputs copied as the call returns (so later
+    in-place updates leave them as they were).  Copies are torch ops, not
+    kernel launches."""
+
+    def __init__(self):
+        self.calls: dict = {}
+
+    @staticmethod
+    def _copy(x):
+        import torch
+        if isinstance(x, torch.Tensor):
+            return x.detach().clone()
+        if isinstance(x, tuple):
+            return tuple(KeptCalls._copy(t) for t in x)
+        return x
+
+    def append(self, call) -> None:
+        import torch
+        kernel, args, out = call
+        key = (kernel,) + tuple((tuple(a.shape), a.dtype)
+                                if isinstance(a, torch.Tensor) else a
+                                for a in args)
+        kept = self.calls.setdefault(key, [])
+        if len(kept) < EXAMPLES_KEPT:
+            kept.append((kernel, self._copy(args), self._copy(out)))
+
+
+def examples_kernels_check(kept: KeptCalls) -> str:
+    """Hold each kept call against its kernel's plain version on the same
+    inputs: the graph kernels bit-identical, segment_sum within SEG_TOL of
+    each segment's sum of |v|.  Returns a summary for the log."""
+    from repro_torch.kernels import ref
+    held, seg_rel, shapes = {}, 0.0, {}
+    for key, calls in kept.calls.items():
+        for kernel, args, out in calls:
+            what = f"{kernel} at {key[1:]} on the examples' path"
+            if kernel == "segment_sum":
+                seg_rel = max(seg_rel, segment_check(out, *args, what))
+            else:
+                want = getattr(ref, f"{kernel}_ref")(*args)
+                got = out if isinstance(out, tuple) else (out,)
+                want = want if isinstance(want, tuple) else (want,)
+                check(max_abs_err(got, want) == 0,
+                      f"{what}: differs from its plain version")
+            held[kernel] = held.get(kernel, 0) + 1
+        shapes.setdefault(key[0], []).append(tuple(
+            a[0] if isinstance(a, tuple) else a for a in key[1:]))
+    return (", ".join(f"{k} {v} calls at {len(shapes[k])} input shapes "
+                      f"(the largest {max(shapes[k])})"
+                      for k, v in held.items())
+            + f"; segment_sum within {seg_rel:.3g} of the segment's sum of "
+              f"|v| (tolerance {SEG_TOL}), the graph kernels bit-identical")
+
+
+def example(name):
+    """The example twin ``examples/torch/<name>.py`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"torch_example_{name}", ROOT / "examples" / "torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_phase():
+    """Phase 20 (a): the four example twins in-process on the card at the
+    reference's sizes, the launch counts set to 0 just before and read
+    just after; each twin's own asserts hold (sound and complete status,
+    one fixpoint for all methods, the Tarjan partition, a falling
+    loss).  Returns the launch counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.obs import profile
+    took, kept = {}, KeptCalls()
+    ops.reset_launches()
+    with profile.capturing(kept):
+        for name in EXAMPLES:
+            t0 = time.perf_counter()
+            out = example(name).main([])
+            took[name] = time.perf_counter() - t0
+            if name == "train_gnn_trimmed":
+                hist = out[2]
+                check(hist[-1]["loss"] < hist[0]["loss"],
+                      f"(a) {name}: the loss went {hist[0]['loss']} -> "
+                      f"{hist[-1]['loss']}")
+    launches = dict(ops.LAUNCHES)
+    log(f"# phase 20 (a): EXAMPLES_PATH launches {launches}; seconds "
+        + ", ".join(f"{k} {v:.1f}" for k, v in took.items()))
+    log(f"# phase 20 (a): against the plain versions: "
+        f"{examples_kernels_check(kept)}")
+    for name in EXAMPLES_PATH:
+        check(launches[name] > 0,
+              f"{name} was never launched on the examples' path")
+    check(any(launches[name] > 0 for name in EXAMPLES_GRAPH),
+          "no graph kernel was launched on the examples' path")
+    return launches
+
+
+def dryrun_all_phase(proc) -> list:
+    """Phase 20 (b): the subprocess's records, one line a cell."""
+    out, _ = proc.communicate(timeout=600)
+    check(proc.returncode == 0, f"(b) dryrun --all exited "
+          f"{proc.returncode}:\n{out[-4000:]}")
+    recs = [json.loads(line) for line in DRYRUN_OUT.read_text().splitlines()]
+    took = DRYRUN_OUT.stat().st_mtime - proc.started     # its last record
+    log(f"# phase 20 (b): python -m repro_torch.launch.dryrun --all --jobs "
+        f"{DRYRUN_JOBS}: {len(recs)} cells in {took:.1f} s")
+    for r in recs:
+        if r["status"] != "ok":
+            log(f"#   {r['arch']} x {r['shape']}: {r['status']}")
+            continue
+        pd = r["per_device"]
+        log(f"#   {r['arch']} x {r['shape']}: ok flops={pd['flops']:.4g} "
+            f"bytes={pd['bytes']:.4g} peak_hbm_est={pd['peak_hbm_est']:,} "
+            f"fits={r['fits']} bound_s={r['roofline']['bound_s']:.4g} "
+            f"({r['roofline']['dominant']}) trace_s={r['trace_s']}")
+    check(all(r["status"] in ("ok", "skipped") for r in recs),
+          "(b) a cell of the dry-run failed")
+    return recs
+
+
+def dryrun_check_phase():
+    """Phase 20 (c): the dry-run of each shape an earlier phase ran on the
+    card, held against what that phase measured: the bound no longer than
+    the measured time, the peak estimate within DRYRUN_PEAK_BAND of the
+    measured peak (less the bytes other phases held).  arctic's two cells
+    share serve_lm's one peak, held against the larger estimate."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import dryrun
+
+    def cell(name, kind, **meta):
+        return ShapeCell(name, kind, meta)
+
+    s = SERVE
+    dec_len = MOE_SERVE["prompt_len"] + MOE_SERVE["gen_len"]
+    cases = [
+        ("qwen3 prefill", s["arch"], cell(f"prefill_{s['batch']}x"
+         f"{s['prompt_len']}", "prefill", batch=s["batch"],
+         seq=s["prompt_len"]), None),
+        ("qwen3 train", LM_TRAIN["arch"], cell("train_2x4096", "train",
+                                               batch=2, seq=4096), None),
+        ("arctic serve", MOE_SERVE["arch"], cell(
+            "prefill_8x2048", "prefill", batch=MOE_SERVE["batch"],
+            seq=MOE_SERVE["prompt_len"]), MOE_SERVE["n_layers"]),
+        ("arctic decode", MOE_SERVE["arch"], cell(
+            f"decode_8x{dec_len}", "decode", batch=MOE_SERVE["batch"],
+            seq=dec_len), MOE_SERVE["n_layers"]),
+        ("wide-deep train_batch", "wide-deep", "train_batch", None),
+        ("meshgraphnet minibatch_lg", "meshgraphnet", "minibatch_lg", None),
+    ]
+    recs = {}
+    for key, arch, shape, layers in cases:
+        recs[key] = dryrun.run_cell(arch, shape, layers, verbose=False)
+    recs["arctic serve"]["per_device"]["peak_hbm_est"] = max(
+        recs[k]["per_device"]["peak_hbm_est"]
+        for k in ("arctic serve", "arctic decode"))
+    rows = []
+    for key, arch, shape, layers in cases:
+        r, got = recs[key], MEASURED[key]
+        bound_ms = r["roofline"]["bound_s"] * 1e3
+        est = r["per_device"]["peak_hbm_est"]
+        check(bound_ms <= got["ms"], f"(c) {key}: bound {bound_ms:.3f} ms "
+              f"over the measured {got['ms']:.3f} ms")
+        ratio = None if got["peak"] is None else est / got["peak"]
+        if ratio is not None:
+            check(DRYRUN_PEAK_BAND[0] <= ratio <= DRYRUN_PEAK_BAND[1],
+                  f"(c) {key}: peak_hbm_est {est:,} is {ratio:.4f} of the "
+                  f"measured {got['peak']:,}, outside {DRYRUN_PEAK_BAND}")
+        rows.append(dict(shape=key, arch=arch, cell=r["shape"],
+                         n_layers=layers, bound_ms=bound_ms,
+                         dominant=r["roofline"]["dominant"],
+                         measured_ms=got["ms"], peak_hbm_est=est,
+                         measured_peak=got["peak"], held_by_others=got["held"],
+                         ratio=ratio, trace_s=r["trace_s"],
+                         fits=r["fits"]))
+        log(f"# phase 20 (c): {key} ({r['shape']}"
+            f"{'' if layers is None else f', {layers} layer'}): bound "
+            f"{bound_ms:.3f} ms ({r['roofline']['dominant']}) <= measured "
+            f"{got['ms']:.3f} ms; peak_hbm_est {est / 1e9:.3f} GB against "
+            + ("serve_lm's one peak, with the prefill" if ratio is None
+               else f"measured {got['peak'] / 1e9:.3f} GB (ratio "
+                    f"{ratio:.4f}; {got['held'] / 1e9:.3f} GB held by "
+                    f"other phases left out)")
+            + f"; traced in {r['trace_s']} s")
+    log("# phase 20 (c): " + json.dumps({"dryrun_vs_card": rows}))
+    # the dense LMs the card has not run, at the shapes it ran qwen3-1.7b
+    for arch in DRYRUN_UNRUN:
+        for key, _, shape, _ in cases[:2]:
+            r = dryrun.run_cell(arch, shape, verbose=False)
+            pd = r["per_device"]
+            log(f"# phase 20 (c): {arch} {r['shape']} (not run on the "
+                f"card): peak_hbm_est {pd['peak_hbm_est'] / 1e9:.3f} GB "
+                f"(arguments {pd['argument_bytes'] / 1e9:.3f}), fits="
+                f"{r['fits']}, bound {r['roofline']['bound_s'] * 1e3:.3f} "
+                f"ms ({r['roofline']['dominant']})")
+
+
+def trim_dryrun_phase():
+    """Phase 20 (d): ``launch.trim --dryrun`` at the production size, and
+    trim_footprint at phase 3's graph against phase 3's engines'
+    obs.engine_nbytes, component for component."""
+    from repro_torch.launch import trim as tcli
+    tcli.main(["--dryrun"])
+    n, m = MEASURED["graph"]
+    for (method, backend), want in MEASURED["engine_nbytes"].items():
+        got = tcli.trim_footprint(n, m, method, backend, workers=16,
+                                  transpose=True)["held"]
+        check(got == want, f"(d) {method}/{backend}: trim_footprint "
+              f"{got} != engine_nbytes {want}")
+    log(f"# phase 20 (d): trim_footprint(n={n:,}, m={m:,}) equals phase 3's "
+        f"engine_nbytes for {len(MEASURED['engine_nbytes'])} engines: "
+        f"{MEASURED['engine_nbytes']['ac4', 'dense']} (ac4/dense)")
+
+
+def moe_floor_phase(dev):
+    """Phase 20 (e): a reduced arctic decode at capacity floor 2 on the
+    card against the same calls on the CPU, f32, on the same weights."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch import perf_flags
+    from repro_torch.models import LM, layers
+    f = MOE_FLOOR
+    cfg = dataclasses.replace(configs.get("arctic-480b").make_reduced(),
+                              compute_dtype=torch.float32)
+    perf_flags.FLAGS.moe_decode_capacity_floor = f["floor"]
+    try:
+        cpu = LM(cfg, device="cpu")
+        card = LM(cfg, device=dev, init=False)
+        card.load_state_dict(cpu.state_dict())
+        tokens = np.random.default_rng(0).integers(
+            0, cfg.vocab, (f["batch"], f["prompt"]))
+
+        def run(lm, d, fed=None):
+            """Prefill, then greedy decode steps (fed ``fed``'s tokens
+            where given); the logits of each, and the tokens fed."""
+            logits, cache = lm.prefill(torch.as_tensor(tokens, device=d),
+                                       cache_len=f["prompt"] + f["steps"])
+            steps, toks = [logits.cpu()], []
+            for i in range(f["steps"]):
+                toks.append(steps[-1].argmax(-1)[:, None] if fed is None
+                            else fed[i])
+                logits, cache = lm.decode_step(cache, toks[-1].to(d),
+                                               f["prompt"] + i)
+                steps.append(logits.cpu())
+            return torch.stack(steps), toks
+
+        got, fed = run(card, dev)
+        want, _ = run(cpu, "cpu", fed)
+        cap = layers.moe_capacity(cfg, f["batch"])
+    finally:
+        perf_flags.reset()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    check(cap < f["batch"] * cfg.top_k, f"(e) capacity {cap} drops nothing")
+    check(err <= f["tol"] * scale, f"(e) card and CPU differ by {err}")
+    log(f"# phase 20 (e): reduced arctic, f32, capacity floor {f['floor']} "
+        f"(decode capacity {cap} slots an expert for {f['batch']} tokens x "
+        f"top-{cfg.top_k}): prefill of {f['batch']} x {f['prompt']} and "
+        f"{f['steps']} decode steps on the card equal the CPU's to "
+        f"{err:.3g} (tolerance {f['tol']} of |logits| max {scale:.3g})")
+
+
+def dryrun_phase(dev):
+    """Phase 20: (a)-(e), (b)'s subprocess running beside the others;
+    returns (a)'s launch counts."""
+    t0 = time.perf_counter()
+    proc = start_dryrun()
+    try:
+        launches = examples_phase()
+        dryrun_check_phase()
+        trim_dryrun_phase()
+        moe_floor_phase(dev)
+        dryrun_all_phase(proc)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    log(f"# phase 20: done in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -4798,6 +5202,7 @@ def main() -> int:
         moe_profile(dev, moe_lm)
     del moe_lm
     torch.cuda.empty_cache()
+    dryrun_phase(dev)
 
     path_launches = {**{n: trim_launches for n in TRIM_PATH},
                      **{n: scc_launches for n in SCC_PEEL_PATH},

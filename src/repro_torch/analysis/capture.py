@@ -28,17 +28,20 @@ def capturing() -> bool:
 
 
 @contextmanager
-def captured_launches() -> Iterator[list]:
+def captured_launches(keep_outputs: bool = True) -> Iterator[list]:
     """Swap the launch funnel for a recorder within the block; the real
     funnel, the accepted devices and the launch counts come back on exit,
-    also when the block raises."""
+    also when the block raises.  ``keep_outputs=False`` records each
+    launch with its ``outputs`` values set to None, so the records hold no
+    tensor alive (the dry-run's memory count needs that)."""
     records: list = []
 
     def record(spec, entry, *args):
-        if type(spec) is _build.Launch:
-            records.append(spec)
-        else:
-            records.extend(spec)
+        specs = [spec] if type(spec) is _build.Launch else list(spec)
+        if not keep_outputs:
+            specs = [s._replace(outputs=dict.fromkeys(s.outputs))
+                     for s in specs]
+        records.extend(specs)
 
     real, accepted = _build.launch, _build.ACCEPTED
     counts = dict(_build.LAUNCHES)

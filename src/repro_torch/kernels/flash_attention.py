@@ -234,6 +234,13 @@ def flash_attention_bwd(q, k, v, dout, *, causal: bool = True,
             dv.to(v.dtype))
 
 
+#: what :class:`FlashAttentionFn`'s backward calls in place of
+#: :func:`flash_attention_bwd` while it is set: ``launch.lowering.meter``
+#: sets a wrapper of it that replays a signature it has counted before on
+#: meta tensors.  None otherwise.
+BWD_HOOK = None
+
+
 class FlashAttentionFn(torch.autograd.Function):
     """Differentiable flash attention: ``apply(q, k, v, causal, sm_scale,
     fwd)`` returns ``fwd(q, k, v, causal=..., sm_scale=...)``, the forward
@@ -256,6 +263,7 @@ class FlashAttentionFn(torch.autograd.Function):
         q, k, v = ctx.saved_tensors
         if q.device.type != "cpu":
             _build.LAUNCHES["flash_attention_bwd"] += 1
-        dq, dk, dv = flash_attention_bwd(q, k, v, dout, causal=ctx.causal,
-                                         sm_scale=ctx.sm_scale)
+        bwd = flash_attention_bwd if BWD_HOOK is None else BWD_HOOK
+        dq, dk, dv = bwd(q, k, v, dout, causal=ctx.causal,
+                         sm_scale=ctx.sm_scale)
         return dq, dk, dv, None, None, None

@@ -1,0 +1,252 @@
+"""(architecture x shape) -> a step to run on the meta device (PyTorch
+port of ``src/repro/launch/cells.py``).
+
+``build_cell`` returns what the dry-run needs: the step function, its
+arguments as meta tensors (parameters, optimizer state, batch: the shapes
+and dtypes of the reference's abstract arguments), and the MODEL_FLOPS
+accounting of the roofline's useful-compute ratio.  The models are built
+on ``device="meta"`` with ``init=False``: nothing is drawn and nothing is
+allocated.  The steps are the ones the launchers run: an LM's
+``make_train_step`` (AdamW, remat as the config sets it), ``prefill`` and
+``decode_step``; a GNN's loss (a batch of molecules as one disjoint
+union, ``molecule_union`` + ``molecule_loss``; the other cells through
+``model.loss`` with the reference's pad to 512) with AdamW; wide-deep's
+train step (AdamW, or ``HybridAdamW`` under ``perf_flags``'
+``recsys_hybrid_opt``), ``forward`` and ``retrieval_scores``.  Serving
+steps run under ``torch.no_grad``.
+
+The batches arrive as the data pipelines give them (int32 ids), and an
+LM step turns its ids into int64 on the device first, as
+``launch.train``'s ``put`` does.  ``decode_step``'s position is a 0-d
+int32 tensor on the host, the reference's scalar argument, which the
+port reads on the host.
+
+Not ported: the in/out shardings and donations of the reference's cells
+(one card; ``torch.distributed`` sharding is ROADMAP A6).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from .. import configs
+from ..configs.base import ShapeCell
+from ..models.gnn import MODELS
+from ..models.gnn.common import molecule_loss, molecule_union
+from ..models.recsys import WideDeep, make_recsys_train_step
+from ..models.transformer import LM, make_train_step
+from ..optim import AdamW, HybridAdamW
+from . import perf_flags
+
+
+@dataclasses.dataclass
+class CellBuild:
+    fn: Callable
+    abstract_args: tuple
+    model_flops: float
+    notes: str = ""
+
+
+def build_cell(arch_id: str, shape, n_layers: int | None = None, *,
+               device="meta") -> CellBuild:
+    """The step of ``arch_id`` at ``shape`` (a name of the arch's cells,
+    or a :class:`ShapeCell` of one's own), at the published configuration.
+    ``n_layers`` (LM only) cuts the depth; ``device`` other than meta
+    builds real tensors (random weights, zero batches), which the tests
+    run to check the meta counts.  A skipped cell raises."""
+    spec = configs.get(arch_id)
+    cell = shape if isinstance(shape, ShapeCell) else spec.shapes[shape]
+    if cell.skip:
+        raise ValueError(f"cell {arch_id}×{cell.name} is skipped: "
+                         f"{cell.skip}")
+    cfg = spec.make_config()
+    dev = torch.device(device)
+    if spec.family == "lm":
+        if n_layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        return _build_lm(cfg, cell, dev)
+    if spec.family == "gnn":
+        return _build_gnn(spec, cfg, cell, dev)
+    return _build_recsys(cfg, cell, dev)
+
+
+def _zeros(shape, dtype, dev):
+    """A batch tensor: empty on meta, zeros elsewhere (valid ids)."""
+    if dev.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=dev)
+    return torch.zeros(shape, dtype=dtype, device=dev)
+
+
+def _model_kw(dev) -> dict:
+    if dev.type == "meta":
+        return dict(device=dev, init=False)
+    return dict(device=dev, generator=torch.Generator(device=dev)
+                .manual_seed(0))
+
+
+NOTES = "one card: no shardings, no collectives (ROADMAP A6)"
+
+
+# ------------------------------------------------------------------- LM
+
+
+def _build_lm(cfg, cell, dev) -> CellBuild:
+    if perf_flags.FLAGS.serve_bf16_params and cell.kind in ("prefill",
+                                                            "decode"):
+        cfg = dataclasses.replace(cfg, param_dtype=torch.bfloat16)
+    model = LM(cfg, **_model_kw(dev))
+    params = list(model.parameters())
+    b, s = cell.meta["batch"], cell.meta["seq"]
+    n_active = cfg.active_param_count()
+    i32 = torch.int32
+
+    if cell.kind == "train":
+        opt = AdamW(lr=3e-4)
+        step = make_train_step(model, opt)
+
+        def train(params, opt_state, batch):
+            return step(params, opt_state,
+                        {k: v.long() for k, v in batch.items()})
+
+        batch = {"tokens": _zeros((b, s), i32, dev),
+                 "targets": _zeros((b, s), i32, dev)}
+        return CellBuild(train, (params, opt.init(params), batch),
+                         model_flops=6.0 * n_active * b * s, notes=NOTES)
+
+    if cell.kind == "prefill":
+        return CellBuild(lambda params, tokens: model.prefill(tokens),
+                         (params, _zeros((b, s), i32, dev)),
+                         model_flops=2.0 * n_active * b * s, notes=NOTES)
+
+    # decode: one new token against a full cache of length s
+    shape = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.d_head)
+    cache = tuple(_zeros(shape, cfg.compute_dtype, dev) for _ in range(2))
+    pos = torch.tensor(s - 1, dtype=i32)
+    return CellBuild(
+        lambda params, cache, token, pos: model.decode_step(cache, token,
+                                                            int(pos)),
+        (params, cache, _zeros((b, 1), i32, dev), pos),
+        model_flops=2.0 * n_active * b, notes=NOTES)
+
+
+# ------------------------------------------------------------------ GNN
+
+
+def _gnn_flops(spec, cfg, cell) -> float:
+    """Analytic useful-matmul FLOPs of one forward pass x 3 (forward and
+    backward): the reference's formulas."""
+    meta = cell.meta
+    batch = meta.get("batch", 1)
+    n = meta["n_nodes"] * batch
+    m = meta["n_edges"] * batch
+    if spec.id == "meshgraphnet":
+        h = cfg.d_hidden
+        per_edge = 2 * (3 * h * h + h * h)
+        per_node = 2 * (2 * h * h + h * h)
+        fwd = cfg.n_layers * (per_edge * m + per_node * n)
+    elif spec.id == "schnet":
+        h, r = cfg.d_hidden, cfg.n_rbf
+        per_edge = 2 * (r * h + h * h)
+        per_node = 2 * (3 * h * h)
+        fwd = cfg.n_interactions * (per_edge * m + per_node * n)
+    elif spec.id == "mace":
+        C = cfg.channels
+        dims = sum((2 * l1 + 1) * (2 * l2 + 1) * (2 * l3 + 1)
+                   for l1 in range(3) for l2 in range(3) for l3 in range(3)
+                   if abs(l1 - l2) <= l3 <= l1 + l2)
+        per_edge = 2 * dims * C + 2 * 9 * C * C     # CG + channel mix
+        per_node = 2 * (2 * dims * C + 8 * 9 * C * C)
+        fwd = cfg.n_layers * (per_edge * m + per_node * n)
+    else:  # equiformer-v2
+        C, lm = cfg.channels, cfg.l_max
+        rot = 2 * sum((2 * l + 1) ** 2 for l in range(lm + 1)) * C * 2
+        so2 = 2 * sum(((lm + 1 - mm) * C) ** 2 * (1 if mm == 0 else 4)
+                      for mm in range(cfg.m_max + 1))
+        per_edge = rot + so2
+        per_node = 2 * (lm + 1) * C * C * 3
+        fwd = cfg.n_layers * (per_edge * m + per_node * n)
+    return 3.0 * fwd
+
+
+def _pad512(x: int) -> int:
+    """The reference's pad of a graph cell's node and edge counts."""
+    return -(-x // 512) * 512
+
+
+def _build_gnn(spec, cfg, cell, dev) -> CellBuild:
+    meta = cell.meta
+    cfg = dataclasses.replace(cfg, out_dim=meta.get("classes", 1))
+    model = MODELS[type(cfg)](cfg, d_feat=meta.get("d_feat"),
+                              **_model_kw(dev))
+    opt = AdamW(lr=1e-3)
+    params = list(model.parameters())
+    f32, i32 = torch.float32, torch.int32
+    if cell.name == "molecule":
+        bsz, n, m = meta["batch"], meta["n_nodes"], meta["n_edges"]
+        batch = {"species": _zeros((bsz, n), i32, dev),
+                 "pos": _zeros((bsz, n, 3), f32, dev),
+                 "edge_src": _zeros((bsz, m), i32, dev),
+                 "edge_dst": _zeros((bsz, m), i32, dev),
+                 "energy": _zeros((bsz,), f32, dev)}
+
+        def loss_fn(batch):
+            return molecule_loss(model, molecule_union(batch, dev))
+    else:
+        n, m = _pad512(meta["n_nodes"]), _pad512(meta["n_edges"])
+        batch = {"feats": _zeros((n, meta["d_feat"]), f32, dev),
+                 "pos": _zeros((n, 3), f32, dev),
+                 "edge_src": _zeros((m,), i32, dev),
+                 "edge_dst": _zeros((m,), i32, dev),
+                 "labels": _zeros((n,), i32, dev)}
+        loss_fn = model.loss
+
+    def train_step(params, opt_state, batch):
+        loss = loss_fn(batch)
+        grads = torch.autograd.grad(loss, params)
+        opt_state = opt.step(params, grads, opt_state)
+        return params, opt_state, {"loss": loss.detach()}
+
+    return CellBuild(train_step, (params, opt.init(params), batch),
+                     model_flops=_gnn_flops(spec, cfg, cell), notes=NOTES)
+
+
+# --------------------------------------------------------------- recsys
+
+
+def _recsys_fwd_flops(cfg, b: int) -> float:
+    """The reference's MLP FLOPs of one forward pass over ``b`` rows."""
+    mlp_params = sum(cfg.mlp[i] * cfg.mlp[i + 1]
+                     for i in range(len(cfg.mlp) - 1))
+    d_in = cfg.n_sparse * cfg.embed_dim + cfg.n_dense
+    mlp_params += d_in * cfg.mlp[0] + cfg.mlp[-1]
+    return 2.0 * mlp_params * b
+
+
+def _build_recsys(cfg, cell, dev) -> CellBuild:
+    model = WideDeep(cfg, **_model_kw(dev))
+    params = model.params()
+    b = cell.meta["batch"]
+    fwd_flops = _recsys_fwd_flops(cfg, b)
+    batch = {"dense": _zeros((b, cfg.n_dense), torch.float32, dev),
+             "sparse_ids": _zeros((b, cfg.n_sparse, cfg.ids_per_field),
+                                  torch.int32, dev)}
+    if cell.kind == "train":
+        opt = (HybridAdamW(adamw=AdamW(lr=1e-3))
+               if perf_flags.FLAGS.recsys_hybrid_opt else AdamW(lr=1e-3))
+        batch["labels"] = _zeros((b,), torch.float32, dev)
+        return CellBuild(make_recsys_train_step(model, opt),
+                         (params, opt.init(params), batch),
+                         model_flops=3.0 * fwd_flops, notes=NOTES)
+    if cell.kind == "serve":
+        return CellBuild(torch.no_grad()(lambda params, batch: model(batch)),
+                         (params, batch), model_flops=fwd_flops, notes=NOTES)
+    # retrieval: 1 query vs n_candidates
+    nc = cell.meta["n_candidates"]
+    batch["candidates"] = _zeros((nc, cfg.retrieval_dim), torch.float32, dev)
+    return CellBuild(
+        torch.no_grad()(
+            lambda params, batch: model.retrieval_scores(batch)),
+        (params, batch),
+        model_flops=fwd_flops + 2.0 * nc * cfg.retrieval_dim, notes=NOTES)

@@ -9,6 +9,7 @@ trimming and k-core peeling on one named graph (PyTorch port of
     python -m repro_torch.launch.trim --app peel --graph BA
     python -m repro_torch.launch.trim --app stream --graph chain --device cpu
     python -m repro_torch.launch.trim --app check --strict
+    python -m repro_torch.launch.trim --dryrun --method ac6
     python -m repro_torch.launch.trim --app scc --graph RMAT \
         --checkpoint-dir ckpt --fault-seed 7 --fault-rate 0.05 --retries 5
 
@@ -32,8 +33,13 @@ state every ``--checkpoint-every`` generations through an async writer,
 and on a ``DeviceFault`` or ``IOFault`` resumes from the latest saved
 generation, at most ``--retries`` times.
 
-Not ported yet, and raising :class:`NotImplementedError` that names the
-ROADMAP item: ``--dryrun`` (A11) and ``--backend sharded`` (A6).
+``--dryrun`` sizes the reference's production graph (n = 64,000,000,
+m = 512,000,000) for one card, with no graph and no card
+(:func:`run_dryrun`): the bytes of every buffer the engine holds and of
+the fixpoint's working set (:func:`trim_footprint`), against the card's
+memory.  ``--backend sharded``, and with it the sharded half of the
+dry-run, is not ported yet and raises :class:`NotImplementedError`
+naming ROADMAP A6.
 """
 from __future__ import annotations
 
@@ -221,15 +227,80 @@ def run_peel(graph_name: str, device="cuda", instrument=False):
     return res
 
 
-def _refuse_unported(args) -> None:
-    """Raise for the reference's flags that the port does not have yet,
-    naming the ROADMAP item that brings each."""
-    for given, flag, item in (
-            (args.dryrun, "--dryrun", "A11"),
-            (args.backend == "sharded", "--backend sharded", "A6")):
-        if given:
-            raise NotImplementedError(
-                f"{flag} is not ported yet: ROADMAP {item}")
+#: the reference's production graph (``src/repro/launch/trim.py``)
+DRYRUN_GRAPH = dict(n=64_000_000, m=512_000_000)
+
+
+def trim_footprint(n: int, m: int, method: str = "ac6",
+                   backend: str = "dense", workers: int = 16,
+                   transpose: bool | None = None) -> dict:
+    """The bytes a trim engine over a graph of ``n`` vertices and ``m``
+    edges allocates, from the sizes alone: ``{"held": ..., "run": ...}``.
+
+    ``held`` is what the engine keeps between runs, component for
+    component what ``obs.memory.engine_nbytes`` reports after a run: the
+    CSR (int32 indptr and indices), Gᵀ when the method needs it or the
+    caller passes one (``transpose``), Gᵀ's int32 row ids (the methods
+    that need Gᵀ) and the int32 worker map.  ``run`` is the peak of what
+    one run allocates on top of ``held``, counted off the live tensors
+    at the op where the run peaks.  AC-4 and AC-4* peak while the masked
+    degree count builds G's row ids (``core.graph.row_ids``): 12 bytes an
+    edge (``repeat_interleave``'s int64 gather indices and the int32 ids)
+    and 25 a vertex (the degrees, int32 and int64, the all-live mask and
+    the scan).  AC-3 and AC-6 peak inside a probe round: 56 and 74 bytes a
+    vertex of status, pointer, support and probe vectors, AC-6's chunk
+    mask of n/64 and the per-worker counters; the windowed probe adds 17
+    a vertex.  On an H100
+    the caching allocator's peak over a run, less what was allocated
+    before it, equalled these counts to 4 bytes a vertex at RMAT scales
+    18 and 20; ``chip_smoke.py`` phase 3 holds them at scale 22.
+    ``frontier`` is the engines' default "auto" plan
+    (``core.common.frontier_plan``)."""
+    from ..core.common import frontier_plan
+    from ..core.registry import get_kernel
+    spec = get_kernel(method)
+    csr = 4 * (n + 1) + 4 * m
+    held = {"graph": csr}
+    if transpose is None:
+        transpose = spec.needs_transpose
+    if transpose:
+        held["transpose"] = csr
+    if n and m:
+        if spec.needs_transpose:
+            held["row_ids"] = 4 * m
+        held["worker_ids"] = 4 * n
+    fplan = frontier_plan("auto" if spec.supports_frontier else "dense",
+                          n, m)
+    if spec.needs_transpose:
+        run = {"row_ids_build": 12 * m, "vectors": 25 * n}
+    else:
+        run = {"vectors": (56 if method == "ac3" else 74) * n,
+               "per_worker": 4 * workers}
+        if method != "ac3":
+            run["chunk_mask"] = -(-n // 64)
+        if backend == "windowed":
+            run["windowed_probe"] = 17 * n
+    return {"held": held, "run": run, "frontier": fplan}
+
+
+def run_dryrun(method: str, backend: str = "dense", workers: int = 16, *,
+               n: int = DRYRUN_GRAPH["n"], m: int = DRYRUN_GRAPH["m"]):
+    """Size trimming of an ``n``-vertex, ``m``-edge graph for one card
+    and print the reference's two lines for it; returns
+    :func:`trim_footprint`'s dict."""
+    from .mesh import hbm_bytes
+    fp = trim_footprint(n, m, method, backend, workers=workers)
+    held, temps = sum(fp["held"].values()), sum(fp["run"].values())
+    fplan, card = fp["frontier"], hbm_bytes()
+    fits = "fits" if held + temps <= card else "does not fit"
+    print(f"[trim-dryrun] {method}/{backend} on one H100 (frontier "
+          f"{fplan.mode}: cap={fplan.cap} ecap={fplan.ecap}): per-device "
+          f"args {held / 2**20:.1f} MiB, temps {temps / 2**20:.1f} MiB, "
+          f"all-gather sites 0; {fits} in {card / 2**30:.1f} GiB")
+    print(f"  graph: n={n:,} m={m:,} -> {n:,} vertices/device; status "
+          f"all_gather {n / 8 / 2**20:.1f} MiB per round once sharded "
+          f"(ROADMAP A6)")
+    return fp
 
 
 def main(argv=None):
@@ -269,8 +340,9 @@ def main(argv=None):
     ap.add_argument("--retries", type=int,
                     help="bound on resume-from-checkpoint attempts "
                          "(default 3)")
-    # the reference's flag whose path is not ported yet: it raises
-    ap.add_argument("--dryrun", action="store_true")
+    ap.add_argument("--dryrun", action="store_true",
+                    help="size the production graph for one card (no graph, "
+                         "no card)")
     args = ap.parse_args(argv)
     if args.app == "check":
         # the static-analysis plane: no graph, no engine, no device work
@@ -288,7 +360,11 @@ def main(argv=None):
         ap.error("--strict/--mutants apply to --app check")
     if args.checkpoint_dir and args.app != "scc":
         ap.error("--checkpoint-dir applies to --app scc")
-    _refuse_unported(args)
+    if args.backend == "sharded":
+        raise NotImplementedError(
+            "--backend sharded is not ported yet: ROADMAP A6")
+    if args.dryrun:
+        return run_dryrun(args.method, args.backend, args.workers)
     for name, default in FAULT_DEFAULTS.items():
         if getattr(args, name) is None:
             setattr(args, name, default)

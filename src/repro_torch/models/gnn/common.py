@@ -29,7 +29,6 @@ from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -216,22 +215,23 @@ def pooled_loss(model, batch):
 
 
 def molecule_union(batch, device) -> dict:
-    """A ``GraphBatchStream`` batch of B graphs ((B, n, ...) numpy arrays)
-    as one disjoint union on ``device``: (B*n,) species, (B*n, 3) pos,
-    (B*m,) edge ids offset by b * n, and the (B,) energies."""
-    species = np.asarray(batch["species"])
-    b, n = species.shape
-    off = (np.arange(b, dtype=np.int64) * n)[:, None]
-    union = {
-        "species": species.reshape(b * n),
-        "pos": np.asarray(batch["pos"], np.float32).reshape(b * n, 3),
-        "edge_src": (np.asarray(batch["edge_src"]) + off).reshape(-1),
-        "edge_dst": (np.asarray(batch["edge_dst"]) + off).reshape(-1),
+    """A ``GraphBatchStream`` batch of B graphs ((B, n, ...) numpy arrays,
+    or tensors) as one disjoint union on ``device``: (B*n,) species,
+    (B*n, 3) float32 pos, (B*m,) int64 edge ids offset by b * n, and the
+    (B,) float32 energies.  The arrays reach the device first and the
+    offsets are added there, so a batch of meta tensors (the dry-run's)
+    takes the same path."""
+    t = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    b, n = t["species"].shape
+    off = torch.arange(b, dtype=torch.int64, device=device)[:, None] * n
+    out = {
+        "species": t["species"].reshape(b * n),
+        "pos": t["pos"].to(torch.float32).reshape(b * n, 3),
+        "edge_src": (t["edge_src"] + off).reshape(-1),
+        "edge_dst": (t["edge_dst"] + off).reshape(-1),
     }
-    out = {k: torch.as_tensor(v, device=device) for k, v in union.items()}
-    if "energy" in batch:
-        out["energy"] = torch.as_tensor(np.asarray(batch["energy"],
-                                                   np.float32), device=device)
+    if "energy" in t:
+        out["energy"] = t["energy"].to(torch.float32)
     return out
 
 

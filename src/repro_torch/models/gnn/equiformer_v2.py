@@ -12,9 +12,10 @@ Features are (n, (l_max+1)^2 = 49, C); each layer aggregates twice through
 the ``segment_sum`` kernel: the softmax's normaliser (E, heads) and the
 messages (E, 49, C).
 
-Not carried over: the reference's optional edge-sharding pins
-(``perf_flags.gnn_edge_dp``), which are mesh constraints and do nothing
-without a mesh.
+The reference's optional edge-sharding pins (``launch.perf_flags``
+``FLAGS.gnn_edge_dp``) are mesh constraints: the port has one device and
+no mesh, so :meth:`EquiformerV2.forward` raises while the flag is set
+(sharding is ROADMAP A6).
 """
 from __future__ import annotations
 
@@ -152,6 +153,12 @@ class EquiformerV2(nn.Module):
 
     # ------------------------------------------------------------ forward
     def forward(self, batch):
+        from ...launch.perf_flags import FLAGS
+        if FLAGS.gnn_edge_dp is not None:
+            raise NotImplementedError(
+                f"perf_flags.gnn_edge_dp={FLAGS.gnn_edge_dp!r} pins edge "
+                "tensors to mesh axes; sharding is not ported yet: ROADMAP "
+                "A6")
         cfg = self.cfg
         c = cfg.channels
         n = num_nodes(batch)

@@ -237,19 +237,19 @@ def swiglu(p, x, dt):
     return (gate * up) @ p["w_down"].to(dt)
 
 
-#: the MoE capacity floor: the reference's default
-#: ``FLAGS.moe_decode_capacity_floor`` (``src/repro/launch/perf_flags.py``,
-#: None there means 8); the port has no ``perf_flags`` yet (ROADMAP A11)
-MOE_CAPACITY_FLOOR = 8
-
-
 def moe_capacity(cfg: LMConfig, t: int) -> int:
     """Slots per expert for ``t`` tokens: the statistical capacity
     ``capacity_factor * t * top_k / n_experts``, floored so that a small
-    (decode) batch stays dropless."""
+    (decode) batch stays dropless.  The floor is
+    ``launch.perf_flags.FLAGS.moe_decode_capacity_floor``, 8 when it is
+    None (the reference's rule)."""
+    from ..launch.perf_flags import FLAGS
+    floor = FLAGS.moe_decode_capacity_floor
+    if floor is None:
+        floor = 8
     k = cfg.top_k
     return max(int(cfg.capacity_factor * t * k / cfg.n_experts),
-               min(t * k, MOE_CAPACITY_FLOOR), 1)
+               min(t * k, floor), 1)
 
 
 def moe_route(gates, k: int):

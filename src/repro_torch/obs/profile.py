@@ -147,10 +147,28 @@ _COSTS = {
 }
 
 
+def _cost(kernel: str, args, out):
+    """``_COSTS[kernel]`` of one call; raises where the formula reads the
+    data and the call's tensors lie on the meta device, which holds
+    none."""
+    flops, nbytes = _COSTS[kernel](tuple(args), out)
+    for term in (flops, nbytes):
+        if getattr(term, "device", None) is not None \
+                and term.device.type == "meta":
+            raise ValueError(
+                f"{kernel}: its cost depends on the data, and meta tensors "
+                "hold none; the graph kernels are sized analytically "
+                "(python -m repro_torch.launch.trim --dryrun)")
+    return flops, nbytes
+
+
 def kernel_cost(kernel: str, args, out=None):
     """``(flops, bytes)`` one call of ``kernel``'s wrapper must do on
-    these arguments (and outputs, where the formula reads them)."""
-    flops, nbytes = _COSTS[kernel](tuple(args), out)
+    these arguments (and outputs, where the formula reads them).  On meta
+    tensors only the kernels whose cost follows from the shapes
+    (``flash_attention``, ``segment_sum``, ...) are costed; the others
+    raise."""
+    flops, nbytes = _cost(kernel, args, out)
     return int(flops), int(nbytes)
 
 
@@ -173,7 +191,7 @@ class _CostSum:
 
     def append(self, call) -> None:
         kernel, args, out = call
-        flops, nbytes = _COSTS[kernel](tuple(args), out)
+        flops, nbytes = _cost(kernel, args, out)
         self.flops += flops
         if isinstance(nbytes, int):
             self.nbytes += nbytes

@@ -1344,3 +1344,111 @@ def test_recsys_forward_on_card_matches_cpu(cuda):
         grads.append(torch.autograd.grad(loss, [model.tables["t0"]])[0])
     assert torch.equal(grads[0], grads[1])
     assert abs(float(loss) - float(host.loss(cpu_b))) <= 1e-5 * float(loss)
+
+
+# -- the example twins and the dry-run's captured launches ---------------------
+
+
+def _example(name):
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "examples" / "torch" / \
+        f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"torch_example_{name}",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _lines(out: str) -> list:
+    """Printed lines without the ones that hold timings."""
+    return [ln for ln in out.strip().splitlines()
+            if not ln.startswith(("steady-state", "CTR scoring", "[trainer]"))
+            and "candidates in" not in ln]
+
+
+@pytest.mark.parametrize("name,sizes", [
+    ("quickstart", dict(N=20_000, M=80_000)),
+    ("scc_decomposition", dict(N=2_000, M=6_000)),
+    ("train_gnn_trimmed", dict(GRAPH_N=5_000, GRAPH_M=20_000, STEPS=6,
+                               CKPT_EVERY=3, LOG_EVERY=3)),
+])
+def test_example_twin_on_card_matches_cpu(cuda, name, sizes, monkeypatch,
+                                          capsys):
+    """A twin's own asserts hold on the card, and its printed counts (and
+    the SchNet losses, to 1e-3 relative, from the same weights: drawn on
+    the CPU, the card's generator draws others) equal the CPU run's."""
+    ex = _example(name)
+    for k, v in sizes.items():
+        monkeypatch.setattr(ex, k, v)
+    if hasattr(ex, "build_model"):
+        build = ex.build_model
+        monkeypatch.setattr(ex, "build_model",
+                            lambda cfg, device: build(cfg, "cpu").to(device))
+    on_card = ex.main([])
+    card = capsys.readouterr().out
+    on_cpu = ex.main(["--device", "cpu"])
+    cpu = capsys.readouterr().out
+    if name == "train_gnn_trimmed":
+        got = np.array([h["loss"] for h in on_card[2]])
+        want = np.array([h["loss"] for h in on_cpu[2]])
+        np.testing.assert_allclose(got, want, rtol=1e-3)
+        assert _lines(card)[:2] == _lines(cpu)[:2]
+    else:
+        assert _lines(card) == _lines(cpu)
+
+
+def test_serve_recsys_twin_on_card_matches_cpu(cuda, monkeypatch, capsys):
+    ex = _example("serve_recsys")
+    monkeypatch.setattr(ex, "CANDIDATES", 20_000)
+    weights = {}
+
+    def build(cfg, device):
+        # one set of weights, drawn on the CPU, for both runs
+        if not weights:
+            weights["m"] = ex.WideDeep(cfg, device="cpu",
+                                       generator=torch.Generator()
+                                       .manual_seed(0))
+        return weights["m"].to(device)
+
+    monkeypatch.setattr(ex, "build_model", build)
+    scores, vals, idx = ex.main([])
+    cpu_scores, cpu_vals, cpu_idx = ex.main(["--device", "cpu"])
+    scale = float(cpu_scores.abs().max())
+    assert float((scores.cpu() - cpu_scores).abs().max()) <= 1e-5 * scale
+    assert float((vals.cpu() - cpu_vals).abs().max()) <= \
+        1e-5 * float(cpu_vals.abs().max())
+
+
+def test_meta_flash_launch_equals_the_cards(cuda):
+    """The flash launch the dry-run captures on meta tensors at the
+    prefill shape (qwen3-1.7b, 8 x 2048, the (B, S, H, D) -> (B, H, S, D)
+    views) is the launch the wrapper makes on the card."""
+    from repro_torch.analysis.capture import capture_kernel
+    b, s, hq, hkv, d = 8, 2048, 16, 8, 128
+
+    def qkv(device):
+        return [torch.zeros(b, s, h, d, dtype=torch.bfloat16,
+                            device=device).transpose(1, 2)
+                for h in (hq, hkv, hkv)]
+
+    meta = capture_kernel(fa.flash_attention, *qkv("meta"), causal=True)
+    seen, real = [], _build.launch
+
+    def spy(spec, entry, *args):
+        seen.append(spec)
+        return real(spec, entry, *args)
+
+    _build.launch = spy
+    try:
+        fa.flash_attention(*qkv(cuda), causal=True)
+        torch.cuda.synchronize()
+    finally:
+        _build.launch = real
+
+    def key(spec):
+        return (spec.library, spec.kernel, spec.grid, spec.block, spec.smem)
+
+    assert [key(x) for x in meta] == [key(x) for x in seen]
+    assert meta[0].kernel == "flash_fwd_wgmma"

@@ -3,9 +3,11 @@
 Each app runs on a small named graph (``BA``, and ``chain`` for the
 stream) through ``main`` with ``--device cpu``, next to the reference's
 own ``run_*`` function on the same graph; the printed lines must carry the
-same fields with the same values once the timings are cut out.  Every
-flag whose plane is not ported yet raises and names its ROADMAP item, on
-every app but ``check``, which runs the static-analysis plane.
+same fields with the same values once the timings are cut out.
+``--backend sharded`` is not ported yet and raises naming ROADMAP A6, with
+``--dryrun`` too; ``--dryrun`` alone sizes the production graph for one
+card on any app (``tests/test_torch_dryrun.py`` holds its bytes against
+real engines).
 """
 import os
 import subprocess
@@ -55,13 +57,25 @@ def test_cli_app_matches_reference(app, graph, argv, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--dryrun"], "A11"),
-    (["--app", "scc", "--dryrun"], "A11"),
     (["--backend", "sharded"], "A6"),
+    (["--dryrun", "--backend", "sharded"], "A6"),
 ])
 def test_cli_unported_flags_raise(argv, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         ttrim.main([*argv, "--graph", "chain", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("argv", [["--dryrun"], ["--app", "scc", "--dryrun"]])
+def test_cli_dryrun_sizes_the_production_graph(argv, capsys):
+    fp = ttrim.main([*argv, "--graph", "chain", "--device", "cpu"])
+    first, second = capsys.readouterr().out.strip().splitlines()
+    assert first.startswith("[trim-dryrun] ac6/dense on one H100 ")
+    assert (f"per-device args {sum(fp['held'].values()) / 2**20:.1f} MiB, "
+            f"temps {sum(fp['run'].values()) / 2**20:.1f} MiB, all-gather "
+            "sites 0") in first
+    assert second == ("  graph: n=64,000,000 m=512,000,000 -> 64,000,000 "
+                      "vertices/device; status all_gather 7.6 MiB per round "
+                      "once sharded (ROADMAP A6)")
 
 
 def test_cli_defaults_to_the_card():

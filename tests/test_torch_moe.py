@@ -405,6 +405,48 @@ def test_serving_matches_reference(arch, dt, monkeypatch):
                                       want[first, 0])
 
 
+@pytest.mark.parametrize("floor", [2, 16])
+def test_capacity_floor_flag_matches_reference(floor, monkeypatch):
+    """``perf_flags.FLAGS.moe_decode_capacity_floor`` set in both
+    packages: ``moe_capacity`` follows the reference's rule, and a reduced
+    arctic in f32 serves 4 x 16 prompt tokens and 4 decode steps (a
+    floor of 2 drops decode assignments, 16 keeps them) with the
+    reference's logits to 1e-4 and its tokens."""
+    from repro.launch import perf_flags as jflags
+    from repro_torch.launch import perf_flags
+    monkeypatch.setattr(jflags, "FLAGS", jflags.PerfFlags(
+        moe_decode_capacity_floor=floor))
+    monkeypatch.setattr(perf_flags, "FLAGS", perf_flags.PerfFlags(
+        moe_decode_capacity_floor=floor))
+    rec = _Routing(monkeypatch)
+    jm, params, tm = _pair("arctic-480b", "f32")
+    cfg = tm.cfg
+    for t in (1, 2, 4, 8, 64, 1024):
+        want = max(int(cfg.capacity_factor * t * cfg.top_k
+                       / cfg.n_experts), min(t * cfg.top_k, floor), 1)
+        assert layers.moe_capacity(cfg, t) == want
+    b, s, gen = 4, 16, 4
+    prompts = np.random.default_rng(0).integers(0, jm.cfg.vocab, (b, s))
+    want, jlogits = _reference_serve(jm, params, prompts.astype(np.int32),
+                                     gen)
+    tlog, cache = tm.prefill(torch.as_tensor(prompts), cache_len=s + gen)
+    steps = [tlog.numpy()]
+    for i in range(gen):
+        tlog, cache = tm.decode_step(cache, torch.tensor(
+            want[:, i:i + 1], dtype=torch.long), s + i)
+        steps.append(tlog.numpy())
+    calls = rec.calls()
+    clean, flips = _replay(cfg, calls, b, s, gen)
+    assert clean.all() and not flips
+    dropped = any(not _dispatch(g, cfg)[1].all()
+                  for _, g in calls[cfg.n_layers:])
+    assert dropped == (floor == 2)
+    for got, ref in zip(steps, jlogits):
+        np.testing.assert_allclose(got, ref, atol=TOL["f32"],
+                                   rtol=TOL["f32"])
+        np.testing.assert_array_equal(got.argmax(-1), ref.argmax(-1))
+
+
 # --------------------------------------------------------------- training
 
 
