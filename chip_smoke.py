@@ -297,7 +297,7 @@ non-zero and prints no result line):
    1e-4 relative, gradients 1e-3 of each largest entry).  ``--profile``
    adds arctic's prefill and one decode step to phase 7, after this
    phase.
-20. (last) the example twins and the dry-run tools: (a) the four twins
+20. the example twins and the dry-run tools: (a) the four twins
    of ``examples/`` (``examples/torch/``: quickstart, scc_decomposition,
    serve_recsys, train_gnn_trimmed) in-process on the card at the
    reference's sizes, the launch counts set to 0 just before and read
@@ -322,6 +322,22 @@ non-zero and prints no result line):
    reduced arctic decode in f32 at capacity floor 2
    (``perf_flags.FLAGS.moe_decode_capacity_floor``) on the card against
    the same calls on the CPU, to 1e-3 of the largest logit.
+21. (last) sharded trimming (``core.distributed``) as one NCCL rank, the
+   card's whole world (NCCL takes one rank a card): (a) a one-rank NCCL
+   group over a ``FileStore`` in a temporary directory; on phase 3's RMAT
+   scale-22 graph (kept on the host since phase 19 freed the card)
+   sharded ac3, ac4 (``unmasked``), ac6 and packed ac6 (each engine keeps
+   the graph on the host and moves only its block to the card), each status and
+   ``rounds`` equal to the dense backend's on the card, AC-3's and AC-6's
+   rank edges equal to the dense totals, AC-4's to the in-degrees of the
+   trimmed vertices (the Gᵀ entries its body scans); per method the wall
+   ms a run (median of SHARDED_REPS), the collective calls and bytes a
+   run, and the collectives' share of the device time in one profiled
+   run; no port kernel launches (the bodies use the plain probe, as the
+   reference's do).  (b) ``examples/torch/distributed_trim.py`` in-process
+   on the group.  (c) ``python -m repro_torch.launch.trim --backend
+   sharded`` in a subprocess, a rank of its own world.  (d) the group is
+   destroyed.
 
 The last two lines are the kernel table and the result, as JSON.  Needs
 one CUDA device; imports nothing of JAX or of the JAX package.
@@ -565,6 +581,13 @@ TRIM_RUN_BAND = (0.9, 1.1)
 DRYRUN_UNRUN = ("deepseek-7b", "minitron-4b")
 # (e) a reduced-arctic MoE decode at this capacity floor (the default is 8)
 MOE_FLOOR = dict(floor=2, batch=4, prompt=16, steps=4, tol=1e-3)
+# phase 21: the sharded methods (name, plan kwargs), wall-clock repeats
+SHARDED = (("ac3", dict(method="ac3")),
+           ("ac4", dict(method="ac4", unmasked=True)),
+           ("ac6", dict(method="ac6")),
+           ("ac6_packed", dict(method="ac6", packed=True)))
+SHARDED_REPS = 3
+SHARDED_CLI_TIMEOUT_S = 180
 SYNC_WARNING = "called a synchronizing CUDA operation"
 INF_NOTE = (" (overflows float32: the reference's clip scales every update "
             "to 0, so the parameters stay as they are; ROADMAP C)")
@@ -5046,6 +5069,137 @@ def dryrun_phase(dev):
     return launches
 
 
+# -- phase 21: sharded trimming as one NCCL rank ---------------------------------
+
+def collective_share(prof) -> tuple:
+    """``(collective device us, all device us, names)`` of a
+    :func:`profiled` block: the device items launched under a CPU op of
+    ``torch.distributed`` (a name holding "nccl" or "c10d"), outermost
+    ops only, against every device item."""
+    import torch
+
+    def coll(e):
+        return any(k in e.name.lower() for k in ("nccl", "c10d"))
+    cpu = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CPU and coll(e)
+           and not (e.cpu_parent is not None and coll(e.cpu_parent))]
+    busy = sum(e.device_time for e in device_events(prof))
+    return (sum(e.device_time_total for e in cpu), busy,
+            sorted({e.name for e in cpu}))
+
+
+def sharded_phase(dev, g_host, gt_host):
+    """Phase 21 (a)-(d): see the module docstring.  The dense runs take
+    the graph on the card, the sharded engines its host copy, which they
+    keep on the host (only the rank's block goes to the card)."""
+    import torch
+    import torch.distributed as tdist
+
+    from repro_torch.core import distributed as dist
+    from repro_torch.core import plan
+    from repro_torch.kernels import ops
+    from repro_torch.obs import array_nbytes
+    t0 = time.perf_counter()
+    g, gt = g_host.to(dev), gt_host.to(dev)
+    deg_in = torch.bincount(g.indices.long(), minlength=g.n)
+    with dist.process_group(dev) as rank_dev:
+        backend = str(tdist.get_backend()).lower()
+        check("nccl" in backend and tdist.get_world_size() == 1,
+              f"(a) the group is {backend} of {tdist.get_world_size()}")
+        launches = {}
+        for name, kw in SHARDED:
+            dense = plan(g, method=kw["method"], transpose=gt,
+                         device=rank_dev).run()
+            eng = plan(g_host, backend="sharded", transpose=gt_host,
+                       device=rank_dev, **kw)
+            ops.reset_launches()       # the dense run's launches stay out
+            t1 = time.perf_counter()
+            res = eng.run()
+            first = (time.perf_counter() - t1) * 1e3
+            check(eng.graph.indices.device.type == "cpu"
+                  and all(t.device.type == "cuda"
+                          for t in eng._shard["operands"]),
+                  f"(a) sharded {name}: the graph left the host or the "
+                  f"block is not on the card")
+            check(torch.equal(res.status, dense.status),
+                  f"(a) sharded {name}: status differs from dense")
+            check(res.rounds == dense.rounds, f"(a) sharded {name}: rounds "
+                  f"{res.rounds} != dense {dense.rounds}")
+            if kw["method"] == "ac4":
+                want = int(deg_in[dense.status == 0].sum())
+            else:
+                want = dense.edges_traversed
+            check(res.edges_traversed == want, f"(a) sharded {name}: "
+                  f"edges {res.edges_traversed} != {want}")
+            walls = []
+            for _ in range(SHARDED_REPS):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                eng.run().materialize()
+                walls.append((time.perf_counter() - t1) * 1e3)
+            calls = eng.last_collectives
+            with profiled() as prof:
+                t1 = time.perf_counter()
+                eng.run().materialize()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t1) * 1e3
+            syncs = card_syncs(lambda: eng.run().materialize())
+            for k, v in ops.LAUNCHES.items():
+                launches[k] = launches.get(k, 0) + v
+            coll_us, busy_us, names = collective_share(prof)
+            share = coll_us / busy_us if busy_us else float("nan")
+            by_name = {}
+            for e in device_events(prof):
+                tot, cnt = by_name.get(e.name, (0.0, 0))
+                by_name[e.name] = (tot + e.device_time / 1e3, cnt + 1)
+            top = "; ".join(f"{k[:40]} {t:.2f}ms x{c}" for k, (t, c) in
+                            sorted(by_name.items(), key=lambda kv: -kv[1][0])
+                            [:3])
+            log(f"# phase 21 (a): sharded {name}: rounds={res.rounds} "
+                f"edges={res.edges_traversed} (dense {dense.edges_traversed})"
+                f" max|Qp|={res.max_frontier} trimmed={res.n_trimmed}; "
+                f"held on the card {array_nbytes(eng._shard['operands']):,}"
+                f" B (on the host {array_nbytes(eng.graph):,}); wall "
+                f"ms first={first:.1f} then "
+                f"{', '.join(f'{w:.1f}' for w in walls)} (median "
+                f"{sorted(walls)[len(walls) // 2]:.1f}); collectives a run "
+                + ", ".join(f"{op} {c} calls {b:,} B"
+                            for op, (c, b) in calls.items())
+                + f"; profiled run: wall {wall:.1f} ms, device busy "
+                  f"{busy_us / 1e3:.3f} ms (idle share "
+                  f"{1 - busy_us / 1e3 / wall:.3f}), {syncs} host syncs, "
+                  f"collectives {coll_us / 1e3:.3f} ms ({share:.4f}) under "
+                  f"{names}; top items: {top}")
+        check(not any(launches.values()),
+              f"(a) the sharded path launched a port kernel: {launches}")
+        log(f"# phase 21 (a): launches {launches} (the bodies probe with "
+            f"the plain probe, as the reference's do)")
+        t1 = time.perf_counter()
+        out = example("distributed_trim").main([])
+        check(out is not None and out["trimmed"] == 20_000,
+              f"(b) the example twin: {out}")
+        log(f"# phase 21 (b): examples/torch/distributed_trim.py on one "
+            f"NCCL rank: {out} in {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK"):
+            env.pop(k, None)
+        cli = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.trim", "--graph",
+             "RMAT", "--method", "ac6", "--backend", "sharded"], env=env,
+            cwd=ROOT, capture_output=True, text=True,
+            timeout=SHARDED_CLI_TIMEOUT_S)
+        line = [x for x in cli.stdout.splitlines() if x.startswith("[trim]")]
+        check(cli.returncode == 0 and len(line) == 1
+              and "backend=sharded" in line[0],
+              f"(c) launch.trim --backend sharded exited {cli.returncode}:"
+              f"\n{cli.stdout[-2000:]}\n{cli.stderr[-2000:]}")
+        log(f"# phase 21 (c): {line[0]} ({time.perf_counter() - t1:.1f} s "
+            f"in its process)")
+    check(not tdist.is_initialized(), "(d) the group was not destroyed")
+    log(f"# phase 21: done in {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -5195,6 +5349,7 @@ def main() -> int:
     if args.profile:
         profile_phase(dev, g, gt, stream, feed, lm, profiled)
         del lm, profiled
+    g_host, gt_host = g.to("cpu"), gt.to("cpu")     # for phase 21
     del g, gt, stream, feed             # phase 19 wants the card's memory
     torch.cuda.empty_cache()
     moe_lm, moe_launches = moe_phase(dev)
@@ -5203,6 +5358,8 @@ def main() -> int:
     del moe_lm
     torch.cuda.empty_cache()
     dryrun_phase(dev)
+    sharded_phase(dev, g_host, gt_host)
+    del g_host, gt_host
 
     path_launches = {**{n: trim_launches for n in TRIM_PATH},
                      **{n: scc_launches for n in SCC_PEEL_PATH},

@@ -80,4 +80,5 @@ def _run_ac3(graph_arrays, transpose_arrays, worker_ids, workers, active, *,
 
 register_kernel(KernelSpec(
     name="ac3", run=_run_ac3, needs_transpose=False,
-    supports_windowed=True, supports_frontier=False))
+    supports_windowed=True, supports_frontier=False,
+    sharded_method="ac3"))

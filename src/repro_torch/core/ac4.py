@@ -140,7 +140,7 @@ def _run_ac4(graph_arrays, transpose_arrays, worker_ids, workers, active, *,
 
 register_kernel(KernelSpec(
     name="ac4", run=partial(_run_ac4, count_init_scan=True),
-    needs_transpose=True, supports_windowed=False))
+    needs_transpose=True, supports_windowed=False, sharded_method="ac4"))
 register_kernel(KernelSpec(
     name="ac4*", run=partial(_run_ac4, count_init_scan=False),
-    needs_transpose=True, supports_windowed=False))
+    needs_transpose=True, supports_windowed=False, sharded_method="ac4"))

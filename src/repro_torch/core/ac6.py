@@ -181,4 +181,4 @@ def _run_ac6(graph_arrays, transpose_arrays, worker_ids, workers, active, *,
 
 register_kernel(KernelSpec(
     name="ac6", run=_run_ac6, needs_transpose=False,
-    supports_windowed=True))
+    supports_windowed=True, sharded_method="ac6"))

@@ -12,7 +12,10 @@ Backends:
     "windowed" — window-batched probing through the ``first_live_scan``
                  Hopper kernel (``common.probe_first_live_windowed``);
                  AC-4/AC-4* never probe and run as on "dense"
-    "sharded"  — not ported yet (ROADMAP A6): raises
+    "sharded"  — one rank of a ``torch.distributed`` group per device,
+                 each trimming its row block (``core.distributed``): NCCL
+                 for a CUDA device, gloo for the CPU; the graph stays on
+                 the host and only the rank's block goes to the device
 
 Example::
 
@@ -21,10 +24,18 @@ Example::
     results = engine.run_batch(stacked_masks)     # one counted dispatch
 
 Each fixpoint is driven from the host round by round (see ``ac3.py``,
-``ac4.py``, ``ac6.py`` for where each syncs); a ``run()`` still counts
-one dispatch, and a ``run_batch()`` one dispatch for all its rows.
+``ac4.py``, ``ac6.py`` and ``distributed.py`` for where each syncs); a
+``run()`` still counts one dispatch, and a ``run_batch()`` one dispatch
+for all its rows.
+
+Configuration errors fail at ``plan()`` time, as the reference's do: a
+(method, backend) pair that could not run the calls the caller may make
+— e.g. sharded AC-4, whose masked runs would need a global edge pass —
+raises at once.
 """
 from __future__ import annotations
+
+from functools import partial
 
 import numpy as np
 import torch
@@ -33,6 +44,7 @@ from .. import obs
 from . import ac3 as _ac3  # noqa: F401  (imports register the kernels)
 from . import ac4 as _ac4  # noqa: F401
 from . import ac6 as _ac6  # noqa: F401
+from . import distributed as dist
 from .common import frontier_plan
 from .enginebase import EngineBase
 from .graph import CSRGraph, TrimResult, resolve_device, row_ids, worker_of
@@ -43,12 +55,14 @@ BACKENDS = ("dense", "windowed", "sharded")
 
 def plan(graph: CSRGraph, method: str = "ac6", backend: str = "dense", *,
          workers: int = 1, chunk: int = 4096, window: int = 16,
-         transpose: CSRGraph | None = None, unmasked: bool = False,
+         transpose: CSRGraph | None = None, group=None,
+         packed: bool = False, unmasked: bool = False,
          frontier: str = "auto", instrument: bool = False,
          max_rounds: int | None = None, device="cuda") -> "TrimEngine":
     """Build a :class:`TrimEngine` for ``graph`` on ``device`` (the graph
-    and a pre-seeded ``transpose`` are moved there if they lie elsewhere;
-    a missing CUDA device raises).
+    and a pre-seeded ``transpose`` are moved there if they lie elsewhere,
+    or to the host for the sharded backend; a missing CUDA device
+    raises).
 
     ``frontier`` selects the sparse-frontier substrate: ``"auto"`` (the
     default) lets each round choose between the dense body and a
@@ -58,17 +72,25 @@ def plan(graph: CSRGraph, method: str = "ac6", backend: str = "dense", *,
     to dense and rejects ``"sparse"``.
 
     ``unmasked=True`` declares that ``run`` is never given an ``active``
-    mask.  ``instrument=True`` (DESIGN.md §11) attaches a
+    mask; sharded AC-4 and AC-4* require it.  ``group`` and ``packed``
+    configure the sharded backend: the ``torch.distributed`` group
+    (default: the default group, which the caller initialises —
+    ``core.distributed.process_group`` or ``torchrun``; its backend must
+    be NCCL for a CUDA device, gloo for the CPU) and, for AC-6, a packed
+    bitmap in place of the bool status in the per-round all-gather.  The
+    sharded backend degrades ``frontier="auto"`` to dense and rejects
+    ``"sparse"``.  ``instrument=True`` (DESIGN.md §11) attaches a
     :class:`~repro_torch.obs.RoundStats` to every result
     (``result.round_stats``): per-round buffers of ``max_rounds`` slots
     (pow2-padded; default ``obs.round_capacity(n)``), the tail of a longer
     run folded into the last slot.  It adds no host sync.
     ``instrument=False`` ignores ``max_rounds`` and records nothing.
-    ``backend="sharded"`` is not ported yet and raises
-    :class:`NotImplementedError`.
+    A sharded run's stats are ``(P, R)``, one row a rank, and its
+    ``per_worker_edges`` the (P,) ranks' traversed edges.
     """
     return TrimEngine(graph, method=method, backend=backend, workers=workers,
                       chunk=chunk, window=window, transpose=transpose,
+                      group=group, packed=packed,
                       unmasked=unmasked, frontier=frontier,
                       instrument=instrument, max_rounds=max_rounds,
                       device=device)
@@ -84,32 +106,58 @@ class TrimEngine(EngineBase):
     family = "trim"
 
     def __init__(self, graph, *, method, backend, workers, chunk, window,
-                 transpose, unmasked=False, frontier="auto",
-                 instrument=False, max_rounds=None, device="cuda"):
+                 transpose, group=None, packed=False, unmasked=False,
+                 frontier="auto", instrument=False, max_rounds=None,
+                 device="cuda"):
         self.spec = get_kernel(method)   # raises on unknown method
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; expected one of "
                              f"{BACKENDS}")
-        if backend == "sharded":
-            raise NotImplementedError(
-                "backend='sharded' (torch.distributed) is not ported yet: "
-                "ROADMAP A6")
         if frontier == "sparse" and not self.spec.supports_frontier:
             raise ValueError(
                 f"method {method!r} has no sparse-frontier formulation "
                 "(it re-checks every live vertex each round); use "
                 "frontier='auto'/'dense' or a counter/support method")
-        if not self.spec.supports_frontier:
+        if frontier == "sparse" and backend == "sharded":
+            raise ValueError(
+                "frontier='sparse' is single-device (compaction is a "
+                "global scan); use the dense or windowed backend, or "
+                "frontier='auto' which degrades to dense when sharded")
+        if not self.spec.supports_frontier or backend == "sharded":
             frontier = "dense"  # silent degrade for "auto"
+        if backend == "sharded" and self.spec.sharded_method is None:
+            raise ValueError(f"method {method!r} has no sharded kernels")
+        if backend == "sharded" and self.spec.sharded_method == "ac4" \
+                and not unmasked:
+            raise ValueError(
+                f"method {method!r} with backend='sharded' cannot trim "
+                "induced subgraphs (active masks): AC-4's counter "
+                "initialization needs a global edge pass. Use "
+                "method='ac3'/'ac6' with backend='sharded', pick the "
+                "'dense'/'windowed' backend for AC-4, or pass "
+                "unmasked=True to promise that run() is never called "
+                "with an active mask")
+        if packed and (backend != "sharded"
+                       or self.spec.sharded_method != "ac6"):
+            raise ValueError(
+                "packed=True (uint32-bitmap status exchange) only applies "
+                "to method='ac6' with backend='sharded'")
         dev = resolve_device(device)
-        super().__init__(_to(graph, dev), transpose=_to(transpose, dev))
+        # a sharded rank moves only its block to the device: the graph
+        # and Gᵀ stay on the host, where the block is cut from them
+        home = torch.device("cpu") if backend == "sharded" else dev
+        super().__init__(_to(graph, home), transpose=_to(transpose, home))
         self.device = dev
+        self._home = home
         self.method = method
         self.backend = backend
         self.workers = workers
         self.chunk = chunk
         self.window = window
+        self.group = group
+        self.packed = packed
         self.unmasked = unmasked
+        self.last_collectives = None
         self.fplan = frontier_plan(frontier, graph.n, graph.m)
         self._plan_stats(instrument, max_rounds, graph.n)
         self._invalidate_caches()
@@ -124,27 +172,42 @@ class TrimEngine(EngineBase):
 
     def _plan_kwargs(self):
         """The reference's plan kwargs without ``use_kernel`` (the device
-        is the port's only switch); ``packed`` is the sharded backend's
-        (ROADMAP A6), so it keeps its default."""
+        is the port's only switch).  No world size is stored, as in the
+        reference: a sharded plan restores on whatever default group the
+        restoring process has."""
+        if self.group is not None:
+            raise ValueError(
+                "sharded trim engines with an explicit process group are "
+                "not checkpointable (groups do not serialize); checkpoint "
+                "at the region level instead")
         return {"method": self.method, "backend": self.backend,
                 "workers": self.workers, "chunk": self.chunk,
-                "window": self.window, "packed": False,
+                "window": self.window, "packed": self.packed,
                 "unmasked": self.unmasked, "frontier": self.fplan.mode,
                 "instrument": self.instrument,
                 "max_rounds": self.max_rounds if self.instrument else None}
 
+    def _graph_from(self, tree, prefix):
+        # a restored graph goes where __init__ keeps it
+        return CSRGraph.from_numpy(tree[f"{prefix}_indptr"],
+                                   tree[f"{prefix}_indices"], self._home)
+
     def _invalidate_caches(self):
         self._tarrs = None
         self._worker_ids = None
+        self._shard = None
 
     def nbytes_breakdown(self):
         # _tarrs[0:2] alias the cached transpose (already accounted by the
-        # base); the row ids and the worker map are new bytes
+        # base); the row ids, the worker map and a rank's block are new
+        # bytes
         out = super().nbytes_breakdown()
         if self._tarrs is not None:
             out["row_ids"] = obs.array_nbytes(self._tarrs[2])
         if self._worker_ids is not None:
             out["worker_ids"] = obs.array_nbytes(self._worker_ids)
+        if self._shard is not None:
+            out["shard_operands"] = obs.array_nbytes(self._shard["operands"])
         return out
 
     # -- cached resources --------------------------------------------------
@@ -211,6 +274,8 @@ class TrimEngine(EngineBase):
                              f"{tuple(act.shape)}")
         if n == 0 or m == 0:
             return self._degenerate(act, counters)
+        if self.backend == "sharded":
+            return self._run_sharded(act, counters)
         if act is None:
             act = torch.ones((n,), dtype=torch.bool, device=self.device)
         bufs = self._buffers()
@@ -234,8 +299,12 @@ class TrimEngine(EngineBase):
         the plan's frontier (the reference vmaps them and pins the dense
         rounds; the results are identical either way, and so are the
         stats but for ``r_sparse``, which records the rounds these rows
-        compacted).
+        compacted).  The sharded backend raises, as the reference's does.
         """
+        if self.backend == "sharded":
+            raise NotImplementedError(
+                "run_batch is a single-device batch; use the dense or "
+                "windowed backend (shard the batch at the caller instead)")
         n, m = self.graph.n, self.graph.m
         masks = self._mask(active_masks)
         if masks.dim() != 2 or masks.shape[1] != n:
@@ -302,7 +371,9 @@ class TrimEngine(EngineBase):
         the result has the kernel path's dtypes and device."""
         n = self.graph.n
         i32 = dict(dtype=torch.int32, device=self.device)
-        pw = torch.zeros((self.workers,), **i32) if counters else None
+        npw = (self._num_shards() if self.backend == "sharded"
+               else self.workers)
+        pw = torch.zeros((npw,), **i32) if counters else None
 
         def stats_for(mask, rounds):
             if not self.instrument:
@@ -332,6 +403,89 @@ class TrimEngine(EngineBase):
                                         if counters else None),
                           per_worker_edges=pw,
                           round_stats=stats_for(act, rounds))
+
+    # -- sharded backend ---------------------------------------------------
+    def _num_shards(self):
+        if self._shard is not None:
+            return self._shard["num"]
+        return dist.ShardComm(self.group).size
+
+    def _ensure_sharded(self):
+        """This rank's block of the partition, its comm and the body kind,
+        built once per engine: the rank cuts its own block only, from the
+        host CSR (AC-4's from Gᵀ, the engine's cached transpose, also on
+        the host), and moves that block alone to the device."""
+        if self._shard is not None:
+            return self._shard
+        comm = dist.ShardComm(self.group, device=self.device)
+        kind = self.spec.sharded_method
+        if kind == "ac4":
+            arrs, n_pad = dist.build_ac4_sharded(
+                self.graph, comm.size, transpose=self.transpose,
+                rank=comm.rank)
+        else:
+            lip, lix, n_pad = dist.rank_partition(self.graph, comm.size,
+                                                  comm.rank)
+            arrs = (lip, lix)
+        self._shard = dict(
+            comm=comm, num=comm.size, rank=comm.rank, n_pad=n_pad, kind=kind,
+            operands=tuple(torch.from_numpy(a).to(self.device)
+                           for a in arrs))
+        return self._shard
+
+    def _run_sharded(self, act, counters):
+        sh = self._ensure_sharded()
+        n, comm = self.graph.n, sh["comm"]
+        args = sh["operands"]
+        if sh["kind"] != "ac4":
+            # plan() refuses masks for AC-4, so only AC-3/AC-6 take one
+            nl = sh["n_pad"] // sh["num"]
+            lo = min(sh["rank"] * nl, n)
+            hi = min(lo + nl, n)
+            block = torch.zeros((nl,), dtype=torch.bool, device=self.device)
+            block[:hi - lo] = True if act is None else act[lo:hi]
+            args = (*args, block)
+        bufs = (obs.stats_init(self.max_rounds, dist.STAT_NAMES)
+                if self.instrument else None)
+        before = comm.counts()
+        status, pw, rounds, max_qp, stats = self._dispatch(
+            partial(dist.run_rank, packed=self.packed, stats=bufs),
+            sh["kind"], comm, args)
+        after = comm.counts()
+        self.last_collectives = {
+            op: (after[op][0] - before[op][0], after[op][1] - before[op][1])
+            for op in dist.OPS}
+        self._publish_collectives()
+        rs = None
+        if stats is not None:
+            # the (P, R) per-rank round buffers: per-worker per-round
+            # stats, the paper's work-skew quantity
+            rs = obs.RoundStats(rounds, stats, per_worker=pw,
+                                max_rounds=self.max_rounds)
+            self._publish_round_stats(rs)
+        return TrimResult(
+            status=status[:n].to(torch.int32), rounds=rounds,
+            max_frontier=max_qp if counters else None,
+            per_worker_edges=pw if counters else None, round_stats=rs)
+
+    def _publish_collectives(self) -> None:
+        """Fold the last run's collective calls and bytes
+        (``last_collectives``) into the MetricsPlane (enabled plane
+        only)."""
+        plane = obs.get_plane()
+        if not plane.enabled:
+            return
+        calls = plane.counter(
+            "repro_collective_calls",
+            "collective calls of the sharded backend's runs, by op")
+        nbytes = plane.counter(
+            "repro_collective_bytes",
+            "bytes of the sharded backend's collectives, by op (the "
+            "gathered buffer of an all-gather, the input of a "
+            "reduce-scatter, 4 for an any)")
+        for op, (c, b) in self.last_collectives.items():
+            calls.inc(c, family=self.family, op=op)
+            nbytes.inc(b, family=self.family, op=op)
 
 
 __all__ = ["plan", "TrimEngine", "BACKENDS", "available_methods"]

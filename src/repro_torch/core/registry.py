@@ -18,7 +18,7 @@ with ``graph_arrays = (indptr, indices)``, ``transpose_arrays =
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +33,9 @@ class KernelSpec:
     supports_frontier: honors the sparse-frontier substrate; AC-3 has no
                        sparse set to compact, so ``frontier="sparse"``
                        raises for it and ``"auto"`` degrades to dense
+    sharded_method:    key into ``core.distributed``'s rank bodies
+                       (``"ac3"``, ``"ac4"`` for AC-4 and AC-4*, ``"ac6"``),
+                       or None if the method has no sharded form
     """
 
     name: str
@@ -40,6 +43,7 @@ class KernelSpec:
     needs_transpose: bool = False
     supports_windowed: bool = False
     supports_frontier: bool = True
+    sharded_method: Optional[str] = None
 
 
 _REGISTRY: dict[tuple[str, str], KernelSpec] = {}

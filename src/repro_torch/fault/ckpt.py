@@ -15,8 +15,8 @@ checkpoint, on an explicit device, with :func:`restore_engine`.
 A checkpoint the reference wrote restores here and the other way round:
 the tree names and metadata are the reference's.  The reference's plan
 kwargs carry ``use_kernel``, which the port does not have (the tensor's
-device picks the kernel), so it is ignored; ``packed`` is the sharded
-backend's, and a sharded plan is refused (ROADMAP A6).
+device picks the kernel), so it is ignored.  A sharded plan restores on
+the restoring process's default group, whatever its world size.
 """
 from __future__ import annotations
 
@@ -78,15 +78,12 @@ def save_engine(ckpt_dir: str, engine, step: int, *,
 
 def _port_kwargs(kwargs: dict) -> dict:
     """A checkpoint's plan kwargs as the port's ``plan*`` functions take
-    them: ``use_kernel`` dropped, ``packed`` kept out (it is False on
-    every plan the port can build), a sharded plan refused."""
+    them: ``use_kernel`` dropped.  A sharded plan re-plans on the
+    restoring process's default group: the checkpoint stores no world
+    size (nor does the reference's), so a plan saved at one world size
+    restores at another."""
     kwargs = dict(kwargs)
     kwargs.pop("use_kernel", None)
-    if kwargs.get("backend") == "sharded" or kwargs.pop("packed", False):
-        raise ValueError(
-            "a sharded plan's checkpoint cannot be restored: the sharded "
-            "backend is not ported yet (ROADMAP A6); checkpoint at the "
-            "region level instead")
     return kwargs
 
 

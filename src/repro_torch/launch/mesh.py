@@ -7,8 +7,11 @@ that card's datasheet figures (the ones PERF.md's bound columns use);
 :func:`hbm_bytes` reads the memory of the card in this process when one
 is present.  The v5e constants are not carried over.
 
-Meshes are ``torch.distributed`` process groups in the port, and they
-are not ported yet (ROADMAP A6): :func:`make_production_mesh` raises.
+Meshes are ``torch.distributed`` process groups in the port.  The
+sharded trimming backend runs on them (``core.distributed``: one rank a
+card, NCCL; ``torchrun`` starts one process a card).  The LM and GNN
+mesh of the reference's dry-run, :func:`make_production_mesh`, is not
+ported yet (ROADMAP A6) and raises.
 """
 from __future__ import annotations
 
@@ -39,8 +42,9 @@ def hbm_bytes() -> int:
 
 
 def n_devices() -> int:
-    """Devices a cell runs on: one card (the sharded cells are ROADMAP
-    A6)."""
+    """Devices a dry-run cell runs on: one card.  The LM, GNN and
+    recsys cells are not sharded yet (ROADMAP A6); the sharded trim
+    backend's size is the process group's, not a cell's."""
     return 1
 
 

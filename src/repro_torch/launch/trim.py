@@ -4,12 +4,15 @@ trimming and k-core peeling on one named graph (PyTorch port of
 
     python -m repro_torch.launch.trim --graph BA --method ac6
     python -m repro_torch.launch.trim --graph BA --backend windowed
+    python -m repro_torch.launch.trim --graph BA --backend sharded
+    torchrun --nproc-per-node 4 -m repro_torch.launch.trim --backend sharded
     python -m repro_torch.launch.trim --app scc --graph BA
     python -m repro_torch.launch.trim --app stream --graph BA
     python -m repro_torch.launch.trim --app peel --graph BA
     python -m repro_torch.launch.trim --app stream --graph chain --device cpu
     python -m repro_torch.launch.trim --app check --strict
     python -m repro_torch.launch.trim --dryrun --method ac6
+    python -m repro_torch.launch.trim --dryrun --backend sharded
     python -m repro_torch.launch.trim --app scc --graph RMAT \
         --checkpoint-dir ckpt --fault-seed 7 --fault-rate 0.05 --retries 5
 
@@ -33,13 +36,22 @@ state every ``--checkpoint-every`` generations through an async writer,
 and on a ``DeviceFault`` or ``IOFault`` resumes from the latest saved
 generation, at most ``--retries`` times.
 
+``--backend sharded`` runs one rank a process (``core.distributed``):
+under ``torchrun`` each process is a rank of its ``env://`` group, and a
+plain ``python -m`` is a world of one rank over a ``FileStore`` in a
+temporary directory, with no network.  NCCL on a card, gloo with
+``--device cpu``; rank 0 prints the reference's line.  ``--app scc``
+refuses it, as the reference does.
+
 ``--dryrun`` sizes the reference's production graph (n = 64,000,000,
 m = 512,000,000) for one card, with no graph and no card
 (:func:`run_dryrun`): the bytes of every buffer the engine holds and of
 the fixpoint's working set (:func:`trim_footprint`), against the card's
-memory.  ``--backend sharded``, and with it the sharded half of the
-dry-run, is not ported yet and raises :class:`NotImplementedError`
-naming ROADMAP A6.
+memory.  With ``--backend sharded`` it is the twin of the reference's
+512-chip dry-run: one rank of 512 runs its AC-3 or AC-6 body on the
+meta device (:func:`rank_dryrun`) and the per-rank argument and
+temporary bytes, the all-gather sites a round and the status all-gather
+bytes a round are reported.
 """
 from __future__ import annotations
 
@@ -61,10 +73,13 @@ def _sync(device) -> None:
 
 def run_local(graph_name: str, method: str, workers: int,
               backend: str = "dense", device="cuda", instrument=False):
+    """Plan once, run twice (first and steady), print the reference's
+    line; on the sharded backend every rank runs and rank 0 prints."""
     from ..core.engine import plan
     from ..graphs import make
-    g = make(graph_name, device=device)
-    # this entry point never passes active masks
+    # a sharded engine keeps the graph on the host
+    g = make(graph_name, device="cpu" if backend == "sharded" else device)
+    # this entry point never passes active masks (sharded AC-4 needs that)
     engine = plan(g, method=method, backend=backend, workers=workers,
                   unmasked=True, instrument=instrument, device=device)
     t0 = time.time()
@@ -73,6 +88,10 @@ def run_local(graph_name: str, method: str, workers: int,
     t0 = time.time()
     res = engine.run().materialize()
     t_steady = time.time() - t0
+    if backend == "sharded":
+        import torch.distributed as tdist
+        if tdist.get_rank() != 0:
+            return res
     print(f"[trim] {graph_name} n={g.n} m={g.m} method={method} "
           f"backend={backend}: trimmed {res.n_trimmed} "
           f"({res.trimmed_fraction*100:.1f}%) rounds={res.rounds} "
@@ -80,6 +99,17 @@ def run_local(graph_name: str, method: str, workers: int,
           f"first={t_first:.2f}s steady={t_steady*1e3:.1f}ms "
           f"traces={engine.traces}")
     return res
+
+
+def run_sharded(graph_name: str, method: str, workers: int, device="cuda",
+                instrument=False):
+    """:func:`run_local` on the sharded backend, as one rank of the
+    default group (``core.distributed.process_group``: torchrun's, else a
+    world of one)."""
+    from ..core.distributed import process_group
+    with process_group(device) as dev:
+        return run_local(graph_name, method, workers, "sharded",
+                         device=dev, instrument=instrument)
 
 
 def _scc_resuming(g, checkpoint_dir: str, retries: int, **kw):
@@ -231,9 +261,13 @@ def run_peel(graph_name: str, device="cuda", instrument=False):
 DRYRUN_GRAPH = dict(n=64_000_000, m=512_000_000)
 
 
+#: ranks of the reference's production mesh (2 pods x 16 x 16 chips)
+DRYRUN_RANKS = 512
+
+
 def trim_footprint(n: int, m: int, method: str = "ac6",
                    backend: str = "dense", workers: int = 16,
-                   transpose: bool | None = None) -> dict:
+                   transpose: bool | None = None, ranks: int = 1) -> dict:
     """The bytes a trim engine over a graph of ``n`` vertices and ``m``
     edges allocates, from the sizes alone: ``{"held": ..., "run": ...}``.
 
@@ -255,7 +289,20 @@ def trim_footprint(n: int, m: int, method: str = "ac6",
     before it, equalled these counts to 4 bytes a vertex at RMAT scales
     18 and 20; ``chip_smoke.py`` phase 3 holds them at scale 22.
     ``frontier`` is the engines' default "auto" plan
-    (``core.common.frontier_plan``)."""
+    (``core.common.frontier_plan``).
+
+    ``backend="sharded"`` sizes one rank of ``ranks``, as the sharded
+    engine allocates it.  ``held`` is the rank's block on the device
+    (``shard_operands``: the int32 indptr of its ``nl`` rows, the
+    32-aligned ``ceil(n / ranks)``, its edge slots, and AC-4's int32
+    counters); ``host`` is the CSR, and Gᵀ for AC-4, which the engine
+    keeps on the host (``held`` and ``host`` together are
+    ``engine_nbytes``).  The edge slots are the largest block's edges,
+    taken as ``min(m, 2 * ceil(m / ranks))`` (the reference dry-run's
+    twice-balanced assumption, and exact at one rank).  ``run`` is the
+    active block a run makes (AC-3/AC-6) and the peak of the rank's body
+    above its arguments, from running it on the meta device
+    (:func:`rank_dryrun`, whose dict is under ``"rank"``)."""
     from ..core.common import frontier_plan
     from ..core.registry import get_kernel
     spec = get_kernel(method)
@@ -265,6 +312,8 @@ def trim_footprint(n: int, m: int, method: str = "ac6",
         transpose = spec.needs_transpose
     if transpose:
         held["transpose"] = csr
+    if backend == "sharded":
+        return _sharded_footprint(n, m, method, ranks, held)
     if n and m:
         if spec.needs_transpose:
             held["row_ids"] = 4 * m
@@ -283,11 +332,103 @@ def trim_footprint(n: int, m: int, method: str = "ac6",
     return {"held": held, "run": run, "frontier": fplan}
 
 
+def _sharded_footprint(n: int, m: int, method: str, ranks: int,
+                       host: dict) -> dict:
+    """:func:`trim_footprint`'s sharded case; ``host`` is the CSR (and
+    Gᵀ) the rank keeps on the host."""
+    from ..core.common import frontier_plan
+    from ..core.distributed import block_rows
+    nl = block_rows(n, ranks)
+    slots = min(m, 2 * -(-m // ranks))
+    fp = {"held": {}, "host": host, "run": {},
+          "frontier": frontier_plan("dense", n, m)}
+    if n and m:
+        ac4 = method.startswith("ac4")
+        fp["held"]["shard_operands"] = (4 * (nl + 1) + 4 * slots
+                                        + (4 * nl if ac4 else 0))
+        fp["rank"] = rank_dryrun(method, nl, slots, ranks)
+        if not ac4:
+            fp["run"]["active_block"] = nl
+        fp["run"]["rank_body"] = fp["rank"]["temps"]
+    return fp
+
+
+def rank_dryrun(method: str, rows: int, slots: int, ranks: int) -> dict:
+    """One rank's sharded body on the meta device (``core.distributed``'s
+    ``run_rank`` through a ``MetaComm`` of ``ranks``, each probe loop one
+    micro-step), metered by ``lowering.meter`` for one round and for two:
+    the rank's ``rows`` and edge ``slots`` (AC-4: of Gᵀ).  Returns the
+    argument bytes, the temporaries (the peak of a one-round run above
+    the arguments), and each collective's calls and bytes a round (two
+    rounds less one) and in the one-round run."""
+    import torch
+
+    from ..core import distributed as dist
+    from ..core.registry import get_kernel
+    from .lowering import meter
+    kind = get_kernel(method).sharded_method
+
+    def run(extra_rounds: int):
+        meta = dict(device="meta")
+        i32 = dict(dtype=torch.int32, **meta)
+        if kind == "ac4":
+            ops = (torch.empty(rows + 1, **i32), torch.empty(slots, **i32),
+                   torch.empty(rows, **i32))
+            go = (True,) * (1 + extra_rounds)      # the loop's entry test
+        else:
+            ops = (torch.empty(rows + 1, **i32), torch.empty(slots, **i32),
+                   torch.empty(rows, dtype=torch.bool, **meta))
+            go = (True,) * extra_rounds
+        comm = dist.MetaComm(ranks, go=go)
+        with dist.MetaScalars():
+            _, cost = meter(dist.run_rank, kind, comm, ops)
+        return cost, comm.counts()
+
+    one, c1 = run(0)
+    _, c2 = run(1)
+    return {"args": one.argument_bytes,
+            "temps": one.peak_bytes - one.argument_bytes,
+            "per_round": {op: (c2[op][0] - c1[op][0], c2[op][1] - c1[op][1])
+                          for op in c1},
+            "one_round_run": c1, "seconds": one.seconds}
+
+
+def _dryrun_sharded(method: str, n: int, m: int, ranks: int) -> dict:
+    """The reference's ``run_dryrun``: one rank of ``ranks``, sized by
+    :func:`trim_footprint` as the sharded engine allocates it."""
+    from ..core.distributed import block_rows
+    from .mesh import hbm_bytes
+    fp = trim_footprint(n, m, method, "sharded", ranks=ranks)
+    rd = fp["rank"]
+    sites, gbytes = rd["per_round"]["all_gather"]
+    held, run = sum(fp["held"].values()), sum(fp["run"].values())
+    card = hbm_bytes()
+    fits = "fits" if held + run <= card else "does not fit"
+    print(f"[trim-dryrun] {method}/sharded on {ranks} ranks (one H100 "
+          f"each, NCCL): one rank's body on the meta device in "
+          f"{rd['seconds']:.2f}s; per-rank args {rd['args'] / 2**20:.1f} "
+          f"MiB, temps {rd['temps'] / 2**20:.1f} MiB, all-gather sites "
+          f"{sites} a round; {fits} in {card / 2**30:.1f} GiB (the CSR, "
+          f"{sum(fp['host'].values()) / 2**20:.1f} MiB, stays on the host)")
+    print(f"  graph: n={n:,} m={m:,} -> {block_rows(n, ranks):,} "
+          f"vertices/rank; status all_gather {gbytes / 2**20:.1f} MiB per "
+          f"round ({gbytes / 8 / 2**20:.1f} MiB packed)")
+    return dict(fp, args=rd["args"], temps=rd["temps"],
+                gather_sites_per_round=sites,
+                gather_bytes_per_round=gbytes, ranks=ranks)
+
+
 def run_dryrun(method: str, backend: str = "dense", workers: int = 16, *,
                n: int = DRYRUN_GRAPH["n"], m: int = DRYRUN_GRAPH["m"]):
     """Size trimming of an ``n``-vertex, ``m``-edge graph for one card
     and print the reference's two lines for it; returns
-    :func:`trim_footprint`'s dict."""
+    :func:`trim_footprint`'s dict.  ``backend="sharded"`` sizes one rank
+    of :data:`DRYRUN_RANKS` instead (AC-3 or AC-6, as the reference's)."""
+    if backend == "sharded":
+        if method not in ("ac3", "ac6"):
+            raise ValueError(f"the sharded dry-run sizes ac3 or ac6, as the "
+                             f"reference's does; got {method!r}")
+        return _dryrun_sharded(method, n, m, DRYRUN_RANKS)
     from .mesh import hbm_bytes
     fp = trim_footprint(n, m, method, backend, workers=workers)
     held, temps = sum(fp["held"].values()), sum(fp["run"].values())
@@ -299,7 +440,7 @@ def run_dryrun(method: str, backend: str = "dense", workers: int = 16, *,
           f"all-gather sites 0; {fits} in {card / 2**30:.1f} GiB")
     print(f"  graph: n={n:,} m={m:,} -> {n:,} vertices/device; status "
           f"all_gather {n / 8 / 2**20:.1f} MiB per round once sharded "
-          f"(ROADMAP A6)")
+          f"(--backend sharded)")
     return fp
 
 
@@ -341,7 +482,8 @@ def main(argv=None):
                     help="bound on resume-from-checkpoint attempts "
                          "(default 3)")
     ap.add_argument("--dryrun", action="store_true",
-                    help="size the production graph for one card (no graph, "
+                    help="size the production graph for one card, or one "
+                         "of 512 ranks with --backend sharded (no graph, "
                          "no card)")
     args = ap.parse_args(argv)
     if args.app == "check":
@@ -358,11 +500,11 @@ def main(argv=None):
         return check_main(argv)
     if args.strict or args.mutants:
         ap.error("--strict/--mutants apply to --app check")
+    if args.app == "scc" and args.backend == "sharded":
+        ap.error("--app scc needs a batchable trim backend "
+                 "(--backend dense or windowed); shard at the region level")
     if args.checkpoint_dir and args.app != "scc":
         ap.error("--checkpoint-dir applies to --app scc")
-    if args.backend == "sharded":
-        raise NotImplementedError(
-            "--backend sharded is not ported yet: ROADMAP A6")
     if args.dryrun:
         return run_dryrun(args.method, args.backend, args.workers)
     for name, default in FAULT_DEFAULTS.items():
@@ -391,6 +533,8 @@ def main(argv=None):
             out = run_stream(args.graph, **kw)
         elif args.app == "peel":
             out = run_peel(args.graph, **kw)
+        elif args.backend == "sharded":
+            out = run_sharded(args.graph, args.method, args.workers, **kw)
         else:
             out = run_local(args.graph, args.method, args.workers,
                             args.backend, **kw)

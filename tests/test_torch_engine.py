@@ -246,8 +246,11 @@ def test_cpu_engine_launches_no_kernel():
 
 def test_plan_validation(monkeypatch):
     _, tg = _graphs("RMAT")
-    with pytest.raises(NotImplementedError, match="A6"):
-        tcore.plan(tg, backend="sharded", device=CPU)
+    # the sharded backend plans without a group and needs one to run
+    # (tests/test_torch_distributed.py runs it on gloo ranks)
+    eng = tcore.plan(tg, backend="sharded", device=CPU)
+    with pytest.raises(RuntimeError, match="process group"):
+        eng.run()
     # instrument=True attaches round stats (tests/test_torch_obs.py holds
     # them against the reference)
     assert tcore.plan(tg, instrument=True,

@@ -451,7 +451,8 @@ def test_restore_checks_family_plan_and_device(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="family"):
         e.load_state(e.state_dict(), {"family": "peel"})
     # the reference's plan kwargs: use_kernel ignored, packed/unmasked
-    # kept where the port's plan takes them, a sharded plan refused
+    # kept where the port's plan takes them; a sharded plan re-plans on
+    # the default group, a packed dense one is refused as plan() refuses
     je = jcore.plan(jg, method="ac4", use_kernel=False, unmasked=True)
     d = str(tmp_path / "ck")
     jflt.save_engine(d, je, step=1)
@@ -460,11 +461,14 @@ def test_restore_checks_family_plan_and_device(tmp_path, monkeypatch):
     assert restored.unmasked and restored._plan_kwargs() == {
         k: v for k, v in meta["engine"]["plan_kwargs"].items()
         if k != "use_kernel"}
-    for kw in ({"backend": "sharded"}, {"packed": True}):
-        em = dict(meta["engine"],
-                  plan_kwargs={**meta["engine"]["plan_kwargs"], **kw})
-        with pytest.raises(ValueError, match="sharded"):
-            flt.engine_from_state(ckpt_lib.load_flat(d)[0], em, device=CPU)
+    em = dict(meta["engine"], plan_kwargs={
+        **meta["engine"]["plan_kwargs"], "backend": "sharded"})
+    sharded = flt.engine_from_state(ckpt_lib.load_flat(d)[0], em, device=CPU)
+    assert sharded.backend == "sharded" and sharded.unmasked
+    em = dict(meta["engine"], plan_kwargs={
+        **meta["engine"]["plan_kwargs"], "packed": True})
+    with pytest.raises(ValueError, match="sharded"):
+        flt.engine_from_state(ckpt_lib.load_flat(d)[0], em, device=CPU)
     ckpt_lib.save(str(tmp_path / "plain"), 1, {"x": np.arange(3)})
     with pytest.raises(ValueError, match="engine"):
         flt.restore_engine(str(tmp_path / "plain"), device=CPU)

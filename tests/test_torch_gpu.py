@@ -1452,3 +1452,38 @@ def test_meta_flash_launch_equals_the_cards(cuda):
 
     assert [key(x) for x in meta] == [key(x) for x in seen]
     assert meta[0].kernel == "flash_fwd_wgmma"
+
+
+def test_sharded_backend_one_nccl_rank(cuda):
+    """The sharded backend as one NCCL rank on the card (NCCL takes one
+    rank a card): every method's status and rounds equal the dense
+    backend's on the card; AC-3's and AC-6's rank edges equal the dense
+    totals, AC-4's the in-degrees of the trimmed vertices (the Gᵀ entries
+    its body scans); only the rank's block is on the card; every
+    collective ran on the card."""
+    from repro_torch.core import distributed as dist
+    g = G.rmat(14, 131_072, seed=1, device=cuda)
+    deg_in = torch.bincount(g.indices.long(), minlength=g.n)
+    with dist.process_group(cuda) as dev:
+        assert "nccl" in str(torch.distributed.get_backend()).lower()
+        for method, kw in (("ac3", {}), ("ac4", dict(unmasked=True)),
+                           ("ac4*", dict(unmasked=True)), ("ac6", {}),
+                           ("ac6", dict(packed=True))):
+            eng = plan(g, method=method, backend="sharded", device=dev, **kw)
+            got = eng.run()
+            want = plan(g, method=method, device=dev).run()
+            assert got.status.device.type == "cuda"
+            # the graph stays on the host; only the rank's block is here
+            assert eng.graph.indices.device.type == "cpu"
+            assert all(t.device.type == "cuda"
+                       for t in eng._shard["operands"])
+            assert _eq(got.status, want.status), (method, kw)
+            assert got.rounds == want.rounds
+            assert got.per_worker_edges.shape == (1,)
+            if method.startswith("ac4"):
+                dead = want.status.cpu() == 0
+                assert got.edges_traversed == int(deg_in.cpu()[dead].sum())
+            else:
+                assert got.edges_traversed == want.edges_traversed
+            calls = eng.last_collectives
+            assert calls["all_gather"][0] >= 2 and calls["any"][0] >= 1

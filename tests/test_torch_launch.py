@@ -4,10 +4,11 @@ Each app runs on a small named graph (``BA``, and ``chain`` for the
 stream) through ``main`` with ``--device cpu``, next to the reference's
 own ``run_*`` function on the same graph; the printed lines must carry the
 same fields with the same values once the timings are cut out.
-``--backend sharded`` is not ported yet and raises naming ROADMAP A6, with
-``--dryrun`` too; ``--dryrun`` alone sizes the production graph for one
-card on any app (``tests/test_torch_dryrun.py`` holds its bytes against
-real engines).
+``--backend sharded`` runs as a world of one gloo rank, and ``--dryrun
+--backend sharded`` sizes one rank of 512 (``tests/test_torch_distributed.py``
+holds both against the reference); ``--dryrun`` alone sizes the production
+graph for one card on any app (``tests/test_torch_dryrun.py`` holds its
+bytes against real engines).
 """
 import os
 import subprocess
@@ -60,9 +61,17 @@ def test_cli_app_matches_reference(app, graph, argv, capsys):
     (["--backend", "sharded"], "A6"),
     (["--dryrun", "--backend", "sharded"], "A6"),
 ])
-def test_cli_unported_flags_raise(argv, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        ttrim.main([*argv, "--graph", "chain", "--device", "cpu"])
+def test_cli_unported_flags_raise(argv, item, capsys):
+    """The two flags ROADMAP A6 used to refuse now run: the sharded trim
+    as a world of one rank, the dry-run as one rank of 512."""
+    out = ttrim.main([*argv, "--graph", "BA", "--device", "cpu"])
+    text = capsys.readouterr().out
+    assert "sharded" in text and f"ROADMAP {item}" not in text
+    if "--dryrun" in argv:
+        assert out["ranks"] == 512 and out["gather_sites_per_round"] == 1
+    else:
+        assert out.per_worker_edges.shape == (1,)
+        assert not torch.distributed.is_initialized()   # left as found
 
 
 @pytest.mark.parametrize("argv", [["--dryrun"], ["--app", "scc", "--dryrun"]])
@@ -75,7 +84,7 @@ def test_cli_dryrun_sizes_the_production_graph(argv, capsys):
             "sites 0") in first
     assert second == ("  graph: n=64,000,000 m=512,000,000 -> 64,000,000 "
                       "vertices/device; status all_gather 7.6 MiB per round "
-                      "once sharded (ROADMAP A6)")
+                      "once sharded (--backend sharded)")
 
 
 def test_cli_defaults_to_the_card():
