@@ -3,7 +3,8 @@
 the static checks, then the SCC driver, the reachability engine, the
 k-core peel, the stream engine (incremental trimming), the command line,
 LM serving, GNN training, the trim-stream server, wide-deep, LM
-training, the MoE LMs, the example twins and the dry-run tools.
+training, the MoE LMs, the example twins and the dry-run tools, sharded
+trimming and the sharded LM.
 
     python3 chip_smoke.py               # the check, a few minutes on an H100
     python3 chip_smoke.py --profile     # also: where the time goes (phase 7)
@@ -322,7 +323,7 @@ non-zero and prints no result line):
    reduced arctic decode in f32 at capacity floor 2
    (``perf_flags.FLAGS.moe_decode_capacity_floor``) on the card against
    the same calls on the CPU, to 1e-3 of the largest logit.
-21. (last) sharded trimming (``core.distributed``) as one NCCL rank, the
+21. sharded trimming (``core.distributed``) as one NCCL rank, the
    card's whole world (NCCL takes one rank a card): (a) a one-rank NCCL
    group over a ``FileStore`` in a temporary directory; on phase 3's RMAT
    scale-22 graph (kept on the host since phase 19 freed the card)
@@ -338,6 +339,38 @@ non-zero and prints no result line):
    on the group.  (c) ``python -m repro_torch.launch.trim --backend
    sharded`` in a subprocess, a rank of its own world.  (d) the group is
    destroyed.
+22. (last) the sharded LM as one NCCL rank on a (1, 1) ("data", "model")
+   ``DeviceMesh`` (``launch.mesh.make_mesh``), qwen3-1.7b at its
+   published config from seed 0 (phase 11's and phase 18's weights), its
+   parameters placed as DTensors by ``LM.param_specs``
+   (``models.sharding.shard_lm``, sharing the unsharded model's storage):
+   (b) ``generate`` on phase 11's 8 x 2048 prompts, 32 new tokens, the
+   cache placed by the decode spec, the launch counts set to 0 just before
+   and read just after: flash_attention 28 times (each layer's prefill on
+   flash_fwd_wgmma, through ``local_map``), the greedy tokens equal to
+   phase 11's, the prefill's last logits at most 1.5x as far from the f32
+   prefill's as the unsharded bf16 prefill's; (a) step 0 at phase 18's
+   batch (2 x 4096) in f32 (as phase 18 (b) checks gradients), sharded
+   against unsharded (loss to 1e-5 relative, every gradient to 1e-3 of
+   its largest entry), and one f32 AdamW step of each from copies of the
+   weights: on the same gradients parameters and moments to 1e-6 of each
+   largest entry, on each one's own moments to 1e-3 and parameters to
+   2e-5 where |g| >= 100 eps (the CPU tests' tolerances), then 3 sharded
+   bf16 ``make_train_step`` steps
+   (AdamW lr 1e-3, remat), the counts set to 0 just before:
+   flash_attention 2 x 28 a step, its backward 28; the first step's loss
+   the unsharded bf16 one's to 1e-5 relative, the loss falling; ms a step,
+   tokens/s and peak memory beside phase 18's; one sharded and one
+   unsharded step profiled (device busy, idle share, host syncs: DTensor's
+   overhead a step); in (b), (a)'s f32 step 0 and (a)'s bf16 loss on
+   batch 0, the flash kernel on the block the sharded attention hands it
+   in layer 0 (k and v repeated to the q heads: group 1, at (8, 16, 2048,
+   128) and (2, 16, 4096, 128)) against its plain version at FLASH_TOL,
+   and timed; (c) ``compressed_psum`` over step 0's gradients at
+   world 1 bit for bit ``dequantize(quantize(g))``, its ms, and
+   ``gpipe_apply`` with layer 0 as the stage at S = 1 over 4 microbatches
+   of 2 x 2048, equal to the layer's plain forward.  The group is
+   destroyed at the end.
 
 The last two lines are the kernel table and the result, as JSON.  Needs
 one CUDA device; imports nothing of JAX or of the JAX package.
@@ -345,6 +378,7 @@ one CUDA device; imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -588,6 +622,22 @@ SHARDED = (("ac3", dict(method="ac3")),
            ("ac6_packed", dict(method="ac6", packed=True)))
 SHARDED_REPS = 3
 SHARDED_CLI_TIMEOUT_S = 180
+# phase 22: the sharded LM on one rank (phase 18's arch, seed and batch;
+# phase 11's traffic); loss relative, gradients to a share of each largest
+# entry, the sharded bf16 prefill's distance from the f32 one over the
+# unsharded bf16 prefill's
+SHARDED_LM = dict(steps=3, lr=1e-3)
+SHARDED_LM_TOL = dict(loss=1e-5, grad=1e-3, bf16=1.5)
+# phase 22 (a)'s f32 AdamW step, sharded against unsharded (adamw_check):
+# on the same gradients to a share of each largest entry; on each one's
+# own gradients at the CPU tests' tolerances (tests/test_torch_lm_sharded.py):
+# moments to a share of each largest entry, parameters absolute where the
+# unsharded |g| is at least `far` x AdamW's eps
+SHARDED_ADAMW_TOL = dict(same=1e-6, moment=1e-3, param=2e-5, far=100)
+PIPE = dict(microbatches=4, batch=2, seq=2048)
+LM_SHARDED_PATH = ("flash_attention",)
+# phase 11's greedy tokens, held against phase 22 (b)
+SERVED: dict = {}
 SYNC_WARNING = "called a synchronizing CUDA operation"
 INF_NOTE = (" (overflows float32: the reference's clip scales every update "
             "to 0, so the parameters stay as they are; ROADMAP C)")
@@ -3075,6 +3125,7 @@ def serve_phase(dev):
                            smoke=False, device=dev, lm=lm, return_stats=True)
     launches = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
+    SERVED["tokens"] = toks
     check(launches["flash_attention"] == cfg.n_layers,
           f"flash_attention launched {launches['flash_attention']} times "
           f"in one prefill, not {cfg.n_layers}")
@@ -5200,6 +5251,463 @@ def sharded_phase(dev, g_host, gt_host):
     log(f"# phase 21: done in {time.perf_counter() - t0:.1f} s")
 
 
+# -- phase 22: the sharded LM as one NCCL rank ---------------------------------
+
+def full(t):
+    """A DTensor gathered whole; a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+@contextlib.contextmanager
+def flash_blocks():
+    """A context in which the sharded attention's first call of
+    ``layers._causal`` (inside its ``local_map``) keeps copies of the
+    rank's local (B, S, H, D) q, k and v block, k and v repeated to the
+    q heads: the list it yields gets them."""
+    from repro_torch.models import layers
+    box, orig = [], layers._causal
+
+    def keep(q, k, v):
+        if not box:
+            box.append(tuple(t.detach().clone() for t in (q, k, v)))
+        return orig(q, k, v)
+    layers._causal = keep
+    try:
+        yield box
+    finally:
+        layers._causal = orig
+
+
+def flash_block_check(box, label: str, card) -> None:
+    """``ops.flash_attention`` on a block :func:`flash_blocks` kept, read
+    through the (B, H, S, D) views ``layers._causal`` passes, against its
+    plain version at FLASH_TOL, then timed."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    check(len(box) == 1, f"{label}: the sharded attention never reached "
+          f"layers._causal")
+    q, k, v = (t.transpose(1, 2) for t in box[0])
+    check(q.shape == k.shape, f"{label}: k and v are not repeated to the "
+          f"q heads: q {tuple(q.shape)}, k {tuple(k.shape)}")
+    got = ops.flash_attention(q, k, v, causal=True)
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    err = float((got.float() - want.float()).abs().max())
+    dt = str(q.dtype).removeprefix("torch.")
+    check(err <= FLASH_TOL[dt], f"{label}: flash_attention at group 1 "
+          f"{tuple(q.shape)} {dt}: max |err| {err} over {FLASH_TOL[dt]}")
+    del got, want
+    ms = device_ms(lambda: ops.flash_attention(q, k, v, causal=True))
+    log(f"# phase 22 {label}: flash_attention "
+        f"({fa.kernel_for(q.dtype, q.shape[-1])}) on layer 0's local "
+        f"(B, H, S, D) block {tuple(q.shape)} {dt}, k and v repeated to "
+        f"the q heads (group 1): max |err| {err:.3g} against the plain "
+        f"version (tolerance {FLASH_TOL[dt]}); device_ms={ms:.4f} [{card}]")
+    box.clear()
+    torch.cuda.empty_cache()
+
+
+def sharded_serve_phase(dev, lm, twin, cfg, card):
+    """Phase 22 (b): ``generate`` through the sharded twin on phase 11's
+    prompts, the counts set to 0 just before and read just after; the
+    prefill's last logits against the unsharded bf16 and the f32
+    prefills'.  Returns the launch counts."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import LM, sharding
+
+    rng = np.random.default_rng(SERVE["seed"])      # as serve_lm draws them
+    prompts = torch.as_tensor(rng.integers(
+        0, cfg.vocab, (SERVE["batch"], SERVE["prompt_len"])), device=dev)
+    ops.reset_launches()
+    toks, stats = generate(twin, prompts, SERVE["gen_len"])
+    launches = dict(ops.LAUNCHES)
+    toks = full(toks).to(torch.int32).cpu().numpy()
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"(b) flash_attention launched {launches['flash_attention']} "
+          f"times in the sharded prefill, not {cfg.n_layers}")
+    check("tokens" in SERVED and np.array_equal(toks, SERVED["tokens"]),
+          f"(b) the sharded greedy tokens differ from phase 11's: "
+          f"{toks[:, :8]} vs {SERVED.get('tokens', np.zeros(0))[:, :8]}")
+    with torch.no_grad(), flash_blocks() as box:
+        last, cache = twin.prefill(prompts)
+        spec = twin.decode_cache_spec(SERVE["batch"])
+        check(tuple(cache[0].placements)
+              == tuple(sharding.placements(spec, twin.mesh)),
+              f"(b) the cache is placed {cache[0].placements}, not by "
+              f"{spec}")
+        del cache
+        got = full(last)
+        plain = lm.prefill(prompts)[0]
+        lm32 = LM(dataclasses.replace(cfg, compute_dtype=torch.float32),
+                  device="meta", init=False)
+        lm32.load_state_dict(lm.state_dict(), assign=True)  # shared weights
+        truth = lm32.prefill(prompts)[0]
+        del lm32
+    noise = float((plain - truth).abs().max())
+    err = float((got - truth).abs().max())
+    direct = float((got - plain).abs().max())
+    check(err <= SHARDED_LM_TOL["bf16"] * noise,
+          f"(b) the sharded prefill lies {err} from the f32 prefill, over "
+          f"{SHARDED_LM_TOL['bf16']}x the unsharded bf16 prefill's {noise}")
+    dec = np.asarray(stats["decode_ms"])
+    n_tok = SERVE["batch"] * SERVE["gen_len"]
+    log(f"# phase 22 (b): generate {SERVE['batch']} x {SERVE['prompt_len']} "
+        f"prompt tokens, {SERVE['gen_len']} new, on the (1, 1) mesh: "
+        f"launches {launches} (each layer's prefill once, through local_map)"
+        f"; greedy tokens equal phase 11's; prefill_ms="
+        f"{stats['prefill_ms']:.1f} (first call) decode_ms per step median "
+        f"{np.median(dec):.2f} (first {dec[0]:.2f}); {n_tok / dec.sum() * 1e3:.0f}"
+        f" tok/s decode; prefill's last logits: sharded vs unsharded max "
+        f"|diff| {direct:.3g}; from the f32 prefill: sharded {err:.3g}, "
+        f"unsharded bf16 {noise:.3g}; cache spec {spec} [{card}]")
+    flash_block_check(box, "(b)", card)
+    return launches
+
+
+def sharded_step_check(lm, mesh, batch, card):
+    """Phase 22 (a), step 0 in f32 (TF32 off; the f32 flash kernel, as
+    phase 18 (b) checks gradients: in bf16 the repeated kv heads' summed
+    gradients round differently): the loss and gradients of a sharded
+    twin against the unsharded model's, both on ``lm``'s weights, the
+    flash kernel on the twin's first layer block against its plain
+    version, and :func:`adamw_check`.  Returns the sharded gradients."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import LM, sharding
+    cfg = dataclasses.replace(lm.cfg, compute_dtype=torch.float32)
+    lm32, twin = (LM(cfg, device="meta", init=False) for _ in range(2))
+    for m in (lm32, twin):
+        m.load_state_dict(lm.state_dict(keep_vars=True), assign=True)
+    sharding.shard_lm(twin, mesh)
+    loss_u, grads_u = lm_grads(lm32, batch)
+    grads_u = list(grads_u)             # adamw_check empties it
+    with flash_blocks() as box:
+        loss, _ = twin.loss(batch)
+    grads = torch.autograd.grad(loss, list(twin.parameters()))
+    loss_s = loss.item()
+    check(abs(loss_s - loss_u) <= SHARDED_LM_TOL["loss"] * abs(loss_u),
+          f"(a) step 0: sharded loss {loss_s} vs unsharded {loss_u}")
+    worst = 0.0
+    for g, t in zip(grads, grads_u):
+        worst = max(worst, float((full(g) - t).abs().max())
+                    / max(float(t.abs().max()), 1e-30))
+    check(worst <= SHARDED_LM_TOL["grad"], f"(a) step 0: a sharded "
+          f"gradient lies {worst} of its largest entry from the unsharded")
+    log(f"# phase 22 (a): step 0 in f32 at {tuple(batch['tokens'].shape)}:"
+        f" loss sharded {loss_s:.6f} unsharded {loss_u:.6f} (rel "
+        f"{abs(loss_s - loss_u) / abs(loss_u):.2e}); worst gradient "
+        f"{worst:.2e} of its largest entry (tolerance "
+        f"{SHARDED_LM_TOL['grad']})")
+    flash_block_check(box, "(a) step 0", card)
+
+    adamw_check(lm32, twin, grads_u, grads)
+    return grads
+
+
+def adamw_check(lm32, twin, grads_u, grads):
+    """Phase 22 (a): one f32 AdamW step from copies of the weights, the
+    sharded one (DTensor parameters and moments, updated on their local
+    blocks) gathered and held against the unsharded one.  (i) On the same
+    gradients (the unsharded ones, placed as the parameters): parameters
+    and moments to ``same`` of each largest entry (only the clip's global
+    norm sums in another order).  (ii) On each model's own gradients:
+    the moments to ``moment`` of each largest entry, the parameters to
+    ``param`` wherever the unsharded |g| is at least ``far`` x AdamW's
+    eps.  A first Adam step moves an entry by lr g / (|g| + eps), so
+    where |g| is near eps a last-bit difference of the gradients moves
+    the parameter by up to 2 lr: those entries are counted and their
+    largest difference reported."""
+    import torch
+
+    from repro_torch.models import sharding
+    from repro_torch.optim import AdamW
+    tol = SHARDED_ADAMW_TOL
+    opt = AdamW(lr=SHARDED_LM["lr"])
+    ps_u = [p.detach().clone() for p in lm32.parameters()]
+    st_u = opt.step(ps_u, grads_u, opt.init(ps_u))
+
+    def rel(xs, ys):
+        return max(float((full(a) - b).abs().max())
+                   / max(float(b.abs().max()), 1e-30) for a, b in zip(xs, ys))
+
+    def sharded_step(gs):
+        ps = [p.detach().clone() for p in twin.parameters()]
+        return ps, opt.step(ps, gs, opt.init(ps))
+
+    placed = [sharding.local_block(g, p.device_mesh, p.placements)
+              for g, p in zip(grads_u, twin.parameters())]
+    ps_s, st_s = sharded_step(placed)
+    same = dict(param=rel(ps_s, ps_u), mu=rel(st_s.mu, st_u.mu),
+                nu=rel(st_s.nu, st_u.nu))
+    del placed, ps_s, st_s, grads_u[:]
+    torch.cuda.empty_cache()
+    check(max(same.values()) <= tol["same"], f"(a) step 0's AdamW on the "
+          f"same gradients: sharded against unsharded {same} of each "
+          f"largest entry")
+
+    ps_s, st_s = sharded_step(grads)
+    mom = dict(mu=rel(st_s.mu, st_u.mu), nu=rel(st_s.nu, st_u.nu))
+    d_far = d_near = 0.0
+    n_near = n_beyond = 0
+    for a, b, m in zip(ps_s, ps_u, st_u.mu):
+        diff = (full(a) - b).abs()
+        far = m.abs() / (1 - opt.b1) >= tol["far"] * opt.eps
+        d_far = max(d_far, float(diff[far].max()) if far.any() else 0.0)
+        d_near = max(d_near, float(diff[~far].max()) if (~far).any()
+                     else 0.0)
+        n_near += int((~far).sum())
+        n_beyond += int((diff[~far] > tol["param"]).sum())
+    moved = max(float((full(a) - b.detach()).abs().max())
+                for a, b in zip(ps_s, lm32.parameters()))
+    n = sum(p.numel() for p in ps_u)
+    del ps_u, st_u, ps_s, st_s
+    torch.cuda.empty_cache()
+    check(moved > 0, "(a) step 0's AdamW moved no sharded parameter")
+    check(max(mom.values()) <= tol["moment"], f"(a) step 0's AdamW: the "
+          f"sharded moments lie {mom} of their largest entries from the "
+          f"unsharded")
+    check(d_far <= tol["param"], f"(a) step 0's AdamW: a sharded parameter "
+          f"whose |g| >= {tol['far']} eps lies {d_far} from the unsharded")
+    log(f"# phase 22 (a): step 0's f32 AdamW (lr {SHARDED_LM['lr']}) on "
+        f"copies of the weights, sharded (local blocks) against unsharded;"
+        f" on the same gradients: parameters {same['param']:.3g}, mu "
+        f"{same['mu']:.3g}, nu {same['nu']:.3g} of each largest entry "
+        f"(tolerance {tol['same']}); on each one's own gradients: mu "
+        f"{mom['mu']:.3g}, nu {mom['nu']:.3g} (tolerance {tol['moment']}),"
+        f" parameters max |diff| {d_far:.3g} where |g| >= {tol['far']} eps"
+        f" (tolerance {tol['param']}), {d_near:.3g} at the {n_near:,} of "
+        f"{n:,} entries below it ({n_beyond:,} beyond {tol['param']}); "
+        f"largest move {moved:.3g}")
+
+
+def psum_check(grads, card):
+    """Phase 22 (c): ``compressed_psum`` over step 0's gradients at world
+    1, bit for bit ``dequantize(quantize(g))``, then timed."""
+    import torch
+
+    from repro_torch.train import compression
+    local = [full(g) for g in grads]
+    for g in local:
+        got = compression.compressed_psum(g)
+        check(torch.equal(got, compression.dequantize(
+            *compression.quantize(g))),
+            "(c) compressed_psum at world 1 is not dequantize(quantize(g))")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for g in local:
+        compression.compressed_psum(g)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t1) * 1e3
+    n = sum(g.numel() for g in local)
+    log(f"# phase 22 (c): compressed_psum over step 0's {len(local)} "
+        f"gradients ({n:,} f32 values) at world 1: bit for bit "
+        f"dequantize(quantize(g)); {ms:.1f} ms in all "
+        f"({n * 4 / ms / 1e6:.1f} GB/s of f32 gradient) [{card}]")
+
+
+def pipe_check(lm, dev, stream, card):
+    """Phase 22 (c): ``gpipe_apply`` with layer 0 as the stage at S = 1
+    over PIPE's microbatches, against the layer's plain forward."""
+    import torch
+
+    from repro_torch.train import pipeline
+    m, b, s = PIPE["microbatches"], PIPE["batch"], PIPE["seq"]
+    with torch.no_grad():
+        tokens = torch.cat([torch.as_tensor(stream.batch_at(i)["tokens"],
+                                            device=dev)[:, :s].long()
+                            for i in range(m * b // stream.batch)])
+        mbs = lm._embed(tokens).reshape(m, b, s, -1)
+        pos = torch.arange(s, device=dev).expand(b, s)
+
+        def stage(first, x):
+            return lm.blocks[int(first)](x, pos, chunked=False)[0]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = pipeline.gpipe_apply(stage, torch.zeros(1, dtype=torch.long),
+                                   mbs)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        want = torch.stack([stage(0, x) for x in mbs])
+    check(torch.equal(out, want), "(c) gpipe_apply at S = 1 differs from "
+          "the layer's plain forward")
+    log(f"# phase 22 (c): gpipe_apply, layer 0 as the stage, S = 1, M = {m} "
+        f"microbatches of {b} x {s}: equal to the plain forward; {ms:.1f} ms "
+        f"[{card}]")
+
+
+def step_profile(step, ps, st, batch, label: str, warm: bool = True):
+    """One profiled step (wall, device busy, idle share), one step's host
+    syncs and the median wall of two more; returns (wall ms, busy ms,
+    syncs, median wall ms, state)."""
+    import torch
+    box = [st]
+
+    def one():
+        _, box[0], met = step(ps, box[0], batch)
+        return met
+    if warm:
+        one()
+    torch.cuda.synchronize()
+    with profiled() as prof:
+        t1 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t1) * 1e3
+    busy = sum(e.device_time for e in device_events(prof)) / 1e3
+    check(busy > 0, f"{label}: {NO_ITEMS}")
+    syncs = card_syncs(one)
+    torch.cuda.synchronize()
+    walls = median_wall_ms([one], reps=2)[0]
+    return wall, busy, syncs, walls, box[0]
+
+
+def sharded_lm_phase(dev):
+    """Phase 22: (b), (a) and (c); returns (a)'s launch counts."""
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+
+    from repro_torch import configs
+    from repro_torch.core import distributed as dist
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as tcli
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import LM, sharding
+    from repro_torch.models.transformer import make_train_step
+    from repro_torch.optim import AdamW
+
+    t0 = time.perf_counter()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    cfg = configs.get(LM_TRAIN["arch"]).make_config()
+    with dist.process_group(dev) as rank_dev:
+        backend = str(tdist.get_backend()).lower()
+        check("nccl" in backend and tdist.get_world_size() == 1,
+              f"the group is {backend} of {tdist.get_world_size()}")
+        mesh = make_mesh((1, 1), ("data", "model"), device=rank_dev)
+        lm = LM(cfg, device=rank_dev, generator=torch.Generator(
+            device=rank_dev).manual_seed(SERVE["seed"]))
+        twin = LM(cfg, device="meta", init=False)
+        twin.load_state_dict(lm.state_dict(keep_vars=True), assign=True)
+        sharding.shard_lm(twin, mesh)
+        shared = all(a.data_ptr() == b.to_local().data_ptr()
+                     for a, b in zip(lm.parameters(), twin.parameters()))
+        log(f"# phase 22: {cfg.name} on a (1, 1) (data, model) mesh of one "
+            f"NCCL rank: {sum(1 for _ in twin.parameters())} DTensor "
+            f"parameters placed by param_specs (storage shared with the "
+            f"unsharded model: {shared}); e.g. embed "
+            f"{twin.embed.placements}, blocks.0.attn.wq "
+            f"{twin.blocks[0].attn.wq.placements} [{card}]")
+        serve_launches = sharded_serve_phase(rank_dev, lm, twin, cfg, card)
+        torch.cuda.empty_cache()
+
+        stream = TokenStream(**tcli.LM_FULL, vocab=cfg.vocab,
+                             seed=SERVE["seed"])
+
+        def put(b):
+            return {k: torch.as_tensor(v, device=rank_dev).long()
+                    for k, v in b.items()}
+        b0 = put(stream.batch_at(0))
+        grads = sharded_step_check(lm, mesh, b0, card)
+        torch.cuda.empty_cache()
+        psum_check(grads, card)
+        del grads
+        torch.cuda.empty_cache()
+        with torch.no_grad():           # the unsharded bf16 step 0's loss
+            loss_u = lm.loss(b0)[0].item()
+
+        opt = AdamW(lr=SHARDED_LM["lr"])
+        ps = list(twin.parameters())
+        st = opt.init(ps)
+        step = make_train_step(twin, opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        ops.reset_launches()
+        losses, ms = [], []
+        for i in range(SHARDED_LM["steps"]):
+            batch = put(stream.batch_at(i))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            _, st, met = step(ps, st, batch)
+            losses.append(met["loss"].item())
+            ms.append((time.perf_counter() - t1) * 1e3)
+        launches = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        n, steps = cfg.n_layers, SHARDED_LM["steps"]
+        want = {"flash_attention": 2 * n * steps,
+                "flash_attention_bwd": n * steps}
+        check({k: v for k, v in launches.items() if v} == want,
+              f"(a) launches {launches}, expected {want}")
+        check(abs(losses[0] - loss_u) <= SHARDED_LM_TOL["loss"] * loss_u,
+              f"(a) the first sharded step's loss {losses[0]} vs the "
+              f"unsharded step 0's {loss_u}")
+        check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+              f"(a) the sharded loss went {losses}")
+        with torch.no_grad(), flash_blocks() as box:
+            after = twin.loss(b0)[0].item()
+        check(after < losses[0], f"(a) the loss on batch 0 went "
+              f"{losses[0]} -> {after}")
+        flash_block_check(box, "(a)", card)
+        toks = stream.batch * stream.seq
+        ref = MEASURED.get("qwen3 train", {})
+        log(f"# phase 22 (a): {steps} sharded make_train_step steps at "
+            f"{stream.batch} x {stream.seq} (AdamW lr {SHARDED_LM['lr']}, "
+            f"remat): losses {[round(x, 4) for x in losses]}, on batch 0 "
+            f"after {after:.4f}; launches {launches}; step ms "
+            f"{[round(x, 1) for x in ms]} (median of the last "
+            f"{len(ms) - 1}: {np.median(ms[1:]):.1f}; phase 18's unsharded "
+            f"{ref.get('ms', float('nan')):.1f}); "
+            f"{toks / np.median(ms[1:]) * 1e3:,.0f} tokens/s; peak device "
+            f"memory {peak / 1e9:.2f} GB, {(peak - held) / 1e9:.2f} GB above "
+            f"the {held / 1e9:.2f} GB of weights and moments held before "
+            f"(phase 18's peak "
+            f"{(ref.get('peak', math.nan) + ref.get('held', 0)) / 1e9:.2f} GB)"
+            f" [{card}]")
+
+        prof_s = step_profile(step, ps, st, b0, "(a) sharded step",
+                              warm=False)      # warm from the steps above
+        del st, step, opt
+        torch.cuda.empty_cache()
+        opt_u = AdamW(lr=SHARDED_LM["lr"])
+        ps_u = list(lm.parameters())
+        prof_u = step_profile(make_train_step(lm, opt_u), ps_u,
+                              opt_u.init(ps_u), b0, "(a) unsharded step")
+        torch.cuda.empty_cache()
+        for label, (wall, busy, syncs, med, _) in (("sharded", prof_s),
+                                                   ("unsharded", prof_u)):
+            log(f"# phase 22 (a): profiled {label} step: wall {wall:.1f} ms "
+                f"(median of 2 unprofiled {med:.1f}), device busy "
+                f"{busy:.1f} ms, idle share {1 - busy / wall:.4f}, "
+                f"{syncs} host syncs [{card}]")
+        log(f"# phase 22 (a): DTensor's overhead a step (median wall "
+            f"sharded - unsharded): {prof_s[3] - prof_u[3]:.1f} ms; device "
+            f"busy sharded - unsharded {prof_s[1] - prof_u[1]:.1f} ms")
+        del prof_s, prof_u
+        pipe_check(lm, rank_dev, stream, card)
+        del lm, twin, ps, ps_u
+        torch.cuda.empty_cache()
+    check(not tdist.is_initialized(), "the group was not destroyed")
+    log(f"# phase 22: launches in (b) {serve_launches} and (a) {launches}; "
+        f"done in {time.perf_counter() - t0:.1f} s [{card}]")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -5360,6 +5868,10 @@ def main() -> int:
     dryrun_phase(dev)
     sharded_phase(dev, g_host, gt_host)
     del g_host, gt_host
+    sharded_lm_launches = sharded_lm_phase(dev)
+    for name in LM_SHARDED_PATH:
+        check(sharded_lm_launches[name] > 0,
+              f"{name} was never launched on the sharded LM's path")
 
     path_launches = {**{n: trim_launches for n in TRIM_PATH},
                      **{n: scc_launches for n in SCC_PEEL_PATH},
@@ -5369,11 +5881,14 @@ def main() -> int:
                      **{n: analysis_launches for n in ANALYSIS_OWN}}
     launches = {name: path_launches[name][name] for name in KERNELS}
     # flash_attention's paths: one prefill (phase 11), three training
-    # steps (phase 18) and arctic's one-layer prefill (phase 19 (a))
+    # steps (phase 18), arctic's one-layer prefill (phase 19 (a)) and
+    # three sharded training steps (phase 22 (a))
     for name in LM_TRAIN_PATH:
         launches[name] += lm_launches[name]
     for name in MOE_PATH:
         launches[name] += moe_launches[name]
+    for name in LM_SHARDED_PATH:        # phase 22 (a)'s three steps
+        launches[name] += sharded_lm_launches[name]
     log(f"# total: {time.perf_counter() - t_start:.1f} s")
     table = [dict(name=name, route="cuda", source=KERNELS[name][0],
                   replaces=KERNELS[name][1], launches=launches[name],

@@ -21,8 +21,17 @@ LM step turns its ids into int64 on the device first, as
 int32 tensor on the host, the reference's scalar argument, which the
 port reads on the host.
 
-Not ported: the in/out shardings and donations of the reference's cells
-(one card; ``torch.distributed`` sharding is ROADMAP A6).
+An LM cell also builds on a ``DeviceMesh`` (``build_cell(...,
+mesh=)``, ``launch.mesh.make_mesh``): the runnable twin of the
+reference's sharded cell.  The model gets random weights (seed 0) placed
+by ``LM.param_specs`` (``models.sharding.shard_lm``), and the step's
+arguments are DTensors placed as the reference's ``in_shardings``:
+AdamW's moments as the parameters, its count replicated, tokens and
+targets on (dp, None); decode's cache by the reference's three cases
+(``LM.decode_cache_spec``) and its token on (dp, None), or replicated at
+batch 1.  Without a mesh the cells stay unsharded on one device, and the
+reference's donations are not carried over (the meta dry-run of a
+sharded mesh, ``dryrun --mesh multi``, is ROADMAP A6).
 """
 from __future__ import annotations
 
@@ -50,12 +59,15 @@ class CellBuild:
 
 
 def build_cell(arch_id: str, shape, n_layers: int | None = None, *,
-               device="meta") -> CellBuild:
+               device="meta", mesh=None) -> CellBuild:
     """The step of ``arch_id`` at ``shape`` (a name of the arch's cells,
     or a :class:`ShapeCell` of one's own), at the published configuration.
-    ``n_layers`` (LM only) cuts the depth; ``device`` other than meta
-    builds real tensors (random weights, zero batches), which the tests
-    run to check the meta counts.  A skipped cell raises."""
+    ``n_layers`` (LM only) cuts the depth; ``device``
+    other than meta builds real tensors (random weights, zero batches),
+    which the tests run to check the meta counts.  ``mesh`` (LM only, a
+    ``DeviceMesh`` with a ``"model"`` axis and ``"data"`` or ``("pod",
+    "data")``) builds the sharded step on the mesh's device type.  A
+    skipped cell raises."""
     spec = configs.get(arch_id)
     cell = shape if isinstance(shape, ShapeCell) else spec.shapes[shape]
     if cell.skip:
@@ -66,7 +78,11 @@ def build_cell(arch_id: str, shape, n_layers: int | None = None, *,
     if spec.family == "lm":
         if n_layers is not None:
             cfg = dataclasses.replace(cfg, n_layers=n_layers)
-        return _build_lm(cfg, cell, dev)
+        return _build_lm(cfg, cell, dev, mesh)
+    if mesh is not None:
+        raise NotImplementedError(
+            f"{arch_id}: only the LM cells build on a mesh; GNN edge "
+            f"sharding and wide-deep's param_specs are ROADMAP A6")
     if spec.family == "gnn":
         return _build_gnn(spec, cfg, cell, dev)
     return _build_recsys(cfg, cell, dev)
@@ -86,21 +102,39 @@ def _model_kw(dev) -> dict:
                 .manual_seed(0))
 
 
-NOTES = "one card: no shardings, no collectives (ROADMAP A6)"
+NOTES = ("one device, no mesh: no shardings, no collectives (a sharded "
+         "mesh's dry-run is ROADMAP A6)")
 
 
 # ------------------------------------------------------------------- LM
 
 
-def _build_lm(cfg, cell, dev) -> CellBuild:
+def _build_lm(cfg, cell, dev, mesh=None) -> CellBuild:
+    """The LM step of ``cell`` on ``dev``, or, given ``mesh``, on the
+    mesh's device type with the reference's in_shardings applied (module
+    docstring): the LM places its parameters (``param_specs``), AdamW's
+    moments take their placements, the batch and the decode cache are
+    placed by the LM's own helpers."""
     if perf_flags.FLAGS.serve_bf16_params and cell.kind in ("prefill",
                                                             "decode"):
         cfg = dataclasses.replace(cfg, param_dtype=torch.bfloat16)
-    model = LM(cfg, **_model_kw(dev))
+    axes = None
+    if mesh is not None:
+        from ..models.transformer import MeshAxes
+        from .mesh import data_axes
+        dev = torch.device(mesh.device_type)
+        axes = MeshAxes(dp=data_axes("pod" in mesh.mesh_dim_names),
+                        tp="model")
+    model = LM(cfg, axes=axes, mesh=mesh, **_model_kw(dev))
     params = list(model.parameters())
     b, s = cell.meta["batch"], cell.meta["seq"]
     n_active = cfg.active_param_count()
-    i32 = torch.int32
+    notes = NOTES if mesh is None else ""
+
+    def ids(shape):
+        """int32 ids, placed on the mesh as the reference's (dp, None)."""
+        t = _zeros(shape, torch.int32, dev)
+        return t if mesh is None else model._place(t, (model._dp(b), None))
 
     if cell.kind == "train":
         opt = AdamW(lr=3e-4)
@@ -110,25 +144,24 @@ def _build_lm(cfg, cell, dev) -> CellBuild:
             return step(params, opt_state,
                         {k: v.long() for k, v in batch.items()})
 
-        batch = {"tokens": _zeros((b, s), i32, dev),
-                 "targets": _zeros((b, s), i32, dev)}
+        batch = {"tokens": ids((b, s)), "targets": ids((b, s))}
         return CellBuild(train, (params, opt.init(params), batch),
-                         model_flops=6.0 * n_active * b * s, notes=NOTES)
+                         model_flops=6.0 * n_active * b * s, notes=notes)
 
     if cell.kind == "prefill":
         return CellBuild(lambda params, tokens: model.prefill(tokens),
-                         (params, _zeros((b, s), i32, dev)),
-                         model_flops=2.0 * n_active * b * s, notes=NOTES)
+                         (params, ids((b, s))),
+                         model_flops=2.0 * n_active * b * s, notes=notes)
 
     # decode: one new token against a full cache of length s
     shape = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.d_head)
-    cache = tuple(_zeros(shape, cfg.compute_dtype, dev) for _ in range(2))
-    pos = torch.tensor(s - 1, dtype=i32)
+    cache = tuple(model._zeros_cache(shape) for _ in range(2))
+    pos = torch.tensor(s - 1, dtype=torch.int32)
     return CellBuild(
         lambda params, cache, token, pos: model.decode_step(cache, token,
                                                             int(pos)),
-        (params, cache, _zeros((b, 1), i32, dev), pos),
-        model_flops=2.0 * n_active * b, notes=NOTES)
+        (params, cache, ids((b, 1)), pos),
+        model_flops=2.0 * n_active * b, notes=notes)
 
 
 # ------------------------------------------------------------------ GNN

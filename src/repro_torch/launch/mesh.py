@@ -8,10 +8,12 @@ that card's datasheet figures (the ones PERF.md's bound columns use);
 is present.  The v5e constants are not carried over.
 
 Meshes are ``torch.distributed`` process groups in the port.  The
-sharded trimming backend runs on them (``core.distributed``: one rank a
-card, NCCL; ``torchrun`` starts one process a card).  The LM and GNN
-mesh of the reference's dry-run, :func:`make_production_mesh`, is not
-ported yet (ROADMAP A6) and raises.
+sharded trimming backend runs on the default group (``core.distributed``:
+one rank a card, NCCL; ``torchrun`` starts one process a card), the
+sharded LM on a ``DeviceMesh`` over it (:func:`make_mesh`; the reference's
+(data, model) axes, :func:`data_axes`).  The reference's 256- and
+512-chip dry-run mesh, :func:`make_production_mesh`, is not ported yet
+(``dryrun --mesh multi``, ROADMAP A6) and raises.
 """
 from __future__ import annotations
 
@@ -41,6 +43,47 @@ def hbm_bytes() -> int:
     return int(HBM_BYTES)
 
 
+def make_mesh(shape, axes, *, device="cuda"):
+    """A ``DeviceMesh`` of ``shape`` named ``axes`` over the default
+    process group, which ``core.distributed.process_group(device)`` or
+    ``torchrun`` set up; the group's size must be the mesh's.  The
+    backend must be the device's (``core.distributed.BACKEND_OF``: NCCL
+    for a CUDA device, gloo for the CPU); any other pairing raises."""
+    import math
+
+    import torch
+    import torch.distributed as tdist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from ..core.distributed import BACKEND_OF
+    dev = torch.device(device)
+    want = BACKEND_OF.get(dev.type)
+    if want is None:
+        raise ValueError(f"no process-group backend for device {dev}")
+    if not tdist.is_initialized():
+        raise RuntimeError(
+            "make_mesh needs an initialised torch.distributed process "
+            "group: run under torchrun, or enter "
+            "repro_torch.core.distributed.process_group(device)")
+    have = str(tdist.get_backend()).lower()
+    if want not in have:
+        raise ValueError(f"tensors on {dev} need a {want} process group; "
+                         f"the group's backend is {have!r}")
+    shape, axes = tuple(int(n) for n in shape), tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} and axes {axes} differ in "
+                         f"length")
+    if math.prod(shape) != tdist.get_world_size():
+        raise ValueError(f"a {shape} mesh needs {math.prod(shape)} ranks; "
+                         f"the group has {tdist.get_world_size()}")
+    return init_device_mesh(dev.type, shape, mesh_dim_names=axes)
+
+
+def data_axes(multi_pod: bool) -> tuple[str, ...]:
+    """Axes that carry batch/FSDP sharding ('pod' folds into data)."""
+    return ("pod", "data") if multi_pod else ("data",)
+
+
 def n_devices() -> int:
     """Devices a dry-run cell runs on: one card.  The LM, GNN and
     recsys cells are not sharded yet (ROADMAP A6); the sharded trim
@@ -50,5 +93,6 @@ def n_devices() -> int:
 
 def make_production_mesh(*, multi_pod: bool = False):
     raise NotImplementedError(
-        "the production mesh (torch.distributed over several cards) is not "
-        "ported yet: ROADMAP A6")
+        "the production mesh (the reference's 256/512-chip dry-run mesh, "
+        "dryrun --mesh multi|both) is not ported yet: ROADMAP A6; a mesh "
+        "over real ranks is make_mesh(shape, axes, device=...)")

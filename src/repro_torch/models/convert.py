@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from .. import configs
 from .gnn import MODELS
@@ -60,12 +61,16 @@ def lm_to_numpy(lm: LM, tensors=None) -> dict:
     """The reference's stacked tree of ``tensors`` (numpy, on the host):
     one entry per parameter of ``lm`` in ``lm.parameters()`` order (by
     default the parameters themselves; their gradients or AdamW moments
-    just as well), each layer's stacked on a leading L axis."""
+    just as well), each layer's stacked on a leading L axis.  DTensors
+    (a sharded LM, ``sharding.shard_lm``) are gathered whole
+    (``full_tensor()``, a collective every rank must join)."""
     names = [n for n, _ in lm.named_parameters()]
     tensors = lm.parameters() if tensors is None else tensors
     stacks: dict = {}
     for name, t in zip(names, tensors, strict=True):
         path, layer = _ref_path(name)
+        if isinstance(t, DTensor):      # a sharded LM: gather its blocks
+            t = t.full_tensor()
         arr = t.detach().cpu().numpy()
         if layer is None:
             stacks[path] = arr

@@ -18,7 +18,17 @@ gradients: nothing on the prefill and training path writes in place (only
 decode writes its new k/v into the cache).  The MoE FFN (``moe_ffn``)
 reaches no kernel of its own, as in the reference: plain torch ops for
 the routing and dispatch, ``torch.bmm`` for the grouped expert products.
-The mesh-sharded head layout (``axes``) is not ported (ROADMAP A6).
+Sharded (``axes`` set, the tensors DTensors on a ``DeviceMesh``): the
+prefill's and training's attention takes the reference's flat-head
+layout (k and v repeated to the q heads, q/k/v pinned to batch on dp and
+heads on tp) and runs ``_causal`` through ``local_map``, so the flash
+kernel sees each rank's local (B/dp, S, H/tp, D) block at group 1.
+Decode writes the new k/v and attends inside ``local_map`` on the
+cache's own placement (:func:`cache_write`, :func:`_decode_attend`): a
+sequence-sharded cache (the reference's decode specs shard the
+sequence over tp, or over dp and tp at batch 1) combines the softmax
+over the ranks, a feature-sharded one (chunked attention) sums the
+scores over them.
 """
 from __future__ import annotations
 
@@ -27,9 +37,13 @@ import math
 from typing import Any
 
 import torch
+import torch.distributed as tdist
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from ..kernels import ops as kops
+from . import sharding
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,11 +126,16 @@ def rms_norm(x, scale, eps: float = 1e-6):
 
 
 def rope(x, positions, theta: float):
-    """x: (..., S, H, D); positions: (..., S).  f32 inside, cast back."""
+    """x: (..., S, H, D); positions: (..., S).  f32 inside, cast back.
+    On a mesh both are DTensors (``sharding.positions_like``)."""
     d = x.shape[-1]
     half = d // 2
     freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
                                     device=x.device) / half)
+    if isinstance(positions, DTensor):
+        mesh = positions.device_mesh
+        freqs = DTensor.from_local(freqs, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
     angles = positions[..., :, None, None].float() * freqs   # S,1,half
     cos, sin = torch.cos(angles), torch.sin(angles)
     xf1, xf2 = x[..., :half].float(), x[..., half:].float()
@@ -133,7 +152,7 @@ def _split_heads(x, n_heads, d_head):
 
 
 def attention(p, cfg: LMConfig, x, positions, *, chunked: bool,
-              kv_cache=None, cache_pos=None):
+              kv_cache=None, cache_pos=None, axes=None):
     """GQA attention.  ``p``: the layer's weights (``wq``, ``wk``, ``wv``,
     ``wo``, and ``q_norm``/``k_norm`` under ``qk_norm``), stored (in, out).
 
@@ -143,6 +162,12 @@ def attention(p, cfg: LMConfig, x, positions, *, chunked: bool,
     ``cache_pos`` the int position of the new token.  The new k/v are
     written into the cache tensors IN PLACE (the reference returns updated
     copies; the values are the same) and ``(out, (k, v))`` is returned.
+
+    ``axes`` (``transformer.MeshAxes``, the tensors DTensors): the
+    prefill's attention runs sharded over heads (module docstring); the
+    returned (k, v) are the kv heads before the repeat, the values of the
+    reference's un-repeat ``[:, :, ::g]``.  Decode pins no heads, as the
+    reference: the cache's placement decides.
     """
     dt = cfg.compute_dtype
     b, s, _ = x.shape
@@ -156,11 +181,17 @@ def attention(p, cfg: LMConfig, x, positions, *, chunked: bool,
     k = rope(k, positions, cfg.rope_theta)
 
     if kv_cache is None:
-        if chunked and s > cfg.chunk_size:
+        if axes is not None:
+            out = _sharded_causal(q, k, v, cfg, axes, chunked)
+        elif chunked and s > cfg.chunk_size:
             out = _chunked_causal(q, k, v, cfg)
         else:
             out = _causal(q, k, v)
         new_kv = (k, v)
+    elif isinstance(kv_cache[0], DTensor):
+        ck, cv = kv_cache
+        out = _decode_sharded(q, k, v, ck, cv, int(cache_pos), cfg, chunked)
+        new_kv = (ck, cv)
     else:
         ck, cv = kv_cache              # (B, S_c, Hkv, Dh)
         pos = int(cache_pos)
@@ -192,6 +223,29 @@ def _causal(q, k, v):
     return out.transpose(1, 2)
 
 
+def _sharded_causal(q, k, v, cfg, axes, chunked: bool):
+    """The reference's flat-head layout: k and v repeated to the q heads
+    (``[h0, h0, h1, h1, ...]``, its ``jnp.repeat``), q/k/v pinned to
+    batch on dp and heads on tp, and ``_causal`` (or ``_chunked_causal``)
+    run through ``local_map`` on each rank's (B/dp, S, H/tp, D) block."""
+    mesh = q.device_mesh
+    b, s, hkv, d = k.shape
+    g = cfg.n_heads // cfg.n_kv_heads
+    if g > 1:
+        k, v = (t[:, :, :, None].expand(b, s, hkv, g, d)
+                .reshape(b, s, hkv * g, d) for t in (k, v))
+    hspec = (axes.dp if b > 1 else None, None, axes.tp, None)
+    q, k, v = (sharding.pin(t, hspec, mesh) for t in (q, k, v))
+    pl = list(q.placements)
+    if chunked and s > cfg.chunk_size:
+        def fn(q, k, v):
+            return _chunked_causal(q, k, v, cfg)
+    else:
+        fn = _causal
+    return local_map(fn, out_placements=pl, in_placements=(pl, pl, pl),
+                     device_mesh=mesh)(q, k, v)
+
+
 def _chunked_causal(q, k, v, cfg):
     """Local (chunked) causal attention: queries attend only within their
     own chunk (iRoPE-style local layers).  Sequences not divisible by the
@@ -210,22 +264,125 @@ def _chunked_causal(q, k, v, cfg):
     return out.reshape(b, sp, h, d)[:, :s]
 
 
-def _decode_attend(q, k, v, valid):
+def _kv_placements(cache_pl) -> list:
+    """New (B, n, Hkv, D) k/v beside a cache placed ``cache_pl``: the
+    cache's placement, replicated where the cache shards the sequence."""
+    return [Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+            for p in cache_pl]
+
+
+def _groups(mesh, cache_pl, dim: int) -> list:
+    """The process groups of the mesh dimensions of more than one rank
+    that shard ``dim`` (a one-rank dimension holds the whole of it)."""
+    return [mesh.get_group(i) for i, p in enumerate(cache_pl)
+            if isinstance(p, Shard) and p.dim == dim and mesh.size(i) > 1]
+
+
+def cache_write(cache, t, pos0: int) -> None:
+    """Write ``t`` (B, n, Hkv, D) into ``cache`` (B, S_c, Hkv, D) at
+    positions ``pos0 .. pos0 + n - 1``, in place, where both are DTensors
+    on one mesh: ``t`` is placed beside the cache (:func:`_kv_placements`)
+    and each rank writes the positions its block of the cache holds."""
+    mesh, cpl = cache.device_mesh, list(cache.placements)
+    t = t.to(cache.dtype).redistribute(mesh, _kv_placements(cpl))
+    start, length = sharding.shard_offset(mesh, cpl, 1, cache.shape[1])
+    n = t.shape[1]
+
+    def write(c, x):
+        lo, hi = max(pos0, start), min(pos0 + n, start + length)
+        if lo < hi:
+            c[:, lo - start:hi - start] = x[:, lo - pos0:hi - pos0]
+        return c
+
+    local_map(write, out_placements=cpl,
+              in_placements=(cpl, list(t.placements)),
+              device_mesh=mesh)(cache, t)
+
+
+def _decode_sharded(q, k, v, ck, cv, pos: int, cfg, chunked: bool):
+    """Decode attention on a DTensor cache, in the cache's layout: the
+    new k/v written at ``pos`` (:func:`cache_write`), then
+    :func:`_decode_attend` on each rank's block through ``local_map``;
+    q is placed as the cache (batch, kv heads in whole groups, head
+    features) and replicated where the cache shards the sequence, and the
+    output keeps q's placement.  Over a mesh dimension of one rank
+    nothing is combined: the ops are the unsharded decode's."""
+    mesh, cpl = ck.device_mesh, list(ck.placements)
+    cache_write(ck, k, pos)
+    cache_write(cv, v, pos)
+    for i, p in enumerate(cpl):
+        if isinstance(p, Shard) and p.dim == 2 and cfg.n_kv_heads % \
+                mesh.size(i):
+            raise ValueError(f"a cache sharded over kv heads needs "
+                             f"{mesh.mesh_dim_names[i]!r} "
+                             f"({mesh.size(i)}) to divide n_kv_heads="
+                             f"{cfg.n_kv_heads}")
+    qpl = _kv_placements(cpl)
+    q = q.redistribute(mesh, qpl)
+    s_c = ck.shape[1]
+    start, length = sharding.shard_offset(mesh, cpl, 1, s_c)
+    seq_groups, feat_groups = _groups(mesh, cpl, 1), _groups(mesh, cpl, 3)
+    if chunked:
+        span = min(cfg.chunk_size, s_c)
+        lo = min((pos // cfg.chunk_size) * cfg.chunk_size, s_c - span)
+        hi = lo + span
+    else:
+        lo, hi = 0, s_c
+
+    def attend(qb, kb, vb):
+        if seq_groups:      # mask the window on this rank's positions
+            idx = start + torch.arange(length, device=kb.device)
+            valid = (idx >= lo) & (idx < hi) & (idx <= pos)
+        else:               # the window is local: slice it
+            kb, vb = kb[:, lo:hi], vb[:, lo:hi]
+            valid = (lo + torch.arange(hi - lo, device=kb.device)) <= pos
+        return _decode_attend(qb, kb, vb, valid, cfg.d_head, seq_groups,
+                              feat_groups)
+
+    return local_map(attend, out_placements=qpl,
+                     in_placements=(qpl, cpl, cpl),
+                     device_mesh=mesh)(q, ck, cv)
+
+
+def _decode_attend(q, k, v, valid, d: int | None = None, seq_groups=(),
+                   feat_groups=()):
     """q: (B, 1, Hq, D); k/v: (B, S, Hkv, D); valid: (S,) bool mask.
 
     The reference's einsums accumulate in f32 over the compute-dtype
     operands; here the operands are upcast to f32 first (bf16 products
     are exact in f32).  The probabilities are cast to ``v.dtype`` before
-    the PV product, as in the reference."""
-    b, one, hq, d = q.shape
+    the PV product, as in the reference.
+
+    On one rank's block of a sharded cache (:func:`_decode_sharded`):
+    the scores are summed over ``feat_groups`` (the head features
+    sharded), the softmax's max and sum and the output over
+    ``seq_groups`` (the sequence sharded); ``d`` is the whole head
+    dimension (default: q's).  With both empty the ops are the unsharded
+    decode's."""
+    b, one, hq, dl = q.shape
     hkv = k.shape[2]
     g = hq // hkv
-    qf = q.reshape(b, hkv, g, d)
-    s = torch.einsum("bkgd,bskd->bkgs", qf.float(), k.float()) / math.sqrt(d)
+    qf = q.reshape(b, hkv, g, dl)
+    s = torch.einsum("bkgd,bskd->bkgs", qf.float(), k.float())
+    for grp in feat_groups:
+        tdist.all_reduce(s, group=grp)
+    s = s / math.sqrt(d or dl)
     s = torch.where(valid[None, None, None, :], s, -1e30)
-    p = torch.softmax(s, dim=-1)
+    if seq_groups:
+        m = s.amax(-1, keepdim=True)
+        for grp in seq_groups:
+            tdist.all_reduce(m, op=tdist.ReduceOp.MAX, group=grp)
+        e = torch.exp(s - m)
+        total = e.sum(-1, keepdim=True)
+        for grp in seq_groups:
+            tdist.all_reduce(total, group=grp)
+        p = e / total
+    else:
+        p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", p.to(v.dtype).float(), v.float())
-    return out.reshape(b, 1, hq, d).to(q.dtype)
+    for grp in seq_groups:
+        tdist.all_reduce(out, group=grp)
+    return out.reshape(b, 1, hq, dl).to(q.dtype)
 
 
 # -------------------------------------------------------------------- FFN

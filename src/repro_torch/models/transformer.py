@@ -20,20 +20,77 @@ recomputes the rest in the backward, attention included: the reference's
 dense-branch products and recomputes its batched expert products).
 ``forward``, ``prefill`` and ``decode_step`` run under ``torch.no_grad``.
 
-Not ported: sharding (``MeshAxes``, ``param_specs``, ``cache_specs``;
-ROADMAP A6).
+Sharding, as the reference's: :class:`MeshAxes` names the mesh axes,
+:meth:`LM.param_specs` gives each parameter the reference's spec (FSDP x
+TP x EP, the layer axis dropped: the port keeps a module per layer) and
+:meth:`LM.cache_specs` the KV cache's.  ``models.sharding.shard_lm``
+places the parameters as DTensors on a ``DeviceMesh``; the LM then pins
+its activations where the reference does (the embedding's output on dp,
+q/k/v on (dp, heads on tp), the logits on (dp, vocab on tp)) with
+``redistribute``, and the attention runs through ``local_map`` on each
+rank's heads (``layers.attention``).  The sharded loss reduces the
+vocab-sharded logits over the shard (a max, a sum and the target logit
+picked on the rank that holds it), never gathering the logits.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Shard
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from .layers import LMConfig, attention, moe_ffn, rms_norm, swiglu
+from . import sharding
+from .layers import (LMConfig, attention, cache_write, moe_ffn, rms_norm,
+                     swiglu)
 
-__all__ = ["LM", "Block", "Attention", "SwiGLU", "MoE", "make_train_step"]
+__all__ = ["LM", "MeshAxes", "Block", "Attention", "SwiGLU", "MoE",
+           "make_train_step"]
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshAxes:
+    """Logical -> physical mesh axis names (the reference's)."""
+    dp: tuple[str, ...] = ("data",)      # batch / fsdp axes ("pod","data")
+    tp: str = "model"
+
+    @property
+    def fsdp(self):
+        return self.dp
+
+
+_NORMS = ("ln1", "ln2", "final_norm", "q_norm", "k_norm")
+
+
+def _ref_spec(path: str, nd: int, axes: MeshAxes) -> tuple:
+    """The reference's ``param_specs`` rule for its stacked leaf ``path``
+    (dotted, ``blocks.attn.wq``) of ``nd`` dimensions."""
+    fsdp, tp = axes.fsdp, axes.tp
+    if path.endswith(_NORMS):
+        return (None,) * nd
+    if path.endswith("embed"):
+        return (tp, None)       # vocab-sharded, d replicated
+    if path.endswith("out_head"):
+        return (None, tp)
+    if path.endswith("router"):
+        return (None, fsdp, None)
+    if ".moe." in path or path.endswith(("moe.w_gate", "moe.w_up",
+                                         "moe.w_down")):
+        if "dense" in path:     # (L, d, f) / (L, f, d) dense branch
+            if path.endswith("w_down"):
+                return (None, tp, fsdp)
+            return (None, fsdp, tp)
+        if path.endswith("w_down"):     # (L, E, F, D)
+            return (None, tp, None, fsdp)
+        return (None, tp, fsdp, None)   # (L, E, D, F)
+    # dense attn / ffn mats (L, in, out)
+    if path.endswith(("wo", "w_down")):
+        return (None, tp, fsdp)
+    return (None, fsdp, tp)
 
 
 def _param(*shape, dtype, device):
@@ -113,13 +170,15 @@ class Block(nn.Module):
         else:
             self.ffn = SwiGLU(cfg, device=device)
 
-    def forward(self, x, positions, chunked, kv_cache=None, cache_pos=None):
+    def forward(self, x, positions, chunked, kv_cache=None, cache_pos=None,
+                axes=None):
         """-> ``(x, aux, (k, v))``: ``aux`` the MoE's auxiliary loss, a
-        0-d f32 zero for a dense layer."""
+        0-d f32 zero for a dense layer.  ``axes``: the LM's
+        :class:`MeshAxes` when it is sharded."""
         cfg = self.cfg
         h, kv = attention(_weights(self.attn), cfg, rms_norm(x, self.ln1),
                           positions, chunked=chunked, kv_cache=kv_cache,
-                          cache_pos=cache_pos)
+                          cache_pos=cache_pos, axes=axes)
         x = x + h
         if cfg.moe:
             ff, aux = moe_ffn(self.moe.weights(), cfg, rms_norm(x, self.ln2))
@@ -135,11 +194,16 @@ class LM(nn.Module):
     and scales (normal weights scaled by 1/sqrt(fan-in), the embedding by
     0.02, norms at one) from ``generator`` — a ``torch.Generator`` on
     ``device``, seeded 0 when omitted.  ``init=False`` leaves the weights
-    uninitialised (``models.convert.lm_from_numpy`` fills them)."""
+    uninitialised (``models.convert.lm_from_numpy`` fills them).
+
+    ``mesh`` (a ``DeviceMesh``) places the parameters by
+    :meth:`param_specs` of ``axes`` (default :class:`MeshAxes`) once they
+    are drawn (``sharding.shard_lm``), and turns on the activation pins."""
 
     def __init__(self, cfg: LMConfig, *, device="cuda",
                  generator: torch.Generator | None = None,
-                 init: bool = True):
+                 init: bool = True, axes: MeshAxes | None = None,
+                 mesh=None):
         super().__init__()
         if cfg.n_layers % cfg.layer_group:
             raise ValueError(f"n_layers {cfg.n_layers} is not a multiple of "
@@ -153,10 +217,13 @@ class LM(nn.Module):
         self.final_norm = _param(cfg.d_model, dtype=pd, device=device)
         self.blocks = nn.ModuleList(Block(cfg, device=device)
                                     for _ in range(cfg.n_layers))
+        self.axes, self.mesh = None, None
         if init:
             if generator is None:
                 generator = torch.Generator(device=device).manual_seed(0)
             self.init_weights(generator)
+        if mesh is not None:
+            sharding.shard_lm(self, mesh, axes)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -176,6 +243,66 @@ class LM(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
+    # -------------------------------------------------------- sharding
+    def param_specs(self, axes: MeshAxes = MeshAxes()) -> dict:
+        """The reference's spec of each parameter, by the port's name
+        (``blocks.3.attn.wq``): a layer's spec without the reference's
+        leading (replicated) layer axis."""
+        from .convert import _ref_path
+        out = {}
+        for name, p in self.named_parameters():
+            path, layer = _ref_path(name)
+            stacked = p.dim() + (layer is not None)
+            spec = _ref_spec(".".join(path), stacked, axes)
+            out[name] = spec if layer is None else spec[1:]
+        return out
+
+    def cache_specs(self, axes: MeshAxes = MeshAxes(),
+                    shard_seq: bool = False):
+        """(k, v) cache: (L, B, S, Hkv, Dh). Batch on dp normally; for
+        batch=1 long-context decode, the sequence axis instead (context
+        parallelism).  The reference's rule."""
+        if shard_seq:
+            s = (None, None, axes.dp, None, None)
+        else:
+            s = (None, axes.dp, None, None, None)
+        return (s, s)
+
+    def decode_cache_spec(self, b: int, axes: MeshAxes | None = None):
+        """The cache spec the reference's decode cell places its
+        (L, B, S, Hkv, Dh) cache by (``launch/cells.py``): batch 1 -> the
+        sequence over dp and tp; chunked attention -> batch on dp, the
+        head-feature dim on tp (a chunk's window stays local); otherwise
+        batch on dp, the sequence on tp."""
+        axes = axes or self.axes or MeshAxes()
+        dp = tuple(axes.dp)
+        if b == 1:
+            return (None, None, dp + (axes.tp,), None, None)
+        if self.cfg.attention == "chunked":
+            return (None, dp, None, None, axes.tp)
+        return (None, dp, axes.tp, None, None)
+
+    def check_axes(self, axes: MeshAxes, mesh) -> None:
+        """The sharded attention splits the heads over tp: tp must divide
+        ``n_heads`` (GSPMD would pad the heads; the port does not)."""
+        tp = mesh.size(mesh.mesh_dim_names.index(axes.tp))
+        if self.cfg.n_heads % tp:
+            raise ValueError(
+                f"tp={tp} does not divide n_heads={self.cfg.n_heads}: the "
+                f"sharded attention splits the heads evenly over "
+                f"{axes.tp!r} (GSPMD would pad them; the port does not)")
+
+    def _pin(self, x, spec):
+        return sharding.pin(x, spec, self.mesh)
+
+    def _place(self, t, spec):
+        """A host-side batch tensor (the same on every rank) placed by
+        ``spec`` (each rank keeps its block); a DTensor as it is."""
+        if self.mesh is None or isinstance(t, DTensor):
+            return t
+        return sharding.local_block(t, self.mesh,
+                                    sharding.placements(spec, self.mesh))
+
     def _layer_types(self):
         g = self.cfg.layer_group
         if g == 1:
@@ -183,14 +310,31 @@ class LM(nn.Module):
         # llama4 iRoPE grouping: local, local, local, global
         return tuple(i < g - 1 for i in range(g))
 
+    def _dp(self, b: int):
+        """The batch's spec entry: dp, or None for a batch of one (which
+        DTensor cannot fold into the sequence when it is sharded, and
+        which GSPMD would pad)."""
+        return self.axes.dp if b > 1 else None
+
     def _embed(self, tokens):
         # F.embedding: a gather, whose backward on the card sorts the ids
         # and reduces each row's segment (no atomic: the same bits again)
-        return F.embedding(tokens, self.embed).to(self.cfg.compute_dtype)
+        if self.mesh is not None:
+            bspec = self._dp(tokens.shape[0])
+            tokens = self._place(tokens, (bspec, None))
+        x = F.embedding(tokens, self.embed).to(self.cfg.compute_dtype)
+        if self.mesh is not None:
+            x = self._pin(x, (bspec, None, None))
+        return x
 
     def _head(self, x):
         x = rms_norm(x, self.final_norm)
-        return (x @ self.out_head.to(self.cfg.compute_dtype)).float()
+        logits = (x @ self.out_head.to(self.cfg.compute_dtype)).float()
+        if self.mesh is not None:
+            dp, tp = self._dp(logits.shape[0]), self.axes.tp
+            logits = self._pin(logits, (dp,) + (None,) * (logits.dim() - 2)
+                               + (tp,))
+        return logits
 
     def _group(self, x, positions, first: int, cache=None):
         """Layers ``first .. first + layer_group - 1`` -> ``(x, the sum of
@@ -202,11 +346,15 @@ class LM(nn.Module):
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(first, first + cfg.layer_group):
             x, aux, (k, v) = self.blocks[i](
-                x, positions, chunked=types[i % cfg.layer_group])
+                x, positions, chunked=types[i % cfg.layer_group],
+                axes=self.axes)
             aux_total = aux_total + aux
             if cache is not None:
-                cache[0][i, :, :s] = k
-                cache[1][i, :, :s] = v
+                for c, t in zip(cache, (k, v)):
+                    if isinstance(c, DTensor):
+                        cache_write(c[i], t, 0)
+                    else:
+                        c[i, :, :s] = t
         return x, aux_total
 
     def _run(self, tokens, cache=None):
@@ -217,7 +365,7 @@ class LM(nn.Module):
         cfg = self.cfg
         b, s = tokens.shape
         x = self._embed(tokens)
-        positions = torch.arange(s, device=x.device).expand(b, s)
+        positions = sharding.positions_like(x, s)
         remat = cfg.remat and cache is None and torch.is_grad_enabled()
         auxes = []
         for first in range(0, cfg.n_layers, cfg.layer_group):
@@ -247,11 +395,20 @@ class LM(nn.Module):
         if collect_cache:
             shape = (cfg.n_layers, b, cache_len or s, cfg.n_kv_heads,
                      cfg.d_head)
-            cache = tuple(torch.zeros(shape, dtype=cfg.compute_dtype,
-                                      device=self.device)
-                          for _ in range(2))
+            cache = tuple(self._zeros_cache(shape) for _ in range(2))
         logits, aux = self._run(tokens, cache)
         return logits, aux, cache
+
+    def _zeros_cache(self, shape):
+        """A zero cache tensor; on a mesh, placed by
+        :meth:`decode_cache_spec` (the decode cell's spec)."""
+        dt = self.cfg.compute_dtype
+        if self.mesh is None:
+            return torch.zeros(shape, dtype=dt, device=self.device)
+        from torch.distributed.tensor import zeros
+        spec = self.decode_cache_spec(shape[1])
+        return zeros(shape, dtype=dt, device_mesh=self.mesh,
+                     placements=sharding.placements(spec, self.mesh))
 
     # --------------------------------------------------------------- loss
     def loss(self, batch):
@@ -261,10 +418,45 @@ class LM(nn.Module):
         logit is gathered: the value of the reference's one-hot
         contraction, which it takes only to shard the vocab."""
         logits, aux = self._run(batch["tokens"])
-        logz = torch.logsumexp(logits, dim=-1)
-        tgt = logits.gather(-1, batch["targets"][..., None]).squeeze(-1)
-        nll = (logz - tgt).mean()
+        if self.mesh is not None:
+            targets = self._place(batch["targets"],
+                                  (self._dp(logits.shape[0]), None))
+            nll = self._sharded_nll(logits, targets)
+        else:
+            logz = torch.logsumexp(logits, dim=-1)
+            tgt = logits.gather(-1, batch["targets"][..., None]).squeeze(-1)
+            nll = (logz - tgt).mean()
         return nll + 0.01 * aux, {"nll": nll, "aux": aux}
+
+    def _sharded_nll(self, logits, targets):
+        """The mean NLL of vocab-sharded logits without gathering them
+        (the reference's one-hot contraction, which reduces over the
+        shard): the log-sum-exp from a max and a sum over the shard, the
+        target logit picked on the rank whose block holds it (Partial
+        over tp).  Returns a plain 0-d tensor (``full_tensor``), so a
+        gradient starts from one replicated seed."""
+        m = logits.detach().amax(-1, keepdim=True)
+        logz = (logits - m).exp().sum(-1).log() + m.squeeze(-1)
+        tgt = self._target_logit(logits, targets)
+        return (logz - tgt).mean().full_tensor()
+
+    def _target_logit(self, logits, targets):
+        mesh, vocab = self.mesh, logits.shape[-1]
+        lp = list(logits.placements)
+        tp = [Partial() if isinstance(p, Shard) and p.dim == 2 else p
+              for p in lp]
+        tgt_pl = list(targets.placements)
+
+        def pick(lg, tg):
+            start, n = sharding.shard_offset(mesh, lp, 2, vocab)
+            t = tg - start
+            inside = (t >= 0) & (t < n)
+            got = lg.gather(-1, t.clamp(0, n - 1)[..., None]).squeeze(-1)
+            return torch.where(inside, got, torch.zeros_like(got))
+
+        return local_map(pick, out_placements=tp,
+                         in_placements=(lp, tgt_pl),
+                         device_mesh=mesh)(logits, targets)
 
     # ------------------------------------------------------------ serving
     @torch.no_grad()
@@ -285,14 +477,14 @@ class LM(nn.Module):
         b = token.shape[0]
         pos = int(pos)
         x = self._embed(token)
-        positions = torch.full((b, 1), pos, dtype=torch.int64,
-                               device=x.device)
+        positions = sharding.positions_like(x, 1, pos)
         types = self._layer_types()
         ks, vs = cache
         for i, block in enumerate(self.blocks):
             x, _, _ = block(x, positions,
                             chunked=types[i % cfg.layer_group],
-                            kv_cache=(ks[i], vs[i]), cache_pos=pos)
+                            kv_cache=(ks[i], vs[i]), cache_pos=pos,
+                            axes=self.axes)
         return self._head(x[:, 0]), cache
 
 

@@ -13,6 +13,13 @@ the parameters first), and ``schedule(count)`` scales the learning rate.
 The step count lives on the parameters' device, so an update never waits
 for the host.
 
+Parameters may be DTensors on a ``DeviceMesh`` (a sharded LM,
+``models.sharding``): the moments take the parameters' placements, a
+gradient placed otherwise is redistributed to its parameter's placement
+first, and the clip's global norm sums every shard (:func:`global_norm`).
+``step``'s update is elementwise, so it runs on each rank's local blocks
+(plain tensors: no DTensor dispatch for its ~15 ops a parameter).
+
 :class:`HybridAdamW` is the recsys optimizer: Adam for the dense
 parameters, momentum-free SGD for the embedding tables.  It takes the
 parameters by name, as the reference's tree paths (``tables/t0``,
@@ -25,6 +32,7 @@ import math
 from typing import Callable, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 
 class AdamWState(NamedTuple):
@@ -55,7 +63,8 @@ class AdamW:
 
     def update(self, grads, state: AdamWState, params):
         """Returns ``(new_params, new_state)``; nothing is modified."""
-        grads, params = list(grads), _tensors(params)
+        params = _tensors(params)
+        grads = [_like(g, p) for g, p in zip(grads, params)]
         count = state.count + 1
         scale = self._clip_scale(grads)
         if scale is not None:
@@ -77,12 +86,14 @@ class AdamW:
         moment tensors, one tensor at a time, so the temporaries are one
         tensor's and not a second copy of the model and its moments.
         Returns the new state (which holds ``state``'s moment tensors)."""
-        params, grads = _tensors(params), list(grads)
+        params = _tensors(params)
+        grads = [_like(g, p) for g, p in zip(grads, params)]
         count = state.count + 1
         scale = self._clip_scale(grads)
         bc1, bc2, lr = _corrections(self, count)
         b1, b2 = self.b1, self.b2
         for p, g, m, v in zip(params, grads, state.mu, state.nu):
+            p, g, m, v = (_local(t) for t in (p, g, m, v))
             g32 = (g if scale is None else g * scale).to(torch.float32)
             m.mul_(b1).add_((1 - b1) * g32)
             v.mul_(b2).add_((1 - b2) * torch.square(g32))
@@ -121,9 +132,44 @@ def _corrections(adamw: AdamW, count):
     return bc1, bc2, lr
 
 
+def _like(g, p):
+    """``g`` in ``p``'s placement where both are DTensors."""
+    if isinstance(g, DTensor) and isinstance(p, DTensor) \
+            and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _local(t):
+    """A DTensor's local block (a view: writes land in the DTensor)."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def global_norm(tensors) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(t.to(torch.float32)))
-                          for t in tensors))
+    """The L2 norm of all of ``tensors`` together (f32), a plain 0-d
+    tensor.  A DTensor counts every shard once: its local blocks' sums of
+    squares are partial sums over the mesh dimensions that shard it
+    (pending sums are resolved first), added up per placement and
+    reduced with one all-reduce per distinct placement, not per
+    tensor."""
+    total = 0
+    groups: dict = {}
+    for t in tensors:
+        if not isinstance(t, DTensor):
+            total = total + torch.sum(torch.square(t.to(torch.float32)))
+            continue
+        mesh = t.device_mesh
+        if any(p.is_partial() for p in t.placements):
+            t = t.redistribute(mesh, [Replicate() if p.is_partial() else p
+                                      for p in t.placements])
+        key = (mesh, tuple(Partial() if isinstance(p, Shard) else p
+                           for p in t.placements))
+        groups[key] = groups.get(key, 0) + torch.sum(
+            torch.square(t.to_local().to(torch.float32)))
+    for (mesh, plc), local in groups.items():
+        total = total + DTensor.from_local(local, mesh, plc,
+                                           run_check=False).full_tensor()
+    return torch.sqrt(total)
 
 
 def cosine_schedule(warmup: int, total: int):

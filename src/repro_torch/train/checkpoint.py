@@ -13,8 +13,9 @@ reference's ``tree_flatten_with_path`` renders it (``params/0``,
 ``opt/.count``, ``opt/.mu/3``).  ``None`` is an empty subtree.  A dtype
 that numpy cannot hold (``bfloat16``) raises: it is never cast quietly.
 
-:func:`restore` puts the leaves on an explicit ``device`` (in place of
-the reference's ``shardings=``; the default is the card);
+:func:`restore` puts the leaves on an explicit ``device`` (the default
+is the card), or, with ``shardings=`` (the reference's
+reshard-on-restore), places each leaf on a ``DeviceMesh`` as a DTensor;
 :func:`load_flat` returns numpy arrays, as the reference's does.
 :class:`AsyncCheckpointer` moves the disk writes to a background thread;
 its ``save`` takes a real host copy inline, so the caller may mutate its
@@ -134,15 +135,52 @@ def _manifest(ckpt_dir: str, step: int | None):
         return path, json.load(f)
 
 
+def _is_placed(x) -> bool:
+    """A ``(DeviceMesh, placements)`` pair: a leaf of ``shardings``."""
+    from torch.distributed.device_mesh import DeviceMesh
+    return (isinstance(x, tuple) and len(x) == 2
+            and isinstance(x[0], DeviceMesh))
+
+
+def _placed_leaves(tree, prefix=()) -> dict:
+    """``{name: (mesh, placements)}`` of a ``shardings`` tree, named as
+    :func:`leaves` names ``like``'s leaves (None: not placed)."""
+    if tree is None:
+        return {}
+    if _is_placed(tree):
+        return {"/".join(prefix): tree}
+    out: dict = {}
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            out.update(_placed_leaves(tree[k], prefix + (str(k),)))
+    elif _is_namedtuple(tree):
+        for f in tree._fields:
+            out.update(_placed_leaves(getattr(tree, f), prefix + (f".{f}",)))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(_placed_leaves(v, prefix + (str(i),)))
+    else:
+        raise TypeError(f"shardings leaf {'/'.join(prefix)!r} is {tree!r}, "
+                        f"not a (DeviceMesh, placements) pair or None")
+    return out
+
+
 def restore(ckpt_dir: str, like, step: int | None = None, *,
-            device="cuda"):
+            device="cuda", shardings=None):
     """Restore into the structure of ``like`` (a tree of tensors or
     arrays; only its structure, names and shapes are read).  Every leaf
     becomes a tensor on ``device``.  Returns ``(tree, step, metadata)``.
     A leaf missing from the checkpoint, or of another shape than
-    ``like``'s, raises."""
+    ``like``'s, raises.
+
+    ``shardings``: a tree matching ``like`` whose leaves are
+    ``(DeviceMesh, placements)`` pairs (or None): each such leaf is
+    loaded onto the mesh's device type and placed as a DTensor
+    (``models.sharding.local_block``; every rank reads the whole leaf and
+    keeps its block), the reference's reshard-on-restore."""
     path, manifest = _manifest(ckpt_dir, step)
     leaves = manifest["leaves"]
+    placed = _placed_leaves(shardings)
 
     def load(name, leaf):
         if name not in leaves:
@@ -154,8 +192,12 @@ def restore(ckpt_dir: str, like, step: int | None = None, *,
             raise ValueError(f"checkpoint leaf {name!r} has shape "
                              f"{tuple(info['shape'])}, expected {want}")
         arr = np.load(os.path.join(path, info["file"]))
-        return torch.from_numpy(np.require(arr, requirements=["C", "W"])
-                                ).to(device)
+        t = torch.from_numpy(np.require(arr, requirements=["C", "W"]))
+        if name in placed:
+            from ..models.sharding import local_block
+            mesh, plc = placed[name]
+            return local_block(t.to(mesh.device_type), mesh, plc)
+        return t.to(device)
 
     return _rebuild(like, load), manifest["step"], manifest["metadata"]
 

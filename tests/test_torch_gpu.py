@@ -7,7 +7,8 @@ against the engines on the CPU, the LM's prefill (through the flash
 kernel) against its decode, the attention gradient with the kernel's
 forward against autograd through the plain version, LM training with
 and without remat, a GNN and an LM (dense and MoE) training step and the
-MoE FFN on the card against the same on the CPU, the static checks' copy kernel against
+MoE FFN on the card against the same on the CPU, the sharded LM as one
+NCCL rank against the unsharded, the static checks' copy kernel against
 ``x.clone()``, and every captured launch record against the grid and
 block the profiler sees.  They skip where no CUDA device is present; on a machine with one
 run them with::
@@ -1487,3 +1488,92 @@ def test_sharded_backend_one_nccl_rank(cuda):
                 assert got.edges_traversed == want.edges_traversed
             calls = eng.last_collectives
             assert calls["all_gather"][0] >= 2 and calls["any"][0] >= 1
+
+
+def test_lm_sharded_step_one_nccl_rank(cuda):
+    """The sharded LM as one NCCL rank on a (1, 1) ("data", "model")
+    mesh: the reduced qwen3 (f32 compute, D = 64, remat on) places its
+    parameters as DTensors on the card; one ``make_train_step`` gives the
+    unsharded step's loss to 1e-5 relative, the flash kernel launching
+    twice a layer (forward and remat recompute), both moments to 1e-4 of
+    each largest entry and the parameters after it to 2e-5 where the
+    clipped |g| is at least 100 x AdamW's eps; AdamW on the same
+    gradients gives the parameters and moments to 1e-6 of each largest
+    entry; prefill and 4 decode steps on a cache placed by the decode
+    spec give the unsharded logits to 1e-4; ``compressed_psum``
+    at world 1 is ``dequantize(quantize(g))`` and ``gpipe_apply`` at
+    S = 1 is the plain stage."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import LM, sharding
+    from repro_torch.models.transformer import make_train_step
+    from repro_torch.optim import AdamW
+    from repro_torch.train import compression, pipeline
+    lm = _card_lm(cuda, 64, torch.float32, True)
+    batch = _card_batch(lm.cfg, cuda)
+    with dist.process_group(cuda):
+        mesh = make_mesh((1, 1), ("data", "model"), device=cuda)
+        sharded = LM(lm.cfg, device=cuda, init=False)
+        sharded.load_state_dict({k: t.clone() for k, t in
+                                 lm.state_dict().items()})
+        sharding.shard_lm(sharded, mesh)
+        toks = batch["tokens"][:, :128]
+        with torch.no_grad():
+            want_p, want_c = lm.prefill(toks, cache_len=136)
+            got_p, got_c = sharded.prefill(toks, cache_len=136)
+            assert tuple(got_c[0].placements) == tuple(
+                sharding.placements(sharded.decode_cache_spec(2), mesh))
+            outs = [(got_p.full_tensor(), want_p)]
+            for i in range(4):
+                tok = want_p.argmax(-1, keepdim=True)
+                want_p, want_c = lm.decode_step(want_c, tok, 128 + i)
+                got_p, got_c = sharded.decode_step(got_c, tok, 128 + i)
+                outs.append((got_p.full_tensor(), want_p))
+        for got, want in outs:
+            assert float((got - want).abs().max()) \
+                <= 1e-4 * float(want.abs().max())
+        opt = AdamW(lr=1e-3)
+        # AdamW on the same gradients: the sharded update, written through
+        # the DTensors' local blocks, is the plain one but for the order in
+        # which the clip's global norm sums
+        grads = torch.autograd.grad(lm.loss(batch)[0], list(lm.parameters()))
+        same = []
+        for model, gs in ((lm, grads), (sharded, [
+                sharding.local_block(g, p.device_mesh, p.placements)
+                for g, p in zip(grads, sharded.parameters())])):
+            ps = [p.detach().clone() for p in model.parameters()]
+            st = opt.step(ps, gs, opt.init(ps))
+            same.append(ps + st.mu + st.nu)
+        for a, b in zip(*same):
+            assert float((b.full_tensor() - a).abs().max()) \
+                <= 1e-6 * float(a.abs().max())
+        del grads, same
+        res = []
+        for model in (lm, sharded):
+            ps = list(model.parameters())
+            before = ops.LAUNCHES["flash_attention"]
+            _, st, met = make_train_step(model, opt)(ps, opt.init(ps), batch)
+            torch.cuda.synchronize()
+            res.append((met["loss"].item(), st,
+                        ops.LAUNCHES["flash_attention"] - before))
+        (loss, st, n), (sloss, sst, sn) = res
+        assert n == sn == 2 * lm.cfg.n_layers
+        assert abs(sloss - loss) <= 1e-5 * loss
+        for a, b in zip(sst.mu + sst.nu, st.mu + st.nu):
+            assert float((a.full_tensor() - b).abs().max()) \
+                <= 1e-4 * float(b.abs().max())
+        # each step's own update: the parameters to 2e-5 where the clipped
+        # |g| is at least 100 eps (a first Adam step moves an entry by
+        # lr g / (|g| + eps): nearer eps a last-bit difference of the
+        # gradients moves it by up to 2 lr)
+        for a, b, m in zip(sharded.parameters(), lm.parameters(), st.mu):
+            far = m.abs() / (1 - opt.b1) >= 100 * opt.eps
+            diff = (a.full_tensor() - b.detach()).abs()[far]
+            assert diff.numel() == 0 or float(diff.max()) <= 2e-5
+        g = st.mu[0] * 10
+        assert torch.equal(compression.compressed_psum(g),
+                           compression.dequantize(*compression.quantize(g)))
+        x = torch.randn(4, 2, 8, device=cuda)
+        w = torch.randn(1, 8, 8, device=cuda)
+        assert torch.equal(pipeline.gpipe_apply(
+            lambda w, x: torch.tanh(x @ w), w, x), torch.tanh(x @ w[0]))
