@@ -339,7 +339,7 @@ non-zero and prints no result line):
    on the group.  (c) ``python -m repro_torch.launch.trim --backend
    sharded`` in a subprocess, a rank of its own world.  (d) the group is
    destroyed.
-22. (last) the sharded LM as one NCCL rank on a (1, 1) ("data", "model")
+22. the sharded LM as one NCCL rank on a (1, 1) ("data", "model")
    ``DeviceMesh`` (``launch.mesh.make_mesh``), qwen3-1.7b at its
    published config from seed 0 (phase 11's and phase 18's weights), its
    parameters placed as DTensors by ``LM.param_specs``
@@ -371,6 +371,28 @@ non-zero and prints no result line):
    ``gpipe_apply`` with layer 0 as the stage at S = 1 over 4 microbatches
    of 2 x 2048, equal to the layer's plain forward.  The group is
    destroyed at the end.
+23. (last) the rest of A6's models as one NCCL rank on a (1, 1) ("data",
+   "model") mesh, the card's memory freed first: (a) arctic-480b at its
+   published width, 1 layer, phase 19's seed, placed by ``shard_lm`` (the
+   experts on tp, storage shared): ``generate`` on phase 19's 8 x 2048
+   prompts, 32 new, the counts set to 0 just before and read just after
+   (flash_attention once), the greedy tokens equal to phase 19's, the
+   prefill's last logits against the unsharded ones, prefill and decode
+   ms and peak memory beside the unsharded model's in the same call
+   (DTensor's host overhead); (b) wide-deep as published (seed 0) with
+   the collective lookup, its tables row-sharded over "model":
+   serve_p99's 512 rows against the unsharded forward (1e-6 of the
+   largest logit), train_batch steps (65,536 rows, HybridAdamW; two of
+   each) against the unsharded steps on a copy of the weights (loss 1e-6
+   relative, parameters 2e-5), retrieval_cand's top 100 against the
+   unsharded; ms and peak memory; (c) MeshGraphNet's minibatch_lg cell
+   (phase 12's LG) by ``build_cell(..., mesh=)`` with gnn_edge_dp None
+   and ("data", "model"): one step's loss (1e-5) and parameters (2e-5)
+   against the unsharded cell's, segment_sum launches (the counts set to
+   0 just before each step and read just after), step ms; (d) flash on
+   arctic's repeated-head block (group 1) within FLASH_TOL, segment_sum
+   on the rank's edge block within SEG_TOL of each segment's sum of |v|,
+   each timed.  The group is destroyed at the end.
 
 The last two lines are the kernel table and the result, as JSON.  Needs
 one CUDA device; imports nothing of JAX or of the JAX package.
@@ -638,6 +660,23 @@ PIPE = dict(microbatches=4, batch=2, seq=2048)
 LM_SHARDED_PATH = ("flash_attention",)
 # phase 11's greedy tokens, held against phase 22 (b)
 SERVED: dict = {}
+# phase 23: the rest of A6's models on a (1, 1) ("data", "model") mesh of
+# one NCCL rank: (a) arctic-480b at its published width, 1 layer, through
+# shard_lm with phase 19's model seed and traffic (MOE_SERVE); (b) wide-deep
+# as published with the collective lookup (serve_p99, one train_batch step
+# under HybridAdamW, retrieval_cand); (c) MeshGraphNet's minibatch_lg cell
+# (phase 12's LG) built on the mesh with gnn_edge_dp None and ("data",
+# "model"); (d) flash and segment_sum on the blocks (a) and (c) give them.
+# Sharded against unsharded on the same weights: loss relative, logits
+# relative to the largest, parameters absolute
+SHARDED_MODELS_TOL = dict(loss=1e-5, fwd=1e-6, param=2e-5)
+# (b) train_batch steps of each model (the first of each pays its
+# allocations; the second is the steady one)
+RECSYS_SHARDED_STEPS = 2
+SHARDED_MODELS_PATH = ("flash_attention", "segment_sum")
+GNN_EDGE_DP = (None, ("data", "model"))
+# phase 19 (a)'s greedy tokens, held against phase 23 (a)
+MOE_SERVED: dict = {}
 SYNC_WARNING = "called a synchronizing CUDA operation"
 INF_NOTE = (" (overflows float32: the reference's clip scales every update "
             "to 0, so the parameters stay as they are; ROADMAP C)")
@@ -4207,12 +4246,12 @@ class MoeRouting:
         from repro_torch.models import layers, transformer
         self.calls, self._real = [], transformer.moe_ffn
 
-        def recording(p, cfg, x):
+        def recording(p, cfg, x, axes=None):
             xf = x.reshape(-1, x.shape[-1])
             self.calls.append(
                 (xf @ p["router"].to(cfg.compute_dtype)).float()
                 .softmax(-1))
-            return layers.moe_ffn(p, cfg, x)
+            return layers.moe_ffn(p, cfg, x, axes=axes)
         transformer.moe_ffn = recording
         return self
 
@@ -4332,6 +4371,7 @@ def moe_serve_phase(dev):
     check(toks.shape == (MOE_SERVE["batch"], MOE_SERVE["gen_len"] + 1)
           and toks.min() >= 0 and toks.max() < cfg.vocab,
           f"served tokens {toks.shape} out of range")
+    MOE_SERVED["tokens"] = toks
     dec = np.asarray(stats["decode_ms"])
     n_tok = MOE_SERVE["batch"] * MOE_SERVE["gen_len"]
     log(f"# phase 19 (a): serve_lm {MOE_SERVE['batch']} x "
@@ -5279,7 +5319,7 @@ def flash_blocks():
         layers._causal = orig
 
 
-def flash_block_check(box, label: str, card) -> None:
+def flash_block_check(box, label: str, card, phase: int = 22) -> None:
     """``ops.flash_attention`` on a block :func:`flash_blocks` kept, read
     through the (B, H, S, D) views ``layers._causal`` passes, against its
     plain version at FLASH_TOL, then timed."""
@@ -5300,7 +5340,7 @@ def flash_block_check(box, label: str, card) -> None:
           f"{tuple(q.shape)} {dt}: max |err| {err} over {FLASH_TOL[dt]}")
     del got, want
     ms = device_ms(lambda: ops.flash_attention(q, k, v, causal=True))
-    log(f"# phase 22 {label}: flash_attention "
+    log(f"# phase {phase} {label}: flash_attention "
         f"({fa.kernel_for(q.dtype, q.shape[-1])}) on layer 0's local "
         f"(B, H, S, D) block {tuple(q.shape)} {dt}, k and v repeated to "
         f"the q heads (group 1): max |err| {err:.3g} against the plain "
@@ -5708,6 +5748,340 @@ def sharded_lm_phase(dev):
     return launches
 
 
+# -- phase 23: the rest of A6's models as one NCCL rank -------------------------
+
+def card_name() -> str:
+    """``nvidia-smi --query-gpu=name,power.limit``'s first line."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def sharded_moe_phase(dev, mesh, card):
+    """Phase 23 (a): arctic-480b at its published width cut to 1 layer
+    (phase 19's seed), placed by ``shard_lm`` on the one-rank mesh (the
+    storage shared with the unsharded model), ``generate`` through it on
+    phase 19's prompts, the counts set to 0 just before and read just
+    after; greedy tokens against phase 19's, the sharded prefill's last
+    logits against the unsharded ones, decode and prefill against the
+    unsharded model's in the same call (DTensor's host overhead); then
+    (d)'s flash check on the rank's repeated-head block.  Returns the
+    launch counts."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import LM, sharding
+
+    cfg = dataclasses.replace(configs.get(MOE_SERVE["arch"]).make_config(),
+                              n_layers=MOE_SERVE["n_layers"])
+    lm = LM(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(MOE_SERVE["seed"]))
+    twin = LM(cfg, device="meta", init=False)
+    twin.load_state_dict(lm.state_dict(keep_vars=True), assign=True)
+    sharding.shard_lm(twin, mesh)
+    shared = all(a.data_ptr() == b.to_local().data_ptr()
+                 for a, b in zip(lm.parameters(), twin.parameters()))
+    check(shared, "(a) the sharded arctic does not share the weights")
+    rng = np.random.default_rng(MOE_SERVE["seed"])  # as serve_lm draws them
+    prompts = torch.as_tensor(rng.integers(
+        0, cfg.vocab, (MOE_SERVE["batch"], MOE_SERVE["prompt_len"])),
+        device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    ops.reset_launches()
+    toks, stats = generate(twin, prompts, MOE_SERVE["gen_len"])
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    toks = full(toks).to(torch.int32).cpu().numpy()
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"(a) flash_attention launched {launches['flash_attention']} "
+          f"times in the sharded prefill, not {cfg.n_layers}")
+    check("tokens" in MOE_SERVED and np.array_equal(toks,
+                                                     MOE_SERVED["tokens"]),
+          f"(a) the sharded greedy tokens differ from phase 19's: "
+          f"{toks[:, :8]} vs {MOE_SERVED.get('tokens', np.zeros(0))[:, :8]}")
+    _, warm = generate(twin, prompts, MOE_SERVE["gen_len"])
+    _, plain = generate(lm, prompts, MOE_SERVE["gen_len"])
+    with torch.no_grad(), flash_blocks() as box:
+        last, cache = twin.prefill(prompts)
+        del cache
+        got = full(last)
+        want = lm.prefill(prompts)[0]
+    direct = float((got - want).abs().max())
+    bits = bool(torch.equal(got, want))
+    scale = float(want.abs().max())
+    del got, want, last
+    check(direct <= MOE_TOL["f32"] * scale,
+          f"(a) the sharded prefill's last logits lie {direct} from the "
+          f"unsharded ones (largest {scale})")
+    dec_s, dec_u = (float(np.median(x["decode_ms"])) for x in (warm, plain))
+    log(f"# phase 23 (a): {cfg.name} ({cfg.n_layers} layer of "
+        f"{configs.get(MOE_SERVE['arch']).make_config().n_layers}; "
+        f"{cfg.n_experts} experts on tp, D on dp) through shard_lm on the "
+        f"(1, 1) mesh, storage shared: generate {MOE_SERVE['batch']} x "
+        f"{MOE_SERVE['prompt_len']} prompt tokens, {MOE_SERVE['gen_len']} "
+        f"new: launches {launches}; greedy tokens equal phase 19's; "
+        f"prefill's last logits sharded vs unsharded max |diff| {direct:.3g}"
+        f" (bit for bit: {bits}); first prefill_ms={stats['prefill_ms']:.1f}"
+        f", warm {warm['prefill_ms']:.1f} against the unsharded "
+        f"{plain['prefill_ms']:.1f}; decode_ms per step median {dec_s:.2f} "
+        f"against the unsharded {dec_u:.2f} (DTensor's host overhead "
+        f"{dec_s - dec_u:.2f} ms a step); peak device memory "
+        f"{peak / 1e9:.2f} GB ({held / 1e9:.2f} GB held before) [{card}]")
+    flash_block_check(box, "(d)", card, phase=23)
+    del lm, twin, box
+    torch.cuda.empty_cache()
+    return launches
+
+
+def sharded_recsys_phase(dev, mesh, card):
+    """Phase 23 (b): wide-deep at its published config (seed 0) with the
+    collective lookup, its tables placed on "model" on the one-rank mesh
+    (storage shared): serve_p99's batch against the unsharded forward,
+    train_batch steps under HybridAdamW against the unsharded steps on a
+    copy of the weights (RECSYS_SHARDED_STEPS of each), retrieval_cand's
+    top 100 against the unsharded one.  Returns the launch counts (no
+    port kernel runs)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models.recsys import WideDeep, make_recsys_train_step
+    from repro_torch.optim import AdamW, HybridAdamW
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = configs.get("wide-deep")
+    cfg, cells = spec.make_config(), spec.shapes
+    model = WideDeep(cfg, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(0))
+
+    def twin_of(src):
+        t = WideDeep(cfg, "collective", device="meta", init=False)
+        t.load_state_dict(src.state_dict(keep_vars=True), assign=True)
+        return t.shard(mesh)
+    twin = twin_of(model)
+    tol = SHARDED_MODELS_TOL
+    ops.reset_launches()
+    b = cells["serve_p99"].meta["batch"]
+    batch = recsys_batch(cfg, b, 1, dev)
+    with torch.no_grad():
+        got, want = full(twin(batch)), model(batch)
+        ms_s = time_ms(lambda: twin(batch), reps=10)
+        ms_u = time_ms(lambda: model(batch), reps=10)
+    err = rel_err(got, want.cpu())
+    check(err <= tol["fwd"], f"(b) serve_p99: the sharded logits lie {err} "
+          f"of the largest from the unsharded")
+
+    # one train_batch step, the unsharded one on a copy of the weights
+    b = cells["train_batch"].meta["batch"]
+    batch = recsys_batch(cfg, b, 3, dev)
+    copy = WideDeep(cfg, device="meta", init=False)
+    copy.load_state_dict({k: v.clone() for k, v in
+                          model.state_dict().items()}, assign=True)
+    opt = HybridAdamW(adamw=AdamW(lr=1e-3))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    step_ms, losses = {}, {}
+    for name, m in (("unsharded", copy), ("sharded", twin)):
+        params = m.params()
+        st = opt.init(params)
+        step = make_recsys_train_step(m, opt)
+        step_ms[name], losses[name] = [], []
+        for _ in range(RECSYS_SHARDED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, st, met = step(params, st, batch)
+            losses[name].append(float(met["loss"]))
+            torch.cuda.synchronize()
+            step_ms[name].append((time.perf_counter() - t0) * 1e3)
+        del st, met
+    peak = torch.cuda.max_memory_allocated()
+    lerr = max(abs(a - b) / abs(b) for a, b in zip(losses["sharded"],
+                                                   losses["unsharded"]))
+    perr = max(float((full(a).detach() - c.detach()).abs().max())
+               for a, c in zip(twin.params().values(),
+                               copy.params().values()))
+    del copy
+    torch.cuda.empty_cache()
+    check(lerr <= tol["fwd"] and perr <= tol["param"],
+          f"(b) train_batch: loss {lerr} relative, parameters {perr}")
+
+    # retrieval_cand, after the step (the model shares the twin's weights)
+    n_cand = cells["retrieval_cand"].meta["n_candidates"]
+    query = recsys_batch(cfg, 1, 2, dev)
+    query["candidates"] = torch.randn(
+        n_cand, cfg.retrieval_dim, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(2))
+    with torch.no_grad():
+        vals, idx = twin.retrieval_scores(query)
+        wv, wi = model.retrieval_scores(query)
+        r_ms = time_ms(lambda: twin.retrieval_scores(query), reps=10)
+        r_ums = time_ms(lambda: model.retrieval_scores(query), reps=10)
+    launches = dict(ops.LAUNCHES)
+    wv_h = wv.cpu().numpy()
+    distinct = np.ones(100, bool)
+    distinct[1:] &= np.diff(wv_h) != 0
+    distinct[:-1] &= np.diff(wv_h) != 0
+    verr = rel_err(vals, wv.cpu())
+    check(verr <= tol["fwd"] and np.array_equal(
+        idx.cpu().numpy()[distinct], wi.cpu().numpy()[distinct]),
+        f"(b) retrieval_cand: the sharded top 100 differ ({verr})")
+    log(f"# phase 23 (b): wide-deep ({sum(p.numel() for p in twin.parameters()):,}"
+        f" parameters, every table Shard(0) over \"model\", lookup "
+        f"collective) on the (1, 1) mesh: serve_p99 ({cells['serve_p99'].meta['batch']}"
+        f" rows) logits to {err:.3g} of the largest against the unsharded, "
+        f"{ms_s:.3f} ms a batch against {ms_u:.3f} (CUDA events); "
+        f"train_batch ({b:,} rows, HybridAdamW, {RECSYS_SHARDED_STEPS} "
+        f"steps of each) losses {[round(x, 6) for x in losses['sharded']]} "
+        f"vs {[round(x, 6) for x in losses['unsharded']]} (rel {lerr:.3g}), "
+        f"parameters after them max |diff| {perr:.3g}; step ms sharded "
+        f"{[round(x, 1) for x in step_ms['sharded']]} unsharded "
+        f"{[round(x, 1) for x in step_ms['unsharded']]}; peak device "
+        f"memory {peak / 1e9:.2f} GB ({held / 1e9:.2f} GB held before); "
+        f"retrieval_cand ({n_cand:,} candidates) top 100 equal at the "
+        f"{int(distinct.sum())} distinct values, values to {verr:.3g}, "
+        f"{r_ms:.3f} ms against {r_ums:.3f}; launches {launches} [{card}]")
+    del model, twin, batch, query, vals, idx, wv, wi
+    torch.cuda.empty_cache()
+    return launches
+
+
+class KeepSegment:
+    """While entered, ``kernels.ops.segment_sum`` keeps copies of its
+    first call's arguments (``args``); the calls go on as they were."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.args, self._real = None, ops.segment_sum
+
+        def keep(values, seg_ids, n, index=None):
+            if self.args is None:
+                self.args = (values.detach().clone(), seg_ids.clone(), n)
+            return self._real(values, seg_ids, n, index)
+        ops.segment_sum = keep
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops.segment_sum = self._real
+
+
+def sharded_gnn_phase(dev, mesh, card):
+    """Phase 23 (c): MeshGraphNet's minibatch_lg cell (phase 12's LG
+    counts) built by ``build_cell`` on the one-rank mesh, with
+    ``gnn_edge_dp`` None and ("data", "model"): one step's loss and
+    parameters against a fresh unsharded cell's step (seed-0 weights, the
+    same batch), the counts set to 0 just before each sharded step and
+    read just after; then two more steps of each, timed; then (d)'s
+    segment_sum check on the rank's edge block.  Returns the summed
+    launch counts."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import cells, perf_flags
+    tol = SHARDED_MODELS_TOL
+    batch = lg_batch(dev)
+    total, kept, ms_u = {}, None, None
+    for flag in GNN_EDGE_DP:
+        plain = cells.build_cell("meshgraphnet", "minibatch_lg", device=dev)
+        ps_u, st_u, _ = plain.abstract_args
+        loss_u = float(plain.fn(ps_u, st_u, batch)[2]["loss"])
+        perf_flags.reset()
+        perf_flags.FLAGS.gnn_edge_dp = flag
+        try:
+            sh = cells.build_cell("meshgraphnet", "minibatch_lg", device=dev,
+                                  mesh=mesh)
+        finally:
+            perf_flags.reset()
+        ps, st, _ = sh.abstract_args
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        with KeepSegment() as seg:
+            loss = float(sh.fn(ps, st, batch)[2]["loss"])
+        launches = dict(ops.LAUNCHES)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        kept = kept or seg.args
+        lerr = abs(loss - loss_u) / abs(loss_u)
+        perr = max(float((a - b).detach().abs().max())
+                   for a, b in zip(ps, ps_u))
+        check(lerr <= tol["loss"] and perr <= tol["param"],
+              f"(c) gnn_edge_dp={flag}: loss {lerr} relative, parameters "
+              f"{perr}")
+        check(launches["segment_sum"] > 0, f"(c) gnn_edge_dp={flag}: "
+              f"segment_sum was never launched")
+        ms = median_wall_ms([lambda: sh.fn(ps, st, batch)], reps=2)[0]
+        if ms_u is None:
+            ms_u = median_wall_ms([lambda: plain.fn(ps_u, st_u, batch)],
+                                  reps=2)[0]
+        log(f"# phase 23 (c): meshgraphnet minibatch_lg "
+            f"({batch['feats'].shape[0]:,} nodes, "
+            f"{batch['edge_src'].shape[0]:,} edges) built on the (1, 1) "
+            f"mesh with gnn_edge_dp={flag}: loss {loss:.6f} against the "
+            f"unsharded {loss_u:.6f} (rel {lerr:.3g}); parameters after the "
+            f"step max |diff| {perr:.3g}; step ms (median wall of 2 more) "
+            f"{ms:.1f} against the unsharded {ms_u:.1f}; launches "
+            f"{launches} [{card}]")
+        del plain, sh, ps, st, ps_u, st_u
+        torch.cuda.empty_cache()
+    values, ids, n = kept
+    index = ops.segment_index(ids, n)     # built once a forward, as there
+    got = ops.segment_sum(values, ids, n, index)
+    rel = segment_check(got, values, ids, n, "(d) on the rank's edge block")
+    ms = device_ms(lambda: ops.segment_sum(values, ids, n, index))
+    log(f"# phase 23 (d): segment_sum on the rank's local edge block "
+        f"{tuple(values.shape)} -> {n:,} nodes, its index built once (as "
+        f"the forward builds it): within {rel:.3g} of each segment's sum "
+        f"of |v| (tolerance {SEG_TOL}); device_ms={ms:.4f} [{card}]")
+    del batch, kept, values, ids, got, index
+    torch.cuda.empty_cache()
+    return total
+
+
+def sharded_models_phase(dev):
+    """Phase 23: (a), (b), (c) and (d) on a (1, 1) ("data", "model")
+    mesh of one NCCL rank; returns the launch counts of (a) and (c)'s
+    runs, summed."""
+    import torch
+    import torch.distributed as tdist
+
+    from repro_torch.core import distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    card = card_name()
+    torch.cuda.empty_cache()
+    with dist.process_group(dev) as rank_dev:
+        backend = str(tdist.get_backend()).lower()
+        check("nccl" in backend and tdist.get_world_size() == 1,
+              f"the group is {backend} of {tdist.get_world_size()}")
+        mesh = make_mesh((1, 1), ("data", "model"), device=rank_dev)
+        t1 = time.perf_counter()
+        moe = sharded_moe_phase(rank_dev, mesh, card)
+        t2 = time.perf_counter()
+        recsys = sharded_recsys_phase(rank_dev, mesh, card)
+        check(not any(recsys.values()), f"(b) the recsys path launched a "
+              f"port kernel: {recsys}")
+        t3 = time.perf_counter()
+        gnn = sharded_gnn_phase(rank_dev, mesh, card)
+        t4 = time.perf_counter()
+    check(not tdist.is_initialized(), "the group was not destroyed")
+    launches = {k: moe.get(k, 0) + gnn.get(k, 0) for k in moe}
+    log(f"# phase 23: launches in (a) {moe} and (c) {gnn}; (a) {t2 - t1:.1f}"
+        f" s, (b) {t3 - t2:.1f} s, (c)+(d) {t4 - t3:.1f} s; done in "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -5872,6 +6246,10 @@ def main() -> int:
     for name in LM_SHARDED_PATH:
         check(sharded_lm_launches[name] > 0,
               f"{name} was never launched on the sharded LM's path")
+    sharded_models_launches = sharded_models_phase(dev)
+    for name in SHARDED_MODELS_PATH:
+        check(sharded_models_launches[name] > 0,
+              f"{name} was never launched on phase 23's sharded models' path")
 
     path_launches = {**{n: trim_launches for n in TRIM_PATH},
                      **{n: scc_launches for n in SCC_PEEL_PATH},
@@ -5889,6 +6267,10 @@ def main() -> int:
         launches[name] += moe_launches[name]
     for name in LM_SHARDED_PATH:        # phase 22 (a)'s three steps
         launches[name] += sharded_lm_launches[name]
+    # phase 23: arctic's sharded prefill (flash), MeshGraphNet's two sharded
+    # minibatch_lg steps (segment_sum)
+    for name in SHARDED_MODELS_PATH:
+        launches[name] += sharded_models_launches[name]
     log(f"# total: {time.perf_counter() - t_start:.1f} s")
     table = [dict(name=name, route="cuda", source=KERNELS[name][0],
                   replaces=KERNELS[name][1], launches=launches[name],

@@ -21,21 +21,27 @@ LM step turns its ids into int64 on the device first, as
 int32 tensor on the host, the reference's scalar argument, which the
 port reads on the host.
 
-An LM cell also builds on a ``DeviceMesh`` (``build_cell(...,
+Every cell also builds on a ``DeviceMesh`` (``build_cell(...,
 mesh=)``, ``launch.mesh.make_mesh``): the runnable twin of the
-reference's sharded cell.  The model gets random weights (seed 0) placed
-by ``LM.param_specs`` (``models.sharding.shard_lm``), and the step's
-arguments are DTensors placed as the reference's ``in_shardings``:
+reference's sharded cell, with random weights (seed 0) and the step's
+arguments placed as the reference's ``in_shardings``.  An LM (dense or
+MoE) is placed by ``LM.param_specs`` (``models.sharding.shard_lm``):
 AdamW's moments as the parameters, its count replicated, tokens and
 targets on (dp, None); decode's cache by the reference's three cases
 (``LM.decode_cache_spec``) and its token on (dp, None), or replicated at
-batch 1.  Without a mesh the cells stay unsharded on one device, and the
-reference's donations are not carried over (the meta dry-run of a
-sharded mesh, ``dryrun --mesh multi``, is ROADMAP A6).
+batch 1.  Wide-deep's tables are row-sharded over "model" with the
+collective lookup, the batch on dp, retrieval's candidates over dp and
+"model" (:func:`_build_recsys`).  A GNN's parameters are replicated, the
+molecule batch on dp, a large graph's arrays on ``gdp``
+(:func:`_build_gnn`).  Without a mesh the cells stay unsharded on one
+device, and the reference's donations are not carried over (the meta
+dry-run of the 256/512-chip meshes, ``dryrun --mesh multi``, is ROADMAP
+A6's last item).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable
 
 import torch
@@ -43,8 +49,10 @@ import torch
 from .. import configs
 from ..configs.base import ShapeCell
 from ..models.gnn import MODELS
-from ..models.gnn.common import molecule_loss, molecule_union
+from ..models.gnn.common import (all_reduced, edge_sharded, mesh_grads,
+                                 mesh_groups, molecule_loss, molecule_union)
 from ..models.recsys import WideDeep, make_recsys_train_step
+from ..models.sharding import place
 from ..models.transformer import LM, make_train_step
 from ..optim import AdamW, HybridAdamW
 from . import perf_flags
@@ -64,10 +72,10 @@ def build_cell(arch_id: str, shape, n_layers: int | None = None, *,
     or a :class:`ShapeCell` of one's own), at the published configuration.
     ``n_layers`` (LM only) cuts the depth; ``device``
     other than meta builds real tensors (random weights, zero batches),
-    which the tests run to check the meta counts.  ``mesh`` (LM only, a
+    which the tests run to check the meta counts.  ``mesh`` (a
     ``DeviceMesh`` with a ``"model"`` axis and ``"data"`` or ``("pod",
-    "data")``) builds the sharded step on the mesh's device type.  A
-    skipped cell raises."""
+    "data")``) builds the sharded step on the mesh's device type (module
+    docstring).  A skipped cell raises."""
     spec = configs.get(arch_id)
     cell = shape if isinstance(shape, ShapeCell) else spec.shapes[shape]
     if cell.skip:
@@ -79,13 +87,9 @@ def build_cell(arch_id: str, shape, n_layers: int | None = None, *,
         if n_layers is not None:
             cfg = dataclasses.replace(cfg, n_layers=n_layers)
         return _build_lm(cfg, cell, dev, mesh)
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{arch_id}: only the LM cells build on a mesh; GNN edge "
-            f"sharding and wide-deep's param_specs are ROADMAP A6")
     if spec.family == "gnn":
-        return _build_gnn(spec, cfg, cell, dev)
-    return _build_recsys(cfg, cell, dev)
+        return _build_gnn(spec, cfg, cell, dev, mesh)
+    return _build_recsys(cfg, cell, dev, mesh)
 
 
 def _zeros(shape, dtype, dev):
@@ -102,8 +106,8 @@ def _model_kw(dev) -> dict:
                 .manual_seed(0))
 
 
-NOTES = ("one device, no mesh: no shardings, no collectives (a sharded "
-         "mesh's dry-run is ROADMAP A6)")
+NOTES = ("one device, no mesh: no shardings, no collectives (the dry-run "
+         "of the 256/512-chip meshes is ROADMAP A6)")
 
 
 # ------------------------------------------------------------------- LM
@@ -208,41 +212,101 @@ def _pad512(x: int) -> int:
     return -(-x // 512) * 512
 
 
-def _build_gnn(spec, cfg, cell, dev) -> CellBuild:
+def _build_gnn(spec, cfg, cell, dev, mesh=None) -> CellBuild:
+    """A GNN's AdamW step of ``cell`` on ``dev``, or, given ``mesh``, on
+    the mesh's device type as the reference's sharded cell: the
+    parameters (and AdamW's moments) replicated, every rank the whole
+    model; the ``molecule`` batch on dp, each rank's graphs one
+    :func:`molecule_union` whose squared errors count 1/B each (B the
+    whole batch); a large graph's arrays, padded to multiples of 512, on
+    ``gdp`` (``perf_flags.FLAGS.gnn_edge_dp``, or the data axes): each
+    rank takes its block of the edges and gathers the node arrays
+    (node space replicated), and the forward runs inside
+    ``common.edge_sharded``.  The gradients are summed over the axes the
+    work is split over (``common.mesh_grads``); the step's loss is the
+    whole batch's, the same on every rank."""
     meta = cell.meta
     cfg = dataclasses.replace(cfg, out_dim=meta.get("classes", 1))
+    if mesh is not None:
+        dev = torch.device(mesh.device_type)
     model = MODELS[type(cfg)](cfg, d_feat=meta.get("d_feat"),
                               **_model_kw(dev))
     opt = AdamW(lr=1e-3)
     params = list(model.parameters())
     f32, i32 = torch.float32, torch.int32
+    axes, groups, scale = (), [], 1.0
+    if mesh is not None:
+        from .mesh import data_axes
+        dp = data_axes("pod" in mesh.mesh_dim_names)
+        axes = dp if cell.name == "molecule" else tuple(
+            perf_flags.FLAGS.gnn_edge_dp or dp)
+        groups = mesh_groups(mesh, axes)
+        if cell.name != "molecule":     # the same loss on every rank
+            scale = 1.0 / math.prod(
+                mesh.size(mesh.mesh_dim_names.index(a)) for a in axes)
+
+    def zeros(shape, dtype):
+        return place(_zeros(shape, dtype, dev),
+                     (axes,) + (None,) * (len(shape) - 1), mesh)
+
     if cell.name == "molecule":
         bsz, n, m = meta["batch"], meta["n_nodes"], meta["n_edges"]
-        batch = {"species": _zeros((bsz, n), i32, dev),
-                 "pos": _zeros((bsz, n, 3), f32, dev),
-                 "edge_src": _zeros((bsz, m), i32, dev),
-                 "edge_dst": _zeros((bsz, m), i32, dev),
-                 "energy": _zeros((bsz,), f32, dev)}
+        batch = {"species": zeros((bsz, n), i32),
+                 "pos": zeros((bsz, n, 3), f32),
+                 "edge_src": zeros((bsz, m), i32),
+                 "edge_dst": zeros((bsz, m), i32),
+                 "energy": zeros((bsz,), f32)}
 
         def loss_fn(batch):
-            return molecule_loss(model, molecule_union(batch, dev))
+            """The whole batch's loss, or on a mesh the rank's share of it
+            (its graphs' squared errors over the whole batch's count)."""
+            if mesh is None:
+                return molecule_loss(model, molecule_union(batch, dev))
+            local = {k: _local(v, mesh, axes) for k, v in batch.items()}
+            share = local["energy"].shape[0] / batch["energy"].shape[0]
+            return molecule_loss(model, molecule_union(local, dev)) * share
     else:
         n, m = _pad512(meta["n_nodes"]), _pad512(meta["n_edges"])
-        batch = {"feats": _zeros((n, meta["d_feat"]), f32, dev),
-                 "pos": _zeros((n, 3), f32, dev),
-                 "edge_src": _zeros((m,), i32, dev),
-                 "edge_dst": _zeros((m,), i32, dev),
-                 "labels": _zeros((n,), i32, dev)}
-        loss_fn = model.loss
+        batch = {"feats": zeros((n, meta["d_feat"]), f32),
+                 "pos": zeros((n, 3), f32),
+                 "edge_src": zeros((m,), i32),
+                 "edge_dst": zeros((m,), i32),
+                 "labels": zeros((n,), i32)}
+
+        def loss_fn(batch):
+            """The loss, on a mesh from the rank's block of the edges and
+            every node (the same on every rank)."""
+            if mesh is None:
+                return model.loss(batch)
+            local = {k: (_local(v, mesh, axes) if k.startswith("edge_")
+                         else _whole(v)) for k, v in batch.items()}
+            with edge_sharded(groups, axes):
+                return model.loss(local)
 
     def train_step(params, opt_state, batch):
         loss = loss_fn(batch)
-        grads = torch.autograd.grad(loss, params)
+        grads = mesh_grads(loss, params, groups, scale)
+        if cell.name == "molecule":     # the ranks' shares summed
+            loss = all_reduced(loss.detach(), groups)
         opt_state = opt.step(params, grads, opt_state)
         return params, opt_state, {"loss": loss.detach()}
 
     return CellBuild(train_step, (params, opt.init(params), batch),
-                     model_flops=_gnn_flops(spec, cfg, cell), notes=NOTES)
+                     model_flops=_gnn_flops(spec, cfg, cell),
+                     notes=NOTES if mesh is None else "")
+
+
+def _local(t, mesh, axes):
+    """This rank's block of a batch tensor placed on ``axes`` (a plain
+    tensor, the same on every rank, is cut as ``local_block`` cuts it)."""
+    return place(t, (tuple(axes),) + (None,) * (t.dim() - 1),
+                 mesh).to_local()
+
+
+def _whole(t):
+    """A batch tensor whole on every rank (a DTensor gathered)."""
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
 # --------------------------------------------------------------- recsys
@@ -257,29 +321,48 @@ def _recsys_fwd_flops(cfg, b: int) -> float:
     return 2.0 * mlp_params * b
 
 
-def _build_recsys(cfg, cell, dev) -> CellBuild:
-    model = WideDeep(cfg, **_model_kw(dev))
+def _build_recsys(cfg, cell, dev, mesh=None) -> CellBuild:
+    """Wide-deep's step of ``cell`` on ``dev``, or, given ``mesh``, on the
+    mesh's device type: the tables row-sharded over ``"model"`` by
+    ``param_specs`` with the collective lookup, the rest replicated,
+    AdamW's moments placed as their parameters (HybridAdamW's 0-d table
+    moments plain), and the batch placed as the reference's cell: dense
+    features, ids and labels on dp; retrieval's query replicated and its
+    candidates over dp and ``"model"``."""
+    if mesh is not None:
+        dev = torch.device(mesh.device_type)
+    model = WideDeep(cfg, "collective" if mesh is not None else "auto",
+                     mesh, **_model_kw(dev))
     params = model.params()
     b = cell.meta["batch"]
     fwd_flops = _recsys_fwd_flops(cfg, b)
-    batch = {"dense": _zeros((b, cfg.n_dense), torch.float32, dev),
-             "sparse_ids": _zeros((b, cfg.n_sparse, cfg.ids_per_field),
-                                  torch.int32, dev)}
+    notes = NOTES if mesh is None else ""
+    dp = model.dp if mesh is not None else None
+
+    def zeros(shape, dtype, spec):
+        return place(_zeros(shape, dtype, dev), spec, mesh)
+
+    rows = None if cell.kind == "retrieval" else dp
+    batch = {"dense": zeros((b, cfg.n_dense), torch.float32, (rows, None)),
+             "sparse_ids": zeros((b, cfg.n_sparse, cfg.ids_per_field),
+                                 torch.int32, (rows, None, None))}
     if cell.kind == "train":
         opt = (HybridAdamW(adamw=AdamW(lr=1e-3))
                if perf_flags.FLAGS.recsys_hybrid_opt else AdamW(lr=1e-3))
-        batch["labels"] = _zeros((b,), torch.float32, dev)
+        batch["labels"] = zeros((b,), torch.float32, (dp,))
         return CellBuild(make_recsys_train_step(model, opt),
                          (params, opt.init(params), batch),
-                         model_flops=3.0 * fwd_flops, notes=NOTES)
+                         model_flops=3.0 * fwd_flops, notes=notes)
     if cell.kind == "serve":
         return CellBuild(torch.no_grad()(lambda params, batch: model(batch)),
-                         (params, batch), model_flops=fwd_flops, notes=NOTES)
+                         (params, batch), model_flops=fwd_flops, notes=notes)
     # retrieval: 1 query vs n_candidates
     nc = cell.meta["n_candidates"]
-    batch["candidates"] = _zeros((nc, cfg.retrieval_dim), torch.float32, dev)
+    cand_spec = (None if mesh is None else dp + ("model",), None)
+    batch["candidates"] = zeros((nc, cfg.retrieval_dim), torch.float32,
+                                cand_spec)
     return CellBuild(
         torch.no_grad()(
             lambda params, batch: model.retrieval_scores(batch)),
         (params, batch),
-        model_flops=fwd_flops + 2.0 * nc * cfg.retrieval_dim, notes=NOTES)
+        model_flops=fwd_flops + 2.0 * nc * cfg.retrieval_dim, notes=notes)

@@ -32,7 +32,10 @@ layer-count extrapolation is needed (the reference's
 ``_lm_cost_extrapolated`` exists because XLA counts a scan body once).
 
 ``--mesh single`` (the default) is the one card; ``multi`` and ``both``
-are sharded meshes (ROADMAP A6) and raise.  ``--jobs N`` traces the cells
+are the reference's 256- and 512-chip meshes, whose meta-device dry-run
+(a fake process group of that many ranks) is ROADMAP A6's last item:
+they raise.  The sharded cells themselves run on a real mesh
+(``cells.build_cell(..., mesh=)``).  ``--jobs N`` traces the cells
 in N worker processes; the records keep the cells' order.  The command
 exits 1 when any cell's status is ``error``.
 """
@@ -144,8 +147,9 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.mesh != "single":
         raise NotImplementedError(
-            f"--mesh {args.mesh}: sharded meshes are not ported yet: "
-            "ROADMAP A6")
+            f"--mesh {args.mesh}: the dry-run of the 256/512-chip meshes "
+            "(a fake process group on the meta device) is not ported yet: "
+            "ROADMAP A6, its last item")
     out_f = open(args.out, "a") if args.out else None
     failures = 0
     with contextlib.ExitStack() as stack:

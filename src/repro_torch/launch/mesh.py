@@ -9,11 +9,16 @@ is present.  The v5e constants are not carried over.
 
 Meshes are ``torch.distributed`` process groups in the port.  The
 sharded trimming backend runs on the default group (``core.distributed``:
-one rank a card, NCCL; ``torchrun`` starts one process a card), the
-sharded LM on a ``DeviceMesh`` over it (:func:`make_mesh`; the reference's
-(data, model) axes, :func:`data_axes`).  The reference's 256- and
-512-chip dry-run mesh, :func:`make_production_mesh`, is not ported yet
-(``dryrun --mesh multi``, ROADMAP A6) and raises.
+one rank a card, NCCL; ``torchrun`` starts one process a card); the
+sharded models on a ``DeviceMesh`` over it (:func:`make_mesh`; the
+reference's (data, model) axes, :func:`data_axes`): the dense and MoE
+LMs (``models.sharding.shard_lm``: FSDP x TP, the experts on tp),
+wide-deep (its tables row-sharded over "model") and the GNNs (parameters
+replicated, a large graph's edges split over the data axes or
+``perf_flags.gnn_edge_dp``), each through ``launch.cells.build_cell(...,
+mesh=)``.  The reference's 256- and 512-chip dry-run mesh,
+:func:`make_production_mesh`, is not ported yet (``dryrun --mesh
+multi``, ROADMAP A6's last item) and raises.
 """
 from __future__ import annotations
 
@@ -85,14 +90,17 @@ def data_axes(multi_pod: bool) -> tuple[str, ...]:
 
 
 def n_devices() -> int:
-    """Devices a dry-run cell runs on: one card.  The LM, GNN and
-    recsys cells are not sharded yet (ROADMAP A6); the sharded trim
-    backend's size is the process group's, not a cell's."""
+    """Devices a dry-run cell runs on: one card.  Every family's cells
+    also build on a real mesh (``cells.build_cell(..., mesh=)``), whose
+    size is the process group's, as is the sharded trim backend's; the
+    dry-run of the reference's 256/512-chip meshes is ROADMAP A6's last
+    item."""
     return 1
 
 
 def make_production_mesh(*, multi_pod: bool = False):
     raise NotImplementedError(
         "the production mesh (the reference's 256/512-chip dry-run mesh, "
-        "dryrun --mesh multi|both) is not ported yet: ROADMAP A6; a mesh "
+        "dryrun --mesh multi|both) is not ported yet: ROADMAP A6's last "
+        "item; a mesh "
         "over real ranks is make_mesh(shape, axes, device=...)")

@@ -30,9 +30,10 @@ class PerfFlags:
     # Read by nothing in either package (the reference's GNNs gather
     # features once per layer pair already).
     gnn_reuse_wigner: bool = True
-    # GNN: pin edge-space tensors to the mesh's data axes.  A sharding pin:
-    # with one device there is nothing to pin, so EquiformerV2 raises
-    # while it is set (``torch.distributed`` sharding is ROADMAP A6).
+    # GNN: the mesh axes a large graph's node and edge arrays go on in the
+    # sharded cells (``launch.cells``; None: the data axes), and the axes
+    # EquiformerV2's edge pins name (it checks the edges are split over
+    # them).  Without a mesh it changes nothing.
     gnn_edge_dp: tuple | None = None
 
 

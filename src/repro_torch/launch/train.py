@@ -30,7 +30,9 @@ the parameters and the AdamW state there (``TrainerConfig`` defaults:
 every 50 steps and at the end, the newest 3 kept; an LM's in the
 reference's stacked layout) and resumes from the latest step in DIR.
 The MoE LMs train at their reduced configs: at the published width
-neither fits one card (ROADMAP A6).
+neither fits one card (arctic's f32 weights and gradients at one layer
+are 112 GB); across cards they train sharded, the experts on "model"
+(``launch.cells.build_cell(..., mesh=)``).
 """
 from __future__ import annotations
 

@@ -178,15 +178,21 @@ def gnn_from_numpy(arch_or_cfg, tree: dict, *, d_feat=None, device="cuda"):
 
 
 def widedeep_from_numpy(cfg: WideDeepConfig, tree: dict, *,
-                        device="cuda") -> WideDeep:
+                        device="cuda", lookup: str = "auto", mesh=None,
+                        model_axis: str = "model") -> WideDeep:
     """The port's :class:`~.recsys.WideDeep` for ``cfg`` with the weights of
-    the reference's parameter tree (``jax.tree.map(np.asarray, params)``)."""
-    return _load(WideDeep(cfg, device=device, init=False), cfg.name, tree)
+    the reference's parameter tree (``jax.tree.map(np.asarray, params)``);
+    given ``mesh``, placed on it by ``param_specs`` once loaded (each rank
+    keeps its rows of the tables)."""
+    model = _load(WideDeep(cfg, lookup, model_axis=model_axis,
+                           device=device, init=False), cfg.name, tree)
+    return model if mesh is None else model.shard(mesh)
 
 
 def widedeep_to_numpy(model: WideDeep) -> dict:
     """The reference's parameter tree of a port :class:`~.recsys.WideDeep`,
-    as numpy."""
+    as numpy.  DTensor parameters (a sharded model) are gathered whole
+    (``full_tensor()``, a collective every rank must join)."""
     return gnn_to_numpy(model)
 
 
@@ -212,11 +218,19 @@ def _keys(tree, path=""):
     return {path}
 
 
+def _numpy(t) -> np.ndarray:
+    """A tensor as numpy on the host; a DTensor gathered whole."""
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
+    return t.detach().cpu().numpy()
+
+
 def gnn_to_numpy(module) -> dict | list:
-    """The reference's parameter tree of a port GNN module, as numpy."""
+    """The reference's parameter tree of a port GNN module, as numpy
+    (DTensor parameters gathered whole)."""
     if isinstance(module, torch.nn.ModuleList):
         return [gnn_to_numpy(m) for m in module]
-    tree = {name: p.detach().cpu().numpy()
+    tree = {name: _numpy(p)
             for name, p in module.named_parameters(recurse=False)}
     for name, child in module.named_children():
         tree[name] = gnn_to_numpy(child)

@@ -24,16 +24,102 @@ per-graph energy is the sum over each graph's nodes
 Parameters mirror the reference's tree: an :class:`MLP` is a list of
 :class:`Dense` layers with ``w`` (in, out) and ``b`` (out,), used as
 ``x @ w + b``, so ``models.convert`` maps the tree to the modules one to one.
+
+On a mesh (``launch.cells`` ``_build_gnn(..., mesh)``) the parameters are
+replicated: every rank holds the whole model as plain tensors.  A large
+graph's edges are split over the mesh axes ``gdp`` and its node space is
+replicated: inside :func:`edge_sharded` a rank's forward sees its block of
+the edges and every node, each aggregation reduces the rank's edges into
+a full-node partial result (the ``segment_sum`` kernel on the local block)
+and sums it over the ranks (:class:`_AllReduce`; ``segment_max``, the
+softmax's shift, takes the max), so every node-space tensor is the
+unsharded one on every rank.  Gradients then come back as partial sums:
+:func:`mesh_grads` seeds each rank with ``1 / |gdp|`` of the loss and sums
+the parameters' gradients over ``gdp``.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import torch
+import torch.distributed as tdist
 import torch.nn.functional as F
 from torch import nn
 
 from ...kernels import ops
+
+
+def all_reduced(x, groups):
+    """A copy of ``x`` summed over each of the process groups ``groups``
+    (over all of their ranks together); ``x`` itself is left as it is."""
+    out = x.clone(memory_format=torch.contiguous_format)
+    for g in groups:
+        tdist.all_reduce(out, group=g)
+    return out
+
+
+class _AllReduce(torch.autograd.Function):
+    """:func:`all_reduced` in the forward and in the backward: a rank's
+    forward input is its partial sum, and every gradient on a mesh is a
+    partial sum over the ranks too (see :func:`mesh_grads`)."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return all_reduced(x, groups)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduced(grad, ctx.groups), None
+
+
+#: (process groups, mesh axes) of the active :func:`edge_sharded` block
+_EDGE_SPLIT: contextvars.ContextVar = contextvars.ContextVar(
+    "edge_split", default=((), ()))
+
+
+@contextlib.contextmanager
+def edge_sharded(groups, axes=()):
+    """A block in which every aggregation sums its rank's partial result
+    over ``groups`` (the process groups of the mesh axes ``axes`` the
+    edges are split over; an empty list changes nothing).  The scope is
+    a ``ContextVar``'s: the forward's aggregations read it, nothing else
+    does."""
+    token = _EDGE_SPLIT.set((tuple(groups), tuple(axes)))
+    try:
+        yield
+    finally:
+        _EDGE_SPLIT.reset(token)
+
+
+def mesh_groups(mesh, axes) -> list:
+    """The process groups of ``mesh``'s dimensions named in ``axes`` that
+    hold more than one rank."""
+    return [mesh.get_group(name) for name in axes if mesh.size(
+        mesh.mesh_dim_names.index(name)) > 1]
+
+
+def edge_axes() -> tuple:
+    """The mesh axes of the active :func:`edge_sharded` block (() when
+    none is active or it names none)."""
+    return _EDGE_SPLIT.get()[1]
+
+
+def mesh_grads(loss, params, groups, scale: float = 1.0) -> list:
+    """``d loss / d params`` on a mesh, summed over ``groups``: each rank's
+    backward is seeded with ``scale`` (``1 / |groups|`` where ``loss`` is
+    the same on every rank of them, 1 where it is the rank's share of
+    a sum), and the partial gradients are all-reduced, one call a
+    parameter.  The ranks of ``groups`` end with the same gradients;
+    without groups it is ``torch.autograd.grad``."""
+    grads = list(torch.autograd.grad(loss * scale if scale != 1.0 else loss,
+                                     params))
+    for g in grads:
+        for grp in groups:
+            tdist.all_reduce(g, group=grp)
+    return grads
 
 
 class _SegmentSum(torch.autograd.Function):
@@ -66,8 +152,13 @@ def segment_sum(values, seg_ids, num_segments: int, index=None):
     """(m, *rest) values summed by ``seg_ids`` into (num_segments, *rest)
     float32; differentiable in ``values``.  ``index``: the
     :func:`segment_index` of ``seg_ids``, built per call where it is
-    None."""
-    return _SegmentSum.apply(values, seg_ids, num_segments, index)
+    None.  Inside :func:`edge_sharded` the rank's sum is summed over the
+    ranks."""
+    out = _SegmentSum.apply(values, seg_ids, num_segments, index)
+    groups = _EDGE_SPLIT.get()[0]
+    if groups:
+        out = _AllReduce.apply(out, groups)
+    return out
 
 
 def segment_mean(values, seg_ids, num_segments: int, index=None):
@@ -83,14 +174,23 @@ def segment_max(values, seg_ids, num_segments: int):
     ``[0, num_segments)``, negatives too, are dropped (as
     ``jax.ops.segment_max``).  They go to one extra row that is cut off,
     so the scatter never sees an out-of-range index (a device-side assert
-    on the card)."""
+    on the card).  Inside :func:`edge_sharded`: the max over the ranks,
+    without a gradient."""
     ok = (seg_ids >= 0) & (seg_ids < num_segments)
     ids = torch.where(ok, seg_ids, num_segments).to(torch.int64)
     out = torch.full((num_segments + 1,) + tuple(values.shape[1:]),
                      float("-inf"), dtype=values.dtype, device=values.device)
     idx = ids.view((-1,) + (1,) * (values.dim() - 1)).expand_as(values)
-    return out.scatter_reduce(0, idx, values, "amax",
-                              include_self=False)[:num_segments]
+    out = out.scatter_reduce(0, idx, values, "amax",
+                             include_self=False)[:num_segments]
+    groups = _EDGE_SPLIT.get()[0]
+    if groups:
+        # the max over the ranks' edges; no gradient (the one use, the
+        # softmax's shift, cancels it)
+        out = out.detach().contiguous()
+        for g in groups:
+            tdist.all_reduce(out, op=tdist.ReduceOp.MAX, group=g)
+    return out
 
 
 def _take(x, ids):

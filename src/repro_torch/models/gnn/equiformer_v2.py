@@ -13,9 +13,13 @@ the ``segment_sum`` kernel: the softmax's normaliser (E, heads) and the
 messages (E, 49, C).
 
 The reference's optional edge-sharding pins (``launch.perf_flags``
-``FLAGS.gnn_edge_dp``) are mesh constraints: the port has one device and
-no mesh, so :meth:`EquiformerV2.forward` raises while the flag is set
-(sharding is ROADMAP A6).
+``FLAGS.gnn_edge_dp``) constrain its edge- and node-space tensors to the
+flag's mesh axes.  In the port a large graph's edges already arrive split
+over those axes (``launch.cells`` places them on the flag's axes, and
+``common.edge_sharded`` names them) and its node space is replicated
+(ROADMAP C), so a pin moves nothing: :meth:`EquiformerV2._pin` checks
+that the edges are split over the flag's axes and raises where they are
+not.  Without a mesh the flag changes nothing.
 """
 from __future__ import annotations
 
@@ -28,8 +32,8 @@ from torch import nn
 
 from ..equivariant import (WignerConstants, bessel_basis, l_slices, num_sh,
                            wigner_d_align)
-from .common import MLP, normal, num_nodes, pooled_loss, segment_index, \
-    segment_softmax, segment_sum
+from .common import MLP, edge_axes, normal, num_nodes, pooled_loss, \
+    segment_index, segment_softmax, segment_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,13 +156,22 @@ class EquiformerV2(nn.Module):
         return torch.cat(outs, dim=1)
 
     # ------------------------------------------------------------ forward
-    def forward(self, batch):
+    @staticmethod
+    def _pin():
+        """The reference's edge- and node-space pins to
+        ``FLAGS.gnn_edge_dp``: here a check that the active edge split
+        (``common.edge_sharded``) is over the flag's axes, when the flag
+        is set and a split is active (module docstring)."""
         from ...launch.perf_flags import FLAGS
-        if FLAGS.gnn_edge_dp is not None:
-            raise NotImplementedError(
-                f"perf_flags.gnn_edge_dp={FLAGS.gnn_edge_dp!r} pins edge "
-                "tensors to mesh axes; sharding is not ported yet: ROADMAP "
-                "A6")
+        want, have = FLAGS.gnn_edge_dp, edge_axes()
+        if want is not None and have and tuple(want) != have:
+            raise ValueError(
+                f"perf_flags.gnn_edge_dp={tuple(want)!r} pins the edges to "
+                f"those mesh axes; this forward's edges are split over "
+                f"{have!r} (build the batch with the flag set)")
+
+    def forward(self, batch):
+        self._pin()
         cfg = self.cfg
         c = cfg.channels
         n = num_nodes(batch)

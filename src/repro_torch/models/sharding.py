@@ -28,8 +28,8 @@ import torch
 from torch import nn
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
-__all__ = ["placements", "pin", "shard_lm", "local_block",
-           "shard_offset", "positions_like"]
+__all__ = ["placements", "pin", "shard_lm", "place_module", "place",
+           "local_block", "shard_offset", "positions_like"]
 
 
 def _axes_of(entry) -> tuple:
@@ -121,26 +121,38 @@ def shard_lm(lm, mesh, axes=None):
     (``axes`` a ``transformer.MeshAxes``, the default ``("data",)`` x
     ``"model"``) and turn on its activation pins; returns ``lm``.  Every
     rank must hold the same weights (``lm_from_numpy`` of one tree, or one
-    seed): each keeps its own block of them, nothing is sent."""
+    seed): each keeps its own block of them, nothing is sent.  A MoE
+    LM's experts go on tp and their D on the fsdp axes (the reference's
+    expert parallelism; ``layers._moe_ffn_sharded`` runs them)."""
     from .transformer import MeshAxes
     axes = MeshAxes() if axes is None else axes
-    if lm.cfg.moe:
-        raise NotImplementedError(
-            f"{lm.cfg.name}: the MoE FFN is not sharded yet (its expert "
-            f"routing under DTensor: ROADMAP A6); param_specs covers its "
-            f"leaves")
     if lm.device.type != mesh.device_type:
         raise ValueError(f"the LM's parameters are on {lm.device}, the mesh "
                          f"is of {mesh.device_type!r} ranks")
     lm.check_axes(axes, mesh)
-    specs = lm.param_specs(axes)
-    for name, p in list(lm.named_parameters()):
-        module, leaf = _owner(lm, name)
-        placed = local_block(p.detach(), mesh, placements(specs[name], mesh))
-        setattr(module, leaf, nn.Parameter(placed,
-                                           requires_grad=p.requires_grad))
+    place_module(lm, lm.param_specs(axes), mesh)
     lm.axes, lm.mesh = axes, mesh
     return lm
+
+
+def place_module(module: nn.Module, specs: dict, mesh) -> None:
+    """Replace each parameter of ``module`` with a DTensor parameter
+    placed by ``specs[name]`` (``named_parameters``' names) on ``mesh``:
+    each rank keeps its block, nothing is sent (:func:`local_block`)."""
+    for name, p in list(module.named_parameters()):
+        owner, leaf = _owner(module, name)
+        placed = local_block(p.detach(), mesh, placements(specs[name], mesh))
+        setattr(owner, leaf, nn.Parameter(placed,
+                                          requires_grad=p.requires_grad))
+
+
+def place(t, spec, mesh):
+    """A batch tensor (the same whole tensor on every rank) placed by
+    ``spec`` on ``mesh``, each rank keeping its block; a DTensor, or any
+    tensor when ``mesh`` is None, as it is."""
+    if mesh is None or isinstance(t, DTensor):
+        return t
+    return local_block(t, mesh, placements(spec, mesh))
 
 
 def local_block(t, mesh, plc):
@@ -151,7 +163,7 @@ def local_block(t, mesh, plc):
     (every sharding mesh dimension of one rank) is ``t`` itself where it
     is contiguous: no second copy of the weights; a smaller block is a
     copy, so ``t`` is not kept alive by it.  The one placing helper of
-    the port: parameters (:func:`shard_lm`), batches (``LM._place``),
+    the port: parameters (:func:`place_module`), batches (:func:`place`),
     restored checkpoint leaves (``train.checkpoint``).  A rank outside
     the mesh holds an empty block, as ``distribute_tensor`` gives it."""
     coord = mesh.get_coordinate()

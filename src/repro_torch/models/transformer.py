@@ -28,7 +28,9 @@ places the parameters as DTensors on a ``DeviceMesh``; the LM then pins
 its activations where the reference does (the embedding's output on dp,
 q/k/v on (dp, heads on tp), the logits on (dp, vocab on tp)) with
 ``redistribute``, and the attention runs through ``local_map`` on each
-rank's heads (``layers.attention``).  The sharded loss reduces the
+rank's heads (``layers.attention``); a MoE layer routes every token of
+the batch on every rank and runs each expert's products on the ranks
+that hold it (``layers._moe_ffn_sharded``).  The sharded loss reduces the
 vocab-sharded logits over the shard (a max, a sum and the target logit
 picked on the rank that holds it), never gathering the logits.
 """
@@ -181,7 +183,8 @@ class Block(nn.Module):
                           cache_pos=cache_pos, axes=axes)
         x = x + h
         if cfg.moe:
-            ff, aux = moe_ffn(self.moe.weights(), cfg, rms_norm(x, self.ln2))
+            ff, aux = moe_ffn(self.moe.weights(), cfg, rms_norm(x, self.ln2),
+                              axes=axes)
         else:
             ff = swiglu(_weights(self.ffn), rms_norm(x, self.ln2),
                         cfg.compute_dtype)
@@ -298,10 +301,7 @@ class LM(nn.Module):
     def _place(self, t, spec):
         """A host-side batch tensor (the same on every rank) placed by
         ``spec`` (each rank keeps its block); a DTensor as it is."""
-        if self.mesh is None or isinstance(t, DTensor):
-            return t
-        return sharding.local_block(t, self.mesh,
-                                    sharding.placements(spec, self.mesh))
+        return sharding.place(t, spec, self.mesh)
 
     def _layer_types(self):
         g = self.cfg.layer_group

@@ -145,6 +145,16 @@ def _local(t):
     return t.to_local() if isinstance(t, DTensor) else t
 
 
+def _like_local(local, like):
+    """``local``, a new local block of ``like``, as a DTensor placed as
+    ``like`` where that is one; ``local`` as it is otherwise."""
+    if not isinstance(like, DTensor):
+        return local
+    return DTensor.from_local(local, like.device_mesh, like.placements,
+                              run_check=False, shape=like.shape,
+                              stride=like.stride())
+
+
 def global_norm(tensors) -> torch.Tensor:
     """The L2 norm of all of ``tensors`` together (f32), a plain 0-d
     tensor.  A DTensor counts every shard once: its local blocks' sums of
@@ -191,7 +201,10 @@ class HybridAdamW:
 
     ``params`` is a dict from the reference's ``/``-joined tree paths
     (``tables/t0``, ``wide_tables/t3``, ``mlp/0/w``) to tensors; ``grads``
-    and the moments follow its order."""
+    and the moments follow its order.  Parameters may be DTensors (a
+    sharded ``WideDeep``: row-sharded tables): a gradient is placed as
+    its parameter first, and ``step`` updates each rank's local blocks,
+    the tables' SGD on each rank's own rows."""
     adamw: AdamW
     sgd_lr: float = 0.05
     sgd_path: Callable[[str], bool] = staticmethod(
@@ -226,18 +239,21 @@ class HybridAdamW:
         copy of every table); returns the new state."""
         count = state.count + 1
         mu, nu = [], []
-        for leaf in self._leaves(params, grads, state, count):
-            p_new, m, v = self._leaf(*leaf)
-            leaf[1].copy_(p_new)
-            mu.append(m)
-            nu.append(v)
+        for is_sgd, p, g, m, v, bc in self._leaves(params, grads, state,
+                                                   count):
+            p_new, m2, v2 = self._leaf(is_sgd, _local(p), _local(g),
+                                       _local(m), _local(v), bc)
+            _local(p).copy_(p_new)
+            mu.append(m if m2 is _local(m) else _like_local(m2, m))
+            nu.append(v if v2 is _local(v) else _like_local(v2, v))
         return AdamWState(count=count, mu=mu, nu=nu)
 
     def _leaves(self, params, grads, state, count):
         bc = _corrections(self.adamw, count)
-        return [(is_sgd, p, g, m, v, bc) for is_sgd, p, g, m, v in zip(
-            self._mask(params), params.values(), grads, state.mu,
-            state.nu)]
+        return [(is_sgd, p, _like(g, p), m, v, bc)
+                for is_sgd, p, g, m, v in zip(
+                    self._mask(params), params.values(), grads, state.mu,
+                    state.nu)]
 
     def _leaf(self, is_sgd, p, g, m, v, bc):
         """One leaf's ``(new_p, mu, nu)``: SGD, or Adam with the bias

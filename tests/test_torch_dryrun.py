@@ -110,18 +110,26 @@ def test_perf_flags_reset(flags):
     assert perf_flags.FLAGS == perf_flags.PerfFlags()
 
 
-def test_gnn_edge_dp_raises(flags):
+def test_gnn_edge_dp_runs_equiformer(flags):
+    """``gnn_edge_dp`` set: the reduced EquiformerV2 runs and gives the
+    unflagged output (without a mesh its pins move nothing); inside an
+    edge split over other axes the pin refuses."""
     from repro_torch.models.gnn import EquiformerV2
+    from repro_torch.models.gnn.common import edge_sharded
     cfg = configs.get("equiformer-v2").make_reduced()
     model = EquiformerV2(cfg, device="cpu")
     batch = {"species": torch.zeros(4, dtype=torch.long),
              "pos": torch.randn(4, 3),
              "edge_src": torch.tensor([0, 1, 2]),
              "edge_dst": torch.tensor([1, 2, 3])}
-    model(batch)
-    perf_flags.FLAGS.gnn_edge_dp = ("data",)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        model(batch)
+    want = model(batch)
+    perf_flags.FLAGS.gnn_edge_dp = ("data", "model")
+    assert torch.equal(model(batch), want)
+    with edge_sharded([], ("data", "model")):
+        assert torch.equal(model(batch), want)
+    with edge_sharded([], ("data",)):
+        with pytest.raises(ValueError, match="split over"):
+            model(batch)
 
 
 def test_mesh_is_one_card():

@@ -1577,3 +1577,171 @@ def test_lm_sharded_step_one_nccl_rank(cuda):
         w = torch.randn(1, 8, 8, device=cuda)
         assert torch.equal(pipeline.gpipe_apply(
             lambda w, x: torch.tanh(x @ w), w, x), torch.tanh(x @ w[0]))
+
+
+def test_moe_sharded_one_nccl_rank(cuda):
+    """The reduced arctic-480b (f32 compute) as one NCCL rank on a (1, 1)
+    ("data", "model") mesh: the experts placed on tp and D on dp; the
+    loss, aux and gradients equal the unsharded model's to 1e-5 / 1e-4 of
+    each largest entry, the routing (top experts, kept assignments) is
+    the same, and prefill plus 4 decode steps give its logits to 1e-4."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.core import distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import LM, layers, sharding
+    cfg = dataclasses.replace(configs.get("arctic-480b").make_reduced(),
+                              compute_dtype=torch.float32,
+                              capacity_factor=0.5)
+    lm = LM(cfg, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (4, 32), device=cuda,
+                           generator=gen)
+    batch = {"tokens": tokens, "targets": tokens.roll(1, 1)}
+    routes = []
+    real = layers._moe_dispatch
+
+    def keep(xf, router, c):
+        out = real(xf, router, c)
+        routes.append(out[1].clone())
+        return out
+    with dist.process_group(cuda):
+        mesh = make_mesh((1, 1), ("data", "model"), device=cuda)
+        sharded = LM(cfg, device=cuda, init=False)
+        sharded.load_state_dict({k: t.clone() for k, t in
+                                 lm.state_dict().items()})
+        sharding.shard_lm(sharded, mesh)
+        assert sharded.blocks[0].moe.w_up.placements == tuple(
+            sharding.placements(("model", ("data",), None), mesh))
+        res = []
+        layers._moe_dispatch = keep
+        try:
+            for model in (lm, sharded):
+                loss, met = model.loss(batch)
+                grads = torch.autograd.grad(loss, list(model.parameters()))
+                res.append((loss.item(), met["aux"].item(), grads))
+        finally:
+            layers._moe_dispatch = real
+        (loss, aux, grads), (sloss, saux, sgrads) = res
+        assert abs(sloss - loss) <= 1e-5 * loss
+        assert abs(saux - aux) <= 1e-5 * aux
+        for a, b in zip(sgrads, grads):
+            assert float((a.full_tensor() - b).abs().max()) \
+                <= 1e-4 * float(b.abs().max())
+        half = len(routes) // 2
+        assert half == cfg.n_layers and not all(bool(k.all())
+                                                for k in routes)
+        for a, b in zip(routes[:half], routes[half:]):
+            assert torch.equal(a, b)
+        with torch.no_grad():
+            want, wc = lm.prefill(tokens[:, :16], cache_len=24)
+            got, gc = sharded.prefill(tokens[:, :16], cache_len=24)
+            outs = [(got.full_tensor(), want)]
+            for i in range(4):
+                tok = tokens[:, 16 + i:17 + i]
+                want, wc = lm.decode_step(wc, tok, 16 + i)
+                got, gc = sharded.decode_step(gc, tok, 16 + i)
+                outs.append((got.full_tensor(), want))
+        for got, want in outs:
+            assert float((got - want).abs().max()) \
+                <= 1e-4 * float(want.abs().max())
+
+
+def test_recsys_collective_one_nccl_rank(cuda):
+    """The reduced wide-deep with the collective lookup as one NCCL rank
+    on a (1, 1) mesh: the tables row-sharded over "model"; the logits,
+    one HybridAdamW step and the retrieval top-100 equal the unsharded
+    model's (1e-6 relative, 2e-5 absolute, indices equal)."""
+    from repro_torch import configs
+    from repro_torch.core import distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import recsys
+    from repro_torch.optim import AdamW, HybridAdamW
+    cfg = configs.get("wide-deep").make_reduced()
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    plain = recsys.WideDeep(cfg, device=cuda, generator=gen)
+    ids = torch.stack([torch.randint(0, v, (64, cfg.ids_per_field),
+                                     device=cuda) for v in cfg.vocab_sizes],
+                      1).to(torch.int32)
+    batch = {"dense": torch.randn(64, cfg.n_dense, device=cuda),
+             "sparse_ids": ids,
+             "labels": torch.randint(0, 2, (64,), device=cuda).float()}
+    query = {"dense": batch["dense"][:1], "sparse_ids": ids[:1],
+             "candidates": torch.randn(4096, cfg.retrieval_dim,
+                                       device=cuda)}
+    with dist.process_group(cuda):
+        mesh = make_mesh((1, 1), ("data", "model"), device=cuda)
+        sharded = recsys.WideDeep(cfg, "collective", device=cuda,
+                                  init=False)
+        sharded.load_state_dict({k: t.clone() for k, t in
+                                 plain.state_dict().items()})
+        sharded.shard(mesh)
+        with torch.no_grad():
+            want, got = plain(batch), sharded(batch).full_tensor()
+            assert float((got - want).abs().max()) \
+                <= 1e-6 * float(want.abs().max())
+            wv, wi = plain.retrieval_scores(query)
+            gv, gi = sharded.retrieval_scores(query)
+            assert torch.equal(gi, wi)
+            assert float((gv - wv).abs().max()) <= 1e-6 * float(
+                wv.abs().max())
+        opt = HybridAdamW(adamw=AdamW(lr=1e-3))
+        for model in (plain, sharded):
+            params = model.params()
+            recsys.make_recsys_train_step(model, opt)(
+                params, opt.init(params), batch)
+        for (n, a), b in zip(sharded.params().items(),
+                             plain.params().values()):
+            assert float((a.full_tensor() - b.detach()).abs().max()) \
+                <= 2e-5, n
+
+
+def test_gnn_edge_sharded_one_nccl_rank(cuda):
+    """MeshGraphNet's reduced config on a large graph as one NCCL rank on
+    a (1, 1) mesh with ``gnn_edge_dp`` ("data", "model"): the sharded
+    cell's step launches ``segment_rows`` on the rank's edge block and
+    gives the unsharded cell's loss (1e-5) and parameters (2e-5)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.core import distributed as dist
+    from repro_torch.launch import cells, perf_flags
+    from repro_torch.launch.mesh import make_mesh
+    spec = configs.get("meshgraphnet")
+    cfg = spec.make_reduced()
+    cell = ShapeCell("minibatch", "train", dict(n_nodes=3000, n_edges=9000,
+                                                d_feat=16, classes=5))
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    n, m = 3072, 9216
+    batch = {"feats": torch.randn(n, 16, device=cuda, generator=gen),
+             "pos": torch.randn(n, 3, device=cuda, generator=gen),
+             "edge_src": torch.randint(0, 3000, (m,), device=cuda,
+                                       generator=gen).to(torch.int32),
+             "edge_dst": torch.randint(0, 3000, (m,), device=cuda,
+                                       generator=gen).to(torch.int32),
+             "labels": torch.randint(0, 5, (n,), device=cuda,
+                                     generator=gen).to(torch.int32)}
+    perf_flags.reset()
+    perf_flags.FLAGS.gnn_edge_dp = ("data", "model")
+    try:
+        res = []
+        with dist.process_group(cuda):
+            mesh = make_mesh((1, 1), ("data", "model"), device=cuda)
+            for msh in (None, mesh):
+                build = cells._build_gnn(spec, dataclasses.replace(cfg),
+                                         cell, cuda, msh)
+                params, st, _ = build.abstract_args
+                before = ops.LAUNCHES["segment_sum"]
+                _, _, met = build.fn(params, st, batch)
+                torch.cuda.synchronize()
+                res.append((met["loss"].item(), params,
+                            ops.LAUNCHES["segment_sum"] - before))
+    finally:
+        perf_flags.reset()
+    (loss, ps, n_plain), (sloss, sps, n_sharded) = res
+    assert n_sharded == n_plain == cfg.n_layers
+    assert abs(sloss - loss) <= 1e-5 * loss
+    for a, b in zip(sps, ps):
+        assert float((a - b).abs().max()) <= 2e-5

@@ -470,13 +470,25 @@ def test_make_mesh_refuses_mismatches():
             make_mesh((1,), ("data",), device="meta")
 
 
-def test_moe_lm_is_not_sharded_yet():
+def test_moe_lm_is_placed():
+    """``shard_lm`` places a reduced MoE LM by its specs (the experts on
+    tp and D on dp) and its sharded forward, on a one-rank mesh, gives
+    the unsharded one's logits and aux bit for bit (the same ops on the
+    same tensors; tests/test_torch_moe_sharded.py holds several ranks)."""
     from repro_torch.launch.mesh import make_mesh
     with TD.process_group("cpu"):
         mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
-        lm = LM(configs.get("arctic-480b").make_reduced(), device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-            sharding.shard_lm(lm, mesh)
+        cfg = configs.get("arctic-480b").make_reduced()
+        lm = LM(cfg, device="cpu")
+        tokens = torch.as_tensor(_serve_tokens(cfg.vocab, 2))
+        want, want_aux, _ = lm(tokens)
+        sharding.shard_lm(lm, mesh)
+        assert lm.blocks[0].moe.w_gate.placements == tuple(
+            sharding.placements(("model", ("data",), None), mesh))
+        got, aux, _ = lm(tokens)
+        assert isinstance(got, DTensor)
+        assert torch.equal(got.full_tensor(), want)
+        assert torch.equal(aux, want_aux)
 
 
 def test_shard_lm_refuses_another_device():

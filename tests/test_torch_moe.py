@@ -228,12 +228,12 @@ class _Routing:
                                gates, ordered=True)
             return jlayers.moe_ffn(p, cfg, x)
 
-        def twrap(p, cfg, x):
+        def twrap(p, cfg, x, axes=None):
             xf = x.reshape(-1, x.shape[-1])
             gates = torch.softmax((xf @ p["router"].to(
                 cfg.compute_dtype)).float(), dim=-1)
             self.port.append(gates.detach().numpy().copy())
-            return layers.moe_ffn(p, cfg, x)
+            return layers.moe_ffn(p, cfg, x, axes=axes)
 
         monkeypatch.setattr(jtransformer, "moe_ffn", jwrap)
         monkeypatch.setattr(transformer, "moe_ffn", twrap)

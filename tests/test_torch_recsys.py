@@ -152,12 +152,42 @@ def test_param_tree_names_and_counts():
     assert sum(pub.vocab_sizes) * (pub.embed_dim + 1) * 4 == 10_078_126_080
 
 
-def test_sharded_lookup_and_specs_raise_naming_a6():
-    cfg = configs.get("wide-deep").make_reduced()
-    with pytest.raises(NotImplementedError, match="A6"):
-        recsys.WideDeep(cfg, lookup="collective", device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        recsys.WideDeep(cfg, device="cpu").param_specs()
+def test_collective_lookup_and_param_specs():
+    """``WideDeep(lookup="collective")`` builds; ``param_specs`` is the
+    reference's leaf by leaf (the tables on (tp, None), the rest
+    replicated); on a one-rank mesh the collective lookup's logits equal
+    the reference's (tests/test_torch_recsys_sharded.py holds several
+    ranks)."""
+    from jax.sharding import PartitionSpec as PS
+
+    from repro_torch.core import distributed as TD
+    from repro_torch.launch.mesh import make_mesh
+    jm, params, m = _models("reduced")
+    cfg = m.cfg
+    assert recsys.WideDeep(cfg, lookup="collective", device="cpu").lookup \
+        == "collective"
+    with pytest.raises(ValueError, match="lookup"):
+        recsys.WideDeep(cfg, lookup="gather", device="cpu")
+    for tp in ("model", "mp"):
+        want = {"/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                         for k in path): s for path, s in
+                jax.tree_util.tree_flatten_with_path(
+                    jm.param_specs(tp=tp),
+                    is_leaf=lambda x: isinstance(x, PS))[0]}
+        got = m.param_specs(tp)
+        assert set(got) == set(_flat(jax.tree.map(np.asarray, params)))
+        assert {n: PS(*s) for n, s in got.items()} == want
+        assert got["tables/t0"] == (tp, None) == got["wide_tables/t5"]
+    b = _batch(cfg, 16, seed=1)
+    want = np.asarray(jm.forward(params, b))
+    with TD.process_group("cpu"):
+        mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+        sm = convert.widedeep_from_numpy(
+            cfg, jax.tree.map(np.asarray, params), device="cpu",
+            lookup="collective", mesh=mesh)
+        with torch.no_grad():
+            got = sm(_t(b)).full_tensor()
+    _close(got, want, atol=RTOL * np.abs(want).max())
 
 
 def test_init_distributions_follow_reference():
