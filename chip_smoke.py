@@ -371,7 +371,7 @@ non-zero and prints no result line):
    ``gpipe_apply`` with layer 0 as the stage at S = 1 over 4 microbatches
    of 2 x 2048, equal to the layer's plain forward.  The group is
    destroyed at the end.
-23. (last) the rest of A6's models as one NCCL rank on a (1, 1) ("data",
+23. the rest of A6's models as one NCCL rank on a (1, 1) ("data",
    "model") mesh, the card's memory freed first: (a) arctic-480b at its
    published width, 1 layer, phase 19's seed, placed by ``shard_lm`` (the
    experts on tp, storage shared): ``generate`` on phase 19's 8 x 2048
@@ -393,6 +393,25 @@ non-zero and prints no result line):
    arctic's repeated-head block (group 1) within FLASH_TOL, segment_sum
    on the rank's edge block within SEG_TOL of each segment's sum of |v|,
    each timed.  The group is destroyed at the end.
+24. (last) rank 0 of the reference's production meshes on the card: a
+   fake process group of 256 or 512 ranks (``launch.mesh.
+   make_production_mesh(device="cuda")``, no other rank exists; every
+   collective returns at once and moves nothing, and a TorchDispatchMode
+   zero-fills the gathered outputs so no uninitialised memory feeds an
+   index or a sort), rank 0's blocks as real tensors drawn from a seed.
+   For each of (a) qwen3-1.7b train_4k at (16, 16), (b) arctic-480b
+   decode_32k at (2, 16, 16), all 35 layers, (c) wide-deep train_batch
+   and (d) meshgraphnet ogb_products at (16, 16): the meta dry-run's
+   record first (``dryrun.run_cell``); where it fits, one step of rank 0,
+   the launch counts set to 0 just before and read just after: the
+   measured peak within PRODUCTION_PEAK_BAND of the record's
+   ``peak_hbm_est``, each hand kernel's launches equal to the record's;
+   where it does not fit, the reason logged and that cell skipped.  The
+   values the model computes are no results (the collectives move
+   nothing) and none is compared.  flash_attention on rank 0's head
+   block of (a) and (b) and segment_sum on (d)'s edge block against their
+   plain versions.  Beside it, one subprocess a cell dry-runs
+   PRODUCTION_DRYRUN's cells at both meshes (e).
 
 The last two lines are the kernel table and the result, as JSON.  Needs
 one CUDA device; imports nothing of JAX or of the JAX package.
@@ -677,6 +696,33 @@ SHARDED_MODELS_PATH = ("flash_attention", "segment_sum")
 GNN_EDGE_DP = (None, ("data", "model"))
 # phase 19 (a)'s greedy tokens, held against phase 23 (a)
 MOE_SERVED: dict = {}
+# phase 24: rank 0 of the reference's production meshes on the card, over a
+# fake process group of 256 or 512 ranks (launch.mesh.make_production_mesh
+# (device="cuda")): (label, arch, cell, multi_pod), each run only where its
+# meta dry-run record says it fits one card.  The published cells, uncut:
+# (a) qwen3-1.7b's batch of 256 x 4096 (16 sequences a rank), (b) arctic's
+# 35 layers, 56 heads over tp = 16 (padded to 4 a rank)
+PRODUCTION = (("(a)", "qwen3-1.7b", "train_4k", False),
+              ("(b)", "arctic-480b", "decode_32k", True),
+              ("(c)", "wide-deep", "train_batch", False),
+              ("(d)", "meshgraphnet", "ogb_products", False))
+# the measured peak (torch.cuda.max_memory_allocated less what other phases
+# held) over the record's peak_hbm_est must lie in this band
+PRODUCTION_PEAK_BAND = (0.9, 1.1)
+PRODUCTION_PATH = ("flash_attention",)
+# (b) decodes (no flash kernel): its flash check runs on the head block rank
+# 0 of (b)'s mesh holds in arctic's prefill_32k cell, (B/dp, S, ceil(56 /
+# 16), D), drawn from this seed
+PRODUCTION_SEED = 24
+# beside phase 24: the meta dry-run at both meshes of the kinds (a)-(d)'s
+# records leave out (an LM's prefill and decode, a GNN's molecule step,
+# wide-deep's serving and retrieval), one process a cell with the card
+# hidden (the whole --all --mesh both is PERF.md's, from a CPU-only machine)
+PRODUCTION_DRYRUN = (("qwen3-1.7b", "prefill_32k"),
+                     ("qwen3-1.7b", "decode_32k"), ("schnet", "molecule"),
+                     ("wide-deep", "serve_p99"),
+                     ("wide-deep", "retrieval_cand"))
+PRODUCTION_DRYRUN_OUT = ROOT / "build" / "chip_smoke_dryrun_mesh"
 SYNC_WARNING = "called a synchronizing CUDA operation"
 INF_NOTE = (" (overflows float32: the reference's clip scales every update "
             "to 0, so the parameters stay as they are; ROADMAP C)")
@@ -6082,6 +6128,256 @@ def sharded_models_phase(dev):
     return launches
 
 
+# -- phase 24: rank 0 of a production mesh on the card ---------------------------
+
+def start_mesh_dryrun():
+    """Start the meta dry-run of each PRODUCTION_DRYRUN cell at both meshes
+    (``--mesh both``), one process a cell, all at once, with the card
+    hidden; :func:`mesh_dryrun_phase` reads what they wrote."""
+    shutil.rmtree(PRODUCTION_DRYRUN_OUT, ignore_errors=True)
+    PRODUCTION_DRYRUN_OUT.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for i, (arch, shape) in enumerate(PRODUCTION_DRYRUN):
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "both", "--out",
+             str(PRODUCTION_DRYRUN_OUT / f"{i}.jsonl")], env=env, cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        procs.append(proc)
+    return procs, time.time()
+
+
+def mesh_dryrun_phase(started) -> None:
+    """Phase 24 (e): the records of :func:`start_mesh_dryrun`."""
+    procs, t0 = started
+    recs = []
+    for i, proc in enumerate(procs):
+        out, _ = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"(e) dryrun {PRODUCTION_DRYRUN[i]} "
+              f"--mesh both exited {proc.returncode}:\n{out[-4000:]}")
+        recs += [json.loads(line) for line in (
+            PRODUCTION_DRYRUN_OUT / f"{i}.jsonl").read_text().splitlines()]
+    log(f"# phase 24 (e): python -m repro_torch.launch.dryrun --mesh both, "
+        f"one process a cell for {PRODUCTION_DRYRUN}: {len(recs)} records "
+        f"in {time.time() - t0:.1f} s (CPU, the card hidden, beside (a)-(d))")
+    for r in recs:
+        pd, roof = r["per_device"], r["roofline"]
+        log(f"#   {r['arch']} x {r['shape']} x {r['mesh']}: rank 0 "
+            f"flops={pd['flops']:.4g} bytes={pd['bytes']:.4g} collective_"
+            f"bytes={pd['collective_bytes']:.4g} peak_hbm_est="
+            f"{pd['peak_hbm_est']:,} fits={r['fits']} bound_s="
+            f"{roof['bound_s']:.4g} ({roof['dominant']}) trace_s="
+            f"{r['trace_s']}")
+        check(r["status"] == "ok" and r["n_devices"] in (256, 512)
+              and roof["bound_s"] == max(roof["compute_s"], roof["memory_s"],
+                                         roof["collective_s"]),
+              f"(e) {r['arch']} x {r['shape']} x {r['mesh']}: a bad record")
+    shutil.rmtree(PRODUCTION_DRYRUN_OUT, ignore_errors=True)
+
+
+def zero_fake_collectives():
+    """A TorchDispatchMode that zero-fills, in place, the output of every
+    collective that returns a tensor of its own (gathers, reduce-scatters,
+    all-to-alls): on the fake group they return at once with the memory
+    uninitialised, which must feed no index and no sort.  All-reduces,
+    which leave the rank's own values, are left as they are.  DTensor's
+    own dispatch runs under it (the DTensor-level op is declined), so it
+    sees the local collectives."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.launch import lowering
+
+    class ZeroFill(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented
+            out = func(*args, **(kwargs or {}))
+            name = str(func._overloadpacket._qualified_op_name).replace(
+                "::", ".")
+            kind = lowering.COLLECTIVE_KINDS.get(name)
+            if kind in ("all-gather", "reduce-scatter", "all-to-all") \
+                    and func.namespace in ("_c10d_functional", "_dtensor"):
+                with torch.no_grad():
+                    for t in lowering.tensors(out):
+                        t.zero_()
+            return out
+    return ZeroFill()
+
+
+@contextlib.contextmanager
+def kernel_launches():
+    """Count each hand kernel's launches by kernel name within the block
+    (the names of the dry-run's ``launches``): ``kernels._build.launch``
+    wrapped, every call still made."""
+    from collections import Counter
+
+    from repro_torch.kernels import _build
+    counts, real = Counter(), _build.launch
+
+    def counted(spec, entry, *args):
+        for one in ([spec] if type(spec) is _build.Launch else spec):
+            counts[one.kernel] += 1
+        return real(spec, entry, *args)
+    _build.launch = counted
+    try:
+        yield counts
+    finally:
+        _build.launch = real
+
+
+def production_flash_check(dev, label: str, card) -> None:
+    """(b) decodes, so its step runs no flash kernel (decode attention is
+    torch einsum, as the reference leaves it to XLA): the kernel is held
+    on the head block rank 0 of (b)'s (2, 16, 16) mesh holds in arctic's
+    prefill_32k cell instead, (B / dp, S, ceil(56 / 16), D) = (1, 32768,
+    4, 128), k and v repeated to the q heads, drawn from
+    PRODUCTION_SEED."""
+    import torch
+
+    from repro_torch import configs
+    cfg = configs.get("arctic-480b").make_config()
+    cell = configs.get("arctic-480b").shapes["prefill_32k"]
+    width = -(-cfg.n_heads // 16)
+    b = cell.meta["batch"] // 32
+    g = torch.Generator(device=dev).manual_seed(PRODUCTION_SEED)
+    shape = (b, cell.meta["seq"], width, cfg.d_head)
+    box = [tuple(torch.randn(shape, generator=g, device=dev,
+                             dtype=torch.bfloat16) for _ in range(3))]
+    flash_block_check(box, label, card, phase=24)
+
+
+def production_segment_check(dev, label: str, card) -> None:
+    """(d) does not fit a card, so segment_sum is held on rank 0's edge
+    block of it alone: ogb_products' edges (padded to 512) over dp = 16,
+    MeshGraphNet's 128-wide messages onto every node, from
+    PRODUCTION_SEED."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    meta = configs.get("meshgraphnet").shapes["ogb_products"].meta
+    width = configs.get("meshgraphnet").make_config().d_hidden
+    n = -(-meta["n_nodes"] // 512) * 512
+    m = -(-meta["n_edges"] // 512) * 512 // 16
+    g = torch.Generator(device=dev).manual_seed(PRODUCTION_SEED)
+    values = torch.randn((m, width), generator=g, device=dev)
+    ids = torch.randint(0, n, (m,), generator=g, device=dev,
+                        dtype=torch.int32)
+    index = ops.segment_index(ids, n)
+    got = ops.segment_sum(values, ids, n, index)
+    rel = segment_check(got, values, ids, n, f"{label} on rank 0's edge "
+                        f"block")
+    ms = device_ms(lambda: ops.segment_sum(values, ids, n, index))
+    log(f"# phase 24 {label}: segment_sum on rank 0's edge block of "
+        f"meshgraphnet ogb_products at (16, 16) {tuple(values.shape)} -> "
+        f"{n:,} nodes: within {rel:.3g} of each segment's sum of |v| "
+        f"(tolerance {SEG_TOL}); device_ms={ms:.4f} [{card}]")
+    del values, ids, index, got
+    torch.cuda.empty_cache()
+
+
+def production_cell(dev, label, arch, shape, multi_pod, card):
+    """One cell of phase 24: the meta record, then, where it fits, rank
+    0's step on the card (module docstring).  Returns the launch counts
+    by wrapper (empty for a cell not run)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import cells, dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(arch, shape, multi_pod=multi_pod, verbose=False)
+    check(rec["status"] == "ok", f"{label} {arch} {shape}: {rec}")
+    pd, name = rec["per_device"], rec["mesh"]
+    est = pd["peak_hbm_est"]
+    head = (f"# phase 24 {label}: {arch} {shape} at {name} (rank 0 of "
+            f"{rec['n_devices']})")
+    if not rec["fits"]:
+        log(f"{head}: not run: the dry-run's peak_hbm_est "
+            f"{est / 1e9:.2f} GB does not fit the card ({rec['notes']}); "
+            f"record traced in {rec['trace_s']} s [{card}]")
+        return {}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    with make_production_mesh(multi_pod=multi_pod, device=dev) as mesh, \
+            flash_blocks() as box:
+        t1 = time.perf_counter()
+        build = cells.build_cell(arch, shape, mesh=mesh, device=dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        args = torch.cuda.memory_allocated() - held
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        with kernel_launches() as kernels, zero_fake_collectives():
+            out = build.fn(*build.abstract_args)
+            torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        launches = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() - held
+        del out, build
+    torch.cuda.empty_cache()
+    ratio = peak / est
+    check(PRODUCTION_PEAK_BAND[0] <= ratio <= PRODUCTION_PEAK_BAND[1],
+          f"{label} {arch} {shape}: measured peak {peak:,} is {ratio:.4f} "
+          f"of the dry-run's {est:,}, outside {PRODUCTION_PEAK_BAND}")
+    check(dict(kernels) == pd["launches"], f"{label} {arch} {shape}: "
+          f"launches {dict(kernels)} on the card, {pd['launches']} in the "
+          f"dry-run")
+    log(f"{head}: one step of rank 0's blocks, the collectives moving "
+        f"nothing (its values are no result and are compared with "
+        f"nothing): arguments {args / 1e9:.3f} GB (the record's "
+        f"{pd['argument_bytes'] / 1e9:.3f}); measured peak "
+        f"{peak / 1e9:.3f} GB against peak_hbm_est {est / 1e9:.3f} "
+        f"(ratio {ratio:.4f}; {held / 1e9:.3f} GB held by other phases "
+        f"left out); hand-kernel launches {dict(kernels)} equal the "
+        f"record's; collectives in the record {pd['collectives']['counts']}"
+        f" ({pd['collective_bytes'] / 1e9:.3f} GB); bound "
+        f"{rec['roofline']['bound_s'] * 1e3:.2f} ms "
+        f"({rec['roofline']['dominant']}); record traced in "
+        f"{rec['trace_s']} s, build {t2 - t1:.1f} s, step {t3 - t2:.1f} s "
+        f"(first call: DTensor's sharding propagation), all "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    if box:
+        flash_block_check(box, label, card, phase=24)
+    box.clear()
+    return launches
+
+
+def production_phase(dev):
+    """Phase 24 (after phase 23's NCCL group is gone): PRODUCTION's cells
+    (:func:`production_cell`), the flash and segment_sum checks on rank 0's
+    blocks, and the subprocess's mesh dry-run.  Returns the launch
+    counts of the steps, summed."""
+    import torch.distributed as tdist
+    t0 = time.perf_counter()
+    card = card_name()
+    check(not tdist.is_initialized(), "a process group is still up")
+    started = start_mesh_dryrun()
+    total: dict = {}
+    ran = set()
+    for label, arch, shape, multi_pod in PRODUCTION:
+        launches = production_cell(dev, label, arch, shape, multi_pod, card)
+        if launches:
+            ran.add(label)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        check(not tdist.is_initialized(), f"{label}: the fake group was "
+              f"not destroyed")
+    production_flash_check(dev, "(b)", card)
+    if "(d)" not in ran:
+        production_segment_check(dev, "(d)", card)
+    mesh_dryrun_phase(started)
+    log(f"# phase 24: ran {sorted(ran)}; launches {total}; done in "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -6250,6 +6546,10 @@ def main() -> int:
     for name in SHARDED_MODELS_PATH:
         check(sharded_models_launches[name] > 0,
               f"{name} was never launched on phase 23's sharded models' path")
+    production_launches = production_phase(dev)
+    for name in PRODUCTION_PATH:
+        check(production_launches.get(name, 0) > 0,
+              f"{name} was never launched on phase 24's production-mesh path")
 
     path_launches = {**{n: trim_launches for n in TRIM_PATH},
                      **{n: scc_launches for n in SCC_PEEL_PATH},
@@ -6271,6 +6571,9 @@ def main() -> int:
     # minibatch_lg steps (segment_sum)
     for name in SHARDED_MODELS_PATH:
         launches[name] += sharded_models_launches[name]
+    # phase 24: rank 0's train_4k step of qwen3-1.7b at (16, 16) (flash)
+    for name in PRODUCTION_PATH:
+        launches[name] += production_launches[name]
     log(f"# total: {time.perf_counter() - t_start:.1f} s")
     table = [dict(name=name, route="cuda", source=KERNELS[name][0],
                   replaces=KERNELS[name][1], launches=launches[name],

@@ -34,9 +34,16 @@ collective lookup, the batch on dp, retrieval's candidates over dp and
 "model" (:func:`_build_recsys`).  A GNN's parameters are replicated, the
 molecule batch on dp, a large graph's arrays on ``gdp``
 (:func:`_build_gnn`).  Without a mesh the cells stay unsharded on one
-device, and the reference's donations are not carried over (the meta
-dry-run of the 256/512-chip meshes, ``dryrun --mesh multi``, is ROADMAP
-A6's last item).
+device, and the reference's donations are not carried over.
+
+On a fake mesh (``launch.mesh.make_production_mesh``: 256 or 512 ranks,
+this process rank 0) the cell is built on ``device``, not the mesh's
+device type: on meta for the sharded dry-run (``dryrun --mesh
+pod|multi|both``), each argument rank 0's meta block; on the card the
+models are built and placed on meta first and only rank 0's blocks are
+then allocated and drawn (``sharding.materialize``), so a 480B-parameter
+model costs the card 1/512 of it.  Every batch and cache tensor is made
+as rank 0's block alone (``sharding.local_zeros``).
 """
 from __future__ import annotations
 
@@ -52,8 +59,8 @@ from ..models.gnn import MODELS
 from ..models.gnn.common import (all_reduced, edge_sharded, mesh_grads,
                                  mesh_groups, molecule_loss, molecule_union)
 from ..models.recsys import WideDeep, make_recsys_train_step
-from ..models.sharding import place
-from ..models.transformer import LM, make_train_step
+from ..models.sharding import is_fake, local_zeros, materialize, place
+from ..models.transformer import LM, init_param, make_train_step
 from ..optim import AdamW, HybridAdamW
 from . import perf_flags
 
@@ -75,7 +82,8 @@ def build_cell(arch_id: str, shape, n_layers: int | None = None, *,
     which the tests run to check the meta counts.  ``mesh`` (a
     ``DeviceMesh`` with a ``"model"`` axis and ``"data"`` or ``("pod",
     "data")``) builds the sharded step on the mesh's device type (module
-    docstring).  A skipped cell raises."""
+    docstring); a fake one (``launch.mesh.make_production_mesh``) on
+    ``device``, rank 0's blocks alone.  A skipped cell raises."""
     spec = configs.get(arch_id)
     cell = shape if isinstance(shape, ShapeCell) else spec.shapes[shape]
     if cell.skip:
@@ -92,22 +100,47 @@ def build_cell(arch_id: str, shape, n_layers: int | None = None, *,
     return _build_recsys(cfg, cell, dev, mesh)
 
 
-def _zeros(shape, dtype, dev):
-    """A batch tensor: empty on meta, zeros elsewhere (valid ids)."""
-    if dev.type == "meta":
-        return torch.empty(shape, dtype=dtype, device=dev)
-    return torch.zeros(shape, dtype=dtype, device=dev)
+def _device(dev, mesh) -> torch.device:
+    """The device a cell's tensors go on: a real mesh's device type; with
+    a fake mesh or none, ``dev`` (meta when None).  A fake mesh's blocks
+    are meta (the dry-run) or the card's: any other device raises."""
+    if mesh is not None and not is_fake(mesh):
+        return torch.device(mesh.device_type)
+    dev = torch.device("meta" if dev is None else dev)
+    if mesh is not None and dev.type not in ("meta", "cuda"):
+        raise ValueError(f"a fake mesh's blocks are meta or cuda tensors, "
+                         f"not {dev}")
+    return dev
 
 
-def _model_kw(dev) -> dict:
-    if dev.type == "meta":
-        return dict(device=dev, init=False)
+def _model_kw(dev, mesh=None) -> dict:
+    """A model's constructor arguments on ``dev``: on meta, or on any
+    device with a fake ``mesh`` (placed on meta, then
+    :func:`_materialize`), nothing is drawn; elsewhere seed-0 weights."""
+    if dev.type == "meta" or (mesh is not None and is_fake(mesh)):
+        return dict(device=torch.device("meta"), init=False)
     return dict(device=dev, generator=torch.Generator(device=dev)
                 .manual_seed(0))
 
 
-NOTES = ("one device, no mesh: no shardings, no collectives (the dry-run "
-         "of the 256/512-chip meshes is ROADMAP A6)")
+def _materialize(model, dev, init=None):
+    """On a fake mesh, give ``model`` (built and placed on meta) rank 0's
+    blocks on ``dev``, drawn from a seed-0 generator by ``init(name, p,
+    block, generator)`` (default: normal over sqrt(fan-in)); a model on
+    meta stays there."""
+    if dev.type == "meta":
+        return model
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def draw(name, p, t):
+        if init is not None:
+            return init(name, p, t, g)
+        t.normal_(generator=g)
+        t.mul_(p.shape[-2] ** -0.5 if p.dim() > 1 else 1.0)
+    return materialize(model, dev, draw)
+
+
+NOTES = "one device, no mesh: no shardings, no collectives"
 
 
 # ------------------------------------------------------------------- LM
@@ -119,6 +152,7 @@ def _build_lm(cfg, cell, dev, mesh=None) -> CellBuild:
     docstring): the LM places its parameters (``param_specs``), AdamW's
     moments take their placements, the batch and the decode cache are
     placed by the LM's own helpers."""
+    dev = _device(dev, mesh)
     if perf_flags.FLAGS.serve_bf16_params and cell.kind in ("prefill",
                                                             "decode"):
         cfg = dataclasses.replace(cfg, param_dtype=torch.bfloat16)
@@ -126,10 +160,11 @@ def _build_lm(cfg, cell, dev, mesh=None) -> CellBuild:
     if mesh is not None:
         from ..models.transformer import MeshAxes
         from .mesh import data_axes
-        dev = torch.device(mesh.device_type)
         axes = MeshAxes(dp=data_axes("pod" in mesh.mesh_dim_names),
                         tp="model")
-    model = LM(cfg, axes=axes, mesh=mesh, **_model_kw(dev))
+    model = LM(cfg, axes=axes, mesh=mesh, **_model_kw(dev, mesh))
+    if mesh is not None and is_fake(mesh):
+        _materialize(model, dev, init_param)
     params = list(model.parameters())
     b, s = cell.meta["batch"], cell.meta["seq"]
     n_active = cfg.active_param_count()
@@ -137,8 +172,8 @@ def _build_lm(cfg, cell, dev, mesh=None) -> CellBuild:
 
     def ids(shape):
         """int32 ids, placed on the mesh as the reference's (dp, None)."""
-        t = _zeros(shape, torch.int32, dev)
-        return t if mesh is None else model._place(t, (model._dp(b), None))
+        spec = None if mesh is None else (model._dp(b), None)
+        return local_zeros(shape, torch.int32, spec, mesh, dev)
 
     if cell.kind == "train":
         opt = AdamW(lr=3e-4)
@@ -227,8 +262,7 @@ def _build_gnn(spec, cfg, cell, dev, mesh=None) -> CellBuild:
     whole batch's, the same on every rank."""
     meta = cell.meta
     cfg = dataclasses.replace(cfg, out_dim=meta.get("classes", 1))
-    if mesh is not None:
-        dev = torch.device(mesh.device_type)
+    dev = _device(dev, mesh)
     model = MODELS[type(cfg)](cfg, d_feat=meta.get("d_feat"),
                               **_model_kw(dev))
     opt = AdamW(lr=1e-3)
@@ -246,8 +280,8 @@ def _build_gnn(spec, cfg, cell, dev, mesh=None) -> CellBuild:
                 mesh.size(mesh.mesh_dim_names.index(a)) for a in axes)
 
     def zeros(shape, dtype):
-        return place(_zeros(shape, dtype, dev),
-                     (axes,) + (None,) * (len(shape) - 1), mesh)
+        return local_zeros(shape, dtype, (axes,) + (None,) * (len(shape) - 1),
+                           mesh, dev)
 
     if cell.name == "molecule":
         bsz, n, m = meta["batch"], meta["n_nodes"], meta["n_edges"]
@@ -329,10 +363,11 @@ def _build_recsys(cfg, cell, dev, mesh=None) -> CellBuild:
     moments plain), and the batch placed as the reference's cell: dense
     features, ids and labels on dp; retrieval's query replicated and its
     candidates over dp and ``"model"``."""
-    if mesh is not None:
-        dev = torch.device(mesh.device_type)
+    dev = _device(dev, mesh)
     model = WideDeep(cfg, "collective" if mesh is not None else "auto",
-                     mesh, **_model_kw(dev))
+                     mesh, **_model_kw(dev, mesh))
+    if mesh is not None and is_fake(mesh):
+        _materialize(model, dev)
     params = model.params()
     b = cell.meta["batch"]
     fwd_flops = _recsys_fwd_flops(cfg, b)
@@ -340,7 +375,7 @@ def _build_recsys(cfg, cell, dev, mesh=None) -> CellBuild:
     dp = model.dp if mesh is not None else None
 
     def zeros(shape, dtype, spec):
-        return place(_zeros(shape, dtype, dev), spec, mesh)
+        return local_zeros(shape, dtype, spec, mesh, dev)
 
     rows = None if cell.kind == "retrieval" else dp
     batch = {"dense": zeros((b, cfg.n_dense), torch.float32, (rows, None)),

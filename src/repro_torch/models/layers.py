@@ -21,8 +21,11 @@ the routing and dispatch, ``torch.bmm`` for the grouped expert products.
 Sharded (``axes`` set, the tensors DTensors on a ``DeviceMesh``): the
 prefill's and training's attention takes the reference's flat-head
 layout (k and v repeated to the q heads, q/k/v pinned to batch on dp and
-heads on tp) and runs ``_causal`` through ``local_map``, so the flash
-kernel sees each rank's local (B/dp, S, H/tp, D) block at group 1.
+heads on tp) and runs ``_causal`` on each rank's local (B/dp, S,
+ceil(H/tp), D) block at group 1 (``sharding.local_apply``); where tp does
+not divide the heads the rank's block is padded with zero heads, as
+GSPMD pads them, and a flat projection whose tp block would split a head
+is gathered over tp before it is cut into heads (:func:`_whole_heads`).
 Decode writes the new k/v and attends inside ``local_map`` on the
 cache's own placement (:func:`cache_write`, :func:`_decode_attend`): a
 sequence-sharded cache (the reference's decode specs shard the
@@ -146,9 +149,37 @@ def rope(x, positions, theta: float):
 # --------------------------------------------------------------- attention
 
 
+def _whole_heads(x, dim: int, n_heads: int):
+    """A DTensor ``x`` whose dimension ``dim`` holds ``n_heads`` heads (flat
+    or not), gathered over every mesh dimension that splits it where that
+    dimension's size does not divide ``n_heads``: DTensor can neither cut
+    a flat block of half heads into heads nor flatten uneven head
+    blocks.  Anything else as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    pl = [Replicate() if isinstance(q, Shard) and q.dim == dim
+          and n_heads % mesh.size(i) else q
+          for i, q in enumerate(x.placements)]
+    return x if pl == list(x.placements) else x.redistribute(mesh, pl)
+
+
+def _whole_features(out):
+    """A DTensor attention output (B, S, H, D) with its head features
+    gathered where they are split (a chunked decode's cache shards D over
+    tp): flat, they would be a strided split of the heads' features,
+    whose products DTensor plans for minutes on a 3-D mesh."""
+    if not isinstance(out, DTensor):
+        return out
+    pl = [Replicate() if isinstance(q, Shard) and q.dim == 3 else q
+          for q in out.placements]
+    return (out if pl == list(out.placements)
+            else out.redistribute(out.device_mesh, pl))
+
+
 def _split_heads(x, n_heads, d_head):
     b, s, _ = x.shape
-    return x.reshape(b, s, n_heads, d_head)
+    return _whole_heads(x, 2, n_heads).reshape(b, s, n_heads, d_head)
 
 
 def attention(p, cfg: LMConfig, x, positions, *, chunked: bool,
@@ -211,6 +242,7 @@ def attention(p, cfg: LMConfig, x, positions, *, chunked: bool,
             out = _decode_attend(q, ck, cv, valid)
         new_kv = (ck, cv)
 
+    out = _whole_heads(_whole_features(out), 2, cfg.n_heads)
     out = out.reshape(b, s, cfg.q_dim)
     return out @ p["wo"].to(dt), new_kv
 
@@ -227,7 +259,12 @@ def _sharded_causal(q, k, v, cfg, axes, chunked: bool):
     """The reference's flat-head layout: k and v repeated to the q heads
     (``[h0, h0, h1, h1, ...]``, its ``jnp.repeat``), q/k/v pinned to
     batch on dp and heads on tp, and ``_causal`` (or ``_chunked_causal``)
-    run through ``local_map`` on each rank's (B/dp, S, H/tp, D) block."""
+    run on each rank's (B/dp, S, H/tp, D) block.  Where tp does not
+    divide the H heads, the pin gives ``torch.chunk``'s blocks (ceil(H /
+    tp) heads a rank, the last ranks fewer or none) and each rank pads
+    its block with zero heads to ceil(H / tp) for the kernel, dropping
+    them after: GSPMD's padding, so every rank runs the same kernel
+    shape, and a zero head's output (zero values) never leaves it."""
     mesh = q.device_mesh
     b, s, hkv, d = k.shape
     g = cfg.n_heads // cfg.n_kv_heads
@@ -237,13 +274,22 @@ def _sharded_causal(q, k, v, cfg, axes, chunked: bool):
     hspec = (axes.dp if b > 1 else None, None, axes.tp, None)
     q, k, v = (sharding.pin(t, hspec, mesh) for t in (q, k, v))
     pl = list(q.placements)
+    tp = mesh.size(mesh.mesh_dim_names.index(axes.tp))
+    width = -(-cfg.n_heads // tp)
     if chunked and s > cfg.chunk_size:
         def fn(q, k, v):
             return _chunked_causal(q, k, v, cfg)
     else:
         fn = _causal
-    return local_map(fn, out_placements=pl, in_placements=(pl, pl, pl),
-                     device_mesh=mesh)(q, k, v)
+
+    def attend(q, k, v):
+        n = q.shape[2]
+        if n < width:
+            q, k, v = (F.pad(t, (0, 0, 0, width - n)) for t in (q, k, v))
+        return fn(q, k, v)[:, :, :n]
+
+    return sharding.local_apply(attend, (q, k, v), (pl, pl, pl), pl,
+                                q.shape, mesh)
 
 
 def _chunked_causal(q, k, v, cfg):
@@ -515,11 +561,13 @@ def _moe_ffn_sharded(p, cfg: LMConfig, x, axes):
        rank; the routing and the (E, cap, D) buffer are computed whole on
        each (:func:`_moe_dispatch` in ``local_map``, replicated);
     2. each rank takes its block of the buffer, E on tp and the capacity
-       slots on dp (no collective), and all-gathers its experts' weights
-       over the fsdp axes (E on tp stays: ``param_specs`` places the
-       experts (E on tp, D on fsdp)), one weight at a time; the three
-       grouped products (:func:`_moe_experts`'s) run in ``local_map`` on
-       the rank's (E/tp, cap/dp, .) blocks, so each expert's products run
+       slots on dp (no collective; the slots padded with zero rows to a
+       multiple of dp, as GSPMD pads an uneven split), and all-gathers
+       its experts' weights over the fsdp axes (E on tp stays:
+       ``param_specs`` places the experts (E on tp, D on fsdp)), one
+       weight at a time; the three grouped products
+       (:func:`_moe_experts`'s) run on the rank's (E/tp, cap/dp, .)
+       blocks (``sharding.local_apply``), so each expert's products run
        on the ranks that hold it, and the weights' gradients, partial
        sums over the slots, are reduce-scattered back over the fsdp
        axes;
@@ -537,8 +585,17 @@ def _moe_ffn_sharded(p, cfg: LMConfig, x, axes):
     xr = x.redistribute(mesh, rep)
     router = p["router"].to(dt).redistribute(mesh, rep)
 
+    n_dp = math.prod(mesh.size(mesh.mesh_dim_names.index(a))
+                     for a in axes.dp)
+
     def dispatch(xl, rl):
-        return _moe_dispatch(xl.reshape(b * s, d), rl, cfg)
+        """The routing; the buffer's capacity slots padded with zero rows
+        to a multiple of dp (GSPMD's padding of an uneven split: a decode
+        step's 8 slots over 32 ranks), cut off again in ``combine``."""
+        buf, *rest = _moe_dispatch(xl.reshape(b * s, d), rl, cfg)
+        pad = -buf.shape[1] % n_dp
+        return (F.pad(buf, (0, 0, 0, pad)) if pad else buf, *rest)
+    cap = moe_capacity(cfg, b * s)
     buf, keep, slot, w, aux = local_map(
         dispatch, out_placements=(rep,) * 5, in_placements=(rep, rep),
         device_mesh=mesh)(xr, router)
@@ -548,19 +605,18 @@ def _moe_ffn_sharded(p, cfg: LMConfig, x, axes):
     wgrad = [Partial() if isinstance(q, Replicate) and mesh.size(i) > 1
              and mesh.mesh_dim_names[i] in axes.dp else q
              for i, q in enumerate(wpl)]
-    expert_bmm = local_map(torch.bmm, out_placements=bpl,
-                           in_placements=(bpl, wpl),
-                           in_grad_placements=(bpl, wgrad), device_mesh=mesh)
 
     def mm(a, w):       # one weight cast and gathered at a time
-        return expert_bmm(a, w.to(dt).redistribute(mesh, wpl))
+        shape = (a.shape[0], a.shape[1], w.shape[2])
+        return sharding.local_apply(torch.bmm, (a, w.to(dt)), (bpl, wpl),
+                                    bpl, shape, mesh, (bpl, wgrad))
     buf = buf.redistribute(mesh, bpl)
     gate_h = F.silu(mm(buf, p["w_gate"]))
     up_h = mm(buf, p["w_up"])
     out_buf = mm(gate_h * up_h, p["w_down"]).redistribute(mesh, rep)
 
     def combine(ob, kp, sl, wl):
-        return _moe_combine(ob, kp, sl, wl, cfg).view(b, s, d)
+        return _moe_combine(ob[:, :cap], kp, sl, wl, cfg).view(b, s, d)
     out = local_map(combine, out_placements=rep,
                     in_placements=(rep,) * 4, device_mesh=mesh)(
         out_buf, keep, slot, w)

@@ -164,9 +164,7 @@ class WideDeep(nn.Module):
         """Place the parameters on ``mesh`` by :meth:`param_specs` of the
         model axis (each rank keeps its rows of every table; nothing is
         sent: every rank must hold the same weights); returns self."""
-        if self.device.type != mesh.device_type:
-            raise ValueError(f"the model's parameters are on {self.device},"
-                             f" the mesh is of {mesh.device_type!r} ranks")
+        sharding.check_device(self.device, mesh, "the model's parameters")
         if self.model_axis not in mesh.mesh_dim_names:
             raise ValueError(f"the mesh has no axis {self.model_axis!r}")
         specs = self.param_specs(self.model_axis)

@@ -27,10 +27,13 @@ TP x EP, the layer axis dropped: the port keeps a module per layer) and
 places the parameters as DTensors on a ``DeviceMesh``; the LM then pins
 its activations where the reference does (the embedding's output on dp,
 q/k/v on (dp, heads on tp), the logits on (dp, vocab on tp)) with
-``redistribute``, and the attention runs through ``local_map`` on each
-rank's heads (``layers.attention``); a MoE layer routes every token of
-the batch on every rank and runs each expert's products on the ranks
-that hold it (``layers._moe_ffn_sharded``).  The sharded loss reduces the
+``redistribute``, and the attention runs on each rank's heads
+(``layers.attention``; ceil(H / tp) of them, padded with zero heads
+where tp does not divide H, as GSPMD pads); each layer's branch outputs
+are all-reduced onto the residual stream's placement (:func:`_like`); a
+MoE layer routes every token of the batch on every rank and runs each
+expert's products on the ranks that hold it
+(``layers._moe_ffn_sharded``).  The sharded loss reduces the
 vocab-sharded logits over the shard (a max, a sum and the target logit
 picked on the rank that holds it), never gathering the logits.
 """
@@ -41,7 +44,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.distributed.tensor import DTensor, Partial, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
@@ -160,6 +163,17 @@ class MoE(nn.Module):
         return p
 
 
+def _like(h, x):
+    """A branch's output ``h`` placed as the residual stream ``x`` (a
+    DTensor's partial sums over tp all-reduced), so the stream keeps the
+    embedding's pin (the batch on dp) from layer to layer: DTensor left
+    alone may reduce-scatter the sums onto the batch over tp, which
+    splits unevenly where tp does not divide the rank's batch."""
+    if isinstance(h, DTensor) and tuple(h.placements) != tuple(x.placements):
+        return h.redistribute(x.device_mesh, x.placements)
+    return h
+
+
 class Block(nn.Module):
     def __init__(self, cfg: LMConfig, *, device):
         super().__init__()
@@ -181,7 +195,7 @@ class Block(nn.Module):
         h, kv = attention(_weights(self.attn), cfg, rms_norm(x, self.ln1),
                           positions, chunked=chunked, kv_cache=kv_cache,
                           cache_pos=cache_pos, axes=axes)
-        x = x + h
+        x = x + _like(h, x)
         if cfg.moe:
             ff, aux = moe_ffn(self.moe.weights(), cfg, rms_norm(x, self.ln2),
                               axes=axes)
@@ -189,7 +203,25 @@ class Block(nn.Module):
             ff = swiglu(_weights(self.ffn), rms_norm(x, self.ln2),
                         cfg.compute_dtype)
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        return x + ff, aux, kv
+        return x + _like(ff, x), aux, kv
+
+
+@torch.no_grad()
+def init_param(name: str, p, t, generator: torch.Generator) -> None:
+    """Draw parameter ``name`` (global shape ``p.shape``) into ``t`` in
+    place, by the reference's rule: norms at one, the embedding normal
+    times 0.02, every other weight normal over sqrt(fan-in).  ``t`` is
+    ``p`` itself, or one rank's block of it (``sharding.materialize``)."""
+    leaf = name.rsplit(".", 1)[-1]
+    if leaf in _NORMS:
+        t.fill_(1.0)
+        return
+    scale = 0.02 if leaf == "embed" else p.shape[-2] ** -0.5
+    # drawn in place (``torch.randn``'s draw): a temporary the size of
+    # one arctic expert weight (17.85 GB in f32) would not fit beside
+    # the rest
+    t.normal_(generator=generator)
+    t.mul_(scale)
 
 
 class LM(nn.Module):
@@ -231,16 +263,7 @@ class LM(nn.Module):
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
         for name, p in self.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf in ("ln1", "ln2", "final_norm", "q_norm", "k_norm"):
-                p.fill_(1.0)
-                continue
-            scale = 0.02 if leaf == "embed" else p.shape[-2] ** -0.5
-            # drawn in place (``torch.randn``'s draw): a temporary the
-            # size of one arctic expert weight (17.85 GB in f32) would
-            # not fit beside the rest
-            p.normal_(generator=generator)
-            p.mul_(scale)
+            init_param(name, p, p, generator)
 
     @property
     def device(self) -> torch.device:
@@ -285,16 +308,6 @@ class LM(nn.Module):
             return (None, dp, None, None, axes.tp)
         return (None, dp, axes.tp, None, None)
 
-    def check_axes(self, axes: MeshAxes, mesh) -> None:
-        """The sharded attention splits the heads over tp: tp must divide
-        ``n_heads`` (GSPMD would pad the heads; the port does not)."""
-        tp = mesh.size(mesh.mesh_dim_names.index(axes.tp))
-        if self.cfg.n_heads % tp:
-            raise ValueError(
-                f"tp={tp} does not divide n_heads={self.cfg.n_heads}: the "
-                f"sharded attention splits the heads evenly over "
-                f"{axes.tp!r} (GSPMD would pad them; the port does not)")
-
     def _pin(self, x, spec):
         return sharding.pin(x, spec, self.mesh)
 
@@ -324,7 +337,7 @@ class LM(nn.Module):
             tokens = self._place(tokens, (bspec, None))
         x = F.embedding(tokens, self.embed).to(self.cfg.compute_dtype)
         if self.mesh is not None:
-            x = self._pin(x, (bspec, None, None))
+            x = sharding.sum_partial_grads(self._pin(x, (bspec, None, None)))
         return x
 
     def _head(self, x):
@@ -405,10 +418,9 @@ class LM(nn.Module):
         dt = self.cfg.compute_dtype
         if self.mesh is None:
             return torch.zeros(shape, dtype=dt, device=self.device)
-        from torch.distributed.tensor import zeros
-        spec = self.decode_cache_spec(shape[1])
-        return zeros(shape, dtype=dt, device_mesh=self.mesh,
-                     placements=sharding.placements(spec, self.mesh))
+        return sharding.local_zeros(shape, dt,
+                                    self.decode_cache_spec(shape[1]),
+                                    self.mesh, self.device)
 
     # --------------------------------------------------------------- loss
     def loss(self, batch):
@@ -434,10 +446,20 @@ class LM(nn.Module):
         shard): the log-sum-exp from a max and a sum over the shard, the
         target logit picked on the rank whose block holds it (Partial
         over tp).  Returns a plain 0-d tensor (``full_tensor``), so a
-        gradient starts from one replicated seed."""
-        m = logits.detach().amax(-1, keepdim=True)
-        logz = (logits - m).exp().sum(-1).log() + m.squeeze(-1)
-        tgt = self._target_logit(logits, targets)
+        gradient starts from one replicated seed.  Each reduction over the
+        vocab is all-reduced onto the logits' batch placement (replicated
+        over tp) explicitly: left to DTensor, the per-token terms were
+        split over tp by batch rows, and their gradients then met the
+        vocab-sharded logits' in a reshuffle of the whole (B, S, V)
+        gradient (an all-to-all, or a gather of every rank's vocab:
+        39.8 GB a rank for qwen3-1.7b's train_4k cell at (16, 16))."""
+        mesh = self.mesh
+        rows = [Replicate() if isinstance(q, Shard) and q.dim == 2 else q
+                for q in logits.placements]
+        m = logits.detach().amax(-1, keepdim=True).redistribute(mesh, rows)
+        total = (logits - m).exp().sum(-1).redistribute(mesh, rows)
+        logz = total.log() + m.squeeze(-1)
+        tgt = self._target_logit(logits, targets).redistribute(mesh, rows)
         return (logz - tgt).mean().full_tensor()
 
     def _target_logit(self, logits, targets):
@@ -449,6 +471,8 @@ class LM(nn.Module):
 
         def pick(lg, tg):
             start, n = sharding.shard_offset(mesh, lp, 2, vocab)
+            if n == 0:      # an uneven split left this rank no vocab
+                return lg.new_zeros(tg.shape)
             t = tg - start
             inside = (t >= 0) & (t < n)
             got = lg.gather(-1, t.clamp(0, n - 1)[..., None]).squeeze(-1)
