@@ -50,13 +50,18 @@ non-zero and prints no result line):
    and the bytes bound at 3.35 TB/s.
    flash_attention's two kernels against their plain version (the Pallas
    kernel's arithmetic) at qwen3-1.7b's prefill shape (B, Hq, Hkv, S, D) =
-   (8, 16, 8, 2048, 128), causal, in f32 (to 1e-4, flash_fwd) and bf16 (to
-   1e-2, flash_fwd_wgmma), and at edge cases in both dtypes (Sq < Sk, Sq >
-   Sk, single blocks, D in {16, 32, 64, 128}, non-causal, GQA groups 1-3,
-   transposed, sliced and unaligned inputs), logging the kernel each
-   (dtype, D) reached; flash_fwd_wgmma's SASS must hold HGMMA instructions
-   (``cuobjdump -sass``), printed with ptxas's registers and spills; the
-   bound is operations (2 B Hq S (S+1) D FLOP at 989 TFLOP/s bf16), the
+   (8, 16, 8, 2048, 128), causal, in f32 (to 1e-4, flash_fwd_tf32x3) and
+   bf16 (to 1e-2, flash_fwd_wgmma), and at edge cases in both dtypes (Sq <
+   Sk, Sq > Sk, single blocks, D in {16, 32, 64, 128}, non-causal, GQA
+   groups 1-3, transposed, sliced and unaligned inputs), every call's
+   rerun to its bits, logging the kernel each (dtype, D) reached; each
+   instantiation's SASS must hold wgmma products (HGMMA; ``cuobjdump
+   -sass``),
+   printed with ptxas's registers and spills; the same times at every
+   (dtype, D) with D in {16, 32, 64, 128} at that (B, Hq, Hkv, S) (the
+   reduced configs' d_head is 16); the bound is operations
+   (``obs.profile.flash_bound_ms``: 2 B Hq S (S+1) D FLOP at 989 TFLOP/s
+   in bf16, three times the FLOP at 494.7 TFLOP/s TF32 in f32), the
    library call SDPA (CUDA events and device time).
    segment_sum against its plain version to 1e-5 of each segment's sum of
    |v| (the kernel adds in sorted order plus carries) at the training
@@ -266,8 +271,9 @@ non-zero and prints no result line):
    finite, the last below the first, the loss on batch 0 lower after the
    steps; ms per step, tokens/s, peak memory.  (b) step 0 at (B, S) =
    (1, 512) on the same full-width weights through the kernel and through
-   the plain version under autograd: in f32 (flash_fwd) the loss to 1e-5
-   relative and every gradient to 1e-3 of its largest entry; in bf16 both
+   the plain version under autograd: in f32 (flash_fwd_tf32x3, whose
+   launches are the kernels line's ``flash_attention_f32``) the loss to
+   1e-5 relative and every gradient to 1e-3 of its largest entry; in bf16 both
    held against the f32 gradients, the kernel's at most 1.5x as far as
    the plain version's; a rerun gives the same bits.  (c)
    ``FlashAttentionFn`` forward and backward at (2, 16, 8, 4096, 128)
@@ -1426,41 +1432,48 @@ def counter_updates(rng, n: int, b: int, dev, pool=None):
 
 
 def flash_build_report():
-    """The Hopper flash kernel as built: its HGMMA instructions per
-    instantiation (``cuobjdump -sass``; none means it missed the tensor
-    cores) and ptxas's registers and spills.  Returns ``{D: (hgmma,
+    """The Hopper flash kernels as built: the HGMMA (wgmma) instructions
+    of each instantiation of flash_fwd_wgmma and flash_fwd_tf32x3
+    (``cuobjdump -sass``; none means it missed the tensor cores) and
+    ptxas's registers and spills.  Returns ``{(kernel, D): (count,
     "ptxas line")}``."""
     import re
 
     from repro_torch.kernels import _build
-    found, fn = {}, None
+    kernels = ("flash_fwd_tf32x3", "flash_fwd_wgmma")
+    pat = re.compile(r"(flash_fwd_wgmma|flash_fwd_tf32x3)ILi(\d+)E")
+    found, ops, fn = {}, {}, None
     for line in _build.sass("flash_attention").splitlines():
         if "Function : " in line:
-            m = re.search(r"flash_fwd_wgmmaILi(\d+)E", line)
-            fn = int(m.group(1)) if m else None
+            m = pat.search(line)
+            fn = (m.group(1), int(m.group(2))) if m else None
             if fn is not None:
-                found[fn] = [0, ""]
-        elif fn is not None and "HGMMA" in line:
-            found[fn][0] += 1
+                found[fn], ops[fn] = [0, ""], set()
+        elif fn is not None and (op := re.search(r"\b[A-Z]*MMA\b", line)):
+            found[fn][0] += op.group(0) == "HGMMA"
+            ops[fn].add(op.group(0))
     fn = None
     for line in _build.build_log("flash_attention").splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"flash_fwd_wgmmaILi(\d+)E", line)
-            fn = int(m.group(1)) if m else None
+            m = pat.search(line)
+            fn = (m.group(1), int(m.group(2))) if m else None
         elif fn in found and ("spill" in line or "registers" in line):
             found[fn][1] += line.split(":")[-1].strip() + "; "
-    check(sorted(found) == [64, 128] and all(c > 0 for c, _ in
-                                             found.values()),
-          f"flash_fwd_wgmma's SASS holds no HGMMA: {found}")
-    return {d: tuple(v) for d, v in found.items()}
+    want = [(k, d) for k in kernels for d in (16, 32, 64, 128)]
+    check(sorted(found) == want and all(c > 0 for c, _ in found.values()),
+          f"a flash kernel's SASS holds no wgmma product: {found}; its "
+          f"matrix opcodes: {ops}")
+    return {k: tuple(v) for k, v in found.items()}
 
 
 def flash_phase(dev):
     """Phase 1 for flash_attention: both kernels against their plain
     version (the Pallas kernel's arithmetic) at edge cases and at the real
-    prefill shape of qwen3-1.7b, in f32 and bf16; times there.  Returns
-    the bf16 row of the kernel table (the serving path's dtype, on
-    flash_fwd_wgmma)."""
+    prefill shape of qwen3-1.7b, in f32 and bf16, reruns to their bits;
+    times there, and at every other D of HEAD_DIMS in both dtypes.
+    Returns the kernel table's rows: ``flash_attention`` (bf16, the
+    serving path's dtype, on flash_fwd_wgmma) and ``flash_attention_f32``
+    (on flash_fwd_tf32x3)."""
     import torch
     import torch.nn.functional as F
 
@@ -1468,9 +1481,9 @@ def flash_phase(dev):
     from repro_torch.kernels import ref
 
     built = flash_build_report()
-    log("# phase 1: flash_fwd_wgmma as built: " + "; ".join(
-        f"D={d}: {n} HGMMA in its SASS, ptxas {ptx}"
-        for d, (n, ptx) in sorted(built.items())))
+    log("# phase 1: flash kernels as built: " + "; ".join(
+        f"{k} D={d}: {n} HGMMA in its SASS, ptxas {ptx}"
+        for (k, d), (n, ptx) in sorted(built.items())))
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def qkv(b, hq, hkv, sq, sk, d, dtype):
@@ -1483,9 +1496,21 @@ def flash_phase(dev):
               f"flash_attention shape/dtype {tuple(got.shape)} {got.dtype}")
         return float((got.float() - want.float()).abs().max())
 
+    def held(what, name, args, want_args=None, causal=True):
+        """One call against the plain version within FLASH_TOL; a rerun
+        gives the same bits."""
+        got = fa.flash_attention(*args, causal=causal)
+        e = err(got, ref.flash_attention_ref(*(want_args or args),
+                                             causal=causal))
+        check(e <= FLASH_TOL[name], f"flash_attention {what} {name}: max "
+                                    f"|err| {e}")
+        check(torch.equal(got, fa.flash_attention(*args, causal=causal)),
+              f"flash_attention {what} {name}: a rerun gave other bits")
+        return e
+
     # Sq < Sk, Sq > Sk (zero rows and mean rows), one short block, D = 16,
-    # non-causal, GQA groups 1, 2 and 3; bf16 at D in {64, 128} runs
-    # flash_fwd_wgmma, the rest flash_fwd
+    # non-causal, GQA groups 1, 2 and 3; bf16 runs flash_fwd_wgmma, f32
+    # flash_fwd_tf32x3, at every D
     reached = {}
     for (b, hq, hkv, sq, sk, d, causal) in (
             (2, 4, 2, 256, 512, 128, True), (1, 2, 1, 384, 128, 64, True),
@@ -1494,59 +1519,57 @@ def flash_phase(dev):
             (3, 6, 2, 128, 128, 16, True)):
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[1]
-            args = qkv(b, hq, hkv, sq, sk, d, dtype)
-            e = err(fa.flash_attention(*args, causal=causal),
-                    ref.flash_attention_ref(*args, causal=causal))
-            check(e <= FLASH_TOL[name],
-                  f"flash_attention {(b, hq, hkv, sq, sk, d, causal)} "
-                  f"{dtype}: max |err| {e}")
+            held((b, hq, hkv, sq, sk, d, causal), name,
+                 qkv(b, hq, hkv, sq, sk, d, dtype), causal=causal)
             reached[(name, d)] = fa.kernel_for(dtype, d)
     # non-contiguous: the model's transposed (B, S, H, D) views (read by
-    # strides, or by TMA), a strided slice of the keys, and a bf16 input
-    # that breaks TMA's alignment (the wrapper copies it)
-    for dtype, d in ((torch.float32, 64), (torch.bfloat16, 128)):
+    # strides through TMA), a strided slice of the keys, and inputs
+    # that break the 16-byte rule (the wrapper copies them)
+    for dtype, d in ((torch.float32, 64), (torch.bfloat16, 128),
+                     (torch.bfloat16, 16)):
         name = str(dtype).split(".")[1]
         q, k, v = (torch.randn((2, 256, h, d), generator=gen,
                                device=dev).to(dtype) for h in (8, 4, 4))
-        views = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
-        e = err(fa.flash_attention(*views), ref.flash_attention_ref(*views))
-        check(e <= FLASH_TOL[name], f"flash_attention strided {name}: {e}")
+        views = [q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)]
+        check(all(fa.tma_ready(t) for t in views),
+              f"the transposed {name} views at D={d} are copied")
+        held("strided", name, views)
     wide = [t[:, :, ::2] for t in qkv(1, 4, 2, 256, 512, 32, torch.float32)]
-    e = err(fa.flash_attention(*wide), ref.flash_attention_ref(*wide))
-    check(e <= FLASH_TOL["float32"], f"flash_attention sliced: {e}")
-    q, k, v = qkv(1, 4, 2, 256, 256, 64, torch.bfloat16)
-    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)
-    shifted = flat[1:].view(q.shape).copy_(q)            # 2-byte offset
-    check(not fa.tma_ready(shifted), "the shifted input is TMA-aligned")
-    e = err(fa.flash_attention(shifted, k, v),
-            ref.flash_attention_ref(q, k, v))
-    check(e <= FLASH_TOL["bfloat16"], f"flash_attention unaligned: {e}")
+    check(all(fa.tma_ready(t) for t in wide), "the sliced keys are copied")
+    held("sliced", "float32", wide)
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        q, k, v = qkv(1, 4, 2, 256, 256, 64, dtype)
+        flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)
+        shifted = flat[1:].view(q.shape).copy_(q)    # one-element offset
+        check(not fa.tma_ready(shifted), "the shifted input is aligned")
+        held("unaligned", name, [shifted, k, v], [q, k, v])
     torch.cuda.synchronize()
     log("# phase 1: flash_attention edge cases within tolerance (f32 1e-4, "
-        "bf16 1e-2): Sq < Sk, Sq > Sk (zero and mean rows), S <= 128 "
-        "single blocks, D in {16, 32, 64, 128}, non-causal, GQA groups 1, "
-        "2, 3, transposed (f32 and bf16), sliced and unaligned inputs; "
-        "kernels reached: " + ", ".join(
+        "bf16 1e-2), reruns to their bits: Sq < Sk, Sq > Sk (zero and mean "
+        "rows), S <= 128 single blocks, D in {16, 32, 64, 128}, "
+        "non-causal, GQA groups 1, 2, 3, transposed (f32 and bf16), sliced "
+        "and unaligned inputs; kernels reached: " + ", ".join(
             f"{n} D={d} {k_}" for (n, d), k_ in sorted(reached.items())))
 
-    b, hq, hkv, s, d = (FLASH_REAL[k_] for k_ in ("b", "hq", "hkv", "s",
-                                                    "d"))
-    from repro_torch.obs.profile import PEAK_FLOPS, bound_ms, kernel_cost
-    row = None
-    for dtype in (torch.float32, torch.bfloat16):
+    b, hq, hkv, s = (FLASH_REAL[k_] for k_ in ("b", "hq", "hkv", "s"))
+    from repro_torch.obs.profile import flash_bound_ms, kernel_cost
+    rows = {}
+    for dtype, d in ((torch.float32, FLASH_REAL["d"]),
+                     (torch.bfloat16, FLASH_REAL["d"]), (torch.bfloat16, 16),
+                     (torch.bfloat16, 32), (torch.float32, 16),
+                     (torch.float32, 32), (torch.float32, 64),
+                     (torch.bfloat16, 64)):
         args = qkv(b, hq, hkv, s, s, d, dtype)
         name = str(dtype).split(".")[1]
-        e = err(fa.flash_attention(*args), ref.flash_attention_ref(*args))
-        check(e <= FLASH_TOL[name], f"flash_attention real shape {name}: "
-                                    f"max |err| {e}")
-        # the bf16 output against the plain version's f32 result, before
-        # its rounding: the kernel's own error, about one output rounding
+        e = held("real shape", name, args)
+        # the kernel's output against the plain version's f32 result,
+        # before its rounding: about one output rounding in bf16
         e32 = float((fa.flash_attention(*args).float()
                      - ref.flash_attention_ref(*(t.float() for t in args)))
                     .abs().max())
-        # QK^T and PV, causal: 2 B Hq S (S + 1) D
         flops, nbytes = kernel_cost("flash_attention", (*args, True, None))
-        bound = bound_ms(flops, nbytes, name)
+        bound, bound_by = flash_bound_ms(*args)
 
         def kern():
             return fa.flash_attention(*args)
@@ -1559,8 +1582,9 @@ def flash_phase(dev):
                  plain_ms=time_ms(lambda: ref.flash_attention_ref(*args),
                                   reps=3, warmup=1),
                  library_ms=time_ms(lib, reps=10), bound_ms=bound,
-                 bound_by="operations")
+                 bound_by=bound_by)
         dev_ms = device_ms(kern, reps=10)
+        x3 = ", three times over on TF32" if name == "float32" else ""
         log(f"# phase 1: flash_attention {name} (B, Hq, Hkv, S, D) = "
             f"({b}, {hq}, {hkv}, {s}, {d}) causal on "
             f"{fa.kernel_for(dtype, d)}: max |err| {e:.3g} (tolerance "
@@ -1568,14 +1592,16 @@ def flash_phase(dev):
             f"result); kernel_ms={r['ms']:.4f} device_ms={dev_ms:.4f} "
             f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
             f"(SDPA, enable_gqa; device_ms={device_ms(lib, reps=10):.4f}; "
-            f"max |err| {lib_err:.3g}) bound_ms={bound:.4f} "
-            f"({flops / 1e9:.1f} GFLOP at {PEAK_FLOPS[name] / 1e12:.0f} "
-            f"TFLOP/s; {nbytes / 1e6:.0f} MB); achieved "
-            f"{flops / r['ms'] / 1e9:.1f} TFLOP/s ({flops / dev_ms / 1e9:.1f}"
-            f" on the device time)")
-        row = r
+            f"max |err| {lib_err:.3g}) bound_ms={bound:.4f} ({bound_by}: "
+            f"{flops / 1e9:.1f} GFLOP{x3}, "
+            f"{flops / (4 * d) / 1e6:.1f} M exponentials, "
+            f"{nbytes / 1e6:.0f} MB); achieved {flops / dev_ms / 1e9:.1f} "
+            f"TFLOP/s on the device time")
+        if d == FLASH_REAL["d"]:
+            rows["flash_attention" if name == "bfloat16"
+                 else "flash_attention_f32"] = r
         del args
-    return row
+    return rows
 
 
 def segment_check(got, values, ids, n: int, what: str) -> float:
@@ -2379,6 +2405,8 @@ def declarations_phase(dev, g_t, cap, ecap):
          ("int32", "bool", "int32", "int32"), {}),
         (fa.flash_attention, ((b, hq, s_, d), (b, hkv, s_, d),
                               (b, hkv, s_, d)), ("bfloat16",) * 3, {}),
+        (fa.flash_attention, ((b, hq, s_, d), (b, hkv, s_, d),
+                              (b, hkv, s_, d)), ("float32",) * 3, {}),
         (ss.segment_sum, ((LG["m"], 128), LG["m"], LG["n"]),
          ("float32", "int64", None), {}),
         (ss.segment_sum, ((LG["m"], 1), LG["m"], LG["n"]),
@@ -4109,23 +4137,25 @@ def lm_profile_step(dev):
 
 
 def lm_phase(dev):
-    """Phase 18: (a), (b) and (c); returns (a)'s launch counts."""
+    """Phase 18: (a), (b) and (c); returns (a)'s launch counts and the f32
+    kernel's launches in (b)."""
     t0 = time.perf_counter()
     launches = lm_train_phase(dev)
     for name in LM_TRAIN_PATH:
         check(launches[name] > 0,
               f"{name} was never launched on the LM training path")
-    lm_check_phase(dev)
+    f32_launches = lm_check_phase(dev)
     lm_attention_times(dev)
     log(f"# phase 18: launches in (a) (the LM training path): {launches}; "
         f"done in {time.perf_counter() - t0:.1f} s")
-    return launches
+    return launches, f32_launches
 
 
 def lm_check_phase(dev):
     """Phase 18 (b): step 0 at the published width with (B, S) =
     ``LM_CHECK``, through the kernel and through the plain version on the
-    same weights, in f32 and in bf16; a rerun's bits."""
+    same weights, in f32 and in bf16; a rerun's bits.  Returns the f32
+    step's flash_attention launches (flash_fwd_tf32x3), counted from 0."""
     import dataclasses
 
     import torch
@@ -4138,8 +4168,8 @@ def lm_check_phase(dev):
 
     cfg = configs.get(LM_TRAIN["arch"]).make_config()
     cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
-    check(fa.kernel_for(torch.float32, cfg.d_head) == "flash_fwd",
-          "f32 at D=128 does not reach flash_fwd")
+    check(fa.kernel_for(torch.float32, cfg.d_head) == "flash_fwd_tf32x3",
+          "f32 at D=128 does not reach flash_fwd_tf32x3")
     lm32 = LM(cfg32, device=dev,
               generator=torch.Generator(device=dev).manual_seed(0))
     lm16 = LM(cfg, device=dev, init=False)
@@ -4183,7 +4213,8 @@ def lm_check_phase(dev):
     same = all(torch.equal(a, b) for a, b in zip(again, k16))
     check(same, "(b) a rerun of the bf16 step gave other bits")
     log(f"# phase 18 (b): full width, (B, S) = ({LM_CHECK['b']}, "
-        f"{LM_CHECK['s']}), step 0: f32 (flash_fwd, launches {count}): "
+        f"{LM_CHECK['s']}), step 0: f32 (flash_fwd_tf32x3, launches "
+        f"{count}): "
         f"loss {loss32:.6f}, the plain version's to {lerr:.3g} relative "
         f"(tolerance {LM_TOL['loss']}), gradients to {gerr:.3g} of each "
         f"largest entry (tolerance {LM_TOL['grad']}); bf16 (flash_fwd_wgmma"
@@ -4194,6 +4225,7 @@ def lm_check_phase(dev):
         f"{'gives the same bits' if same else 'OTHER BITS'}")
     del lm16, lm32, g32, k16, again
     torch.cuda.empty_cache()
+    return count[0]
 
 
 def lm_attention_times(dev):
@@ -6418,7 +6450,7 @@ def main() -> int:
         f"cap={fplan.cap} ecap={fplan.ecap}")
 
     rows = kernel_phase(dev, gt, fplan.cap, fplan.ecap)
-    rows["flash_attention"] = flash_phase(dev)
+    rows.update(flash_phase(dev))
     rows["segment_sum"] = segment_phase(dev)
     t0 = time.perf_counter()
     ops.reset_launches()
@@ -6523,7 +6555,7 @@ def main() -> int:
           f"the recsys path launched a port kernel: {recsys_launches}")
     log(f"# phase 17: launches {recsys_launches} (the recsys path runs no "
         f"TPU kernel's port); done in {time.perf_counter() - t0:.1f} s")
-    lm_launches = lm_phase(dev)
+    lm_launches, f32_launches = lm_phase(dev)
     if args.profile:
         profile_phase(dev, g, gt, stream, feed, lm, profiled)
         del lm, profiled
@@ -6578,6 +6610,12 @@ def main() -> int:
     table = [dict(name=name, route="cuda", source=KERNELS[name][0],
                   replaces=KERNELS[name][1], launches=launches[name],
                   **rows[name]) for name in KERNELS]
+    # flash_attention's f32 kernel, flash_fwd_tf32x3: its launches are phase
+    # 18 (b)'s f32 step at full width
+    table.append(dict(name="flash_attention_f32", route="cuda",
+                      source=KERNELS["flash_attention"][0],
+                      replaces=KERNELS["flash_attention"][1],
+                      launches=f32_launches, **rows["flash_attention_f32"]))
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

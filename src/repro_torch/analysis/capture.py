@@ -63,9 +63,9 @@ def capture_kernel(fn: Callable, *meta_tensors, **kwargs) -> list:
 
 
 def kernel_basename(name: str) -> str:
-    """``void (anonymous namespace)::flash_fwd<float, 64>((anonymous
-    namespace)::Params)`` -> ``flash_fwd``: the ``__global__`` function's
-    own name in a profiler's kernel event."""
+    """``void (anonymous namespace)::flash_fwd_tf32x3<64>((anonymous
+    namespace)::Params)`` -> ``flash_fwd_tf32x3``: the ``__global__``
+    function's own name in a profiler's kernel event."""
     name = name.replace("(anonymous namespace)::", "")
     return name.split("(")[0].split("<")[0].split("::")[-1].split()[-1]
 

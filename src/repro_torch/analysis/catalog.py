@@ -7,8 +7,9 @@ concretely, so its guarantee is per lattice point, not universal.  The
 points exercise every structural regime of each wrapper: one block, many
 blocks, padded grids (a size that is not a multiple of a block's
 extent), the aligned and unaligned (or W != 16) kernel variants, and for
-flash attention both kernels (bf16 at D in {64, 128} reaches
-``flash_fwd_wgmma``), GQA, both causal modes and Sq != Sk.
+flash attention both kernels (f32 reaches ``flash_fwd_tf32x3``, bf16
+``flash_fwd_wgmma``) at every head width, GQA, both causal modes and
+Sq != Sk.
 
 **Declarations.**  ``LAUNCH_DECLARATIONS`` maps each ``__global__``
 kernel, keyed by ``(library, kernel)``, to what it writes: per output, the
@@ -66,10 +67,8 @@ PLAN_UPDATE_W = 8
 PLAN_INS_CAP = 64
 PLAN_MAX_ROUNDS = 64
 
-#: csrc/flash_attention.cu: q rows per block of flash_fwd (TQ) and of
-#: flash_fwd_wgmma (WG_ROWS)
-FLASH_ROWS = 64
-FLASH_WGMMA_ROWS = 128
+#: csrc/flash_attention.cu: q rows per CTA of both flash kernels (WG_ROWS)
+FLASH_CTA_ROWS = 128
 
 class OutputDecl(NamedTuple):
     """How a kernel writes one output.
@@ -232,10 +231,10 @@ LAUNCH_DECLARATIONS: dict[tuple[str, str], LaunchDecl] = {
                 "scratch "
                 "buffer: launches on one stream run in order and each call "
                 "has its own epoch"),
-    ("flash_attention", "flash_fwd"): LaunchDecl(
-        {"out": flash_out(FLASH_ROWS)}),
+    ("flash_attention", "flash_fwd_tf32x3"): LaunchDecl(
+        {"out": flash_out(FLASH_CTA_ROWS)}),
     ("flash_attention", "flash_fwd_wgmma"): LaunchDecl(
-        {"out": flash_out(FLASH_WGMMA_ROWS)}),
+        {"out": flash_out(FLASH_CTA_ROWS)}),
     # a worker of segment_rows writes the output row of each segment whose
     # end lies in its merge-path range (every row once, no atomic), after
     # adding the partial sums of the workers and CTAs before it where the
@@ -411,21 +410,25 @@ KERNEL_CATALOG: tuple[KernelEntry, ...] = (
         {"m": 700, "d": 300, "segs": 90},     # 3 column chunks, padded
     ), _segment_sum),
     KernelEntry("flash_attention", (
+        # f32: flash_fwd_tf32x3; bf16: flash_fwd_wgmma (128-row tiles each)
         {"b": 2, "hq": 4, "hkv": 2, "sq": 256, "sk": 256, "d": 64,
-         "causal": True},                     # GQA, 32 blocks
+         "causal": True},                     # GQA, 16 blocks
         {"b": 1, "hq": 2, "hkv": 2, "sq": 32, "sk": 64, "d": 16,
          "causal": False},                    # MHA, sq != sk, one tile
         {"b": 1, "hq": 4, "hkv": 2, "sq": 96, "sk": 96, "d": 32,
-         "causal": True},                     # padded q tiles
+         "causal": True},                     # one padded tile
         {"b": 1, "hq": 2, "hkv": 1, "sq": 256, "sk": 128, "d": 16,
          "causal": True},                     # sq > sk
-        # bf16 at D in {64, 128}: flash_fwd_wgmma (128-row tiles)
         {"b": 2, "hq": 4, "hkv": 2, "sq": 256, "sk": 256, "d": 128,
          "causal": True, "dtype": "bfloat16"},  # GQA, 16 blocks
         {"b": 1, "hq": 3, "hkv": 1, "sq": 48, "sk": 96, "d": 64,
          "causal": False, "dtype": "bfloat16"},  # one short tile, group 3
         {"b": 1, "hq": 2, "hkv": 1, "sq": 384, "sk": 128, "d": 64,
          "causal": True, "dtype": "bfloat16"},  # sq > sk
+        {"b": 1, "hq": 4, "hkv": 2, "sq": 96, "sk": 96, "d": 32,
+         "causal": True, "dtype": "bfloat16"},  # one padded tile
+        {"b": 2, "hq": 2, "hkv": 1, "sq": 256, "sk": 128, "d": 16,
+         "causal": True, "dtype": "bfloat16"},  # sq > sk, 8 blocks
     ), _flash),
     KernelEntry("first_live_scan", (
         {"n": 200, "w": 16},                  # one block, padded

@@ -27,8 +27,10 @@ import contextlib
 from typing import Dict
 
 #: H100 SXM data sheet: HBM3 bytes per second and dense peak FLOP/s
+#: (float32 on the CUDA cores; tensorfloat32 on the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12,
+              "tensorfloat32": 494.7e12}
 #: bytes of a DRAM sector (the windowed probe's bound counts sectors)
 SECTOR = 32
 
@@ -114,6 +116,25 @@ def _flash_cost(q, k, v, causal=True, sm_scale=None):
     flops = 4 * b * hq * pairs * d            # QK^T and PV
     nbytes = (2 * b * hq * sq * d + 2 * b * hkv * sk * d) * q.element_size()
     return flops, nbytes
+
+
+def flash_bound_ms(q, k, v, causal=True, sm_scale=None) -> tuple:
+    """The least time one ``flash_attention`` call could take on the
+    card, and what bounds it (``"operations"`` or ``"bytes"``): its
+    products at the bf16 peak in bfloat16, or three times over at the TF32
+    peak in float32 (3xTF32, the f32 contract on the tensor cores), against
+    its bytes at the memory rate.  The softmax's exponentials (one an
+    unmasked score) are not counted: the data sheet gives no rate for
+    them, and exp2 runs on the SFU and, as a polynomial, on the FMA pipes
+    at once, so no rate of one unit bounds them."""
+    flops, nbytes = _flash_cost(q, k, v, causal)
+    if q.element_size() == 4:
+        ops_s = 3 * flops / PEAK_FLOPS["tensorfloat32"]
+    else:
+        ops_s = flops / PEAK_FLOPS["bfloat16"]
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    return (max(ops_s, bytes_s) * 1e3,
+            "operations" if ops_s >= bytes_s else "bytes")
 
 
 def _segment_bytes(values, seg_ids, num_segments, index=None) -> int:
@@ -266,6 +287,7 @@ def record_plan_cost(plane, family: str, plan: str,
     nbytes.set(cost["bytes_accessed"], family=family, plan=plan)
 
 
-__all__ = ["HBM_BYTES_PER_S", "PEAK_FLOPS", "SECTOR", "kernel_cost",
+__all__ = ["HBM_BYTES_PER_S", "PEAK_FLOPS", "SECTOR",
+           "flash_bound_ms", "kernel_cost",
            "bound_ms", "probe_bytes", "capturing", "note_call",
            "plan_cost", "plan_cost_of", "record_plan_cost"]

@@ -386,8 +386,8 @@ def test_profiled_launches_read_a_chrome_trace():
     their grid and block; copies and PyTorch's own kernels left out."""
     ev = [
         {"cat": "kernel", "ts": 30, "name": "void (anonymous namespace)::"
-         "flash_fwd<float, 64>((anonymous namespace)::Params)",
-         "args": {"grid": [8, 1, 1], "block": [256, 1, 1]}},
+         "flash_fwd_tf32x3<64>((anonymous namespace)::Params)",
+         "args": {"grid": [8, 1, 1], "block": [128, 1, 1]}},
         {"cat": "kernel", "ts": 10, "name": "void (anonymous namespace)::"
          "scan_lookback<unsigned char, true>(unsigned char const*, long, "
          "long, unsigned long long*, unsigned int, int*, int*)",
@@ -400,9 +400,9 @@ def test_profiled_launches_read_a_chrome_trace():
          "args": {"grid": [1, 1, 1], "block": [128, 1, 1]}},
     ]
     got = capture.profiled_launches({"traceEvents": ev},
-                                    {"flash_fwd", "scan_lookback"})
+                                    {"flash_fwd_tf32x3", "scan_lookback"})
     assert got == [("scan_lookback", (2, 1, 1), (256, 1, 1)),
-                   ("flash_fwd", (8, 1, 1), (256, 1, 1))]
+                   ("flash_fwd_tf32x3", (8, 1, 1), (128, 1, 1))]
 
 
 def test_scan_tile_is_one_constant():

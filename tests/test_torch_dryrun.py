@@ -256,7 +256,7 @@ def test_peak_on_meta_equals_cpu(arch, remat, monkeypatch):
     assert meta.argument_bytes == cpu.argument_bytes
     assert meta.peak_bytes > meta.argument_bytes
     # remat runs every layer's attention forward twice
-    assert meta.launches == {"flash_fwd": cfg.n_layers * (1 + remat)}
+    assert meta.launches == {"flash_fwd_wgmma": cfg.n_layers * (1 + remat)}
 
 
 def test_peak_counts_views_once_and_in_place_ops_not_at_all():

@@ -305,7 +305,7 @@ def test_dryrun_cli_meshes(mesh_name, names, tmp_path, monkeypatch, capsys):
                                       roof["collective_s"])
         # remat recomputes each layer's attention in the backward
         assert pd["launches"] == {
-            "flash_fwd": (1 + cfg.remat) * cfg.n_layers}
+            "flash_fwd_wgmma": (1 + cfg.remat) * cfg.n_layers}
         assert r["fits"] == (pd["peak_hbm_est"] <= mesh.hbm_bytes())
         assert pd["peak_hbm_est"] >= pd["argument_bytes"] > 0
         assert r["notes"].startswith(f"rank 0 of {r['n_devices']}")

@@ -599,29 +599,32 @@ def test_flash_attention_kernel_strided_and_errors(cuda):
         fa.flash_attention(qt.half(), kt.half(), vt.half())
 
 
-def _flash_once(q, k, v, causal=True):
+def _flash_once(q, k, v, causal=True, tol=1e-2):
     """One wrapper call: exactly one launch counted, on the kernel that
-    (dtype, D) selects, within 1e-2 of the plain version (bf16)."""
+    (dtype, D) selects, within ``tol`` of the plain version (1e-2 in bf16:
+    one rounding of the output; 1e-4 in f32, chip_smoke.py's FLASH_TOL:
+    3xTF32 keeps ~2^-19 of each product); a rerun gives the same bits."""
     before = ops.LAUNCHES["flash_attention"]
     got = fa.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["flash_attention"] == before + 1
     want = ref.flash_attention_ref(q, k, v, causal=causal)
     assert got.dtype == q.dtype and got.shape == want.shape
-    torch.testing.assert_close(got.float(), want.float(), atol=1e-2,
-                               rtol=1e-2)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=tol)
+    assert torch.equal(got, fa.flash_attention(q, k, v, causal=causal))
     return got
 
 
 @pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2), (6, 2)])  # groups 1-3
 @pytest.mark.parametrize("sq,sk", [(256, 256), (128, 384), (384, 128),
                                    (48, 96), (128, 64)])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_wgmma_kernel(cuda, hq, hkv, sq, sk, d, causal):
-    """bf16 at D in {64, 128} runs flash_fwd_wgmma: GQA groups 1-3, Sq <
-    Sk, Sq > Sk (zero rows and mean rows when causal), short single
-    tiles."""
+    """bf16 at every D runs flash_fwd_wgmma (128-, 64- and 32-byte
+    swizzled tiles): GQA groups 1-3, Sq < Sk, Sq > Sk (zero rows and mean
+    rows when causal), short single tiles."""
     assert fa.kernel_for(torch.bfloat16, d) == "flash_fwd_wgmma"
     rng = np.random.default_rng(sq * 7 + sk + d + hq)
     q, k, v = (torch.as_tensor(rng.normal(size=shape), device=cuda)
@@ -631,7 +634,53 @@ def test_flash_attention_wgmma_kernel(cuda, hq, hkv, sq, sk, d, causal):
     _flash_once(q, k, v, causal)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2), (6, 2)])  # groups 1-3
+@pytest.mark.parametrize("sq,sk", [(256, 256), (128, 384), (384, 128),
+                                   (48, 96), (128, 64)])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_tf32x3_kernel(cuda, hq, hkv, sq, sk, d, causal):
+    """f32 at every D runs flash_fwd_tf32x3 (3xTF32 on the tensor cores):
+    GQA groups 1-3, Sq < Sk, Sq > Sk (zero rows and mean rows when
+    causal), short single tiles, within 1e-4 of the plain version."""
+    assert fa.kernel_for(torch.float32, d) == "flash_fwd_tf32x3"
+    rng = np.random.default_rng(sq * 7 + sk + d + hq)
+    q, k, v = (torch.as_tensor(rng.normal(size=shape), device=cuda)
+               .to(torch.float32)
+               for shape in ((2, hq, sq, d), (2, hkv, sk, d),
+                             (2, hkv, sk, d)))
+    _flash_once(q, k, v, causal, tol=1e-4)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_attention_tf32x3_views_and_unaligned(cuda, d):
+    """f32: the model's transposed (B, S, H, D) views and a strided slice
+    of the keys go to TMA as they are and the output keeps the views'
+    layout; an input with a 4-byte offset, or with rows that are not a
+    multiple of 16 bytes, takes the wrapper's copy."""
+    rng = np.random.default_rng(d + 1)
+    q, k, v = (torch.as_tensor(rng.normal(size=(2, 256, h, d)),
+                               dtype=torch.float32, device=cuda)
+               for h in (8, 4, 4))
+    views = [t.transpose(1, 2) for t in (q, k, v)]
+    assert all(fa.tma_ready(t) for t in views)
+    got = _flash_once(*views, tol=1e-4)
+    assert got.transpose(1, 2).is_contiguous()
+    kk, vv = (torch.as_tensor(rng.normal(size=(2, 4, 512, d)),
+                              dtype=torch.float32, device=cuda)[:, :, ::2]
+              for _ in range(2))
+    assert fa.tma_ready(kk)
+    _flash_once(views[0], kk, vv, tol=1e-4)
+    flat = torch.as_tensor(rng.normal(size=2 * 8 * 256 * d + 1),
+                           dtype=torch.float32, device=cuda)
+    shifted = flat[1:].view(2, 8, 256, d)               # 4-byte offset
+    wide = torch.as_tensor(rng.normal(size=(2, 4, 256, d + 2)),
+                           dtype=torch.float32, device=cuda)[..., :d]
+    assert not fa.tma_ready(shifted) and not fa.tma_ready(wide)
+    _flash_once(shifted, views[1], wide, tol=1e-4)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
 def test_flash_attention_wgmma_views_and_unaligned(cuda, d):
     """The model's transposed (B, S, H, D) views go to TMA as they are and
     the output keeps their layout; an input with a 2-byte offset, or with
@@ -693,8 +742,8 @@ def _attn_grads(fn, q, k, v, dout):
                                      (torch.bfloat16, 16),
                                      (torch.bfloat16, 32)])
 def test_flash_attention_fn_grad_on_card(cuda, dtype, d):
-    """``FlashAttentionFn`` with the kernel's forward (flash_fwd_wgmma at
-    bf16 D 64/128, flash_fwd otherwise) against autograd through the
+    """``FlashAttentionFn`` with the kernel's forward (flash_fwd_wgmma in
+    bf16, flash_fwd_tf32x3 in f32) against autograd through the
     plain version on the same card tensors: the gradient to 1e-4 of each
     largest entry in f32, to 2^-7 in bf16 (the same f32 math, rounded to
     bf16 once); one forward and one backward counted; a rerun gives the
@@ -743,8 +792,8 @@ def _card_batch(cfg, cuda, s=256):
 
 @pytest.mark.parametrize("d_head", [16, 64])
 def test_lm_remat_bit_identical_on_card(cuda, d_head):
-    """remat on and off on the card (bf16; flash_fwd at D 16,
-    flash_fwd_wgmma at D 64): the same loss and gradients bit for bit;
+    """remat on and off on the card (bf16, flash_fwd_wgmma at D 16 and
+    64): the same loss and gradients bit for bit;
     with remat the forward kernel runs twice a layer, the backward once."""
     grads, counts = {}, {}
     for remat in (False, True):

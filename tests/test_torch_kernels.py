@@ -638,13 +638,14 @@ def _split_p(p):
 
 
 def _flash_emulation(q, k, v, causal=True, p_round=_split_p,
-                     dtype=torch.float32):
+                     dtype=torch.float32, mm=torch.einsum):
     """A plain emulation of flash_fwd_wgmma's rounding: q, k, v as given
     (bf16 values, exact in f32), products and the online softmax in
     ``dtype`` over the reference's blocks (128-key tiles, the causal skip,
     -1e30 inside computed blocks, ``l == 0`` -> 1), the denominator summing
-    the unrounded p, and ``p_round(p)`` entering the PV product.  Returns
-    (B, Hq, Sq, D) in ``dtype``."""
+    the unrounded p, and ``p_round(p)`` entering the PV product.  Both
+    products are ``mm(equation, a, b)``: :func:`_x3` emulates
+    flash_fwd_tf32x3's.  Returns (B, Hq, Sq, D) in ``dtype``."""
     b, hq, sq, d = q.shape
     _, hkv, sk, _ = k.shape
     g = hq // hkv
@@ -662,8 +663,8 @@ def _flash_emulation(q, k, v, causal=True, p_round=_split_p,
         for ki in range(sk // bk):
             if causal and sk - sq + qi * bq + bq - 1 < ki * bk:
                 continue
-            s = torch.einsum("bhgqd,bhkd->bhgqk", qb,
-                             kf[:, :, ki * bk:(ki + 1) * bk]) * scale
+            s = mm("bhgqd,bhkd->bhgqk", qb,
+                   kf[:, :, ki * bk:(ki + 1) * bk]) * scale
             if causal:
                 k_pos = ki * bk + torch.arange(bk)
                 s = torch.where(q_pos[:, None] >= k_pos[None, :], s,
@@ -672,7 +673,7 @@ def _flash_emulation(q, k, v, causal=True, p_round=_split_p,
             p = torch.exp(s - m_new)
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(-1, keepdim=True)
-            acc = acc * corr + torch.einsum(
+            acc = acc * corr + mm(
                 "bhgqk,bhkd->bhgqd", p_round(p),
                 vf[:, :, ki * bk:(ki + 1) * bk])
             m = m_new
@@ -724,26 +725,102 @@ def test_flash_wgmma_split_beats_one_rounding(causal):
     assert 10 * err_split <= err_once, (err_split, err_once)
 
 
-def test_flash_wgmma_dispatch():
-    """The wrapper picks the kernel from (dtype, D) alone: bf16 at D in
-    {64, 128} goes to flash_fwd_wgmma, f32 and bf16 at D in {16, 32} to
-    flash_fwd; a bf16 input that breaks TMA's alignment is copied."""
-    for dt in (torch.float32, torch.bfloat16):
-        for d in tfa.HEAD_DIMS:
-            want = ("flash_fwd_wgmma" if dt == torch.bfloat16 and d >= 64
-                    else "flash_fwd")
-            assert tfa.kernel_for(dt, d) == want
-    x = torch.zeros((2, 4, 128, 72), dtype=torch.bfloat16)
-    assert tfa.tma_ready(x[..., :64])                    # 144-byte rows
+def _tf32(x, mode="trunc"):
+    """float32 -> TF32 (10 mantissa bits) through an int32 view: the low
+    13 bits cut ("trunc": flash_fwd_tf32x3's split, and how a TF32 product
+    reads an f32 operand), or rounded to nearest, ties to even ("rne")."""
+    u = x.contiguous().view(torch.int32)
+    if mode == "rne":
+        u = u + 0xFFF + ((u >> 13) & 1)
+    return (u & -8192).view(torch.float32)
+
+
+def _x3(mode="trunc"):
+    """flash_fwd_tf32x3's product as an ``mm(equation, a, b)``: each
+    operand split into hi = tf32(x) and lo = tf32(x - hi), the product
+    taken as lo_a hi_b + hi_a lo_b + hi_a hi_b in f32, small terms
+    first."""
+    def mm(eq, a, b):
+        ah, bh = _tf32(a, mode), _tf32(b, mode)
+        al, bl = _tf32(a - ah, mode), _tf32(b - bh, mode)
+        return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)
+                + torch.einsum(eq, ah, bh))
+    return mm
+
+
+def _one_pass(eq, a, b):
+    """One TF32 product: both operands rounded once."""
+    return torch.einsum(eq, _tf32(a), _tf32(b))
+
+
+@pytest.mark.parametrize("mode", ["trunc", "rne"])
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_flash_tf32x3_split_matches_pallas(d, mode):
+    """flash_fwd_tf32x3's arithmetic (Q K^T and P V each as three TF32
+    products of split operands, p split too), emulated on the CPU, against
+    the Pallas kernel in interpret mode on the same f32 inputs within
+    FLASH_TOL["float32"]: with the kernel's truncation, and with the split
+    rounded to nearest, ties to even."""
+    jx, tx = _flash_inputs(2, 4, 2, 256, 256, d, "f32")
+    emu = _flash_emulation(*tx, p_round=lambda p: p, mm=_x3(mode))
+    want = np.asarray(pallas_flash(*jx, causal=True, interpret=True))
+    np.testing.assert_allclose(emu.numpy(), want,
+                               atol=FLASH_TOL["float32"], rtol=0)
+
+
+def test_flash_tf32x3_one_pass_breaks_the_contract():
+    """Why each operand is split: one TF32 pass misses
+    FLASH_TOL["float32"] against the Pallas kernel, and the 3xTF32 split
+    comes in at least 100x closer."""
+    jx, tx = _flash_inputs(2, 4, 2, 256, 256, 64, "f32")
+    want = np.asarray(pallas_flash(*jx, causal=True, interpret=True))
+    once = _flash_emulation(*tx, p_round=lambda p: p, mm=_one_pass)
+    split = _flash_emulation(*tx, p_round=lambda p: p, mm=_x3())
+    err_once = float(np.abs(once.numpy() - want).max())
+    err_split = float(np.abs(split.numpy() - want).max())
+    assert err_once > FLASH_TOL["float32"]
+    assert 100 * err_split <= err_once, (err_split, err_once)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_flash_wgmma_dispatch(dt, d):
+    """The wrapper picks the kernel from (dtype, D) alone, and every D of
+    both dtypes runs on the tensor cores: bf16 on flash_fwd_wgmma, f32 on
+    flash_fwd_tf32x3, each instantiation within a block's 227 KB of
+    shared memory; other dtypes and widths have no kernel."""
+    want = ("flash_fwd_wgmma" if dt == torch.bfloat16
+            else "flash_fwd_tf32x3")
+    assert tfa.kernel_for(dt, d) == want
+    smem = tfa.smem_bytes(dt, d)
+    assert 0 < smem <= tfa.SMEM_LIMIT == 227 * 1024
+    assert smem == (5 * 128 * d * 2 if dt == torch.bfloat16
+                    else (128 + 5 * 64) * d * 4) + 64 + 1024
+    with pytest.raises(ValueError, match="no kernel"):
+        tfa.kernel_for(dt, d + 8)
+    with pytest.raises(ValueError, match="no kernel"):
+        tfa.kernel_for(torch.float16, d)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_flash_input_alignment_rule(dt):
+    """Both kernels read their inputs by strides under TMA's rule: a
+    16-byte aligned base, the last dimension contiguous, the other strides
+    multiples of 16 bytes; an input that breaks it is copied by the
+    wrapper."""
+    step = 128 // torch.finfo(dt).bits              # elements in 16 bytes
+    x = torch.zeros((2, 4, 128, 64 + step), dtype=dt)
+    assert tfa.tma_ready(x[..., :64])
     assert tfa.tma_ready(x.transpose(1, 2).contiguous().transpose(1, 2))
-    one = torch.as_strided(torch.zeros(4 * 128 * 64, dtype=torch.bfloat16),
+    assert tfa.tma_ready(x[:, :, ::2, :64])          # sliced keys
+    one = torch.as_strided(torch.zeros(4 * 128 * 64, dtype=dt),
                            (1, 4, 128, 64), (3, 128 * 64, 64, 1))
     assert tfa.tma_ready(one)            # a length-1 dim is never stepped
     assert not tfa.tma_ready(x.view(-1)[1:1 + 2 * 4 * 128 * 64]
-                             .view(2, 4, 128, 64))       # 2-byte offset
-    y = torch.zeros((2, 4, 128, 68), dtype=torch.bfloat16)
-    assert not tfa.tma_ready(y[..., :64])                # 136-byte rows
-    assert tfa.wgmma_smem_bytes(128) == 5 * 32768 + 64 + 1024
+                             .view(2, 4, 128, 64))       # one-element offset
+    y = torch.zeros((2, 4, 128, 64 + step // 2), dtype=dt)
+    assert not tfa.tma_ready(y[..., :64])                # 8-byte row step
+    assert not tfa.tma_ready(x[..., :64].transpose(2, 3))
 
 
 def test_flash_attention_wrapper_refuses_cpu_tensors():
